@@ -1,0 +1,192 @@
+"""JAX parameter trees -> state_dicts of the port's modules.
+
+The inverse of ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc`` and
+``seq2seq_vc_tpu/vocoder/convert_torch.py:torch_hifigan_to_flax``, written
+here so the port needs nothing of the JAX package. A tree is nested dicts
+of numpy arrays (``{"params": ...}`` or the inner dict). Every tensor of
+the port module is looked up by name; a missing leaf raises ``KeyError``
+and leftover leaves raise ``ValueError``.
+
+Layout transforms (flax -> torch): Dense ``kernel (in, out)`` -> Linear
+``weight (out, in)``; Conv ``kernel (k, in/groups, out)`` -> Conv1d
+``weight (out, in/groups, k)``; Conv 2-D ``(kh, kw, in, out)`` ->
+``(out, in, kh, kw)``; ConvTranspose ``(k, in, out)`` -> ``(in, out, k)``
+with the taps reversed; the Conv2dSubsampling output Dense reads its input
+freq-major in flax and channel-major in torch, so its rows are permuted.
+Weight norm (HiFi-GAN) is folded into the plain weight.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+Path_ = Tuple[str, ...]
+
+
+class _Tree:
+    """Flattened parameter tree that tracks which leaves were consumed."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        if set(tree) == {"params"}:
+            tree = tree["params"]
+        self.leaves: Dict[Path_, np.ndarray] = {}
+        self._flatten(tree, ())
+
+    def _flatten(self, node, prefix: Path_):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                self._flatten(v, prefix + (k,))
+            else:
+                self.leaves[prefix + (k,)] = np.asarray(v)
+
+    def pop(self, path: Path_) -> np.ndarray:
+        try:
+            return self.leaves.pop(path)
+        except KeyError:
+            raise KeyError(
+                f"flax parameter {'/'.join(path)!r} not found "
+                f"(remaining: {['/'.join(p) for p in sorted(self.leaves)][:10]}...)"
+            ) from None
+
+    def finish(self):
+        if self.leaves:
+            raise ValueError(
+                "unconverted flax parameters: "
+                f"{['/'.join(p) for p in sorted(self.leaves)]}"
+            )
+
+
+def _dds_name(m: re.Match) -> str:
+    i, j = int(m.group(2)), int(m.group(3))
+    kind = "Conv" if j in (0, 5) else "LayerNorm"
+    return f"{m.group(1)}.{kind}_{2 * i + (j >= 5)}"
+
+
+def _flow_name(m: re.Match) -> str:
+    branch = "post_flows" if m.group(1) else "main_flows"
+    return f"duration_predictor.{branch}_{(int(m.group(2)) + 1) // 2}"
+
+
+# torch module path -> flax module path, applied in order
+_AASVC_RENAMES = [
+    (r"(^|\.)embed\.0$", r"\1pre"),
+    (r"(^|\.)embed\.1$", r"\1pre_norm"),
+    (r"(^|\.)encoders\.(\d+)\.", r"\1layers_\2."),
+    (r"\.feed_forward(_macaron)?\.w_1$", r".feed_forward\1.Dense_0"),
+    (r"\.feed_forward(_macaron)?\.w_2$", r".feed_forward\1.Dense_1"),
+    (r"\.conv_module\.pointwise_conv1$", ".conv_module.Conv_0"),
+    (r"\.conv_module\.depthwise_conv$", ".conv_module.Conv_1"),
+    (r"\.conv_module\.pointwise_conv2$", ".conv_module.Conv_2"),
+    (r"\.conv_module\.norm$", ".conv_module.MaskedGroupNorm_0"),
+    (r"(dds|dds_conv)\.convs\.(\d+)\.(\d)$", _dds_name),
+    (r"^duration_predictor\.(post_)?flows\.(\d+)", _flow_name),
+    (r"^duration_predictor_projection\.conv\.0$", "duration_predictor_projection.Conv_0"),
+    (r"^duration_predictor_projection\.conv\.2$", "duration_predictor_projection.Conv_1"),
+    (r"^duration_predictor_projection\.out$", "duration_predictor_projection.Dense_0"),
+    (r"^postnet\.postnet\.(\d+)\.0$", r"postnet.Conv_\1"),
+    (r"^postnet\.postnet\.(\d+)\.1$", r"postnet.GroupNorm_\1"),
+]
+
+# the SDP's 1x1 convs are Dense layers in flax
+_SDP_DENSE = re.compile(r"^duration_predictor\.(pre|proj|post_pre|post_proj)$")
+
+
+def _to_torch(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(like.dtype)
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"shape {tuple(t.shape)} does not match {tuple(like.shape)}")
+    return t
+
+
+def aasvc_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax AASVC params -> a state_dict for the port's ``AASVC`` ``model``.
+
+    ``model`` may also be one of its parts on its own (a ``ConformerEncoder``
+    or a ``RelPositionMultiHeadedAttention``) with the matching flax tree.
+    """
+    from .nn.conformer import MaskedGroupNorm
+
+    src = _Tree(tree)
+    out: Dict[str, torch.Tensor] = {}
+    for key, like in model.state_dict().items():
+        mod_path, _, leaf = key.rpartition(".")
+        flax_mod = mod_path
+        for pat, rep in _AASVC_RENAMES:
+            flax_mod = re.sub(pat, rep, flax_mod)
+        path = tuple(flax_mod.split(".")) if flax_mod else ()
+        mod = model.get_submodule(mod_path)
+        if leaf == "bias":
+            arr = src.pop(path + ("bias",))
+        elif leaf != "weight":  # pos_bias_u/v, flow m/logs: same layout
+            arr = src.pop(path + (leaf,)).reshape(like.shape)
+        elif isinstance(mod, (torch.nn.LayerNorm, MaskedGroupNorm)):
+            arr = src.pop(path + ("scale",))
+        elif isinstance(mod, torch.nn.Conv1d) and _SDP_DENSE.match(mod_path):
+            arr = src.pop(path + ("kernel",)).T[:, :, None]
+        elif isinstance(mod, torch.nn.Conv1d):
+            arr = src.pop(path + ("kernel",)).transpose(2, 1, 0)
+        elif isinstance(mod, torch.nn.Conv2d):
+            arr = src.pop(path + ("kernel",)).transpose(3, 2, 0, 1)
+        elif mod_path == "duration_predictor_projection.out":
+            k = src.pop(path + ("kernel",))  # (F*C, A), row f*C + c
+            C = model.get_submodule("duration_predictor_projection.conv.2").out_channels
+            F = k.shape[0] // C
+            arr = k.reshape(F, C, -1).transpose(2, 1, 0).reshape(-1, C * F)
+        elif isinstance(mod, torch.nn.Linear):
+            arr = src.pop(path + ("kernel",)).T
+        else:
+            raise TypeError(f"no conversion rule for {key} ({type(mod).__name__})")
+        out[key] = _to_torch(arr, like)
+    src.finish()
+    return out
+
+
+def _wn_weight(src: _Tree, mod: Path_, wn: Path_, conv: str) -> np.ndarray:
+    """Effective kernel of a flax WeightNorm-wrapped conv: scale * k / ||k||
+    over all axes but the output feature axis (when the scale is the
+    kernel's own norm, the kernel comes back bit for bit)."""
+    k = src.pop(mod + ("kernel",)).astype(np.float32)
+    scale = src.pop(wn + (f"{conv}/kernel/scale",)).astype(np.float32)
+    norm = np.linalg.norm(k.reshape(-1, k.shape[-1]), axis=0).astype(np.float32)
+    return k * (scale / norm).astype(np.float32)
+
+
+def hifigan_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax HifiganGenerator params -> a state_dict for the port's
+    ``HifiganGenerator`` ``model`` (weight norm folded)."""
+    src = _Tree(tree)
+    sd = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    nk = model.num_kernels
+
+    def conv(tkey: str, mod: Path_, wn: Path_, name: str):
+        out[f"{tkey}.weight"] = _to_torch(
+            _wn_weight(src, mod, wn, name).transpose(2, 1, 0), sd[f"{tkey}.weight"]
+        )
+        out[f"{tkey}.bias"] = _to_torch(src.pop(mod + ("bias",)), sd[f"{tkey}.bias"])
+
+    conv("conv_pre", ("conv_pre",), ("WeightNorm_0",), "conv_pre")
+    for i in range(len(model.ups)):
+        up = (f"up_{i}",)
+        w = _wn_weight(src, up + ("ConvTranspose_0",), up + ("WeightNorm_0",), "ConvTranspose_0")
+        out[f"ups.{i}.weight"] = _to_torch(w[::-1].transpose(1, 2, 0), sd[f"ups.{i}.weight"])
+        out[f"ups.{i}.bias"] = _to_torch(
+            src.pop(up + ("ConvTranspose_0", "bias")), sd[f"ups.{i}.bias"]
+        )
+        for j in range(nk):
+            r = i * nk + j
+            rb = (f"resblock_{i}_{j}",)
+            for d in range(len(model.resblocks[r].convs1)):
+                for n, t in ((2 * d, f"convs1.{d}"), (2 * d + 1, f"convs2.{d}")):
+                    conv(f"resblocks.{r}.{t}", rb + (f"Conv_{n}",), rb + (f"WeightNorm_{n}",),
+                         f"Conv_{n}")
+    conv("conv_post", ("conv_post",), ("WeightNorm_1",), "conv_post")
+    src.finish()
+    missing = set(sd) - set(out)
+    if missing:
+        raise KeyError(f"port parameters left unfilled: {sorted(missing)}")
+    return out

@@ -1,0 +1,1 @@
+"""models of the PyTorch port (mirrors seq2seq_vc_tpu/models)."""

@@ -1,0 +1,243 @@
+"""AAS-VC, non-autoregressive inference (mirrors
+seq2seq_vc_tpu/models/aas_vc.py: ``setup`` and ``inference``).
+
+Conformer encoder (with post-encoder frame stacking) -> stochastic duration
+predictor run inverse -> Gaussian upsampling -> conformer decoder ->
+``feat_out`` -> postnet. The constructor takes the JAX model's config
+fields by the same names and defaults; options this slice does not port
+raise ``NotImplementedError`` (the flagship sets every ported one). The
+training forward comes with the training slice. Submodule names are the reference torch names, so a ``state_dict``
+converts with ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..nn.alignment import AlignmentModule
+from ..nn.attention import FLASH_MIN_LEN
+from ..nn.conformer import ConformerEncoder
+from ..nn.flows import StochasticDurationPredictor
+from ..nn.layers import Linear
+from ..nn.pre_postnets import Postnet
+from ..nn.transformer import Conv2dSubsampling
+from ..ops.mas import viterbi_decode
+from ..ops.masks import make_non_pad_mask
+from ..ops.upsampling import gaussian_upsampling
+from .common import nearest_interpolate, reduce_frames
+
+MAX_DP_OUTPUT = 10  # duration clamp (reference ``aas_vc.py:35``)
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+class AASVC(torch.nn.Module):
+    def __init__(
+        self,
+        idim: int,
+        odim: int,
+        adim: int = 384,
+        aheads: int = 4,
+        elayers: int = 6,
+        eunits: int = 1536,
+        dlayers: int = 6,
+        dunits: int = 1536,
+        positionwise_layer_type: str = "conv1d",
+        use_batch_norm: bool = True,
+        encoder_input_layer: str = "linear",
+        encoder_normalize_before: bool = False,
+        decoder_normalize_before: bool = False,
+        encoder_concat_after: bool = False,
+        decoder_concat_after: bool = False,
+        encoder_reduction_factor: int = 1,
+        post_encoder_reduction_factor: int = 1,
+        decoder_reduction_factor: int = 1,
+        encoder_type: str = "conformer",
+        decoder_type: str = "conformer",
+        duration_predictor_type: str = "deterministic",
+        duration_predictor_use_encoder_outputs: bool = True,
+        duration_predictor_input_dim: Optional[int] = None,
+        postnet_layers: int = 5,
+        postnet_chans: int = 512,
+        postnet_filts: int = 5,
+        conformer_rel_pos_type: str = "latest",
+        conformer_pos_enc_layer_type: str = "rel_pos",
+        conformer_self_attn_layer_type: str = "rel_selfattn",
+        use_macaron_style_in_conformer: bool = True,
+        use_cnn_in_conformer: bool = True,
+        conformer_enc_kernel_size: int = 7,
+        conformer_dec_kernel_size: int = 31,
+        spk_embed_dim: Optional[int] = None,
+        stochastic_duration_predictor_kernel_size: int = 3,
+        stochastic_duration_predictor_flows: int = 4,
+        stochastic_duration_predictor_dds_conv_layers: int = 3,
+        stochastic_duration_predictor_noise_scale: float = 0.8,
+        conformer_conv_norm_type: str = "group_norm",
+        postnet_norm_type: str = "group_norm",
+        attention_backend: str = "xla",
+        flash_min_len: int = FLASH_MIN_LEN,
+        compute_dtype: str = "float32",
+        device=None,
+        **training_only: Any,
+    ):
+        """Config fields that only training reads (dropout rates, loss and
+        init options) are accepted in ``training_only`` and ignored."""
+        super().__init__()
+        unsupported = {
+            "encoder_type": (encoder_type, "conformer"),
+            "decoder_type": (decoder_type, "conformer"),
+            "duration_predictor_type": (duration_predictor_type, "stochastic"),
+            "positionwise_layer_type": (positionwise_layer_type, "linear"),
+            "conformer_rel_pos_type": (conformer_rel_pos_type, "latest"),
+            "postnet_norm_type": (postnet_norm_type, "group_norm"),
+            "spk_embed_dim": (spk_embed_dim, None),
+        }
+        for key, (got, want) in unsupported.items():
+            if got != want:
+                raise NotImplementedError(f"AASVC {key}={got!r} is not ported yet")
+        self.idim, self.odim, self.adim = idim, odim, adim
+        self.encoder_reduction_factor = encoder_reduction_factor
+        self.post_encoder_reduction_factor = post_encoder_reduction_factor
+        self.decoder_reduction_factor = decoder_reduction_factor
+        self.encoder_input_layer = encoder_input_layer
+        self.duration_predictor_use_encoder_outputs = duration_predictor_use_encoder_outputs
+        self.stochastic_duration_predictor_noise_scale = stochastic_duration_predictor_noise_scale
+        cdt = _DTYPES[compute_dtype]
+        common = dict(
+            positionwise_layer_type=positionwise_layer_type,
+            macaron_style=use_macaron_style_in_conformer,
+            pos_enc_layer_type=conformer_pos_enc_layer_type,
+            selfattention_layer_type=conformer_self_attn_layer_type,
+            use_cnn_module=use_cnn_in_conformer,
+            conv_norm_type=conformer_conv_norm_type,
+            attention_backend=attention_backend,
+            flash_min_len=flash_min_len,
+            compute_dtype=cdt,
+            device=device,
+        )
+        self.encoder = ConformerEncoder(
+            idim=idim * encoder_reduction_factor, attention_dim=adim,
+            attention_heads=aheads, linear_units=eunits, num_blocks=elayers,
+            input_layer=encoder_input_layer, normalize_before=encoder_normalize_before,
+            concat_after=encoder_concat_after, cnn_module_kernel=conformer_enc_kernel_size,
+            **common,
+        )
+        # the predictor works at adim; its input is the stacked encoder
+        # states or the separate conv2d projection of the source features
+        self.duration_predictor = StochasticDurationPredictor(
+            in_channels=(
+                adim * post_encoder_reduction_factor
+                if duration_predictor_use_encoder_outputs else adim
+            ),
+            channels=adim,
+            kernel_size=stochastic_duration_predictor_kernel_size,
+            flows=stochastic_duration_predictor_flows,
+            dds_conv_layers=stochastic_duration_predictor_dds_conv_layers,
+            device=device,
+        )
+        if not duration_predictor_use_encoder_outputs:
+            self.duration_predictor_projection = Conv2dSubsampling(
+                duration_predictor_input_dim or idim, adim, device=device,
+            )
+        self.alignment_module = AlignmentModule(
+            adim * post_encoder_reduction_factor, odim * decoder_reduction_factor,
+            device=device,
+        )
+        self.decoder = ConformerEncoder(
+            idim=0, attention_dim=adim * post_encoder_reduction_factor,
+            attention_heads=aheads, linear_units=dunits, num_blocks=dlayers,
+            input_layer=None, normalize_before=decoder_normalize_before,
+            concat_after=decoder_concat_after, cnn_module_kernel=conformer_dec_kernel_size,
+            **common,
+        )
+        self.feat_out = Linear(
+            adim * post_encoder_reduction_factor, odim * decoder_reduction_factor,
+            device=device,
+        )
+        self.postnet = (
+            Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
+                    use_norm=use_batch_norm, compute_dtype=cdt, device=device)
+            if postnet_layers > 0 else None
+        )
+
+    def _encode(self, xs, ilens):
+        xs, ilens = reduce_frames(xs, ilens, self.encoder_reduction_factor)
+        hs, _ = self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
+        return reduce_frames(hs, ilens, self.post_encoder_reduction_factor)
+
+    def _dp_features(self, hs, dp_inputs):
+        """Duration-predictor conditioner: encoder states, or a separately
+        conv2d-subsampled feature nearest-resized to the encoder length."""
+        if self.duration_predictor_use_encoder_outputs:
+            return hs
+        dp, _ = self.duration_predictor_projection(dp_inputs, None)
+        return nearest_interpolate(dp, hs.shape[1])
+
+    @torch.no_grad()
+    def inference(
+        self,
+        src_speech: torch.Tensor,
+        src_speech_lengths: torch.Tensor,
+        dp_inputs: Optional[torch.Tensor] = None,
+        max_output_frames: Optional[int] = None,
+        tgt_speech: Optional[torch.Tensor] = None,
+        tgt_speech_lengths: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """NAR inference: predict durations, upsample, decode.
+
+        Returns outs (B, T_out_max * r_d, odim), d_outs (B, T_text), d_lens
+        and out_lens (B,) valid output frame counts. ``noise`` (B, T_text,
+        2) is the duration predictor's standard-normal draw (else drawn from
+        ``generator``). With a ground-truth target (debug use), the MAS
+        durations ``ds`` and ``log_p_attn`` are returned as well.
+        """
+        hs, ilens_red = self._encode(src_speech, src_speech_lengths)
+        debug: Dict[str, torch.Tensor] = {}
+        if tgt_speech is not None:
+            ys_red, olens_red = reduce_frames(
+                tgt_speech, tgt_speech_lengths, self.decoder_reduction_factor
+            )
+            x_pad_mask = ~make_non_pad_mask(ilens_red, hs.shape[1])
+            log_p_attn = self.alignment_module(hs, ys_red, x_pad_mask)
+            ds_gt, _ = viterbi_decode(log_p_attn, ilens_red, olens_red)
+            debug = {"ds": ds_gt, "log_p_attn": log_p_attn, "ilens": ilens_red}
+        dp_in = self._dp_features(hs, dp_inputs)
+        h_nonpad = make_non_pad_mask(ilens_red, hs.shape[1])
+
+        d_outs = self.duration_predictor(
+            dp_in, h_nonpad, noise_scale=self.stochastic_duration_predictor_noise_scale,
+            noise=noise, generator=generator,
+        )
+        d_outs = torch.clamp(d_outs, max=MAX_DP_OUTPUT)
+        d_outs = torch.where(h_nonpad, d_outs, 0.0)
+
+        if max_output_frames is None:
+            max_output_frames = hs.shape[1] * MAX_DP_OUTPUT
+        out_lens_red = torch.clamp(
+            d_outs.sum(-1).to(torch.int32), min=1, max=max_output_frames
+        )
+        h_masks = make_non_pad_mask(out_lens_red, max_output_frames)
+        hs_up = gaussian_upsampling(hs, d_outs, h_masks, h_nonpad)
+        B = hs_up.shape[0]
+        zs, _ = self.decoder(hs_up, h_masks)
+        before_outs = self.feat_out(zs).reshape(B, -1, self.odim)
+        after_outs = before_outs
+        if self.postnet is not None:
+            # zero frames past each item's predicted length before the
+            # postnet, as the reference decodes at the exact length
+            valid = torch.arange(before_outs.shape[1], device=hs.device)[None, :] < (
+                out_lens_red * self.decoder_reduction_factor
+            )[:, None]
+            before_outs = torch.where(valid[..., None], before_outs, 0.0)
+            after_outs = before_outs + self.postnet(before_outs, mask=valid)
+        return {
+            "outs": after_outs,
+            "d_outs": d_outs,
+            "d_lens": ilens_red,  # valid length of the duration grid
+            "out_lens": out_lens_red * self.decoder_reduction_factor,
+            **debug,
+        }

@@ -1,0 +1,1 @@
+"""nn of the PyTorch port (mirrors seq2seq_vc_tpu/nn)."""

@@ -1,0 +1,133 @@
+"""Relative-position multi-head attention (mirrors
+seq2seq_vc_tpu/nn/attention.py:173-400), inference only.
+
+Backends keep the JAX package's names: ``xla`` (dense PyTorch ops),
+``fused`` (the fused rel-scores kernel, dense softmax and AV) and ``flash``
+(the rel-pos flash kernel at key lengths >= ``flash_min_len``, the fused
+path below it).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..ops.flash_attention import rel_flash_attention
+from ..ops.rel_scores import fused_rel_scores
+from .layers import Linear
+
+# Key length from which the `flash` backend takes the flash kernel. The
+# value is PROVISIONAL and unmeasured on the H100: it is not the TPU's
+# FLASH_MIN_LEN (3072), which was tuned to TPU limits. Below it the `flash`
+# backend takes the fused-scores kernel.
+FLASH_MIN_LEN = 2048
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _expand_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Broadcast a (B, Tk) / (B, Tq, Tk) / (B, 1, Tk) mask to (B, 1, Tq, Tk)."""
+    if mask is None:
+        return None
+    if mask.dim() == 2:
+        mask = mask[:, None, :]
+    return mask[:, None, :, :]
+
+
+def _is_key_padding(mask) -> bool:
+    return mask is None or mask.dim() == 2 or (mask.dim() == 3 and mask.shape[1] == 1)
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """New-style Transformer-XL shift: (B, H, T, 2T-1) -> (B, H, T, T)."""
+    b, h, t, n = x.shape
+    x = torch.nn.functional.pad(x, (1, 0))
+    x = x.reshape(b, h, n + 1, t)[:, :, 1:, :].reshape(b, h, t, n)
+    return x[:, :, :, : (n + 1) // 2]
+
+
+class RelPositionMultiHeadedAttention(torch.nn.Module):
+    """MHA with Transformer-XL relative position encoding (new style).
+
+    Expects pos_emb of shape (1, 2T-1, n_feat) from RelPositionalEncoding.
+    Scores and softmax run in float32; projections in ``compute_dtype``.
+    """
+
+    def __init__(self, n_head: int, n_feat: int, zero_triu: bool = False,
+                 backend: str = "xla", compute_dtype=None,
+                 flash_min_len: int = FLASH_MIN_LEN, device=None, dtype=None):
+        super().__init__()
+        if backend not in ("xla", "fused", "flash"):
+            raise ValueError(f"unknown attention backend: {backend}")
+        self.n_head = n_head
+        self.d_k = n_feat // n_head
+        self.zero_triu = zero_triu
+        self.backend = backend
+        self.flash_min_len = flash_min_len
+        kw = dict(compute_dtype=compute_dtype, device=device, dtype=dtype)
+        self.linear_q = Linear(n_feat, n_feat, **kw)
+        self.linear_k = Linear(n_feat, n_feat, **kw)
+        self.linear_v = Linear(n_feat, n_feat, **kw)
+        self.linear_out = Linear(n_feat, n_feat, **kw)
+        self.linear_pos = Linear(n_feat, n_feat, bias=False, **kw)
+        self.pos_bias_u = torch.nn.Parameter(torch.empty(n_head, self.d_k, device=device, dtype=dtype))
+        self.pos_bias_v = torch.nn.Parameter(torch.empty(n_head, self.d_k, device=device, dtype=dtype))
+        torch.nn.init.xavier_uniform_(self.pos_bias_u)
+        torch.nn.init.xavier_uniform_(self.pos_bias_v)
+
+    def route(self, t_query: int, t_key: int, n_pos: int, mask) -> str:
+        """Which path a call takes: 'flash', 'fused' or 'xla'."""
+        if (
+            self.backend == "flash" and not self.zero_triu
+            and t_key >= self.flash_min_len and _is_key_padding(mask)
+        ):
+            return "flash"
+        if (
+            self.backend in ("fused", "flash") and not self.zero_triu
+            and t_key == t_query and n_pos == 2 * t_query - 1
+        ):
+            return "fused"
+        return "xla"
+
+    def forward(self, query, key, value, pos_emb, mask=None):
+        q = _split_heads(self.linear_q(query), self.n_head)
+        k = _split_heads(self.linear_k(key), self.n_head)
+        v = _split_heads(self.linear_v(value), self.n_head)
+        p = _split_heads(self.linear_pos(pos_emb.to(q.dtype)), self.n_head)
+        q_u = q + self.pos_bias_u[None, :, None, :].to(q.dtype)
+        q_v = q + self.pos_bias_v[None, :, None, :].to(q.dtype)
+
+        path = self.route(query.shape[1], key.shape[1], pos_emb.shape[1], mask)
+        if path == "flash":
+            kv_lens = None
+            if mask is not None:
+                m2 = mask if mask.dim() == 2 else mask[:, 0, :]
+                kv_lens = m2.sum(-1).to(torch.int32)
+            out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=kv_lens)
+            return self.linear_out(_merge_heads(out))
+        if path == "fused":
+            scores = fused_rel_scores(q_u, q_v, k, p[0])
+        else:
+            matrix_ac = torch.einsum("bhqd,bhkd->bhqk", q_u.float(), k.float())
+            matrix_bd = rel_shift(torch.einsum("bhqd,bhpd->bhqp", q_v.float(), p.float()))
+            if self.zero_triu:
+                matrix_bd = torch.tril(matrix_bd)
+            scores = (matrix_ac + matrix_bd) / math.sqrt(self.d_k)
+        m = _expand_mask(mask)
+        if m is not None:
+            scores = scores.masked_fill(~m, -1e9)
+        w = torch.softmax(scores, dim=-1)
+        if m is not None:
+            w = w.masked_fill(~m, 0.0)
+        out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), v.float()).to(v.dtype)
+        return self.linear_out(_merge_heads(out))

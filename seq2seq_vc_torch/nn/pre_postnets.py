@@ -1,0 +1,52 @@
+"""Tacotron2-style postnet (mirrors seq2seq_vc_tpu/nn/pre_postnets.py:42).
+
+The norm is ``MaskedGroupNorm`` (eps 1e-6), the JAX package's default in
+place of the reference BatchNorm. Names follow the reference:
+``postnet.N.0`` is the conv (no bias), ``postnet.N.1`` the norm.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .conformer import MaskedGroupNorm
+from .layers import Conv1d
+
+
+class Postnet(torch.nn.Module):
+    def __init__(self, odim: int, n_layers: int = 5, n_chans: int = 512,
+                 n_filts: int = 5, use_norm: bool = True, compute_dtype=None,
+                 device=None, dtype=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        kw = dict(device=device, dtype=dtype)
+        layers = []
+        for i in range(n_layers):
+            ichans = odim if i == 0 else n_chans
+            ochans = odim if i == n_layers - 1 else n_chans
+            mods = [Conv1d(ichans, ochans, n_filts, bias=False,
+                           compute_dtype=compute_dtype, **kw)]
+            if use_norm:
+                mods.append(MaskedGroupNorm(ochans, eps=1e-6, **kw))
+            layers.append(torch.nn.ModuleList(mods))
+        self.postnet = torch.nn.ModuleList(layers)
+
+    def forward(self, xs, mask=None):
+        """xs: (B, T, odim) -> (B, T, odim) residual (not added).
+
+        ``mask`` (B, T) True at valid frames: invalid frames are re-zeroed
+        after every layer, so each conv sees zeros past the end, as the
+        reference's exact-length decode does, and the norm's statistics
+        ignore them.
+        """
+        h = xs if self.compute_dtype is None else xs.to(self.compute_dtype)
+        n = len(self.postnet)
+        for i, mods in enumerate(self.postnet):
+            h = mods[0](h)
+            if len(mods) > 1:
+                h = mods[1](h, mask)
+            if i != n - 1:
+                h = torch.tanh(h)
+            if mask is not None:
+                h = torch.where(mask[..., None], h, 0.0)
+        return h.to(xs.dtype)

@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (mirrors seq2seq_vc_tpu/ops)."""

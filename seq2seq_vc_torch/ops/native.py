@@ -1,0 +1,106 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface, which the kernel wrappers call
+through ``ctypes`` (pointers from ``Tensor.data_ptr()``, the stream from
+``torch.cuda.current_stream().cuda_stream``). Nothing builds at import
+time: the first wrapper call on a CUDA tensor builds what it needs, and
+``build()`` builds every kernel at once with one ``nvcc`` per source, all
+started together. Libraries go to ``build/kernels/`` at the repository
+root, named by a hash of their sources and flags, so an edited source
+never loads a stale library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("rel_scores", "rel_flash")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> Dict[str, dict]:
+    """Compile the named kernels (default: all) in parallel.
+
+    Returns ``{name: {"seconds": s, "log": compiler output}}`` for the
+    libraries compiled now; ones already built are skipped. ``verbose``
+    adds ``-Xptxas -v`` (registers, shared memory and spills per kernel).
+    Raises ``RuntimeError`` with the compiler's output if any build fails.
+    """
+    names = list(KERNELS if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    for name in names:
+        target = _library_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs[name] = (proc, tmp, target, time.perf_counter())
+    results: Dict[str, dict] = {}
+    failures = []
+    for name, (proc, tmp, target, t0) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, target)
+        results[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return results
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = _library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")

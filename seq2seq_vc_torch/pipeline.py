@@ -1,0 +1,177 @@
+"""wav-in / wav-out conversion on the card (mirrors
+seq2seq_vc_tpu/pipeline.py:26-302, ``Wav2WavConverter``).
+
+One request runs log-mel analysis -> normalisation -> ``AASVC.inference``
+-> de-normalisation and vocoder re-normalisation -> chunked HiFi-GAN, all
+on one device, with one host fetch of the predicted length between the
+model and the synthesis stage.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .dsp.features import _logmel
+from .dsp.mel import mel_filterbank
+from .dsp.stft import hann_window, num_frames
+from .models.aas_vc import AASVC
+from .vocoder.hifigan import HifiganGenerator, chunked_generate
+
+
+def _geom_bucket(n_frames: int, cap: int, base: int) -> int:
+    """Smallest ``base * 2^k`` >= ``n_frames``, capped at ``cap``: the
+    synthesis length ladder keeps the set of synthesis shapes small."""
+    b = base
+    while b < min(n_frames, cap):
+        b *= 2
+    return min(b, cap)
+
+
+def _synth_ladder(cap: int, base: int) -> List[int]:
+    """All bucket lengths ``_geom_bucket`` can produce for a given cap."""
+    out = []
+    b = base
+    while b < cap:
+        out.append(b)
+        b *= 2
+    out.append(cap)
+    return out
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device rule: the card unless the caller asks for
+    another device; no silent fallback to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU explicitly"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+class Wav2WavConverter:
+    """End-to-end NAR VC + HiFi-GAN converter on one device.
+
+    ``model`` and ``vocoder`` carry their weights; they are moved to
+    ``device`` (default: the card) and put in eval mode.
+    """
+
+    def __init__(
+        self,
+        model: AASVC,
+        vocoder: HifiganGenerator,
+        src_stats: Dict[str, np.ndarray],
+        trg_stats: Dict[str, np.ndarray],
+        config: Dict[str, Any],
+        vocoder_stats: Optional[Dict[str, np.ndarray]] = None,
+        bucket_frames: int = 128,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.vocoder = vocoder.to(self.device).eval()
+        self.config = config
+        self.bucket_frames = bucket_frames
+        self.fft_size = config.get("fft_size", 1024)
+        self.hop_size = config.get("hop_size", 256)
+        self.sr = config.get("sampling_rate", 16000)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+        self._window = dev(hann_window(config.get("win_length") or self.fft_size, self.fft_size))
+        self._mel_t = dev(mel_filterbank(
+            self.sr, self.fft_size, config.get("num_mels", 80),
+            config.get("fmin") or 0, config.get("fmax") or self.sr / 2,
+        ).T)
+        self._src_mean, self._src_scale = dev(src_stats["mean"]), dev(src_stats["scale"])
+        self._trg_mean, self._trg_scale = dev(trg_stats["mean"]), dev(trg_stats["scale"])
+        voc = vocoder_stats if vocoder_stats is not None else trg_stats
+        self._voc_mean, self._voc_scale = dev(voc["mean"]), dev(voc["scale"])
+        self.last_out_frames = 0
+        self.last_synth_cap = 0
+
+    def _frame_geometry(self, padded_lens):
+        """Shared bucket geometry for a set of reflect-padded lengths."""
+        m = self.model
+        pr, er, dr = (m.post_encoder_reduction_factor, m.encoder_reduction_factor,
+                      m.decoder_reduction_factor)
+        q = int(np.lcm(np.lcm(self.bucket_frames, max(pr, 1) * max(er, 1)), max(dr, 1)))
+        n_raw = max(1 + (L - self.fft_size) // self.hop_size for L in padded_lens)
+        n_padded = ((n_raw + q - 1) // q) * q
+        target_len = self.fft_size + (n_padded - 1) * self.hop_size
+        max_out = (2 * n_padded) // max(dr, 1) + 8
+        return n_padded, target_len, max_out
+
+    def _generator(self, generator):
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return generator
+
+    @torch.no_grad()
+    def _convert(self, batch: np.ndarray, n_trues, max_out, generator):
+        """(B, target_len) padded audio -> vocoder-normalised feats, out_lens."""
+        x = torch.as_tensor(batch, device=self.device)
+        mel = _logmel(x, self._window, self._mel_t, self.fft_size, self.hop_size, 10.0)
+        mel = (mel - self._src_mean) / self._src_scale
+        lens = torch.as_tensor(np.asarray(n_trues, np.int64), device=self.device)
+        out = self.model.inference(
+            mel, lens, mel,  # dp_input = source mel (melmelmel config)
+            max_output_frames=max_out, generator=self._generator(generator),
+        )
+        feats = out["outs"] * self._trg_scale + self._trg_mean
+        feats = (feats - self._voc_mean) / self._voc_scale
+        return feats, out["out_lens"].cpu().numpy()
+
+    @torch.no_grad()
+    def _synth(self, feats_i: torch.Tensor, n_frames: int) -> np.ndarray:
+        n_bucket = _geom_bucket(n_frames, feats_i.shape[0], self.bucket_frames)
+        wav = chunked_generate(self.vocoder, feats_i[:n_bucket])
+        n_samples = min(n_frames * self.hop_size, wav.shape[0])
+        return wav[:n_samples].cpu().numpy()
+
+    def __call__(self, audio: np.ndarray, generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """audio (T,) float32 in [-1, 1] -> converted waveform (T',)."""
+        return self.convert_batch([audio], generator=generator)[0]
+
+    def convert_batch(self, audios, generator: Optional[torch.Generator] = None):
+        """Convert several waveforms in ONE batched model call; each item
+        then synthesises on its own length bucket. Returns waveforms in
+        input order."""
+        audios = [np.asarray(a, np.float32) for a in audios]
+        if not audios:
+            return []
+        pad = self.fft_size // 2
+        xs = [np.pad(a, (pad, pad), mode="reflect") for a in audios]
+        n_trues = [num_frames(len(a), self.hop_size) for a in audios]
+        n_padded, target_len, max_out = self._frame_geometry([len(x) for x in xs])
+        batch = np.zeros((len(xs), target_len), np.float32)
+        for i, x in enumerate(xs):
+            n = min(len(x), target_len)
+            batch[i, :n] = x[:n]
+        feats, out_lens = self._convert(batch, n_trues, max_out, generator)
+        self.last_synth_cap = int(feats.shape[1])
+        wavs = []
+        for i in range(len(audios)):
+            self.last_out_frames = max(1, int(out_lens[i]))
+            wavs.append(self._synth(feats[i], self.last_out_frames))
+        return wavs
+
+    def warmup_synth(self) -> int:
+        """Run the whole ``_geom_bucket`` synthesis ladder once for the most
+        recent conversion's feats budget, so no later request meets a
+        synthesis shape for the first time. Returns the number of buckets."""
+        cap = self.last_synth_cap
+        if cap <= 0:
+            return 0
+        d = self.model.odim
+        n = 0
+        with torch.no_grad():
+            for b in _synth_ladder(cap, self.bucket_frames):
+                chunked_generate(self.vocoder, torch.zeros((b, d), device=self.device)).cpu()
+                n += 1
+        return n

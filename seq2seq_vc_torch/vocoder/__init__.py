@@ -1,0 +1,1 @@
+"""vocoder of the PyTorch port (mirrors seq2seq_vc_tpu/vocoder)."""

@@ -1,0 +1,61 @@
+"""Shared set-up of the port's parity tests (tests/test_torch_*.py).
+
+Builds the same tiny model in the JAX package and in the PyTorch port with
+the weights carried across. The tests that need an NVIDIA card are in
+tests/test_torch_kernels_cuda.py, which imports no JAX.
+"""
+
+import numpy as np
+import torch
+
+from seq2seq_vc_tpu.convert.reference import convert_aasvc
+from seq2seq_vc_tpu.models import AASVC as JaxAASVC
+from seq2seq_vc_torch.convert import aasvc_state_dict
+from seq2seq_vc_torch.models.aas_vc import AASVC
+
+# the AAS-VC test configuration: the flagship's structure at toy widths
+TINY_AASVC = dict(
+    idim=80, odim=80, adim=32, aheads=2, elayers=1, eunits=64, dlayers=1, dunits=64,
+    postnet_layers=2, postnet_chans=16, post_encoder_reduction_factor=4,
+    duration_predictor_type="stochastic", stochastic_duration_predictor_flows=2,
+    positionwise_layer_type="linear", conformer_enc_kernel_size=7,
+    conformer_dec_kernel_size=7, duration_predictor_use_encoder_outputs=False,
+    encoder_normalize_before=True, decoder_normalize_before=True,
+    stochastic_duration_predictor_noise_scale=0.0,
+)
+
+
+def perturb_(module: torch.nn.Module, seed: int, scale: float = 0.1) -> torch.nn.Module:
+    """Add seeded noise to every parameter, so that zero-initialised ones
+    (flow projections, affine flows, norms) take part in the comparison."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=g, dtype=p.dtype))
+    return module
+
+
+def aasvc_pair(seed: int = 0, port_kw=None, **over):
+    """(port AASVC, JAX AASVC, flax params), weights from the port's init
+    carried to flax by the JAX package's converter."""
+    cfg = dict(TINY_AASVC, **over)
+    torch.manual_seed(seed)
+    port = perturb_(AASVC(**cfg, **(port_kw or {})).eval(), seed)
+    jax_model = JaxAASVC(**cfg, alignment_dist_form="direct")
+    flax = convert_aasvc(port.state_dict(), jax_model)
+    return port, jax_model, flax
+
+
+def carried_back(flax, port: torch.nn.Module) -> None:
+    """Load ``flax`` into ``port`` through the port's own converter."""
+    port.load_state_dict(aasvc_state_dict(flax, port))
+
+
+def assert_state_dicts_equal(a, b) -> None:
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def np_inputs(rng: np.random.Generator, *shapes):
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]

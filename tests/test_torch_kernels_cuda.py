@@ -1,0 +1,99 @@
+"""Port: the CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA card (marker ``cuda``) and skips without
+one. The file imports neither JAX nor the JAX package, so it runs where the
+port runs:
+
+    python -m pytest tests/test_torch_kernels_cuda.py --noconftest -m cuda -q
+
+(``--noconftest``: tests/conftest.py sets JAX up for the other tests.)
+
+Tolerances. Scores: float32 arithmetic on both sides (bf16 inputs are
+widened), sums of D products taken in another order: atol 1e-4, rtol 1e-5.
+Flash in float32: the same, plus the online softmax's rescaling: atol 1e-5,
+rtol 1e-5 on outputs of size ~1. Flash in bf16: the float32 result is rounded
+once to bf16 on both sides, so a value next to a rounding edge may differ by
+one bf16 ulp: atol 1e-2, rtol 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from seq2seq_vc_torch.ops.flash_attention import (
+    rel_flash_attention,
+    rel_flash_attention_plain,
+)
+from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain
+
+pytestmark = pytest.mark.cuda
+
+# (T, D): ragged T, the encoder's head dim 192 and the decoder's 768
+SHAPES = [(37, 48), (130, 192), (70, 768)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU to run the CUDA kernels")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def zero_counts():
+    fused_rel_scores.launches = 0
+    rel_flash_attention.launches = 0
+    yield
+    fused_rel_scores.launches = 0
+    rel_flash_attention.launches = 0
+
+
+def _inputs(device, dtype, B, H, T, D, seed):
+    rng = np.random.default_rng(seed)
+    qu, qv, k, v = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in range(4))
+    pos = rng.standard_normal((H, 2 * T - 1, D)).astype(np.float32)
+    return [torch.from_numpy(a).to(device, dtype) for a in (qu, qv, k, v, pos)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", SHAPES)
+def test_rel_scores_kernel_matches_plain(cuda_device, dtype, T, D):
+    qu, qv, k, _, pos = _inputs(cuda_device, getattr(torch, dtype), 2, 2, T, D, 3)
+    got = fused_rel_scores(qu, qv, k, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (2, 2, T, T)
+    want = fused_rel_scores_plain(qu, qv, k, pos)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", SHAPES)
+def test_rel_flash_kernel_matches_plain(cuda_device, dtype, T, D):
+    dt = getattr(torch, dtype)
+    qu, qv, k, v, pos = _inputs(cuda_device, dt, 3, 2, T, D, 4)
+    lens = torch.tensor([T, T // 3, 0], dtype=torch.int32, device=cuda_device)
+    got = rel_flash_attention(qu, qv, k, v, pos, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (3, 2, T, D)
+    want = rel_flash_attention_plain(qu, qv, k, v, pos, kv_lens=lens)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    assert not got[2].any()  # a batch row with no keys returns zeros
+
+
+def test_each_launch_counts_once(cuda_device, zero_counts):
+    qu, qv, k, v, pos = _inputs(cuda_device, torch.float32, 2, 2, 20, 8, 0)
+    fused_rel_scores(qu, qv, k, pos)
+    rel_flash_attention(qu, qv, k, v, pos)
+    rel_flash_attention(qu, qv, k, v, pos)
+    torch.cuda.synchronize()
+    assert (fused_rel_scores.launches, rel_flash_attention.launches) == (1, 2)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    qu, qv, k, v, pos = _inputs(cuda_device, torch.float32, 1, 2, 16, 8, 0)
+    with pytest.raises(TypeError):
+        fused_rel_scores(qu.half(), qv.half(), k.half(), pos.half())
+    big = [t.new_zeros(1, 2, 4, 1040) for t in (qu, qv, k, v)]
+    with pytest.raises(ValueError, match="head dim"):
+        rel_flash_attention(*big, pos.new_zeros(2, 7, 1040))

@@ -1,0 +1,115 @@
+"""Port: the rules every part of seq2seq_vc_torch keeps.
+
+- The package and ``chip_smoke.py`` import neither JAX nor the JAX package
+  (checked in a fresh interpreter: this test process has both loaded).
+- Entry points run on the card unless the caller names another device;
+  without a card, one built without ``device=`` raises.
+- A wrapper takes its kernel's plain version only for a CPU tensor, and
+  only a kernel launch counts: CPU calls leave both counters at 0.
+- ``chip_smoke.py`` without a card exits non-zero and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import aasvc_pair
+from seq2seq_vc_torch.ops.flash_attention import (
+    rel_flash_attention,
+    rel_flash_attention_plain,
+)
+from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain
+from seq2seq_vc_torch.pipeline import Wav2WavConverter, resolve_device
+from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import seq2seq_vc_torch
+names = [m.name for m in pkgutil.walk_packages(seq2seq_vc_torch.__path__, "seq2seq_vc_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "seq2seq_vc_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _inputs(B=2, H=2, T=20, D=8, seed=0):
+    rng = np.random.default_rng(seed)
+    qu, qv, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, D)).astype(np.float32))
+                    for _ in range(4))
+    pos = torch.from_numpy(rng.standard_normal((H, 2 * T - 1, D)).astype(np.float32))
+    return qu, qv, k, v, pos
+
+
+@pytest.fixture
+def zero_counts():
+    fused_rel_scores.launches = 0
+    rel_flash_attention.launches = 0
+    yield
+    fused_rel_scores.launches = 0
+    rel_flash_attention.launches = 0
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "seq2seq_vc_torch.pipeline" in got["modules"]
+    assert "seq2seq_vc_torch.ops.flash_attention" in got["modules"]
+    assert got["bad"] == []
+
+
+def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    port, _, _ = aasvc_pair(seed=0)
+    voc = HifiganGenerator(in_channels=80, upsample_channels=32,
+                           resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1,),))
+    stats = {"mean": np.zeros(80, np.float32), "scale": np.ones(80, np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Wav2WavConverter(port, voc, stats, stats, {})
+    assert Wav2WavConverter(port, voc, stats, stats, {}, device="cpu").device.type == "cpu"
+
+
+def test_cpu_tensors_take_the_plain_versions(zero_counts):
+    qu, qv, k, v, pos = _inputs()
+    lens = torch.tensor([20, 7])
+    torch.testing.assert_close(fused_rel_scores(qu, qv, k, pos),
+                               fused_rel_scores_plain(qu, qv, k, pos), rtol=0, atol=0)
+    torch.testing.assert_close(rel_flash_attention(qu, qv, k, v, pos, lens),
+                               rel_flash_attention_plain(qu, qv, k, v, pos, lens),
+                               rtol=0, atol=0)
+    # a whole model whose attention routes to both kernels
+    port, _, _ = aasvc_pair(seed=0, port_kw=dict(attention_backend="flash", flash_min_len=40))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 48, 80)).astype(np.float32))
+    port.inference(x, torch.tensor([48]), x, max_output_frames=64)
+    assert (fused_rel_scores.launches, rel_flash_attention.launches) == (0, 0)
+
+
+def test_other_devices_are_refused():
+    qu, qv, k, v, pos = (t.to("meta") for t in _inputs())
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_rel_scores(qu, qv, k, pos)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rel_flash_attention(qu, qv, k, v, pos)
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")  # no card, even where there is one
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
