@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``seq2seq_vc_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py              # from the repository root; needs one card
+    python3 chip_smoke.py --bwd-sweep  # only: the rel-scores backward's two
+                                       # variants timed over T (the bwd="auto" gate)
 
 Phases, each printed on lines of its own:
 
@@ -27,7 +29,24 @@ Phases, each printed on lines of its own:
    the card (through both kernels) and on the CPU (through their plain
    versions), and the waveforms must agree;
 6. a profile of the 30 s request: device time by kernel (torch.profiler)
-   and the device's busy share of the request's untraced latency.
+   and the device's busy share of the request's untraced latency;
+7. training warm-up: an ``AASVCTrainer`` on the full-width flagship (bf16,
+   dropout 0.2, the YAML's Adam, warmuplr and clipping) takes one step on a
+   synthetic parallel corpus of ``.npy`` features written from a seed and
+   read back through the port's dataset, collater and loader (B 16); then
+   the backward kernel against its plain version in float32 and bfloat16 at
+   both head dims, and both rel-scores kernels at every shape the training
+   steps give them, with the ``bwd="xla"`` variant's time as the backward's
+   yardstick;
+8. the training path: 3 steps at target lengths 160-512 frames (T 512) and
+   2 at 480-960 (T 960), with the launch counts set to 0 just before and read
+   just after (each must equal what the routing predicts, and be above 0),
+   ms/step, peak memory, a finite loss, and before each update every
+   gradient finite and every attention projection's gradient non-zero; the
+   MAS loop timed alone; a profile of one step (busy share, top kernels);
+9. a reference training step: the same float32 weights and batch, dropout
+   off, on the card (through both rel-scores kernels) and on the CPU
+   (through their plain versions); loss and gradients must agree.
 
 Then the ``kernels`` JSON line, the card line again, and last the result
 line. Any failed check makes the script exit with 1 without the result line;
@@ -41,6 +60,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -87,22 +107,60 @@ KERNELS = {
         route="cuda", source="seq2seq_vc_torch/csrc/rel_scores.cu",
         replaces="seq2seq_vc_tpu/ops/rel_scores.py:95",
     ),
+    "rel_band_bwd": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_scores_bwd.cu",
+        replaces="seq2seq_vc_tpu/ops/rel_scores.py:170",
+    ),
     "rel_flash_attention": dict(
         route="cuda", source="seq2seq_vc_torch/csrc/rel_flash.cu",
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:578",
     ),
 }
+# what each kernel's library_ms times (a yardstick the port never calls)
+LIBRARY = {"fused_rel_scores": "no single PyTorch call",
+           "rel_band_bwd": "the bwd='xla' variant in torch ops",
+           "rel_flash_attention": "SDPA with the band materialised as a bias"}
+# the kernels each main path runs (serving runs no backward)
+PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
+                "train": ("fused_rel_scores", "rel_band_bwd")}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
 # value next to a rounding edge may differ by one bf16 ulp (2^-7 relative).
+# Backward: float32 sums of up to B*T products in another order; in bf16
+# the float32 result is rounded once on both sides (one ulp, 2^-7 relative).
 TOLERANCE = {
     ("fused_rel_scores", torch.float32): dict(atol=1e-4, rtol=1e-4),
     ("fused_rel_scores", torch.bfloat16): dict(atol=1e-4, rtol=1e-4),
+    ("rel_band_bwd", torch.float32): dict(atol=1e-4, rtol=1e-4),
+    ("rel_band_bwd", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
     ("rel_flash_attention", torch.float32): dict(atol=1e-4, rtol=1e-4),
     ("rel_flash_attention", torch.bfloat16): dict(atol=1e-3, rtol=1e-2),
 }
 REFERENCE_ATOL = 1e-3  # phase 4 waveforms, float32 on both devices
+# phase 9, one float32 training step on the card and on the CPU: the loss to
+# rtol 1e-4, each gradient tensor to 1e-3 of its largest magnitude (float32
+# sums in other orders through eight full-width layers). The linear_k biases
+# are held only to being rounding noise (under 1e-4 of the largest gradient
+# on both devices): their true gradient is 0, as a softmax does not see a
+# constant added to every key score. The alignment module's convs feed
+# ReLUs; a pre-activation within rounding of 0 can fall on the other side
+# on the other device, and then the whole gradient through that unit
+# differs. The step counts such flips, and where there are any, holds the
+# alignment module's own tensors to 5e-2 of their largest.
+STEP_RTOL, GRAD_RTOL, NOISE_RTOL, FLIP_RTOL = 1e-4, 1e-3, 1e-4, 5e-2
+ALIGN_RELU_INPUTS = ("t_conv1", "f_conv1", "f_conv2")
+
+# the training settings of the same file (batch_size 16, pad_multiple 32)
+TRAIN_OPT = dict(optimizer_params={"lr": 8e-5}, scheduler_params={"warmup_steps": 4000},
+                 grad_norm=1.0)
+TRAIN_CONFIG = dict(lambda_align=2.0, dp_train_start_steps=0, gradient_accumulate_steps=1,
+                    log_interval_steps=1, seed=0)
+CRITERIONS = ("L1Loss", "ForwardSumLoss", "StochasticDurationPredictorLoss")
+BATCH, PAD_MULTIPLE = 16, 32
+NO_DROPOUT = {k: 0.0 for k in FLAGSHIP if k.endswith("dropout_rate")}
+NO_DROPOUT.update(postnet_dropout_rate=0.0, stochastic_duration_predictor_dropout_rate=0.0)
+DEVICE = "cuda"  # the training path's device (a rehearsal on the CPU sets "cpu")
 # the full-width model's weights: its init, then seeded noise of this scale,
 # so that zero-initialised parts (flow projections, affine flows) take part
 WEIGHT_NOISE = 0.02
@@ -164,6 +222,11 @@ def bound(name, B, H, T, D, dtype, lens):
     if name == "fused_rel_scores":
         n_bytes = 3 * B * H * T * D * e + table + B * H * T * T * 4
         ops = 4 * B * H * T * T * D  # q_u.k and the band q_v.pos, 2 per multiply-add
+    elif name == "rel_band_bwd":
+        # reads g (float32), q_v and the table; writes dq_v and dpos. T*T
+        # live band cells per (b, h), each in the two products
+        n_bytes = B * H * T * T * 4 + 2 * (B * H * T * D * e + table)
+        ops = 4 * B * H * T * T * D
     else:
         keys = int(lens.sum())
         n_bytes = 2 * B * H * T * D * e + 2 * H * keys * D * e + table + 4 * B + B * H * T * D * e
@@ -178,7 +241,8 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None):
         rel_flash_attention, rel_flash_attention_plain,
     )
     from seq2seq_vc_torch.ops.rel_scores import (
-        fused_rel_scores, fused_rel_scores_plain, rel_band,
+        fused_rel_scores, fused_rel_scores_plain, rel_band, rel_band_bwd,
+        rel_band_bwd_plain, rel_band_bwd_xla,
     )
 
     qu, qv, k, v, pos, lens = kernel_inputs(B, H, T, D, dtype, seed, lens)
@@ -189,6 +253,19 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None):
 
         def plain():
             return fused_rel_scores_plain(qu, qv, k, pos)
+    elif name == "rel_band_bwd":
+        g = torch.randn(B, H, T, T, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+
+        def kernel():
+            return rel_band_bwd(g, qv, pos)
+
+        def plain():
+            return rel_band_bwd_plain(g, qv, pos)
+
+        # yardstick only: the "xla" backward variant, the dense torch ops
+        # that the kernel competes with under bwd="auto"
+        library_ms = cuda_ms(lambda: rel_band_bwd_xla(g, qv, pos))
     else:
         def kernel():
             return rel_flash_attention(qu, qv, k, v, pos, lens)
@@ -203,22 +280,26 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None):
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qu, k, v, attn_mask=bias))
         del bias
-    got, want = kernel(), plain()
+    def flat(out):  # one float32 vector of a kernel's outputs
+        return torch.cat([t.float().flatten() for t in out]) if isinstance(out, tuple) else out.float()
+
+    got, want = flat(kernel()), flat(plain())
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    err = (got - want).abs().max().item()
     tol = TOLERANCE[(name, dtype)]
-    ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(), **tol)
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol)
     del got, want
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
     bound_ms, bound_by = bound(name, B, H, T, D, dtype, lens)
     row = dict(name=name, label=label, shape=(B, H, T, D), kv_lens=lens.tolist(),
                dtype=str(dtype).split(".")[1],
                ok=ok, max_abs_err=err, atol=tol["atol"], rtol=tol["rtol"], ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               library=LIBRARY[name])
     log(f"check {name} {label} B,H,T,D={B},{H},{T},{D} kv_lens={row['kv_lens']} {row['dtype']}: "
         f"{'ok' if ok else 'FAIL'} max_abs_err={err:.3e} (atol {tol['atol']}, rtol "
         f"{tol['rtol']}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={'none (no single PyTorch call)' if library_ms is None else f'{library_ms:.4f}'} "
+        f"library_ms={'none' if library_ms is None else f'{library_ms:.4f}'} ({LIBRARY[name]}) "
         f"bound_ms={bound_ms:.4f} ({bound_by})")
     return row
 
@@ -341,9 +422,10 @@ def profile_request(conv, request, latency_ms):
 def kernel_wrappers():
     """The kernel wrappers of the main path, by name; each counts its launches."""
     from seq2seq_vc_torch.ops.flash_attention import rel_flash_attention
-    from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores
+    from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, rel_band_bwd
 
-    return {"fused_rel_scores": fused_rel_scores, "rel_flash_attention": rel_flash_attention}
+    return {"fused_rel_scores": fused_rel_scores, "rel_band_bwd": rel_band_bwd,
+            "rel_flash_attention": rel_flash_attention}
 
 
 def launch_counts():
@@ -378,7 +460,8 @@ def reference_check(model, vocoder, src, trg):
     a, b = wavs["cuda"], wavs["cpu"]
     same_len = len(a) == len(b)
     err = float(np.abs(a - b).max()) if same_len else float("inf")
-    ok = same_len and err <= REFERENCE_ATOL and all(counts["cuda"].values()) \
+    ok = same_len and err <= REFERENCE_ATOL \
+        and all(counts["cuda"][n] for n in PATH_KERNELS["serve"]) \
         and not any(counts["cpu"].values())
     log(f"reference float32 1.0 s clip: card {len(a)} samples, cpu {len(b)} samples, "
         f"max abs diff {err:.3e} (atol {REFERENCE_ATOL}); launches card {counts['cuda']}, "
@@ -386,11 +469,325 @@ def reference_check(model, vocoder, src, trg):
     return [] if ok else [f"reference check: card vs cpu diff {err}, lengths {len(a)} {len(b)}"]
 
 
+# ---------------------------------------------------------- training path
+def flagship(seed: int, **over):
+    """The flagship AAS-VC on the CPU in train() mode, seeded as
+    ``build_models`` seeds it; ``over`` replaces config fields."""
+    from seq2seq_vc_torch.models.aas_vc import AASVC
+
+    torch.manual_seed(seed)
+    model = AASVC(**dict(FLAGSHIP, **over))
+    perturb_(model, seed)
+    return model.train()
+
+
+def train_state(model):
+    """The flagship's optimizer around ``model``: Adam on warmuplr, clipping."""
+    from seq2seq_vc_torch.train.optim import build_optimizer
+    from seq2seq_vc_torch.train.state import TrainState
+
+    return TrainState(model, build_optimizer(model.parameters(), **TRAIN_OPT))
+
+
+def make_trainer(state, loader, steps: int, device=None):
+    """An ``AASVCTrainer`` that takes ``steps`` more optimizer steps on
+    ``state`` (the same ``Trainer`` that a training CLI builds)."""
+    from seq2seq_vc_torch.losses import get_criterion
+    from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
+
+    config = dict(TRAIN_CONFIG, train_max_steps=state.steps + steps)
+    return AASVCTrainer(state, {n: get_criterion(n) for n in CRITERIONS}, config, loader,
+                        device=device or DEVICE)
+
+
+def corpus_lens(lo: int, hi: int, seed: int):
+    """BATCH (source, target) frame counts: targets spread evenly over
+    [lo, hi], each source 80-100% of its target (parallel utterances)."""
+    trg = np.linspace(lo, hi, BATCH).round().astype(int)
+    src = (trg * np.random.default_rng(seed).uniform(0.8, 1.0, BATCH)).astype(int)
+    return list(zip(src.tolist(), trg.tolist()))
+
+
+def feature_items(lens, seed: int):
+    """Dataset items of log-mel-like random features (80 bins) with the
+    given (source, target) frame counts."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i, (n_src, n_trg) in enumerate(lens):
+        src, trg = ((-4 + rng.standard_normal((n, 80))).astype(np.float32) for n in (n_src, n_trg))
+        items.append({"utt_id": f"utt{i:03d}", "src_feat": src, "trg_feat": trg, "dp_input": src})
+    return items
+
+
+def corpus_loader(root: Path, lens, seed: int):
+    """A synthetic parallel corpus written as ``.npy`` files with one scp
+    per side, read back through the port's dataset, collater and loader
+    (the flagship's batch size and padding; the duration predictor reads
+    the source mel, as ``duration_predictor_feat: mel`` says)."""
+    from seq2seq_vc_torch.train.data import DataLoader, NARVCCollater, ParallelVCMelDataset
+
+    root.mkdir(parents=True, exist_ok=True)
+    scp = {"src_feat": [], "trg_feat": []}
+    for item in feature_items(lens, seed):
+        for key in scp:
+            path = root / f"{key}_{item['utt_id']}.npy"
+            np.save(path, item[key])
+            scp[key].append(f"{item['utt_id']} {path}")
+    for key, lines in scp.items():
+        (root / f"{key}.scp").write_text("\n".join(lines) + "\n")
+    src, trg = (str(root / f"{key}.scp") for key in scp)
+    collater = NARVCCollater(PAD_MULTIPLE, FLAGSHIP["encoder_reduction_factor"],
+                             FLAGSHIP["post_encoder_reduction_factor"],
+                             FLAGSHIP["decoder_reduction_factor"])
+    return DataLoader(ParallelVCMelDataset(src, trg, dp_feats=src), collater, BATCH, seed=seed)
+
+
+def train_calls(model, batch):
+    """The kernel launches one training step on ``batch`` makes: (kernel
+    name, B, H, T, D) for each fused forward and each banded backward, from
+    each layer's routing and its ``bwd`` variant at the padded lengths."""
+    from seq2seq_vc_torch.ops.rel_scores import resolve_bwd
+
+    B = len(batch["ilens"])
+    calls = []
+    for stack, T in ((model.encoder, batch["xs"].shape[1] // model.encoder_reduction_factor),
+                     (model.decoder, batch["ys"].shape[1] // model.decoder_reduction_factor)):
+        for layer in stack.encoders:
+            att = layer.self_attn
+            if att.route(T, T, 2 * T - 1, KEY_PADDING) != "fused":
+                continue
+            calls.append(("fused_rel_scores", B, att.n_head, T, att.d_k))
+            if resolve_bwd(att.rel_scores_bwd, T) == "banded":
+                calls.append(("rel_band_bwd", B, att.n_head, T, att.d_k))
+    return calls
+
+
+def watch_grads(state):
+    """Before each Adam update (after clipping), note on the device whether
+    every gradient is finite and the smallest norm among the attention
+    projections' weight gradients. Returns the notes, the hook's handle and
+    the number of projections watched."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = state.optimizer.params
+    att = [p for p in params
+           if ".self_attn.linear_" in names[id(p)] and names[id(p)].endswith(".weight")]
+    notes = []
+
+    def hook(adam, args, kwargs):
+        norms = torch.stack(torch._foreach_norm([p.grad for p in params]))
+        att_norms = torch.stack(torch._foreach_norm([p.grad for p in att]))
+        notes.append((torch.isfinite(norms).all(), att_norms.min()))
+
+    return notes, state.optimizer.adam.register_step_pre_hook(hook), len(att)
+
+
+def train_steps(state, loader, steps: int, label: str):
+    """``steps`` optimizer steps through the trainer; logs each step's
+    time and loss from the trainer's own log. Returns the trainer."""
+    trainer = make_trainer(state, loader, steps)
+    trainer.run()
+    for h in trainer.history:
+        log(f"train {label} step {h['steps']}: {h['train/step_time_sec'] * 1e3:.1f} ms, "
+            f"loss {h['train/loss']:.4f} (l1 {h['train/l1_loss']:.4f}, forward-sum "
+            f"{h['train/forward_sum_loss']:.4f}, bin {h['train/binary_loss']:.4f}, dur_nll "
+            f"{h['train/duration_loss']:.4f}), grad norm {h['train/grad_norm']:.4f}")
+    return trainer
+
+
+def time_mas(batch, label: str):
+    """The MAS loop alone on the card at one step's shape: mean host time
+    of ``viterbi_decode`` (each call ends in a sync) over 3 calls."""
+    from seq2seq_vc_torch.ops.mas import viterbi_decode
+
+    r = FLAGSHIP["encoder_reduction_factor"] * FLAGSHIP["post_encoder_reduction_factor"]
+    t_text, t_feats = batch["xs"].shape[1] // r, batch["ys"].shape[1]
+    ilens = torch.tensor(batch["ilens"] // r, device=DEVICE)
+    olens = torch.tensor(batch["olens"], device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    lp = torch.log_softmax(torch.randn(len(ilens), t_feats, t_text, device=DEVICE, generator=g), -1)
+    viterbi_decode(lp, ilens, olens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        viterbi_decode(lp, ilens, olens)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"MAS alone {label}: viterbi_decode on ({len(ilens)}, {t_feats}, {t_text}) "
+        f"log-probs: {ms:.1f} ms a call (host clock, synced)")
+    return ms
+
+
+def profile_step(state, loader, step_ms: float, label: str):
+    """Device time by kernel over one training step (torch.profiler),
+    beside the untraced step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        make_trainer(state, loader, 1).run()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    if busy == 0:
+        log("profile train step: the trace holds no device time: not measured")
+        return
+    port = {n: round(sum(ms for k, ms, _ in kernels if n in k), 3)
+            for n in ("rel_scores_fwd_kernel", "rel_scores_bwd_kernel")}
+    log(f"profile train step ({label}): device busy {busy:.3f} ms in "
+        f"kernels; untraced step {step_ms:.1f} ms, so busy share {busy / step_ms:.3f}; "
+        f"port kernels (ms) {port}")
+    for key, ms, n in sorted(kernels, key=lambda r: -r[1])[:12]:
+        log(f"  {ms:9.3f} ms {ms / busy:6.1%} x{n:<5d} {key[:100]}")
+
+
+def reference_step(seed: int):
+    """One float32 training step's loss and gradients, from the same
+    weights and batch, on the card (through kernels 1 and 3) and on the CPU
+    (through their plain versions), dropout off. The trainer's own CPU
+    generator draws the duration predictor's e_q, the same on both."""
+    from seq2seq_vc_torch.train.data import NARVCCollater
+
+    model = flagship(seed, compute_dtype="float32", rel_scores_bwd="banded", **NO_DROPOUT)
+    collater = NARVCCollater(PAD_MULTIPLE, 1, FLAGSHIP["post_encoder_reduction_factor"], 1)
+    batch = collater(feature_items([(128, 128), (100, 112)], seed))
+    runs = {}
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        trainer = make_trainer(train_state(copy.deepcopy(model)), [], 1, device=dev)
+        pre = {}  # the alignment module's ReLU inputs
+        for name in ALIGN_RELU_INPUTS:
+            getattr(trainer.model.alignment_module, name).register_forward_hook(
+                lambda mod, args, out, name=name: pre.__setitem__(name, out.detach().cpu()))
+        before = launch_counts()
+        loss, metrics = trainer.loss_fn(trainer._array_batch(batch), trainer._flags(),
+                                        trainer.generator)
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        runs[side] = (loss.item(), {k: v.item() for k, v in metrics.items()}, grads, counts, pre)
+    (la, ma, ga, ca, pa), (lb, mb, gb, cb, pb) = runs["card"], runs["cpu"]
+    flips = {n: [float(v) for v in pb[n][(pa[n] > 0) != (pb[n] > 0)]] for n in ALIGN_RELU_INPUTS}
+    failures = []
+    for name, a, b in [("loss", la, lb)] + [(k, ma[k], mb[k]) for k in mb]:
+        if not (math.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b)):
+            failures.append(f"reference step {name}: card {a} cpu {b}")
+    if set(ga) != set(gb):
+        failures.append(f"reference step: gradients of {sorted(set(ga) ^ set(gb))} on one side only")
+    top = max(float(g.abs().max()) for g in gb.values())
+    worst = {}  # the largest error in the alignment module and elsewhere, with its tensor
+    for name in sorted(set(ga) & set(gb)):
+        a, b = ga[name], gb[name]
+        if name.endswith("linear_k.bias"):
+            if max(float(a.abs().max()), float(b.abs().max())) > NOISE_RTOL * top:
+                failures.append(f"reference step {name}: not rounding noise")
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        part = "alignment" if name.startswith("alignment_module.") else "rest"
+        worst[part] = max(worst.get(part, (0.0, "")), (rel, name))
+        tol = FLIP_RTOL if part == "alignment" and any(flips.values()) else GRAD_RTOL
+        if not (torch.isfinite(a).all() and rel <= tol):
+            failures.append(f"reference step {name}: gradient error {rel:.3e} of its largest")
+    if not all(ca[n] for n in PATH_KERNELS["train"]) or any(cb.values()):
+        failures.append(f"reference step launches: card {ca}, cpu {cb}")
+    log(f"reference float32 train step (B 2, T 128, dropout off, same e_q): loss card {la:.6f} "
+        f"cpu {lb:.6f}; terms card {ma} cpu {mb}; {len(gb)} gradient tensors, worst error of "
+        f"a tensor's largest: {worst} (rtol {GRAD_RTOL}; alignment module {FLIP_RTOL} if a "
+        f"ReLU flipped); alignment ReLU inputs on opposite sides of 0 (cpu values): {flips}; "
+        f"launches card {ca}, cpu {cb}: {'ok' if not failures else 'FAIL'}")
+    return failures
+
+
+def train_path(rows):
+    """Phases 7-9: the training path. Appends the kernel checks to ``rows``;
+    returns (failures, launches of the timed steps, by kernel)."""
+    failures = []
+    tmp = REPO / "build"
+    tmp.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp, prefix="chip_smoke_corpus_") as root:
+        loaders = {T: corpus_loader(Path(root) / f"T{T}", corpus_lens(lo, T, seed=T), seed=T)
+                   for lo, T in ((160, 512), (480, 960))}
+        batches = {T: next(iter(loader)) for T, loader in loaders.items()}
+        state = train_state(flagship(seed=3).to(DEVICE))
+        log(f"training: AASVCTrainer, flagship at full width (bf16, dropout 0.2), B{BATCH}; "
+            f"batch shapes (xs, ys): { {T: (b['xs'].shape, b['ys'].shape) for T, b in batches.items()} }")
+        log("training warm-up: one step")
+        train_steps(state, loaders[512], 1, "warm-up")
+
+        calls = {T: train_calls(state.model, b) for T, b in batches.items()}
+        for D, T in ((192, 640), (768, 1300)):
+            for dtype in (torch.float32, torch.bfloat16):
+                rows.append(check_kernel("rel_band_bwd", 2, 2, T, D, dtype, seed=T + D,
+                                         label="head-dim"))
+        for name, *shape in sorted({c for cs in calls.values() for c in cs}):
+            B, H, T, D = shape
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D,
+                                     label="main-path", lens=[T] * B))
+
+        log("training main path: 3 steps at T 512, then 2 at T 960")
+        notes, handle, n_att = watch_grads(state)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        short = train_steps(state, loaders[512], 3, "T512")
+        long_ = train_steps(state, loaders[960], 2, "T960")
+        launches = launch_counts()
+        handle.remove()
+        expected = {n: 3 * sum(c[0] == n for c in calls[512]) + 2 * sum(c[0] == n for c in calls[960])
+                    for n in KERNELS}
+        step_ms = {T: float(np.mean([h["train/step_time_sec"] for h in t.history])) * 1e3
+                   for T, t in ((512, short), (960, long_))}
+        log(f"training: ms/step {step_ms}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, "
+            f"expected from the routing {expected}")
+        for name in PATH_KERNELS["train"]:
+            if launches[name] == 0 or launches[name] != expected[name]:
+                failures.append(f"train {name}: {launches[name]} launches, expected {expected[name]}")
+        if launches["rel_flash_attention"]:
+            failures.append("train: the flash kernel ran on the training path")
+        losses = [h["train/loss"] for t in (short, long_) for h in t.history]
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"train: loss not finite: {losses}")
+        finite = [bool(f) for f, _ in notes]
+        att_min = [float(m) for _, m in notes]
+        log(f"training gradients per step: all finite {finite}; smallest norm among the "
+            f"{n_att} attention projections' weight gradients {att_min}")
+        if len(notes) != 5 or not all(finite) or not all(m > 0 for m in att_min):
+            failures.append(f"train: gradients finite {finite}, attention grad norms {att_min}")
+
+        time_mas(batches[512], "T512")
+        time_mas(batches[960], "T960")
+        profile_step(state, loaders[512], step_ms[512], f"B{BATCH}, T 512")
+    failures += reference_step(seed=4)
+    return failures, launches
+
+
+def bwd_sweep() -> int:
+    """The rel-scores backward's two variants, timed at the training step's
+    batch (B 16, H 2) in bf16 over key lengths T at the encoder's and the
+    decoder's head dims: the data for ``AUTO_BANDED_MIN_LEN``."""
+    from seq2seq_vc_torch.ops.rel_scores import rel_band_bwd, rel_band_bwd_xla
+
+    log(f"card: {card_line()}")
+    for D in (192, 768):
+        for T in (128, 256, 384, 512, 640, 768, 896, 960, 1280, 1664, 2048):
+            qu, qv, _, _, pos, _ = kernel_inputs(16, 2, T, D, torch.bfloat16, seed=T)
+            g = torch.randn(16, 2, T, T, device="cuda")
+            xla_ms = cuda_ms(lambda: rel_band_bwd_xla(g, qv, pos))
+            banded_ms = cuda_ms(lambda: rel_band_bwd(g, qv, pos))
+            log(f"bwd sweep B16 H2 T{T} D{D} bf16: banded {banded_ms:.4f} ms, xla {xla_ms:.4f} ms, "
+                f"{'banded' if banded_ms < xla_ms else 'xla'} faster")
+            del qu, qv, pos, g
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, str(REPO))
     from seq2seq_vc_torch.ops import native
+
+    if sys.argv[1:] == ["--bwd-sweep"]:
+        native.build()
+        return bwd_sweep()
     from seq2seq_vc_torch.pipeline import Wav2WavConverter
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -429,41 +826,48 @@ def main() -> int:
         expected = {n: sum(c[0] == n for c in calls) for n in KERNELS}
 
         rows = []
-        for name in KERNELS:
+        for name in PATH_KERNELS["serve"]:
             for D, T in ((192, 640), (768, 1300)):
                 for dtype in (torch.float32, torch.bfloat16):
                     rows.append(check_kernel(name, 2, 2, T, D, dtype, seed=T + D, label="head-dim"))
             for B, H, T, D, lens in sorted({c[1:] for c in calls if c[0] == name}):
                 rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T,
                                          label="main-path", lens=lens))
-        failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
-                     for r in rows if not r["ok"]]
 
         log("main path: the same requests again")
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         fails, timed = serve(conv, requests)
-        launches = launch_counts()
+        launches = {"serve": launch_counts()}
         failures += fails
-        log(f"main path launches {launches}, expected from the routing {expected}; "
+        log(f"main path launches {launches['serve']}, expected from the routing {expected}; "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for name in KERNELS:
-            if launches[name] == 0 or launches[name] != expected[name]:
-                failures.append(f"{name}: {launches[name]} launches, expected {expected[name]}")
+            got = launches["serve"][name]
+            if got != expected[name] or (got == 0 and name in PATH_KERNELS["serve"]):
+                failures.append(f"{name}: {got} launches, expected {expected[name]}")
 
         failures += reference_check(model, vocoder, src, trg)
         profile_request(conv, requests[-1], timed[-1]["ms"])
+        del conv, model, vocoder
+
+    fails, launches["train"] = train_path(rows)
+    failures += fails
+    failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
+                 for r in rows if not r["ok"]]
 
     table = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         main_rows = [r for r in mine if r["label"] == "main-path"]
         top = max(main_rows, key=lambda r: r["shape"][0] * r["shape"][2] ** 2 * r["shape"][3])
+        by_path = {path: counts[name] for path, counts in launches.items()}
         table.append(dict(
-            name=name, **meta, launches=launches[name],
+            name=name, **meta, launches=sum(by_path.values()),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
+            library=LIBRARY[name], launches_by_path=by_path,
             shape_bhtd=list(top["shape"]), kv_lens=top["kv_lens"], dtype=top["dtype"],
         ))
     log(json.dumps({"kernels": table}))

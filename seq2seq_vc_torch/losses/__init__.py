@@ -1,0 +1,18 @@
+"""Losses of the AAS-VC training step, resolved by name from the YAML
+``criterions`` block (mirrors seq2seq_vc_tpu/losses/__init__.py)."""
+
+from .duration import StochasticDurationPredictorLoss
+from .forward_sum import ForwardSumLoss
+from .l1 import L1Loss
+
+_CRITERIONS = {
+    "L1Loss": L1Loss,
+    "ForwardSumLoss": ForwardSumLoss,
+    "StochasticDurationPredictorLoss": StochasticDurationPredictorLoss,
+}
+
+
+def get_criterion(name: str, **params):
+    if name not in _CRITERIONS:
+        raise NotImplementedError(f"criterion {name!r} is not ported yet")
+    return _CRITERIONS[name](**params)

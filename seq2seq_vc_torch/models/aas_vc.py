@@ -1,13 +1,16 @@
-"""AAS-VC, non-autoregressive inference (mirrors
-seq2seq_vc_tpu/models/aas_vc.py: ``setup`` and ``inference``).
+"""AAS-VC (mirrors seq2seq_vc_tpu/models/aas_vc.py: ``setup``,
+``__call__`` and ``inference``).
 
-Conformer encoder (with post-encoder frame stacking) -> stochastic duration
-predictor run inverse -> Gaussian upsampling -> conformer decoder ->
-``feat_out`` -> postnet. The constructor takes the JAX model's config
-fields by the same names and defaults; options this slice does not port
-raise ``NotImplementedError`` (the flagship sets every ported one). The
-training forward comes with the training slice. Submodule names are the reference torch names, so a ``state_dict``
-converts with ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``.
+Conformer encoder (with post-encoder frame stacking) -> alignment module
+and MAS durations (training) or the stochastic duration predictor run
+inverse (inference) -> Gaussian upsampling -> conformer decoder ->
+``feat_out`` -> postnet. ``forward`` is the training pass and also returns
+the predictor's NLL of the MAS durations. The constructor takes the JAX
+model's config fields by the same names and defaults, dropout rates
+included; options the port does not have yet raise ``NotImplementedError``
+(the flagship sets every ported one). Submodule names are the reference
+torch names, so a ``state_dict`` converts with
+``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ class AASVC(torch.nn.Module):
         postnet_layers: int = 5,
         postnet_chans: int = 512,
         postnet_filts: int = 5,
+        postnet_dropout_rate: float = 0.5,
         conformer_rel_pos_type: str = "latest",
         conformer_pos_enc_layer_type: str = "rel_pos",
         conformer_self_attn_layer_type: str = "rel_selfattn",
@@ -70,7 +74,14 @@ class AASVC(torch.nn.Module):
         conformer_enc_kernel_size: int = 7,
         conformer_dec_kernel_size: int = 31,
         spk_embed_dim: Optional[int] = None,
+        transformer_enc_dropout_rate: float = 0.1,
+        transformer_enc_positional_dropout_rate: float = 0.1,
+        transformer_enc_attn_dropout_rate: float = 0.1,
+        transformer_dec_dropout_rate: float = 0.1,
+        transformer_dec_positional_dropout_rate: float = 0.1,
+        transformer_dec_attn_dropout_rate: float = 0.1,
         stochastic_duration_predictor_kernel_size: int = 3,
+        stochastic_duration_predictor_dropout_rate: float = 0.5,
         stochastic_duration_predictor_flows: int = 4,
         stochastic_duration_predictor_dds_conv_layers: int = 3,
         stochastic_duration_predictor_noise_scale: float = 0.8,
@@ -78,12 +89,16 @@ class AASVC(torch.nn.Module):
         postnet_norm_type: str = "group_norm",
         attention_backend: str = "xla",
         flash_min_len: int = FLASH_MIN_LEN,
+        rel_scores_bwd: str = "auto",
         compute_dtype: str = "float32",
         device=None,
-        **training_only: Any,
+        **unread: Any,
     ):
-        """Config fields that only training reads (dropout rates, loss and
-        init options) are accepted in ``training_only`` and ignored."""
+        """Config fields that the model does not read (loss, init and
+        deterministic-predictor options, ``alignment_dist_form``: the port
+        has the ``direct`` form only) are accepted in ``unread`` and
+        ignored. ``rel_scores_bwd`` picks the fused attention's backward
+        variant (``ops/rel_scores.py``)."""
         super().__init__()
         unsupported = {
             "encoder_type": (encoder_type, "conformer"),
@@ -114,12 +129,16 @@ class AASVC(torch.nn.Module):
             conv_norm_type=conformer_conv_norm_type,
             attention_backend=attention_backend,
             flash_min_len=flash_min_len,
+            rel_scores_bwd=rel_scores_bwd,
             compute_dtype=cdt,
             device=device,
         )
         self.encoder = ConformerEncoder(
             idim=idim * encoder_reduction_factor, attention_dim=adim,
             attention_heads=aheads, linear_units=eunits, num_blocks=elayers,
+            dropout_rate=transformer_enc_dropout_rate,
+            positional_dropout_rate=transformer_enc_positional_dropout_rate,
+            attention_dropout_rate=transformer_enc_attn_dropout_rate,
             input_layer=encoder_input_layer, normalize_before=encoder_normalize_before,
             concat_after=encoder_concat_after, cnn_module_kernel=conformer_enc_kernel_size,
             **common,
@@ -135,6 +154,7 @@ class AASVC(torch.nn.Module):
             kernel_size=stochastic_duration_predictor_kernel_size,
             flows=stochastic_duration_predictor_flows,
             dds_conv_layers=stochastic_duration_predictor_dds_conv_layers,
+            dropout_rate=stochastic_duration_predictor_dropout_rate,
             device=device,
         )
         if not duration_predictor_use_encoder_outputs:
@@ -148,6 +168,9 @@ class AASVC(torch.nn.Module):
         self.decoder = ConformerEncoder(
             idim=0, attention_dim=adim * post_encoder_reduction_factor,
             attention_heads=aheads, linear_units=dunits, num_blocks=dlayers,
+            dropout_rate=transformer_dec_dropout_rate,
+            positional_dropout_rate=transformer_dec_positional_dropout_rate,
+            attention_dropout_rate=transformer_dec_attn_dropout_rate,
             input_layer=None, normalize_before=decoder_normalize_before,
             concat_after=decoder_concat_after, cnn_module_kernel=conformer_dec_kernel_size,
             **common,
@@ -158,7 +181,7 @@ class AASVC(torch.nn.Module):
         )
         self.postnet = (
             Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
-                    use_norm=use_batch_norm, compute_dtype=cdt, device=device)
+                    dropout_rate=postnet_dropout_rate, use_norm=use_batch_norm, compute_dtype=cdt, device=device)
             if postnet_layers > 0 else None
         )
 
@@ -174,6 +197,60 @@ class AASVC(torch.nn.Module):
             return hs
         dp, _ = self.duration_predictor_projection(dp_inputs, None)
         return nearest_interpolate(dp, hs.shape[1])
+
+    def forward(
+        self,
+        src_speech: torch.Tensor,
+        src_speech_lengths: torch.Tensor,
+        tgt_speech: torch.Tensor,
+        tgt_speech_lengths: torch.Tensor,
+        dp_inputs: Optional[torch.Tensor] = None,
+        dp_lengths: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Training forward (``__call__`` of the JAX model).
+
+        MAS durations ``ds`` (no gradient) from the alignment log-probs
+        drive the Gaussian upsampling; ``bin_loss`` and ``log_p_attn`` keep
+        their gradient. ``dur_nll`` is the predictor's NLL of ``ds`` summed
+        over tokens and divided by the valid-token count; ``noise`` (B,
+        T_text, 2) is its e_q draw (else drawn from ``generator``).
+        ``dp_lengths`` is accepted for the JAX signature and not read.
+        """
+        xs, ys = src_speech, tgt_speech
+        ilens, olens = src_speech_lengths, tgt_speech_lengths
+        hs, ilens_red = self._encode(xs, ilens)
+        dp_in = self._dp_features(hs, dp_inputs)
+        ys_red, olens_red = reduce_frames(ys, olens, self.decoder_reduction_factor)
+
+        h_nonpad = make_non_pad_mask(ilens_red, hs.shape[1])
+        log_p_attn = self.alignment_module(hs, ys_red, ~h_nonpad)
+        ds, bin_loss = viterbi_decode(log_p_attn, ilens_red, olens_red)
+
+        dur_nll = self.duration_predictor.nll(dp_in, h_nonpad, ds, noise, generator)
+        dur_nll = dur_nll.sum() / torch.clamp(h_nonpad.sum(), min=1)
+
+        hs_up = gaussian_upsampling(
+            hs, ds, make_non_pad_mask(olens_red, ys_red.shape[1]), h_nonpad
+        )
+        zs, _ = self.decoder(hs_up, make_non_pad_mask(olens_red, hs_up.shape[1]))
+        before_outs = self.feat_out(zs).reshape(hs_up.shape[0], -1, self.odim)
+        after_outs = before_outs
+        if self.postnet is not None:
+            after_outs = before_outs + self.postnet(before_outs)
+        return {
+            "before_outs": before_outs,
+            "after_outs": after_outs,
+            "dur_nll": dur_nll,
+            "ds": ds,
+            "ilens": ilens_red,
+            "bin_loss": bin_loss,
+            "log_p_attn": log_p_attn,
+            "olens_reduced": olens_red,
+            "olens": olens - olens % self.decoder_reduction_factor,
+            "ys": ys,
+        }
 
     @torch.no_grad()
     def inference(

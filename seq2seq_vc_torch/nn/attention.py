@@ -1,10 +1,12 @@
 """Relative-position multi-head attention (mirrors
-seq2seq_vc_tpu/nn/attention.py:173-400), inference only.
+seq2seq_vc_tpu/nn/attention.py:173-400).
 
 Backends keep the JAX package's names: ``xla`` (dense PyTorch ops),
-``fused`` (the fused rel-scores kernel, dense softmax and AV) and ``flash``
-(the rel-pos flash kernel at key lengths >= ``flash_min_len``, the fused
-path below it).
+``fused`` (the fused rel-scores kernel, dense softmax and AV; its backward
+is the variant ``rel_scores_bwd`` names) and ``flash`` (the rel-pos flash
+kernel at key lengths >= ``flash_min_len``, the fused path below it). The
+flash kernel has no backward yet, so a training step that reaches it
+raises. Attention dropout acts on the softmax weights in ``train()`` mode.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.flash_attention import rel_flash_attention
 from ..ops.rel_scores import fused_rel_scores
@@ -63,17 +66,20 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
     Scores and softmax run in float32; projections in ``compute_dtype``.
     """
 
-    def __init__(self, n_head: int, n_feat: int, zero_triu: bool = False,
-                 backend: str = "xla", compute_dtype=None,
-                 flash_min_len: int = FLASH_MIN_LEN, device=None, dtype=None):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
+                 zero_triu: bool = False, backend: str = "xla", compute_dtype=None,
+                 flash_min_len: int = FLASH_MIN_LEN, rel_scores_bwd: str = "auto",
+                 device=None, dtype=None):
         super().__init__()
         if backend not in ("xla", "fused", "flash"):
             raise ValueError(f"unknown attention backend: {backend}")
         self.n_head = n_head
         self.d_k = n_feat // n_head
+        self.dropout_rate = dropout_rate
         self.zero_triu = zero_triu
         self.backend = backend
         self.flash_min_len = flash_min_len
+        self.rel_scores_bwd = rel_scores_bwd
         kw = dict(compute_dtype=compute_dtype, device=device, dtype=dtype)
         self.linear_q = Linear(n_feat, n_feat, **kw)
         self.linear_k = Linear(n_feat, n_feat, **kw)
@@ -109,6 +115,11 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
 
         path = self.route(query.shape[1], key.shape[1], pos_emb.shape[1], mask)
         if path == "flash":
+            if self.training and self.dropout_rate > 0:
+                raise NotImplementedError(
+                    "attention dropout in the flash kernel comes with the next port "
+                    "slice; train below the flash gate or with attention dropout 0"
+                )
             kv_lens = None
             if mask is not None:
                 m2 = mask if mask.dim() == 2 else mask[:, 0, :]
@@ -116,7 +127,7 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
             out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=kv_lens)
             return self.linear_out(_merge_heads(out))
         if path == "fused":
-            scores = fused_rel_scores(q_u, q_v, k, p[0])
+            scores = fused_rel_scores(q_u, q_v, k, p[0], bwd=self.rel_scores_bwd)
         else:
             matrix_ac = torch.einsum("bhqd,bhkd->bhqk", q_u.float(), k.float())
             matrix_bd = rel_shift(torch.einsum("bhqd,bhpd->bhqp", q_v.float(), p.float()))
@@ -129,5 +140,8 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
         w = torch.softmax(scores, dim=-1)
         if m is not None:
             w = w.masked_fill(~m, 0.0)
+        # torch's default generator draws the mask (the trainer seeds it):
+        # PyTorch's dropout takes no generator argument
+        w = F.dropout(w, self.dropout_rate, self.training)
         out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), v.float()).to(v.dtype)
         return self.linear_out(_merge_heads(out))

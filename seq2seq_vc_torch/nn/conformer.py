@@ -1,6 +1,9 @@
-"""Conformer encoder (mirrors seq2seq_vc_tpu/nn/conformer.py), inference.
+"""Conformer encoder (mirrors seq2seq_vc_tpu/nn/conformer.py).
 
-Macaron FFN x0.5, rel-pos self-attention, GLU conv module, final LN. The
+Macaron FFN x0.5, rel-pos self-attention, GLU conv module, final LN. In
+``train()`` mode dropout acts where the JAX modules apply it: after the
+input layer, on the positional encoding, inside the feed-forwards, on the
+attention weights, and on each residual branch. The
 conv module's norm is ``MaskedGroupNorm`` (the JAX package's default):
 single-group statistics over valid frames only, so outputs do not depend on
 the pad length. Submodule names follow the reference torch code
@@ -76,31 +79,31 @@ class ConformerEncoderLayer(torch.nn.Module):
     """Macaron-FFN + rel-pos MHA + conv module + FFN + final LN."""
 
     def __init__(self, size: int, n_head: int, linear_units: int,
+                 dropout_rate: float = 0.1, attention_dropout_rate: float = 0.0,
                  normalize_before: bool = True, concat_after: bool = False,
                  positionwise_layer_type: str = "linear", macaron_style: bool = True,
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  zero_triu: bool = False, attention_backend: str = "xla",
-                 flash_min_len: int = FLASH_MIN_LEN, compute_dtype=None,
-                 device=None, dtype=None):
+                 flash_min_len: int = FLASH_MIN_LEN, rel_scores_bwd: str = "auto",
+                 compute_dtype=None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ln = dict(compute_dtype=compute_dtype, **kw)
+        self.dropout_rate = dropout_rate
         self.normalize_before = normalize_before
         self.concat_after = concat_after
         self.macaron_style = macaron_style
         self.use_cnn_module = use_cnn_module
         self.self_attn = RelPositionMultiHeadedAttention(
-            n_head, size, zero_triu=zero_triu, backend=attention_backend,
-            compute_dtype=compute_dtype, flash_min_len=flash_min_len, **kw,
+            n_head, size, attention_dropout_rate, zero_triu=zero_triu,
+            backend=attention_backend, compute_dtype=compute_dtype,
+            flash_min_len=flash_min_len, rel_scores_bwd=rel_scores_bwd, **kw,
         )
         # the conformer passes Swish into the linear-flavour FFN
-        self.feed_forward = _positionwise(
-            positionwise_layer_type, size, linear_units, compute_dtype, "swish", **kw
-        )
+        ff = (positionwise_layer_type, size, linear_units, dropout_rate, compute_dtype, "swish")
+        self.feed_forward = _positionwise(*ff, **kw)
         if macaron_style:
-            self.feed_forward_macaron = _positionwise(
-                positionwise_layer_type, size, linear_units, compute_dtype, "swish", **kw
-            )
+            self.feed_forward_macaron = _positionwise(*ff, **kw)
             self.norm_ff_macaron = LayerNorm(size, LN_EPS, **ln)
         if use_cnn_module:
             self.conv_module = ConvolutionModule(size, cnn_module_kernel, compute_dtype, **kw)
@@ -111,12 +114,15 @@ class ConformerEncoderLayer(torch.nn.Module):
         if concat_after:
             self.concat_linear = Linear(2 * size, size, **ln)
 
+    def _drop(self, x):
+        return F.dropout(x, self.dropout_rate, self.training)
+
     def forward(self, x, mask, pos_emb):
         ff_scale = 0.5 if self.macaron_style else 1.0
         if self.macaron_style:
             residual = x
             h = self.norm_ff_macaron(x) if self.normalize_before else x
-            x = residual + ff_scale * self.feed_forward_macaron(h)
+            x = residual + ff_scale * self._drop(self.feed_forward_macaron(h))
             if not self.normalize_before:
                 x = self.norm_ff_macaron(x)
 
@@ -126,7 +132,7 @@ class ConformerEncoderLayer(torch.nn.Module):
         if self.concat_after:
             x = residual + self.concat_linear(torch.cat([h, att], dim=-1))
         else:
-            x = residual + att
+            x = residual + self._drop(att)
         if not self.normalize_before:
             x = self.norm_mha(x)
 
@@ -134,13 +140,13 @@ class ConformerEncoderLayer(torch.nn.Module):
             residual = x
             h = self.norm_conv(x) if self.normalize_before else x
             frame_mask = None if mask is None else mask[:, 0, :]
-            x = residual + self.conv_module(h, frame_mask)
+            x = residual + self._drop(self.conv_module(h, frame_mask))
             if not self.normalize_before:
                 x = self.norm_conv(x)
 
         residual = x
         h = self.norm_ff(x) if self.normalize_before else x
-        x = residual + ff_scale * self.feed_forward(h)
+        x = residual + ff_scale * self._drop(self.feed_forward(h))
         if not self.normalize_before:
             x = self.norm_ff(x)
 
@@ -154,6 +160,8 @@ class ConformerEncoder(torch.nn.Module):
 
     def __init__(self, idim: int, attention_dim: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6,
+                 dropout_rate: float = 0.1, positional_dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0,
                  input_layer: Optional[str] = "linear", normalize_before: bool = True,
                  concat_after: bool = False, positionwise_layer_type: str = "linear",
                  macaron_style: bool = True, pos_enc_layer_type: str = "rel_pos",
@@ -161,7 +169,8 @@ class ConformerEncoder(torch.nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  conv_norm_type: str = "group_norm", zero_triu: bool = False,
                  attention_backend: str = "xla", flash_min_len: int = FLASH_MIN_LEN,
-                 compute_dtype=None, device=None, dtype=None):
+                 rel_scores_bwd: str = "auto", compute_dtype=None, device=None,
+                 dtype=None):
         super().__init__()
         if selfattention_layer_type != "rel_selfattn":
             raise NotImplementedError(
@@ -172,6 +181,7 @@ class ConformerEncoder(torch.nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.input_layer = input_layer
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         if input_layer == "linear":
             # Linear -> LN(eps 1e-5); no ReLU (conformer/encoder.py:117-122)
             self.embed = torch.nn.Sequential(
@@ -179,13 +189,14 @@ class ConformerEncoder(torch.nn.Module):
             )
         elif input_layer is not None:
             raise NotImplementedError(f"input_layer {input_layer!r} is not ported yet")
-        self.pos_enc = _make_pos_enc(pos_enc_layer_type, attention_dim)
+        self.pos_enc = _make_pos_enc(pos_enc_layer_type, attention_dim, positional_dropout_rate)
         self.encoders = torch.nn.ModuleList(
             ConformerEncoderLayer(
-                attention_dim, attention_heads, linear_units, normalize_before,
-                concat_after, positionwise_layer_type, macaron_style, use_cnn_module,
+                attention_dim, attention_heads, linear_units, dropout_rate,
+                attention_dropout_rate, normalize_before, concat_after,
+                positionwise_layer_type, macaron_style, use_cnn_module,
                 cnn_module_kernel, zero_triu, attention_backend, flash_min_len,
-                compute_dtype, **kw,
+                rel_scores_bwd, compute_dtype, **kw,
             )
             for _ in range(num_blocks)
         )
@@ -196,7 +207,7 @@ class ConformerEncoder(torch.nn.Module):
     def forward(self, xs, masks: Optional[torch.Tensor]):
         """xs: (B, T, idim); masks: (B, T) non-pad. Returns (float32 xs, masks)."""
         if self.input_layer == "linear":
-            xs = self.embed(xs)
+            xs = F.dropout(self.embed(xs), self.dropout_rate, self.training)
         xs, pos_emb = self.pos_enc(xs)
         if self.compute_dtype is not None:
             xs = xs.to(self.compute_dtype)

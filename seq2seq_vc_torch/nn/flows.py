@@ -1,11 +1,11 @@
 """VITS flows and the stochastic duration predictor (mirrors
-seq2seq_vc_tpu/nn/flows.py), inference direction.
+seq2seq_vc_tpu/nn/flows.py), both directions.
 
 Channel-last (B, T, C) as the JAX package. Module names follow the
 reference torch code (``flows.N``, ``dds.convs.i.{0,2,5,7}``, ``post_*``),
 so every weight of a trained predictor loads, including the posterior
-(``post_*``) branch that only training runs. The NLL (training) direction
-comes with the training slice.
+(``post_*``) branch that only training runs. ``inverse=False`` is the NLL
+(training) direction, which also returns each flow's log-determinant.
 """
 
 from __future__ import annotations
@@ -133,10 +133,18 @@ def piecewise_rational_quadratic_transform(
 
 
 class Flip(torch.nn.Module):
-    """Flip along channels (parameterless; keeps the reference indices)."""
+    """Flip along channels (parameterless; keeps the reference indices).
+    Its log-determinant is 0."""
 
     def forward(self, x):
         return torch.flip(x, dims=(-1,))
+
+
+def log_flow(x, x_mask, eps: float = 1e-5):
+    """Forward log flow: (log(max(x, eps)) * mask, logdet (B,)).
+    x: (B, T, C); x_mask: (B, T, 1)."""
+    y = torch.log(torch.clamp(x, min=eps)) * x_mask
+    return y, (-y).sum(dim=(1, 2))
 
 
 class ElementwiseAffineFlow(torch.nn.Module):
@@ -147,9 +155,12 @@ class ElementwiseAffineFlow(torch.nn.Module):
         self.logs = torch.nn.Parameter(torch.zeros(channels, 1, device=device, dtype=dtype))
 
     def forward(self, x, x_mask, inverse: bool = True):
+        """Inverse: x -> (x - m) / exp(logs). Forward: (y, logdet (B,))."""
+        m, logs = self.m[:, 0], self.logs[:, 0]
         if not inverse:
-            raise NotImplementedError("the NLL direction comes with the training slice")
-        return (x - self.m[:, 0]) * torch.exp(-self.logs[:, 0]) * x_mask
+            y = (m + torch.exp(logs) * x) * x_mask
+            return y, (logs * x_mask).sum(dim=(1, 2))
+        return (x - m) * torch.exp(-logs) * x_mask
 
 
 class DilatedDepthSeparableConv(torch.nn.Module):
@@ -160,9 +171,10 @@ class DilatedDepthSeparableConv(torch.nn.Module):
     """
 
     def __init__(self, channels: int, kernel_size: int, layers: int,
-                 eps: float = 1e-5, device=None, dtype=None):
+                 dropout_rate: float = 0.0, eps: float = 1e-5, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.dropout_rate = dropout_rate
         self.convs = torch.nn.ModuleList(
             torch.nn.ModuleDict({
                 "0": Conv1d(channels, channels, kernel_size, groups=channels,
@@ -181,7 +193,7 @@ class DilatedDepthSeparableConv(torch.nn.Module):
         for layer in self.convs:
             y = F.gelu(layer["2"](layer["0"](x * x_mask)), approximate="tanh")
             y = F.gelu(layer["7"](layer["5"](y)), approximate="tanh")
-            x = x + y
+            x = x + F.dropout(y, self.dropout_rate, self.training)
         return x * x_mask
 
 
@@ -204,9 +216,8 @@ class ConvFlow(torch.nn.Module):
         torch.nn.init.zeros_(self.proj.bias)
 
     def forward(self, x, x_mask, g=None, inverse: bool = True):
-        """x: (B, T, in_channels); x_mask: (B, T, 1)."""
-        if not inverse:
-            raise NotImplementedError("the NLL direction comes with the training slice")
+        """x: (B, T, in_channels); x_mask: (B, T, 1). Inverse: y. Forward:
+        (y, logdet (B,))."""
         xa, xb = x[..., : self.half], x[..., self.half:]
         h = self.dds_conv(self.input_conv(xa), x_mask, g=g)
         h = self.proj(h) * x_mask
@@ -216,10 +227,13 @@ class ConvFlow(torch.nn.Module):
         uw = h[..., : self.bins] / denom
         uh = h[..., self.bins: 2 * self.bins] / denom
         ud = h[..., 2 * self.bins:]
-        xb_t, _ = piecewise_rational_quadratic_transform(
-            xb.transpose(1, 2), uw, uh, ud, inverse=True, tail_bound=self.tail_bound
+        xb_t, logdet_abs = piecewise_rational_quadratic_transform(
+            xb.transpose(1, 2), uw, uh, ud, inverse=inverse, tail_bound=self.tail_bound
         )
-        return torch.cat([xa, xb_t.transpose(1, 2)], dim=-1) * x_mask
+        y = torch.cat([xa, xb_t.transpose(1, 2)], dim=-1) * x_mask
+        if inverse:
+            return y
+        return y, (logdet_abs.transpose(1, 2) * x_mask).sum(dim=(1, 2))
 
 
 def _flow_list(channels, kernel_size, flows, layers, **kw):
@@ -230,46 +244,93 @@ def _flow_list(channels, kernel_size, flows, layers, **kw):
     return torch.nn.ModuleList(mods)
 
 
-class StochasticDurationPredictor(torch.nn.Module):
-    """VITS stochastic duration predictor, inference (inverse) direction.
+def _standard_normal(shape, like, noise, generator):
+    """``noise`` if given, else a standard-normal draw from ``generator`` on
+    the generator's device (so one CPU generator gives the same numbers to a
+    model on the card and one on the CPU), in ``like``'s device and dtype."""
+    if noise is None:
+        noise = torch.randn(
+            *shape, generator=generator,
+            device=like.device if generator is None else generator.device,
+        )
+    return noise.to(like.device, like.dtype)
 
-    ``forward(x, x_mask, noise_scale=s, noise=z)`` -> durations (B, T) via
-    ``ceil(exp(logw))``. ``noise`` is the (B, T, 2) standard-normal draw;
-    without it one is drawn from ``generator`` on the generator's device (no
-    draw when s == 0).
+
+def _flows_forward(flows, z, mask, g):
+    """[affine, (conv, flip) x n] in order; returns (z, summed logdet (B,))."""
+    z, logdet = flows[0](z, mask, inverse=False)
+    for f in flows[1:]:
+        if isinstance(f, Flip):
+            z = f(z)
+        else:
+            z, ld = f(z, mask, g=g, inverse=False)
+            logdet = logdet + ld
+    return z, logdet
+
+
+class StochasticDurationPredictor(torch.nn.Module):
+    """VITS stochastic duration predictor.
+
+    Training: ``nll(x, x_mask, w)`` -> per-item NLL (B,) of durations ``w``.
+    Inference: ``forward(x, x_mask, noise_scale=s, noise=z)`` -> durations
+    (B, T) via ``ceil(exp(logw))``. ``noise`` is the (B, T, 2)
+    standard-normal draw (e_q in training, z in inference); without it one
+    is drawn from ``generator`` on the generator's device (no draw at
+    inference when s == 0). The DDS convs apply dropout in ``train()`` mode.
     """
 
     def __init__(self, channels: int = 192, kernel_size: int = 3, flows: int = 4,
                  dds_conv_layers: int = 3, in_channels: Optional[int] = None,
-                 device=None, dtype=None):
+                 dropout_rate: float = 0.5, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        dds = (channels, kernel_size, dds_conv_layers, dropout_rate)
         self.pre = Conv1d(in_channels or channels, channels, 1, **kw)
-        self.dds = DilatedDepthSeparableConv(channels, kernel_size, dds_conv_layers, **kw)
+        self.dds = DilatedDepthSeparableConv(*dds, **kw)
         self.proj = Conv1d(channels, channels, 1, **kw)
         self.flows = _flow_list(channels, kernel_size, flows, dds_conv_layers, **kw)
         self.post_pre = Conv1d(1, channels, 1, **kw)
-        self.post_dds = DilatedDepthSeparableConv(channels, kernel_size, dds_conv_layers, **kw)
+        self.post_dds = DilatedDepthSeparableConv(*dds, **kw)
         self.post_proj = Conv1d(channels, channels, 1, **kw)
         self.post_flows = _flow_list(channels, kernel_size, flows, dds_conv_layers, **kw)
+
+    def _condition(self, x, mask):
+        """The conditioner, with the gradient to ``x`` stopped."""
+        return self.proj(self.dds(self.pre(x.detach()), mask)) * mask
+
+    def nll(self, x, x_mask, w, noise: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None):
+        """Per-item NLL (B,) of durations ``w`` (B, T) given the
+        conditioner x (B, T, C) and x_mask (B, T) True at valid tokens
+        (seq2seq_vc_tpu/nn/flows.py:365-402)."""
+        mask = x_mask[..., None].to(x.dtype)
+        x = self._condition(x, mask)
+        w = w[..., None].to(x.dtype)
+        h_w = self.post_proj(self.post_dds(self.post_pre(w), mask)) * mask
+        e_q = _standard_normal((x.shape[0], x.shape[1], 2), x, noise, generator) * mask
+        z_q, logdet_q = _flows_forward(self.post_flows, e_q, mask, x + h_w)
+        z_u, z1 = z_q[..., :1], z_q[..., 1:]
+        u = torch.sigmoid(z_u) * mask
+        z0 = (w - u) * mask
+        logdet_q = logdet_q + ((F.logsigmoid(z_u) + F.logsigmoid(-z_u)) * mask).sum(dim=(1, 2))
+        half_log_2pi = 0.5 * math.log(2 * math.pi)
+        logq = ((-half_log_2pi - 0.5 * e_q ** 2) * mask).sum(dim=(1, 2)) - logdet_q
+        z0, logdet = log_flow(z0, mask)
+        z, ld = _flows_forward(self.flows, torch.cat([z0, z1], dim=-1), mask, x)
+        logdet = logdet + ld
+        nll = ((half_log_2pi + 0.5 * z ** 2) * mask).sum(dim=(1, 2)) - logdet
+        return nll + logq
 
     def log_durations(self, x, x_mask, noise_scale: float = 1.0,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None):
         """(B, T) log-durations: the flows run inverse from the noise."""
         mask = x_mask[..., None].to(x.dtype)
-        x = self.proj(self.dds(self.pre(x.detach()), mask)) * mask
+        x = self._condition(x, mask)
         if noise_scale == 0.0:
             z = torch.zeros(x.shape[0], x.shape[1], 2, device=x.device, dtype=x.dtype)
         else:
-            if noise is None:
-                # drawn on the generator's device, so one CPU generator gives
-                # the same noise to a model on the card and one on the CPU
-                noise = torch.randn(
-                    x.shape[0], x.shape[1], 2, generator=generator,
-                    device=x.device if generator is None else generator.device,
-                ).to(x.device, x.dtype)
-            z = noise * noise_scale
+            z = _standard_normal((x.shape[0], x.shape[1], 2), x, noise, generator) * noise_scale
         # reversed order, dropping the conv flow next to the affine (the
         # reference's "useless vflow" removal)
         conv_flows = list(self.flows)[1::2]

@@ -6,6 +6,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def relative_pe(length: int, d_model: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -25,13 +26,16 @@ def relative_pe(length: int, d_model: int, dtype=torch.float32, device=None) -> 
 
 
 class RelPositionalEncoding(torch.nn.Module):
-    """Returns (x * sqrt(d), pos_emb (1, 2T-1, d)). Inference: no dropout."""
+    """Returns (x * sqrt(d), pos_emb (1, 2T-1, d)), each through its own
+    dropout draw in ``train()`` mode, as the JAX module."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
         super().__init__()
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor):
         x = x * math.sqrt(self.d_model)
         pos_emb = relative_pe(x.shape[1], self.d_model, x.dtype, x.device)[None]
-        return x, pos_emb
+        p, on = self.dropout_rate, self.training
+        return F.dropout(x, p, on), F.dropout(pos_emb, p, on)

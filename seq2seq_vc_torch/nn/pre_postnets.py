@@ -2,12 +2,14 @@
 
 The norm is ``MaskedGroupNorm`` (eps 1e-6), the JAX package's default in
 place of the reference BatchNorm. Names follow the reference:
-``postnet.N.0`` is the conv (no bias), ``postnet.N.1`` the norm.
+``postnet.N.0`` is the conv (no bias), ``postnet.N.1`` the norm. Each
+layer's output goes through dropout (0.5 by default) in ``train()`` mode.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .conformer import MaskedGroupNorm
 from .layers import Conv1d
@@ -15,10 +17,11 @@ from .layers import Conv1d
 
 class Postnet(torch.nn.Module):
     def __init__(self, odim: int, n_layers: int = 5, n_chans: int = 512,
-                 n_filts: int = 5, use_norm: bool = True, compute_dtype=None,
-                 device=None, dtype=None):
+                 n_filts: int = 5, dropout_rate: float = 0.5, use_norm: bool = True,
+                 compute_dtype=None, device=None, dtype=None):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         kw = dict(device=device, dtype=dtype)
         layers = []
         for i in range(n_layers):
@@ -37,7 +40,8 @@ class Postnet(torch.nn.Module):
         ``mask`` (B, T) True at valid frames: invalid frames are re-zeroed
         after every layer, so each conv sees zeros past the end, as the
         reference's exact-length decode does, and the norm's statistics
-        ignore them.
+        ignore them. Training passes no mask, as the JAX package's step
+        does: there the convs and norms read the padded frames.
         """
         h = xs if self.compute_dtype is None else xs.to(self.compute_dtype)
         n = len(self.postnet)
@@ -47,6 +51,7 @@ class Postnet(torch.nn.Module):
                 h = mods[1](h, mask)
             if i != n - 1:
                 h = torch.tanh(h)
+            h = F.dropout(h, self.dropout_rate, self.training)
             if mask is not None:
                 h = torch.where(mask[..., None], h, 0.0)
         return h.to(xs.dtype)

@@ -14,32 +14,35 @@ LN_EPS = 1e-12  # the reference layer_norm.py uses eps=1e-12
 
 
 class PositionwiseFeedForward(torch.nn.Module):
-    """w_2(act(w_1(x))); inference, so no dropout."""
+    """w_2(dropout(act(w_1(x)))); the dropout acts in ``train()`` mode."""
 
-    def __init__(self, idim: int, hidden_units: int, activation: str = "relu",
-                 compute_dtype=None, device=None, dtype=None):
+    def __init__(self, idim: int, hidden_units: int, dropout_rate: float = 0.1,
+                 activation: str = "relu", compute_dtype=None, device=None, dtype=None):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype, device=device, dtype=dtype)
         self.w_1 = Linear(idim, hidden_units, **kw)
         self.w_2 = Linear(hidden_units, idim, **kw)
         self.act = F.silu if activation == "swish" else F.relu
+        self.dropout_rate = dropout_rate
 
     def forward(self, x):
-        return self.w_2(self.act(self.w_1(x)))
+        h = F.dropout(self.act(self.w_1(x)), self.dropout_rate, self.training)
+        return self.w_2(h)
 
 
-def _positionwise(kind: str, idim: int, linear_units: int, compute_dtype=None,
-                  activation: str = "relu", device=None, dtype=None):
+def _positionwise(kind: str, idim: int, linear_units: int, dropout_rate: float = 0.1,
+                  compute_dtype=None, activation: str = "relu", device=None, dtype=None):
     if kind == "linear":
         return PositionwiseFeedForward(
-            idim, linear_units, activation, compute_dtype, device=device, dtype=dtype
+            idim, linear_units, dropout_rate, activation, compute_dtype,
+            device=device, dtype=dtype,
         )
     raise NotImplementedError(f"positionwise_layer_type {kind!r} is not ported yet")
 
 
-def _make_pos_enc(kind: str, d: int):
+def _make_pos_enc(kind: str, d: int, dropout_rate: float = 0.1):
     if kind == "rel_pos":
-        return RelPositionalEncoding(d)
+        return RelPositionalEncoding(d, dropout_rate)
     raise NotImplementedError(f"pos_enc type {kind!r} is not ported yet")
 
 

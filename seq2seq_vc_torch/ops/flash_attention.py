@@ -5,7 +5,10 @@
 (T, T) scores: on a CUDA tensor it launches the Hopper kernel in
 ``csrc/rel_flash.cu``, on a CPU tensor it runs ``rel_flash_attention_plain``,
 the same function in plain PyTorch. Inference only: no dropout, no
-backward.
+backward. Under autograd with an input that requires grad it raises
+``NotImplementedError`` on every device rather than return a tensor with no
+gradient: the flash backward kernels come with the long-utterance training
+slice.
 """
 
 from __future__ import annotations
@@ -60,6 +63,15 @@ def rel_flash_attention(
         (B, H, T, D) context in the input dtype. Rows of a batch item whose
         kv_len is 0 are zeros.
     """
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q_u, q_v, k, v, pos)
+    ):
+        raise NotImplementedError(
+            "rel_flash_attention has no backward yet: the rel-pos flash backward "
+            "kernels (dq, dk/dv, dpos), with in-kernel dropout and the saved "
+            "logsumexp, come with the next port slice (long-utterance training). "
+            "Train below the flash gate (the fused path) or call under torch.no_grad()."
+        )
     B, H, T, D = q_u.shape
     _check_inputs(
         "rel_flash_attention", (q_u, q_v, k, v, pos),

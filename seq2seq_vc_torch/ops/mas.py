@@ -1,9 +1,12 @@
 """Monotonic alignment search (mirrors seq2seq_vc_tpu/ops/mas.py).
 
-A loop over mel frames in plain PyTorch, batched over items. Here it serves
-``AASVC.inference``'s debug branch with a ground-truth target; the training
-step, where it runs every batch, comes with the training slice. Same DP and
-tie-break as the JAX package: ``Q[i-1] >= Q[i]`` prefers the diagonal.
+A loop over mel frames in plain PyTorch, batched over items. It runs on
+every training step (``AASVC.forward``) and in ``AASVC.inference``'s debug
+branch with a ground-truth target. Same DP and tie-break as the JAX
+package: ``Q[i-1] >= Q[i]`` prefers the diagonal. The search reads the
+log-probs detached: the durations carry no gradient, while
+``viterbi_decode``'s binarisation loss gathers from the live tensor, so its
+gradient reaches the alignment module (seq2seq_vc_tpu/ops/mas.py:90-118).
 """
 
 from __future__ import annotations

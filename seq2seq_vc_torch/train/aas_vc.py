@@ -1,0 +1,70 @@
+"""AAS-VC trainer (mirrors seq2seq_vc_tpu/train/aas_vc.py): L1 +
+lambda_align * (forward-sum + binarisation) + the duration predictor's NLL,
+gated by ``dp_train_start_steps``.
+
+The forward-sum prior depends only on the lengths, so it is built on the
+host from the numpy batch (cached per length pair) and goes to the device
+with the batch; the CTC takes the same host lengths. Dev-sample generation
+(``generate_intermediate``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..ops.forward_sum import beta_binomial_prior, forward_sum_loss
+from .trainer import Trainer
+
+
+class AASVCTrainer(Trainer):
+    def _flags(self):
+        # whether the duration-predictor loss is active
+        return (self.steps >= self.config.get("dp_train_start_steps", 0),)
+
+    def _reduced_lengths(self, batch):
+        """Host-side replica of the model's length reductions (the prior
+        and the CTC lengths are built outside the model). The port's
+        encoder input layer is linear, which keeps the length."""
+        m = self.model
+        text_factor = m.encoder_reduction_factor * m.post_encoder_reduction_factor
+        dr = m.decoder_reduction_factor
+        ilens = batch["ilens"].astype(np.int64) // m.encoder_reduction_factor
+        ilens = ilens // m.post_encoder_reduction_factor
+        olens = batch["olens"].astype(np.int64) // dr
+        return ilens, olens, batch["xs"].shape[1] // text_factor, batch["ys"].shape[1] // dr
+
+    def _array_batch(self, batch):
+        ilens_r, olens_r, t_text, t_feats = self._reduced_lengths(batch)
+        arrays = super()._array_batch(
+            dict(batch, bb_prior=beta_binomial_prior(ilens_r, olens_r, t_text, t_feats))
+        )
+        arrays["ctc_lens"] = (ilens_r.tolist(), olens_r.tolist())
+        return arrays
+
+    def loss_fn(self, batch: Dict[str, Any], flags, generator):
+        (dp_active,) = flags
+        out = self.model(
+            batch["xs"], batch["ilens"], batch["ys"], batch["olens"],
+            batch.get("dp_inputs"), batch.get("dplens"), generator=generator,
+        )
+        metrics: Dict[str, torch.Tensor] = {}
+        loss = torch.zeros((), device=out["after_outs"].device)
+        if "L1Loss" in self.criterion:
+            l1 = self.criterion["L1Loss"](
+                out["after_outs"], out["before_outs"], out["ys"], out["olens"]
+            )
+            loss = loss + l1
+            metrics["l1_loss"] = l1
+        ilens_r, olens_r = batch["ctc_lens"]
+        fsum = forward_sum_loss(out["log_p_attn"] + batch["bb_prior"], ilens_r, olens_r)
+        bin_loss = out["bin_loss"]
+        loss = loss + self.config.get("lambda_align", 2.0) * (fsum + bin_loss)
+        metrics["forward_sum_loss"] = fsum
+        metrics["binary_loss"] = bin_loss
+        if dp_active:
+            loss = loss + out["dur_nll"]
+            metrics["duration_loss"] = out["dur_nll"]
+        return loss, metrics

@@ -1,0 +1,201 @@
+"""Step-driven trainer base (mirrors seq2seq_vc_tpu/train/trainer.py).
+
+The run loop, the train step (loss, backward, one optimizer update per
+``gradient_accumulate_steps`` micro-batches), the log, eval and save
+intervals, and checkpoints in the port's own ``torch.save`` format.
+``steps`` counts optimizer updates, as in the JAX package.
+
+Randomness: dropout draws from torch's default generators, which the
+trainer seeds from ``config["seed"]`` (PyTorch's dropout takes no
+generator argument). Every other draw of the step (the stochastic duration
+predictor's ``e_q``) comes from ``self.generator``, a CPU generator that the
+trainer owns, so that a step on the card and one on the CPU draw the same
+numbers.
+
+Metrics stay on the device until the log interval, where one sync fetches
+them all. Each log appends the interval's averages to ``history``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from collections import defaultdict
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..pipeline import resolve_device
+from .state import TrainState
+
+
+class Trainer:
+    """Base trainer. Subclasses implement ``loss_fn(batch, flags,
+    generator) -> (loss, metrics)``. Dev-sample generation at eval
+    (``generate_intermediate`` in the JAX package) is not ported yet."""
+
+    def __init__(
+        self,
+        state: TrainState,
+        criterion: Dict[str, Any],
+        config: Dict[str, Any],
+        train_loader,
+        dev_loader=None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.state = state
+        self.model = state.model.to(self.device)  # in place: the optimizer keeps its parameters
+        self.criterion = criterion
+        self.config = config
+        self.train_loader = train_loader
+        self.dev_loader = dev_loader
+        seed = int(config.get("seed", 0))
+        torch.manual_seed(seed)  # dropout (CPU and CUDA default generators)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.epochs = 0
+        self.finish_train = False
+        self.outdir = config.get("outdir", "exp")
+        self.grad_accum = int(config.get("gradient_accumulate_steps", 1) or 1)
+        self._micro_total = self.steps * self.grad_accum
+        self._pending_metrics: List[Dict[str, torch.Tensor]] = []
+        self._interval_tick = time.perf_counter()
+        self.history: List[Dict[str, float]] = []
+
+    @property
+    def steps(self) -> int:
+        return self.state.steps
+
+    # ------------------------------------------------------------------ api
+    def run(self):
+        """Train until ``config["train_max_steps"]`` optimizer updates."""
+        self._check_train_finish()
+        logging.info("training to %d steps", self.config["train_max_steps"])
+        self._interval_tick = time.perf_counter()
+        while not self.finish_train:
+            self._train_epoch()
+        logging.info("finished training (%d steps)", self.steps)
+
+    # ----------------------------------------------------------------- core
+    def loss_fn(self, batch: Dict[str, Any], flags, generator):
+        raise NotImplementedError
+
+    def _flags(self) -> Any:
+        return ()
+
+    def _array_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """numpy arrays -> tensors on the device (float32, int64)."""
+        out: Dict[str, Any] = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray):
+                t = torch.from_numpy(v)
+                t = t.float() if t.is_floating_point() else t.long()
+                out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def _train_step(self, batch: Dict[str, Any]) -> bool:
+        """One micro-batch; returns whether it completed an optimizer step."""
+        self.model.train()
+        loss, metrics = self.loss_fn(self._array_batch(batch), self._flags(), self.generator)
+        loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        self._pending_metrics.append(metrics)
+        self._micro_total += 1
+        boundary = self._micro_total % self.grad_accum == 0
+        if boundary:
+            norm = self.state.apply_gradients()
+            if norm is not None:
+                metrics["grad_norm"] = norm
+            self._check_train_finish()
+        return boundary
+
+    def _train_epoch(self):
+        for batch in self.train_loader:
+            if self._train_step(batch):
+                self._check_log_interval()
+                self._check_eval_interval()
+                self._check_save_interval()
+            if self.finish_train:
+                return
+        self.epochs += 1
+
+    # ------------------------------------------------------------ intervals
+    def _check_train_finish(self):
+        if self.steps >= self.config["train_max_steps"]:
+            self.finish_train = True
+
+    def _check_log_interval(self):
+        interval = self.config.get("log_interval_steps", 100)
+        if not (self.steps % interval == 0 and self.steps > 0 and self._pending_metrics):
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        n_micro = len(self._pending_metrics)
+        avg_t = (time.perf_counter() - self._interval_tick) / n_micro
+        total: Dict[str, float] = defaultdict(float)
+        for metrics in self._pending_metrics:
+            for k, v in metrics.items():
+                total[k] += float(v)
+        # averages over micro-batches, as the JAX package logs them
+        record = {f"train/{k}": v / n_micro for k, v in total.items()}
+        record["train/step_time_sec"] = avg_t
+        if self.device.type == "cuda":
+            record["train/peak_memory_mib"] = torch.cuda.max_memory_allocated(self.device) / 2**20
+        for k, v in record.items():
+            logging.info("(steps: %d) %s = %.4f.", self.steps, k, v)
+        self.history.append(dict(steps=self.steps, **record))
+        self._pending_metrics = []
+        self._interval_tick = time.perf_counter()
+
+    def _check_eval_interval(self):
+        interval = self.config.get("eval_interval_steps", 0)
+        if interval and self.steps % interval == 0 and self.dev_loader is not None:
+            self._eval_epoch()
+
+    def _check_save_interval(self):
+        interval = self.config.get("save_interval_steps", 0)
+        if interval and self.steps % interval == 0:
+            path = os.path.join(self.outdir, f"checkpoint-{self.steps}steps.pt")
+            self.save_checkpoint(path)
+            logging.info("saved checkpoint @ %d steps", self.steps)
+
+    # ----------------------------------------------------------------- eval
+    def evaluate(self) -> Dict[str, float]:
+        """Mean loss terms over the dev set, dropout off and no autograd
+        (a fixed generator draws the duration predictor's noise)."""
+        total: Dict[str, float] = defaultdict(float)
+        n = 0
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                for batch in self.dev_loader:
+                    gen = torch.Generator().manual_seed(1)
+                    loss, metrics = self.loss_fn(self._array_batch(batch), self._flags(), gen)
+                    total["loss"] += float(loss)
+                    for k, v in metrics.items():
+                        total[k] += float(v)
+                    n += 1
+        finally:
+            self.model.train()
+        return {k: v / max(n, 1) for k, v in total.items()}
+
+    def _eval_epoch(self):
+        result = self.evaluate()
+        for k, v in result.items():
+            logging.info("(steps: %d) dev/%s = %.4f.", self.steps, k, v)
+        self.history.append(dict(steps=self.steps, **{f"dev/{k}": v for k, v in result.items()}))
+
+    # ----------------------------------------------------------- checkpoint
+    def save_checkpoint(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(dict(self.state.state_dict(), steps=self.steps, epochs=self.epochs), path)
+
+    def load_checkpoint(self, path: str, load_only_params: bool = False):
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        self.state.load_state_dict(ckpt, load_only_params)
+        if not load_only_params:
+            self.epochs = int(ckpt["epochs"])
+            self._micro_total = self.steps * self.grad_accum

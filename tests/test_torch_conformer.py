@@ -7,7 +7,9 @@ the same numpy inputs then go through both. Each port backend (``xla``,
 the CPU as the JAX package's own tests run it (the Pallas kernels in
 interpret mode). Tolerance: float32, atol 2e-5 and rtol 1e-5 for one
 attention layer; atol 1e-4 and rtol 1e-4 for the two-layer stack, whose
-LayerNorms and softmaxes compound the reordering of float32 sums.
+LayerNorms and softmaxes compound the reordering of float32 sums. The
+forward passes run under ``torch.no_grad()``: the flash path has no
+backward yet and refuses to run under autograd.
 """
 
 import jax
@@ -60,8 +62,9 @@ def test_rel_attention_matches_jax(backend):
         "fused" if backend == "fused" else backend
     )
     xt = torch.from_numpy(x)
-    got = port(xt, xt, xt, torch.from_numpy(pos), torch.from_numpy(mask))
-    np.testing.assert_allclose(got.detach().numpy(), ref, atol=2e-5, rtol=1e-5)
+    with torch.no_grad():
+        got = port(xt, xt, xt, torch.from_numpy(pos), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=1e-5)
 
 
 def test_flash_backend_below_gate_takes_fused_path():
@@ -94,9 +97,10 @@ def test_conformer_encoder_matches_jax(backend, input_layer):
     ref, _ = jax_enc.apply(params, x, masks)
 
     port = _load(ConformerEncoder(idim, attention_backend=backend, flash_min_len=16, **cfg), params)
-    got, _ = port(torch.from_numpy(x), torch.from_numpy(masks))
+    with torch.no_grad():
+        got, _ = port(torch.from_numpy(x), torch.from_numpy(masks))
     assert got.dtype == torch.float32
     for b, n in enumerate(lens):
         np.testing.assert_allclose(
-            got[b, :n].detach().numpy(), np.asarray(ref)[b, :n], atol=1e-4, rtol=1e-4
+            got[b, :n].numpy(), np.asarray(ref)[b, :n], atol=1e-4, rtol=1e-4
         )

@@ -13,7 +13,10 @@ widened), sums of D products taken in another order: atol 1e-4, rtol 1e-5.
 Flash in float32: the same, plus the online softmax's rescaling: atol 1e-5,
 rtol 1e-5 on outputs of size ~1. Flash in bf16: the float32 result is rounded
 once to bf16 on both sides, so a value next to a rounding edge may differ by
-one bf16 ulp: atol 1e-2, rtol 1e-2.
+one bf16 ulp: atol 1e-2, rtol 1e-2. Backward (dq_v, dpos): float32 sums of
+up to B*T products in another order: atol 1e-4, rtol 1e-5 in float32; in
+bf16 the float32 result is rounded once to bf16 on both sides, so one bf16
+ulp may separate them: atol 1e-2, rtol 2^-7.
 """
 
 import numpy as np
@@ -24,7 +27,13 @@ from seq2seq_vc_torch.ops.flash_attention import (
     rel_flash_attention,
     rel_flash_attention_plain,
 )
-from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain
+from seq2seq_vc_torch.ops.rel_scores import (
+    fused_rel_scores,
+    fused_rel_scores_bwd_plain,
+    fused_rel_scores_plain,
+    rel_band_bwd,
+    rel_band_bwd_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,10 +50,10 @@ def cuda_device():
 
 @pytest.fixture
 def zero_counts():
-    fused_rel_scores.launches = 0
+    fused_rel_scores.launches = rel_band_bwd.launches = 0
     rel_flash_attention.launches = 0
     yield
-    fused_rel_scores.launches = 0
+    fused_rel_scores.launches = rel_band_bwd.launches = 0
     rel_flash_attention.launches = 0
 
 
@@ -79,6 +88,38 @@ def test_rel_flash_kernel_matches_plain(cuda_device, dtype, T, D):
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
     assert not got[2].any()  # a batch row with no keys returns zeros
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
+def test_rel_scores_bwd_kernel_matches_plain(cuda_device, dtype, T, D):
+    dt = getattr(torch, dtype)
+    qu, qv, k, _, pos = _inputs(cuda_device, dt, 3, 2, T, D, 5)
+    g = torch.from_numpy(
+        np.random.default_rng(6).standard_normal((3, 2, T, T)).astype(np.float32)
+    ).to(cuda_device)
+    got = rel_band_bwd(g, qv, pos)
+    torch.cuda.synchronize()
+    want = rel_band_bwd_plain(g, qv, pos)
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=2 ** -7)
+    for name, a, b, x in zip(("dq_v", "dpos"), got, want, (qv, pos)):
+        assert a.dtype == dt and a.shape == x.shape, name
+        np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                   err_msg=name, **tol)
+
+
+def test_autograd_on_the_card_goes_through_both_kernels(cuda_device, zero_counts):
+    qu, qv, k, _, pos = (t.requires_grad_() for t in _inputs(cuda_device, torch.float32,
+                                                               2, 2, 37, 48, 7))
+    s = fused_rel_scores(qu, qv, k, pos, bwd="banded")
+    assert s.grad_fn is not None
+    g = torch.randn_like(s)
+    s.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_rel_scores.launches, rel_band_bwd.launches) == (1, 1)
+    want = fused_rel_scores_bwd_plain(g, *(t.detach() for t in (qu, qv, k, pos)))
+    for t, w in zip((qu, qv, k, pos), want):
+        np.testing.assert_allclose(t.grad.cpu().numpy(), w.cpu().numpy(), atol=1e-4, rtol=1e-5)
 
 
 def test_each_launch_counts_once(cuda_device, zero_counts):

@@ -26,6 +26,9 @@ from seq2seq_vc_torch.ops.flash_attention import (
 )
 from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain
 from seq2seq_vc_torch.pipeline import Wav2WavConverter, resolve_device
+from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
+from seq2seq_vc_torch.train.optim import build_optimizer
+from seq2seq_vc_torch.train.state import TrainState
 from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
 
 REPO = Path(__file__).resolve().parents[1]
@@ -67,6 +70,8 @@ def test_port_imports_no_jax():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "seq2seq_vc_torch.pipeline" in got["modules"]
     assert "seq2seq_vc_torch.ops.flash_attention" in got["modules"]
+    assert {"seq2seq_vc_torch.train.trainer", "seq2seq_vc_torch.train.data",
+            "seq2seq_vc_torch.losses.forward_sum"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -81,6 +86,10 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Wav2WavConverter(port, voc, stats, stats, {})
     assert Wav2WavConverter(port, voc, stats, stats, {}, device="cpu").device.type == "cpu"
+    state = TrainState(port, build_optimizer(port.parameters()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AASVCTrainer(state, {}, {"train_max_steps": 1}, [])
+    assert AASVCTrainer(state, {}, {"train_max_steps": 1}, [], device="cpu").device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_versions(zero_counts):
