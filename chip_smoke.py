@@ -4,12 +4,16 @@
     python3 chip_smoke.py              # from the repository root; needs one card
     python3 chip_smoke.py --bwd-sweep  # only: the rel-scores backward's two
                                        # variants timed over T (the bwd="auto" gate)
+    python3 chip_smoke.py --flash-sweep  # only: one attention layer's forward +
+                                         # backward, fused route vs flash route,
+                                         # ms and memory over T (the flash gate)
 
 Phases, each printed on lines of its own:
 
 1. the card (``nvidia-smi`` name and power limit), the TF32 switches (both
    off), and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together), with each kernel's
+   registers and spills;
 2. warm-up: a full-width ``Wav2WavConverter`` (the AAS-VC flagship of
    ``egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml`` and the HiFi-GAN that
    ``bench.py`` serves) with seeded random weights serves a 3.8 s clip, a
@@ -40,13 +44,32 @@ Phases, each printed on lines of its own:
    yardstick;
 8. the training path: 3 steps at target lengths 160-512 frames (T 512) and
    2 at 480-960 (T 960), with the launch counts set to 0 just before and read
-   just after (each must equal what the routing predicts, and be above 0),
+   just after (each must equal what the routing predicts: the fused kernels
+   above 0, the flash kernels 0 below the gate),
    ms/step, peak memory, a finite loss, and before each update every
    gradient finite and every attention projection's gradient non-zero; the
    MAS loop timed alone; a profile of one step (busy share, top kernels);
 9. a reference training step: the same float32 weights and batch, dropout
    off, on the card (through both rel-scores kernels) and on the CPU
-   (through their plain versions); loss and gradients must agree.
+   (through their plain versions); loss and gradients must agree;
+10. long-utterance training: a fresh full-width flagship takes one warm-up
+   step on a B 16 batch whose sources and targets spread over
+   FLASH_MIN_LEN..FLASH_MIN_LEN+256 frames (2048-2304: 33-37 s of audio),
+   so that every conformer layer takes the flash route with dropout 0.2;
+   then the flash forward (with dropout and logsumexp) and its three
+   backward kernels against their plain versions in float32 and bfloat16 at
+   both head dims, rate 0 and 0.2, with key-length padding and a fully
+   masked batch row, and in bfloat16 at every shape the long steps give
+   them (the backward's yardstick: SDPA's forward + backward with the band
+   as a bias, beside the four kernels' forward + backward); then 3 timed
+   steps with the launch counts set to 0 just before and read just after
+   (8 of each flash kernel per step, no fused launch), ms/step, peak
+   memory, a finite loss, every gradient finite and every attention
+   projection's gradient non-zero before each update, and a profile of one
+   step;
+11. a reference training step through the flash route: as phase 9 with the
+   flash gate lowered below the batch's lengths (kernels 2, 6, 7 and 8 on
+   the card, their plain versions on the CPU).
 
 Then the ``kernels`` JSON line, the card line again, and last the result
 line. Any failed check makes the script exit with 1 without the result line;
@@ -115,20 +138,39 @@ KERNELS = {
         route="cuda", source="seq2seq_vc_torch/csrc/rel_flash.cu",
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:578",
     ),
+    "rel_flash_bwd_dq": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd.cu",
+        replaces="seq2seq_vc_tpu/ops/flash_attention.py:654",
+    ),
+    "rel_flash_bwd_dkv": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd.cu",
+        replaces="seq2seq_vc_tpu/ops/flash_attention.py:695",
+    ),
+    "rel_flash_bwd_dpos": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd.cu",
+        replaces="seq2seq_vc_tpu/ops/flash_attention.py:732",
+    ),
 }
+FLASH_BWD = ("rel_flash_bwd_dq", "rel_flash_bwd_dkv", "rel_flash_bwd_dpos")
 # what each kernel's library_ms times (a yardstick the port never calls)
 LIBRARY = {"fused_rel_scores": "no single PyTorch call",
            "rel_band_bwd": "the bwd='xla' variant in torch ops",
-           "rel_flash_attention": "SDPA with the band materialised as a bias"}
-# the kernels each main path runs (serving runs no backward)
+           "rel_flash_attention": "SDPA with the band materialised as a bias",
+           **{n: "SDPA forward + backward with the band materialised as a bias" for n in FLASH_BWD}}
+# the kernels each main path runs (serving runs no backward; training at
+# key lengths from the flash gate runs only the flash kernels)
 PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
-                "train": ("fused_rel_scores", "rel_band_bwd")}
+                "train": ("fused_rel_scores", "rel_band_bwd"),
+                "train_long": ("rel_flash_attention", *FLASH_BWD)}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
 # value next to a rounding edge may differ by one bf16 ulp (2^-7 relative).
 # Backward: float32 sums of up to B*T products in another order; in bf16
 # the float32 result is rounded once on both sides (one ulp, 2^-7 relative).
+# The flash kernels with dropout: the keep masks are the same bits on both
+# sides, so the rate changes no tolerance; the flash forward's logsumexp is
+# held with its output. The flash backward kernels as the rel-scores one.
 TOLERANCE = {
     ("fused_rel_scores", torch.float32): dict(atol=1e-4, rtol=1e-4),
     ("fused_rel_scores", torch.bfloat16): dict(atol=1e-4, rtol=1e-4),
@@ -136,6 +178,8 @@ TOLERANCE = {
     ("rel_band_bwd", torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7),
     ("rel_flash_attention", torch.float32): dict(atol=1e-4, rtol=1e-4),
     ("rel_flash_attention", torch.bfloat16): dict(atol=1e-3, rtol=1e-2),
+    **{(n, torch.float32): dict(atol=1e-4, rtol=1e-4) for n in FLASH_BWD},
+    **{(n, torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7) for n in FLASH_BWD},
 }
 REFERENCE_ATOL = 1e-3  # phase 4 waveforms, float32 on both devices
 # phase 9, one float32 training step on the card and on the CPU: the loss to
@@ -165,6 +209,7 @@ DEVICE = "cuda"  # the training path's device (a rehearsal on the CPU sets "cpu"
 # so that zero-initialised parts (flow projections, affine flows) take part
 WEIGHT_NOISE = 0.02
 KEY_PADDING = torch.ones(1, 1, 1, dtype=torch.bool)  # a (B, 1, T) mask, for routing
+LONG_SPAN = 256  # frames above the flash gate that the long-utterance batch spreads over
 
 
 def log(*args):
@@ -214,29 +259,71 @@ def kernel_inputs(B, H, T, D, dtype, seed, lens=None):
     return qu, qv, k, v, pos, lens
 
 
-def bound(name, B, H, T, D, dtype, lens):
+def bound(name, B, H, T, D, dtype, lens, lse=False):
     """(bound_ms, bound_by): each input read once, each output written once;
-    the flash kernel's work counts only the keys each batch row has."""
+    the flash kernels' work counts only the keys each batch row has."""
     e = torch.finfo(dtype).bits // 8
     table = H * (2 * T - 1) * D * e
+    qkv = B * H * T * D * e  # one (B, H, T, D) tensor
     if name == "fused_rel_scores":
-        n_bytes = 3 * B * H * T * D * e + table + B * H * T * T * 4
+        n_bytes = 3 * qkv + table + B * H * T * T * 4
         ops = 4 * B * H * T * T * D  # q_u.k and the band q_v.pos, 2 per multiply-add
     elif name == "rel_band_bwd":
         # reads g (float32), q_v and the table; writes dq_v and dpos. T*T
         # live band cells per (b, h), each in the two products
-        n_bytes = B * H * T * T * 4 + 2 * (B * H * T * D * e + table)
+        n_bytes = B * H * T * T * 4 + 2 * (qkv + table)
         ops = 4 * B * H * T * T * D
     else:
         keys = int(lens.sum())
-        n_bytes = 2 * B * H * T * D * e + 2 * H * keys * D * e + table + 4 * B + B * H * T * D * e
-        ops = 6 * H * T * keys * D  # scores, band and P.V
+        live = H * T * keys  # live scores
+        if name == "rel_flash_attention":
+            # reads q_u, q_v and k, v up to each row's keys, the table and the
+            # lengths; writes the output (and the logsumexp)
+            n_bytes = 2 * qkv + 2 * H * keys * D * e + table + 4 * B + qkv + (B * H * T * 4 if lse else 0)
+            ops = 6 * live * D  # scores, band and P.V
+        else:
+            # reads q_u, q_v, dO, k and v, the table, lse, delta and the
+            # lengths; recomputes the scores and dO.v (3 multiply-adds per live
+            # score per column), then its outputs: dq_u and dq_v, or dk and dv
+            # (2 more), or dpos (1 more)
+            outs = {"rel_flash_bwd_dq": 2 * qkv, "rel_flash_bwd_dkv": 2 * qkv,
+                    "rel_flash_bwd_dpos": table}[name]
+            n_bytes = 5 * qkv + table + 2 * B * H * T * 4 + 4 * B + outs
+            ops = 2 * live * D * (4 if name == "rel_flash_bwd_dpos" else 5)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None):
-    """One kernel against its plain version on the same card inputs."""
+_FWD_BWD = {}  # (shape, lens, rate) -> (port fwd+bwd ms, SDPA fwd+bwd ms)
+
+
+def flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate):
+    """The four flash kernels' forward + backward time, and beside it the
+    yardstick: SDPA's forward + backward with the band materialised as a
+    float bias (the port never calls SDPA). Cached per shape."""
+    from seq2seq_vc_torch.ops.flash_attention import rel_flash_attention
+    from seq2seq_vc_torch.ops.rel_scores import rel_band
+
+    key = (tuple(qu.shape), str(qu.dtype), tuple(lens.tolist()), rate)
+    if key not in _FWD_BWD:
+        T, D = qu.shape[2], qu.shape[3]
+        leaves = [t.detach().requires_grad_() for t in (qu, qv, k, v, pos)]
+        port_ms = cuda_ms(lambda: rel_flash_attention(*leaves, lens, rate, 11).backward(d_out))
+        valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        bias = (rel_band(qv, pos) / math.sqrt(D)).masked_fill(~valid, float("-inf")).to(qu.dtype)
+        q, kk, vv = leaves[0], leaves[2], leaves[3]
+        sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kk, vv, attn_mask=bias, dropout_p=rate).backward(d_out))
+        del bias, leaves
+        _FWD_BWD[key] = (port_ms, sdpa_ms)
+    return _FWD_BWD[key]
+
+
+def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
+    """One kernel against its plain version on the same card inputs.
+    ``rate``: the flash kernels' training form, with dropout at ``rate``
+    (0 included) and the forward's logsumexp; None is the serving form."""
+    from seq2seq_vc_torch.ops import flash_attention as fa
     from seq2seq_vc_torch.ops.flash_attention import (
         rel_flash_attention, rel_flash_attention_plain,
     )
@@ -246,7 +333,8 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None):
     )
 
     qu, qv, k, v, pos, lens = kernel_inputs(B, H, T, D, dtype, seed, lens)
-    library_ms = None
+    library_ms = fwd_bwd_ms = None
+    drop = (rate, seed) if rate else (0.0, None)
     if name == "fused_rel_scores":
         def kernel():
             return fused_rel_scores(qu, qv, k, pos)
@@ -266,20 +354,42 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None):
         # yardstick only: the "xla" backward variant, the dense torch ops
         # that the kernel competes with under bwd="auto"
         library_ms = cuda_ms(lambda: rel_band_bwd_xla(g, qv, pos))
-    else:
-        def kernel():
-            return rel_flash_attention(qu, qv, k, v, pos, lens)
+    elif name == "rel_flash_attention":
+        if rate is None:
+            def kernel():
+                return rel_flash_attention(qu, qv, k, v, pos, lens)
 
-        def plain():
-            return rel_flash_attention_plain(qu, qv, k, v, pos, lens)
+            def plain():
+                return rel_flash_attention_plain(qu, qv, k, v, pos, lens)
+        else:
+            def kernel():
+                return fa._fwd(qu, qv, k, v, pos, lens, *drop, need_lse=True)
+
+            def plain():
+                return rel_flash_attention_plain(qu, qv, k, v, pos, lens, *drop, return_lse=True)
 
         # yardstick only: PyTorch's fused attention with the rel-pos band
         # materialised as an additive bias (the port never calls it)
         valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
         bias = (rel_band(qv, pos) / math.sqrt(D)).masked_fill(~valid, float("-inf")).to(dtype)
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qu, k, v, attn_mask=bias))
+            qu, k, v, attn_mask=bias, dropout_p=rate or 0.0))
         del bias
+    else:
+        d_out = torch.randn(qu.shape, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed + 2)).to(dtype)
+        out, lse = rel_flash_attention_plain(qu, qv, k, v, pos, lens, *drop, return_lse=True)
+        args = (qu, qv, k, v, pos, lens, lse, fa._delta(out, d_out), d_out, *drop)
+        wrapper, plain_fn = getattr(fa, name), getattr(fa, name + "_plain")
+
+        def kernel():
+            return wrapper(*args)
+
+        def plain():
+            return plain_fn(*args)
+
+        fwd_bwd_ms, library_ms = flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate or 0.0)
+
     def flat(out):  # one float32 vector of a kernel's outputs
         return torch.cat([t.float().flatten() for t in out]) if isinstance(out, tuple) else out.float()
 
@@ -290,18 +400,25 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None):
     ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol)
     del got, want
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    bound_ms, bound_by = bound(name, B, H, T, D, dtype, lens)
+    bound_ms, bound_by = bound(name, B, H, T, D, dtype, lens, lse=rate is not None)
     row = dict(name=name, label=label, shape=(B, H, T, D), kv_lens=lens.tolist(),
-               dtype=str(dtype).split(".")[1],
+               dtype=str(dtype).split(".")[1], rate=rate,
                ok=ok, max_abs_err=err, atol=tol["atol"], rtol=tol["rtol"], ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               library=LIBRARY[name])
-    log(f"check {name} {label} B,H,T,D={B},{H},{T},{D} kv_lens={row['kv_lens']} {row['dtype']}: "
+               library=LIBRARY[name], fwd_bwd_ms=fwd_bwd_ms)
+    log(f"check {name} {label} B,H,T,D={B},{H},{T},{D} kv_lens={_short(row['kv_lens'])} "
+        f"{row['dtype']}{'' if rate is None else f' rate {rate} +lse'}: "
         f"{'ok' if ok else 'FAIL'} max_abs_err={err:.3e} (atol {tol['atol']}, rtol "
         f"{tol['rtol']}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={'none' if library_ms is None else f'{library_ms:.4f}'} ({LIBRARY[name]}) "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        f"bound_ms={bound_ms:.4f} ({bound_by})"
+        + ("" if fwd_bwd_ms is None else f"; the four kernels' forward + backward {fwd_bwd_ms:.4f} ms"))
     return row
+
+
+def _short(lens):
+    """Key lengths for a log line: all of them, or their range if many."""
+    return lens if len(lens) <= 4 else f"{len(lens)} in [{min(lens)}, {max(lens)}]"
 
 
 # ------------------------------------------------------------- main path
@@ -421,11 +538,12 @@ def profile_request(conv, request, latency_ms):
 
 def kernel_wrappers():
     """The kernel wrappers of the main path, by name; each counts its launches."""
-    from seq2seq_vc_torch.ops.flash_attention import rel_flash_attention
+    from seq2seq_vc_torch.ops import flash_attention as fa
     from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, rel_band_bwd
 
     return {"fused_rel_scores": fused_rel_scores, "rel_band_bwd": rel_band_bwd,
-            "rel_flash_attention": rel_flash_attention}
+            "rel_flash_attention": fa.rel_flash_attention,
+            **{name: getattr(fa, name) for name in FLASH_BWD}}
 
 
 def launch_counts():
@@ -544,21 +662,32 @@ def corpus_loader(root: Path, lens, seed: int):
 
 def train_calls(model, batch):
     """The kernel launches one training step on ``batch`` makes: (kernel
-    name, B, H, T, D) for each fused forward and each banded backward, from
-    each layer's routing and its ``bwd`` variant at the padded lengths."""
+    name, B, H, T, D, key lengths) for each fused forward and each banded
+    backward, and for each flash forward and its three backward kernels,
+    from each layer's routing and its ``bwd`` variant at the padded
+    lengths (the fused kernels take no key lengths: all T there)."""
     from seq2seq_vc_torch.ops.rel_scores import resolve_bwd
 
     B = len(batch["ilens"])
+    m = model
     calls = []
-    for stack, T in ((model.encoder, batch["xs"].shape[1] // model.encoder_reduction_factor),
-                     (model.decoder, batch["ys"].shape[1] // model.decoder_reduction_factor)):
+    for stack, T, lens in (
+        (m.encoder, batch["xs"].shape[1] // m.encoder_reduction_factor,
+         batch["ilens"] // m.encoder_reduction_factor),
+        (m.decoder, batch["ys"].shape[1] // m.decoder_reduction_factor,
+         batch["olens"] // m.decoder_reduction_factor),
+    ):
+        lens = tuple(int(n) for n in lens)
         for layer in stack.encoders:
             att = layer.self_attn
-            if att.route(T, T, 2 * T - 1, KEY_PADDING) != "fused":
-                continue
-            calls.append(("fused_rel_scores", B, att.n_head, T, att.d_k))
-            if resolve_bwd(att.rel_scores_bwd, T) == "banded":
-                calls.append(("rel_band_bwd", B, att.n_head, T, att.d_k))
+            shape = (B, att.n_head, T, att.d_k)
+            path = att.route(T, T, 2 * T - 1, KEY_PADDING)
+            if path == "flash":
+                calls += [(n, *shape, lens) for n in PATH_KERNELS["train_long"]]
+            elif path == "fused":
+                calls.append(("fused_rel_scores", *shape, (T,) * B))
+                if resolve_bwd(att.rel_scores_bwd, T) == "banded":
+                    calls.append(("rel_band_bwd", *shape, (T,) * B))
     return calls
 
 
@@ -617,9 +746,10 @@ def time_mas(batch, label: str):
     return ms
 
 
-def profile_step(state, loader, step_ms: float, label: str):
+def profile_step(state, loader, step_ms: float, label: str,
+                 port_kernels=("rel_scores_fwd_kernel", "rel_scores_bwd_kernel")):
     """Device time by kernel over one training step (torch.profiler),
-    beside the untraced step time."""
+    beside the untraced step time; ``port_kernels`` are summed by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -631,8 +761,7 @@ def profile_step(state, loader, step_ms: float, label: str):
     if busy == 0:
         log("profile train step: the trace holds no device time: not measured")
         return
-    port = {n: round(sum(ms for k, ms, _ in kernels if n in k), 3)
-            for n in ("rel_scores_fwd_kernel", "rel_scores_bwd_kernel")}
+    port = {n: round(sum(ms for k, ms, _ in kernels if n in k), 3) for n in port_kernels}
     log(f"profile train step ({label}): device busy {busy:.3f} ms in "
         f"kernels; untraced step {step_ms:.1f} ms, so busy share {busy / step_ms:.3f}; "
         f"port kernels (ms) {port}")
@@ -640,14 +769,18 @@ def profile_step(state, loader, step_ms: float, label: str):
         log(f"  {ms:9.3f} ms {ms / busy:6.1%} x{n:<5d} {key[:100]}")
 
 
-def reference_step(seed: int):
+def reference_step(seed: int, path: str = "train"):
     """One float32 training step's loss and gradients, from the same
-    weights and batch, on the card (through kernels 1 and 3) and on the CPU
-    (through their plain versions), dropout off. The trainer's own CPU
-    generator draws the duration predictor's e_q, the same on both."""
+    weights and batch, on the card (through the kernels of ``path``) and on
+    the CPU (through their plain versions), dropout off. ``path`` "train":
+    the fused route (kernels 1 and 3); "train_long": the flash gate lowered
+    below the batch's lengths, so that every layer takes the flash route
+    (kernels 2, 6, 7 and 8). The trainer's own CPU generator draws the
+    duration predictor's e_q, the same on both."""
     from seq2seq_vc_torch.train.data import NARVCCollater
 
-    model = flagship(seed, compute_dtype="float32", rel_scores_bwd="banded", **NO_DROPOUT)
+    route = {"train": dict(rel_scores_bwd="banded"), "train_long": dict(flash_min_len=64)}[path]
+    model = flagship(seed, compute_dtype="float32", **route, **NO_DROPOUT)
     collater = NARVCCollater(PAD_MULTIPLE, 1, FLAGSHIP["post_encoder_reduction_factor"], 1)
     batch = collater(feature_items([(128, 128), (100, 112)], seed))
     runs = {}
@@ -687,9 +820,11 @@ def reference_step(seed: int):
         tol = FLIP_RTOL if part == "alignment" and any(flips.values()) else GRAD_RTOL
         if not (torch.isfinite(a).all() and rel <= tol):
             failures.append(f"reference step {name}: gradient error {rel:.3e} of its largest")
-    if not all(ca[n] for n in PATH_KERNELS["train"]) or any(cb.values()):
+    others = set(KERNELS) - set(PATH_KERNELS[path])
+    if not all(ca[n] for n in PATH_KERNELS[path]) or any(ca[n] for n in others) or any(cb.values()):
         failures.append(f"reference step launches: card {ca}, cpu {cb}")
-    log(f"reference float32 train step (B 2, T 128, dropout off, same e_q): loss card {la:.6f} "
+    log(f"reference float32 train step, {path} route (B 2, T 128, dropout off, same e_q): "
+        f"loss card {la:.6f} "
         f"cpu {lb:.6f}; terms card {ma} cpu {mb}; {len(gb)} gradient tensors, worst error of "
         f"a tensor's largest: {worst} (rtol {GRAD_RTOL}; alignment module {FLIP_RTOL} if a "
         f"ReLU flipped); alignment ReLU inputs on opposite sides of 0 (cpu values): {flips}; "
@@ -718,10 +853,9 @@ def train_path(rows):
             for dtype in (torch.float32, torch.bfloat16):
                 rows.append(check_kernel("rel_band_bwd", 2, 2, T, D, dtype, seed=T + D,
                                          label="head-dim"))
-        for name, *shape in sorted({c for cs in calls.values() for c in cs}):
-            B, H, T, D = shape
+        for name, B, H, T, D, lens in sorted({c for cs in calls.values() for c in cs}):
             rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D,
-                                     label="main-path", lens=[T] * B))
+                                     label="main-path", lens=list(lens)))
 
         log("training main path: 3 steps at T 512, then 2 at T 960")
         notes, handle, n_att = watch_grads(state)
@@ -738,11 +872,9 @@ def train_path(rows):
         log(f"training: ms/step {step_ms}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, "
             f"expected from the routing {expected}")
-        for name in PATH_KERNELS["train"]:
-            if launches[name] == 0 or launches[name] != expected[name]:
+        for name in KERNELS:
+            if launches[name] != expected[name] or (launches[name] == 0 and name in PATH_KERNELS["train"]):
                 failures.append(f"train {name}: {launches[name]} launches, expected {expected[name]}")
-        if launches["rel_flash_attention"]:
-            failures.append("train: the flash kernel ran on the training path")
         losses = [h["train/loss"] for t in (short, long_) for h in t.history]
         if not all(math.isfinite(x) for x in losses):
             failures.append(f"train: loss not finite: {losses}")
@@ -757,6 +889,86 @@ def train_path(rows):
         time_mas(batches[960], "T960")
         profile_step(state, loaders[512], step_ms[512], f"B{BATCH}, T 512")
     failures += reference_step(seed=4)
+    return failures, launches
+
+
+def long_lens(seed: int):
+    """BATCH (source, target) frame counts over [FLASH_MIN_LEN, FLASH_MIN_LEN
+    + LONG_SPAN] (2048-2304 frames: 33-37 s of 16 kHz audio at hop 256):
+    targets spread evenly, sources the same lengths shuffled, so that both
+    stacks pad to the top of the range and cross the flash gate."""
+    from seq2seq_vc_torch.nn.attention import FLASH_MIN_LEN
+
+    trg = np.linspace(FLASH_MIN_LEN, FLASH_MIN_LEN + LONG_SPAN, BATCH).round().astype(int)
+    src = np.random.default_rng(seed).permutation(trg)
+    return list(zip(src.tolist(), trg.tolist()))
+
+
+def train_long_path(rows):
+    """Phases 10-11: long-utterance training through the flash kernels.
+    Appends the kernel checks to ``rows``; returns (failures, launches of
+    the timed steps, by kernel)."""
+    failures = []
+    tmp = REPO / "build"
+    tmp.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp, prefix="chip_smoke_long_") as root:
+        loader = corpus_loader(Path(root), long_lens(seed=6), seed=6)
+        batch = next(iter(loader))
+        state = train_state(flagship(seed=5).to(DEVICE))
+        label = f"T{batch['xs'].shape[1]}/{batch['ys'].shape[1]}"
+        log(f"long-utterance training: AASVCTrainer, flagship at full width (bf16, dropout 0.2), "
+            f"B{BATCH}; sources {sorted(batch['ilens'].tolist())}, targets "
+            f"{sorted(batch['olens'].tolist())} frames, padded (xs, ys) "
+            f"{batch['xs'].shape}, {batch['ys'].shape}")
+        log("long training warm-up: one step")
+        train_steps(state, loader, 1, "long warm-up")
+
+        calls = train_calls(state.model, batch)
+        for D, T in ((192, 640), (768, 1300)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for rate in (0.0, 0.2):
+                    for name in PATH_KERNELS["train_long"]:
+                        rows.append(check_kernel(name, 3, 2, T, D, dtype, seed=T + D,
+                                                 label="head-dim", lens=[T, 2 * T // 3, 0],
+                                                 rate=rate))
+        for name, B, H, T, D, lens in sorted(set(calls)):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D,
+                                     label="main-path", lens=list(lens), rate=0.2))
+
+        log(f"long training main path: 3 steps at {label}")
+        notes, handle, n_att = watch_grads(state)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trainer = train_steps(state, loader, 3, label)
+        launches = launch_counts()
+        handle.remove()
+        expected = {n: 3 * sum(c[0] == n for c in calls) for n in KERNELS}
+        step_ms = [h["train/step_time_sec"] * 1e3 for h in trainer.history]
+        log(f"long training: ms/step {[round(x, 1) for x in step_ms]} (mean "
+            f"{np.mean(step_ms):.1f}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, "
+            f"expected from the routing {expected}")
+        for name in KERNELS:
+            want = expected[name]
+            if launches[name] != want or (launches[name] == 0 and name in PATH_KERNELS["train_long"]):
+                failures.append(f"train_long {name}: {launches[name]} launches, expected {want}")
+        if any(expected[n] != 3 * 8 for n in PATH_KERNELS["train_long"]):
+            failures.append(f"train_long: the routing does not put all 8 layers on flash: {expected}")
+        losses = [h["train/loss"] for h in trainer.history]
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"train_long: loss not finite: {losses}")
+        finite = [bool(f) for f, _ in notes]
+        att_min = [float(m) for _, m in notes]
+        log(f"long training gradients per step: all finite {finite}; smallest norm among the "
+            f"{n_att} attention projections' weight gradients {att_min}")
+        if len(notes) != 3 or not all(finite) or not all(m > 0 for m in att_min):
+            failures.append(f"train_long: gradients finite {finite}, attention grad norms {att_min}")
+        profile_step(state, loader, float(np.mean(step_ms)), f"B{BATCH}, {label}",
+                     port_kernels=("rel_flash_fwd_kernel", "rel_flash_bwd_dq_kernel",
+                                   "rel_flash_bwd_dkv_kernel", "rel_flash_bwd_dpos_kernel",
+                                   "rel_flash_bwd_dpos_sum_kernel"))
+        del state, trainer
+    failures += reference_step(seed=8, path="train_long")
     return failures, launches
 
 
@@ -779,15 +991,74 @@ def bwd_sweep() -> int:
     return 0
 
 
+def sweep_layer(route: str, T: int, D: int, seed: int):
+    """One conformer self-attention layer of the flagship (2 heads of D,
+    bf16 compute, attention dropout 0.2) in train() mode, routed to
+    ``route``, with a B 16 batch of key lengths spread over [T/2, T]:
+    returns (module, inputs, output cotangent)."""
+    from seq2seq_vc_torch.nn.attention import RelPositionMultiHeadedAttention
+    from seq2seq_vc_torch.nn.positional_encoding import relative_pe
+
+    torch.manual_seed(seed)
+    n_feat, B = 2 * D, 16
+    att = RelPositionMultiHeadedAttention(
+        2, n_feat, dropout_rate=0.2, backend=route, flash_min_len=0,
+        compute_dtype=torch.bfloat16, rel_scores_bwd="auto", device="cuda").train()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, T, n_feat, device="cuda", generator=g).requires_grad_()
+    pos = relative_pe(T, n_feat).to("cuda")[None]
+    lens = torch.linspace(T // 2, T, B, device="cuda").long()
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, :]
+    assert att.route(T, T, 2 * T - 1, mask) == route
+    dy = torch.randn(B, T, n_feat, device="cuda", generator=g)
+    return att, (x, x, x, pos, mask), dy
+
+
+def flash_sweep() -> int:
+    """One attention layer's forward + backward at B 16, H 2, bf16, through
+    the fused route and the flash route, over key lengths T at the
+    encoder's and the decoder's head dims: each one's ms (CUDA events) and
+    its peak device memory above what the inputs hold (the data for
+    ``FLASH_MIN_LEN``)."""
+    log(f"card: {card_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for D in (192, 768):
+        for T in (1024, 1536, 2048, 2560, 3072, 4096):
+            res = {}
+            for route in ("fused", "flash"):
+                att, inputs, dy = sweep_layer(route, T, D, seed=T + D)
+
+                def step():
+                    att(*inputs).backward(dy)
+
+                step()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step()
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                res[route] = (cuda_ms(step, min_total_ms=300, max_iters=10), peak)
+                del att, inputs, dy
+                torch.cuda.empty_cache()
+            (f_ms, f_gib), (l_ms, l_gib) = res["fused"], res["flash"]
+            log(f"flash sweep B16 H2 T{T} D{D} bf16 fwd+bwd: fused {f_ms:.3f} ms "
+                f"{f_gib:.3f} GiB, flash {l_ms:.3f} ms {l_gib:.3f} GiB; "
+                f"{'flash' if l_ms < f_ms else 'fused'} faster")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, str(REPO))
     from seq2seq_vc_torch.ops import native
 
-    if sys.argv[1:] == ["--bwd-sweep"]:
+    sweeps = {"--bwd-sweep": bwd_sweep, "--flash-sweep": flash_sweep}
+    if sys.argv[1:2] and sys.argv[1] in sweeps:
         native.build()
-        return bwd_sweep()
+        return sweeps[sys.argv[1]]()
     from seq2seq_vc_torch.pipeline import Wav2WavConverter
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -852,6 +1123,9 @@ def main() -> int:
         del conv, model, vocoder
 
     fails, launches["train"] = train_path(rows)
+    failures += fails
+    torch.cuda.empty_cache()
+    fails, launches["train_long"] = train_long_path(rows)
     failures += fails
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]

@@ -1,12 +1,21 @@
-// Relative-position flash attention, forward (new-style rel-pos, no dropout).
+// Relative-position flash attention, forward (new-style rel-pos), with
+// in-kernel attention dropout and the saved logsumexp.
 //
 // Replaces the TPU kernel `_rel_fwd_kernel` of
 // seq2seq_vc_tpu/ops/flash_attention.py (launched by `_rel_core.fwd_impl`,
-// entry `rel_flash_attention`) on the inference path: dropout rate 0,
-// legacy=False, no logsumexp (there is no backward here).
+// entry `rel_flash_attention`), legacy=False:
 //
 //   s[i, j] = (q_u[i] . k[j] + q_v[i] . pos[h, T-1-i+j]) * scale,  j < kv_len[b]
-//   out[i]  = softmax_j(s[i, :]) @ v
+//   p[i, j] = softmax_j(s[i, :])
+//   out[i]  = sum_j keep(i, j) * p[i, j] / (1 - rate) * v[j]
+//   lse[i]  = logsumexp_j s[i, :]   (-1e30 for a row with no live key)
+//
+// Dropout acts on the normalised weights: the row sum is taken before the
+// drop, and keep(i, j) is the shared hash of csrc/common.cuh, a pure
+// function of (seed, b*H+h, i, j) with the JAX package's padded length
+// t_pad = round_up(T, 128) in the index (not this kernel's tiles), so the
+// backward kernels of csrc/rel_flash_bwd.cu draw the same mask. Rate 0 and
+// no lse output (lse == nullptr) is the serving path.
 //
 // One block owns BM = 16 query rows and walks the keys in tiles of BN = 64,
 // stopping at the batch row's kv_len (keys past it carry no weight). Each
@@ -23,7 +32,9 @@
 // against ~4*T*D inputs read once, so at the main path's shapes the card's
 // tensor-core rate would make it bound by operations. This first version
 // multiplies on the CUDA cores in float FMA, so it is bound by FMA issue and
-// shared-memory reads; tensor cores (mma/wgmma) are later work.
+// shared-memory reads; tensor cores (mma/wgmma) are later work. The dropout
+// hash adds ~10 integer operations per score, against 2*D+ multiply-adds;
+// it is compiled in only where the rate is above 0.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -41,12 +52,17 @@ constexpr float kNegInf = -1e30f;  // finite, as the TPU kernel's _NEG_INF
 using s2s::from_f;
 using s2s::to_f;
 
-template <typename T, int NC>
+// DROPOUT and LSE are template parameters so that the serving path (rate 0,
+// no logsumexp) compiles to the kernel without them: the logsumexp epilogue
+// alone, as a runtime branch, made the D = 768 serving launch 1.6x slower
+// on an H100.
+template <typename T, int NC, bool DROPOUT, bool LSE>
 __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ pos,
-    const int* __restrict__ kv_lens, T* __restrict__ out, int H, int L, int D,
-    float scale) {
+    const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
+    int H, int L, int D, float scale, float rate, float keep_scale, unsigned seed,
+    int t_pad) {
   __shared__ float s_qu[BM * LDS];
   __shared__ float s_qv[BM * LDS];
   __shared__ float s_k[BN * LDS];
@@ -138,8 +154,13 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
     for (int b = 0; b < 4; ++b) {
       const int jl = tx + 16 * b;
       const float p = (j0 + jl < kv_len) ? expf(sv[b] - m_new) : 0.f;
-      s_prob[ty][jl] = p;
-      psum += p;
+      psum += p;  // the row sum is taken before the drop
+      if constexpr (DROPOUT) {
+        s_prob[ty][jl] =
+            s2s::dropout_keep(seed, bh, i0 + ty, j0 + jl, t_pad, rate) ? p * keep_scale : 0.f;
+      } else {
+        s_prob[ty][jl] = p;
+      }
     }
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
@@ -167,7 +188,14 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
     __syncthreads();
   }
 
-  if (tx == 0) s_row[ty] = l_run;
+  if (tx == 0) {
+    s_row[ty] = l_run;
+    if constexpr (LSE) {
+      if (i0 + ty < L)
+        lse[(size_t)bh * L + i0 + ty] =
+            l_run > 0.f ? m_run + logf(fmaxf(l_run, 1e-37f)) : kNegInf;
+    }
+  }
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < NC; ++m) {
@@ -184,48 +212,70 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
   }
 }
 
-template <typename T, int NC>
-cudaError_t launch_nc(const void* qu, const void* qv, const void* k, const void* v,
-                      const void* pos, const int* kv_lens, void* out, int BH, int H,
-                      int L, int D, float scale, cudaStream_t stream) {
-  const dim3 grid((L + BM - 1) / BM, BH);
-  rel_flash_fwd_kernel<T, NC><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(qu), static_cast<const T*>(qv), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(pos), kv_lens,
-      static_cast<T*>(out), H, L, D, scale);
+struct Args {
+  const void *qu, *qv, *k, *v, *pos;
+  const int* kv_lens;
+  void* out;
+  float* lse;
+  int BH, H, L, D;
+  float scale, rate, keep_scale;
+  unsigned seed;
+  int t_pad;
+};
+
+template <typename T, int NC, bool DROPOUT, bool LSE>
+cudaError_t launch_variant(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.L + BM - 1) / BM, a.BH);
+  rel_flash_fwd_kernel<T, NC, DROPOUT, LSE><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(a.qu), static_cast<const T*>(a.qv), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.pos), a.kv_lens,
+      static_cast<T*>(a.out), a.lse, a.H, a.L, a.D, a.scale, a.rate, a.keep_scale, a.seed,
+      a.t_pad);
   return cudaGetLastError();
 }
 
+template <typename T, int NC>
+cudaError_t launch_nc(const Args& a, cudaStream_t stream) {
+  if (a.lse == nullptr)
+    return a.rate > 0.f ? launch_variant<T, NC, true, false>(a, stream)
+                        : launch_variant<T, NC, false, false>(a, stream);
+  return a.rate > 0.f ? launch_variant<T, NC, true, true>(a, stream)
+                      : launch_variant<T, NC, false, true>(a, stream);
+}
+
 template <typename T>
-cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v,
-                   const void* pos, const int* kv_lens, void* out, int BH, int H,
-                   int L, int D, float scale, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   // NC = output columns per thread: D <= 256 * NC
-  if (D <= NT) return launch_nc<T, 1>(qu, qv, k, v, pos, kv_lens, out, BH, H, L, D, scale, stream);
-  if (D <= 2 * NT) return launch_nc<T, 2>(qu, qv, k, v, pos, kv_lens, out, BH, H, L, D, scale, stream);
-  if (D <= 3 * NT) return launch_nc<T, 3>(qu, qv, k, v, pos, kv_lens, out, BH, H, L, D, scale, stream);
-  if (D <= 4 * NT) return launch_nc<T, 4>(qu, qv, k, v, pos, kv_lens, out, BH, H, L, D, scale, stream);
+  if (a.D <= NT) return launch_nc<T, 1>(a, stream);
+  if (a.D <= 2 * NT) return launch_nc<T, 2>(a, stream);
+  if (a.D <= 3 * NT) return launch_nc<T, 3>(a, stream);
+  if (a.D <= 4 * NT) return launch_nc<T, 4>(a, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q_u, q_v, k, v: (BH, L, D) contiguous; pos: (H, 2L-1, D); kv_lens: (BH/H,)
-// int32 on the device; out: (BH, L, D) in the input type. D <= 1024.
-// Returns the launch's cudaError_t (0 = launched).
+// int32 on the device; out: (BH, L, D) in the input type; lse: (BH, L)
+// float32, or null for none. D <= 1024. Dropout: rate in [0, 1) (0: none),
+// keep_scale = 1/(1-rate) in float32, the seed, and t_pad = round_up(L, 128)
+// for the hash index. Returns the launch's cudaError_t (0 = launched).
 extern "C" int rel_flash_fwd(int dtype, const void* qu, const void* qv,
                              const void* k, const void* v, const void* pos,
-                             const void* kv_lens, void* out, int BH, int H, int L,
-                             int D, float scale, void* stream) {
-  if (BH <= 0 || H <= 0 || L <= 0 || D <= 0 || BH % H != 0 || BH > 65535)
+                             const void* kv_lens, void* out, void* lse, int BH, int H,
+                             int L, int D, float scale, float rate, float keep_scale,
+                             unsigned seed, int t_pad, void* stream) {
+  if (BH <= 0 || H <= 0 || L <= 0 || D <= 0 || BH % H != 0 || BH > 65535 || t_pad < L ||
+      rate < 0.f || rate >= 1.f)
     return cudaErrorInvalidValue;
+  const Args a{qu, qv, k, v, pos, static_cast<const int*>(kv_lens), out,
+               static_cast<float*>(lse), BH, H, L, D, scale, rate, keep_scale, seed, t_pad};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(kv_lens);
   switch (dtype) {
     case s2s::kFloat32:
-      return launch<float>(qu, qv, k, v, pos, lens, out, BH, H, L, D, scale, s);
+      return launch<float>(a, s);
     case s2s::kBFloat16:
-      return launch<__nv_bfloat16>(qu, qv, k, v, pos, lens, out, BH, H, L, D, scale, s);
+      return launch<__nv_bfloat16>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -4,9 +4,11 @@ seq2seq_vc_tpu/nn/attention.py:173-400).
 Backends keep the JAX package's names: ``xla`` (dense PyTorch ops),
 ``fused`` (the fused rel-scores kernel, dense softmax and AV; its backward
 is the variant ``rel_scores_bwd`` names) and ``flash`` (the rel-pos flash
-kernel at key lengths >= ``flash_min_len``, the fused path below it). The
-flash kernel has no backward yet, so a training step that reaches it
-raises. Attention dropout acts on the softmax weights in ``train()`` mode.
+kernels at key lengths >= ``flash_min_len``, forward and backward, the
+fused path below it). Attention dropout acts on the softmax weights in
+``train()`` mode: on the flash path inside the kernels, from one seed per
+call drawn from torch's default CPU generator (which the trainer seeds), as
+the JAX package draws one from its dropout rng.
 """
 
 from __future__ import annotations
@@ -21,11 +23,16 @@ from ..ops.flash_attention import rel_flash_attention
 from ..ops.rel_scores import fused_rel_scores
 from .layers import Linear
 
-# Key length from which the `flash` backend takes the flash kernel. The
-# value is PROVISIONAL and unmeasured on the H100: it is not the TPU's
-# FLASH_MIN_LEN (3072), which was tuned to TPU limits. Below it the `flash`
-# backend takes the fused-scores kernel.
+# Key length from which the `flash` backend takes the flash kernels, in
+# training and inference. PROVISIONAL: it is not the TPU's FLASH_MIN_LEN
+# (3072), which was tuned to TPU limits. `python3 chip_smoke.py
+# --flash-sweep` times one layer's forward + backward through both routes
+# on an H100 (PERF.md); the gate stays here until both routes' CUDA-core
+# kernels are redesigned, and is re-set from that sweep then. Below it the
+# `flash` backend takes the fused-scores kernel.
 FLASH_MIN_LEN = 2048
+# dropout seeds are drawn in [0, SEED_HIGH), as the JAX package draws them
+SEED_HIGH = 2**31 - 1
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -115,16 +122,14 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
 
         path = self.route(query.shape[1], key.shape[1], pos_emb.shape[1], mask)
         if path == "flash":
-            if self.training and self.dropout_rate > 0:
-                raise NotImplementedError(
-                    "attention dropout in the flash kernel comes with the next port "
-                    "slice; train below the flash gate or with attention dropout 0"
-                )
             kv_lens = None
             if mask is not None:
                 m2 = mask if mask.dim() == 2 else mask[:, 0, :]
                 kv_lens = m2.sum(-1).to(torch.int32)
-            out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=kv_lens)
+            rate = float(self.dropout_rate) if self.training else 0.0
+            seed = int(torch.randint(0, SEED_HIGH, ())) if rate > 0.0 else None
+            out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=kv_lens,
+                                      dropout_rate=rate, dropout_seed=seed)
             return self.linear_out(_merge_heads(out))
         if path == "fused":
             scores = fused_rel_scores(q_u, q_v, k, p[0], bwd=self.rel_scores_bwd)

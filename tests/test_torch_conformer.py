@@ -8,8 +8,8 @@ the CPU as the JAX package's own tests run it (the Pallas kernels in
 interpret mode). Tolerance: float32, atol 2e-5 and rtol 1e-5 for one
 attention layer; atol 1e-4 and rtol 1e-4 for the two-layer stack, whose
 LayerNorms and softmaxes compound the reordering of float32 sums. The
-forward passes run under ``torch.no_grad()``: the flash path has no
-backward yet and refuses to run under autograd.
+forward passes run under ``torch.no_grad()`` (the flash route's backward is
+tested in tests/test_torch_rel_flash_bwd.py).
 """
 
 import jax

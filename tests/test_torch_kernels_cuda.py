@@ -16,16 +16,26 @@ once to bf16 on both sides, so a value next to a rounding edge may differ by
 one bf16 ulp: atol 1e-2, rtol 1e-2. Backward (dq_v, dpos): float32 sums of
 up to B*T products in another order: atol 1e-4, rtol 1e-5 in float32; in
 bf16 the float32 result is rounded once to bf16 on both sides, so one bf16
-ulp may separate them: atol 1e-2, rtol 2^-7.
+ulp may separate them: atol 1e-2, rtol 2^-7. The flash backward kernels
+(dq_u, dq_v, dk, dv, dpos) and the logsumexp: float32 sums of up to B*T
+products in another order: atol 1e-4, rtol 1e-4 in float32; in bf16 one
+rounding of the float32 result on both sides: atol 1e-2, rtol 2^-7. The
+dropout masks are the same bits on both sides, so the rate does not change
+a tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from seq2seq_vc_torch.ops import flash_attention as fa
 from seq2seq_vc_torch.ops.flash_attention import (
     rel_flash_attention,
+    rel_flash_attention_bwd_plain,
     rel_flash_attention_plain,
+    rel_flash_bwd_dkv,
+    rel_flash_bwd_dpos,
+    rel_flash_bwd_dq,
 )
 from seq2seq_vc_torch.ops.rel_scores import (
     fused_rel_scores,
@@ -48,13 +58,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+COUNTED = (fused_rel_scores, rel_band_bwd, rel_flash_attention, rel_flash_bwd_dq,
+           rel_flash_bwd_dkv, rel_flash_bwd_dpos)
+BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=1e-2, rtol=2 ** -7)}
+
+
 @pytest.fixture
 def zero_counts():
-    fused_rel_scores.launches = rel_band_bwd.launches = 0
-    rel_flash_attention.launches = 0
+    for fn in COUNTED:
+        fn.launches = 0
     yield
-    fused_rel_scores.launches = rel_band_bwd.launches = 0
-    rel_flash_attention.launches = 0
+    for fn in COUNTED:
+        fn.launches = 0
 
 
 def _inputs(device, dtype, B, H, T, D, seed):
@@ -138,3 +153,64 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     big = [t.new_zeros(1, 2, 4, 1040) for t in (qu, qv, k, v)]
     with pytest.raises(ValueError, match="head dim"):
         rel_flash_attention(*big, pos.new_zeros(2, 7, 1040))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", SHAPES)
+def test_rel_flash_dropout_and_lse_match_plain(cuda_device, rate, dtype, T, D):
+    dt = getattr(torch, dtype)
+    qu, qv, k, v, pos = _inputs(cuda_device, dt, 3, 2, T, D, 8)
+    lens = torch.tensor([T, T // 3, 0], dtype=torch.int32, device=cuda_device)
+    out, lse = fa._fwd(qu, qv, k, v, pos, lens, rate, 99, need_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = rel_flash_attention_plain(qu, qv, k, v, pos, lens, rate, 99, return_lse=True)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-4)
+    assert not out[2].any() and (lse[2] == fa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
+def test_rel_flash_bwd_kernels_match_plain(cuda_device, rate, dtype, T, D):
+    dt = getattr(torch, dtype)
+    qu, qv, k, v, pos = _inputs(cuda_device, dt, 3, 2, T, D, 9)
+    lens = torch.tensor([T, T // 3, 0], dtype=torch.int32, device=cuda_device)
+    d_out = torch.randn(qu.shape, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(1)).to(dt)
+    out, lse = rel_flash_attention_plain(qu, qv, k, v, pos, lens, rate, 5, return_lse=True)
+    args = (qu, qv, k, v, pos, lens, lse, fa._delta(out, d_out), d_out, rate, 5)
+    for kernel, plain, names in (
+        (rel_flash_bwd_dq, fa.rel_flash_bwd_dq_plain, ("dq_u", "dq_v")),
+        (rel_flash_bwd_dkv, fa.rel_flash_bwd_dkv_plain, ("dk", "dv")),
+        (rel_flash_bwd_dpos, fa.rel_flash_bwd_dpos_plain, ("dpos",)),
+    ):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        for name, a, b in zip(names, got, want):
+            assert a.dtype == dt and a.shape == b.shape, name
+            np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                       err_msg=name, **BWD_TOL[dtype])
+
+
+def test_flash_autograd_on_the_card_goes_through_the_four_kernels(cuda_device, zero_counts):
+    ts = [t.requires_grad_() for t in _inputs(cuda_device, torch.float32, 3, 2, 70, 48, 10)]
+    lens = torch.tensor([70, 33, 0], dtype=torch.int32, device=cuda_device)
+    out = rel_flash_attention(*ts, kv_lens=lens, dropout_rate=0.2, dropout_seed=17)
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in COUNTED] == [0, 0, 1, 1, 1, 1]
+    plain_out, lse = rel_flash_attention_plain(*(t.detach() for t in ts), lens, 0.2, 17,
+                                               return_lse=True)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), plain_out.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    want = rel_flash_attention_bwd_plain(*(t.detach() for t in ts), lens, plain_out, lse, g,
+                                         0.2, 17)
+    for name, t, w in zip(("q_u", "q_v", "k", "v", "pos"), ts, want):
+        np.testing.assert_allclose(t.grad.cpu().numpy(), w.cpu().numpy(), err_msg=name,
+                                   **BWD_TOL["float32"])

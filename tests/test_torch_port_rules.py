@@ -5,7 +5,8 @@
 - Entry points run on the card unless the caller names another device;
   without a card, one built without ``device=`` raises.
 - A wrapper takes its kernel's plain version only for a CPU tensor, and
-  only a kernel launch counts: CPU calls leave both counters at 0.
+  only a kernel launch counts: CPU calls, forward and backward, leave every
+  counter at 0.
 - ``chip_smoke.py`` without a card exits non-zero and prints no result.
 """
 
@@ -23,8 +24,11 @@ from _torch_port import aasvc_pair
 from seq2seq_vc_torch.ops.flash_attention import (
     rel_flash_attention,
     rel_flash_attention_plain,
+    rel_flash_bwd_dkv,
+    rel_flash_bwd_dpos,
+    rel_flash_bwd_dq,
 )
-from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain
+from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain, rel_band_bwd
 from seq2seq_vc_torch.pipeline import Wav2WavConverter, resolve_device
 from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
 from seq2seq_vc_torch.train.optim import build_optimizer
@@ -54,13 +58,17 @@ def _inputs(B=2, H=2, T=20, D=8, seed=0):
     return qu, qv, k, v, pos
 
 
+COUNTED = (fused_rel_scores, rel_band_bwd, rel_flash_attention, rel_flash_bwd_dq,
+           rel_flash_bwd_dkv, rel_flash_bwd_dpos)
+
+
 @pytest.fixture
 def zero_counts():
-    fused_rel_scores.launches = 0
-    rel_flash_attention.launches = 0
+    for fn in COUNTED:
+        fn.launches = 0
     yield
-    fused_rel_scores.launches = 0
-    rel_flash_attention.launches = 0
+    for fn in COUNTED:
+        fn.launches = 0
 
 
 def test_port_imports_no_jax():
@@ -104,7 +112,12 @@ def test_cpu_tensors_take_the_plain_versions(zero_counts):
     port, _, _ = aasvc_pair(seed=0, port_kw=dict(attention_backend="flash", flash_min_len=40))
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 48, 80)).astype(np.float32))
     port.inference(x, torch.tensor([48]), x, max_output_frames=64)
-    assert (fused_rel_scores.launches, rel_flash_attention.launches) == (0, 0)
+    # and the backward of both routes, the flash one with dropout
+    ts = [t.requires_grad_() for t in (qu, qv, k, v, pos)]
+    rel_flash_attention(*ts, lens, dropout_rate=0.2, dropout_seed=3).sum().backward()
+    fused_rel_scores(*ts[:3], ts[4], bwd="banded").sum().backward()
+    assert all(t.grad is not None for t in ts)
+    assert [fn.launches for fn in COUNTED] == [0] * len(COUNTED)
 
 
 def test_other_devices_are_refused():

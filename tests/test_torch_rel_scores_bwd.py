@@ -151,29 +151,44 @@ def _flash_inputs(T=20, D=8):
     return [torch.from_numpy(a) for a in (qu, qv, k, v, pos)]
 
 
-def test_flash_refuses_to_run_under_grad():
-    ts = _flash_inputs()
-    ts[2].requires_grad_()
-    with pytest.raises(NotImplementedError, match="next port slice"):
-        rel_flash_attention(*ts)
-    with torch.no_grad():
-        out = rel_flash_attention(*ts)
-    assert out.shape == ts[0].shape and not out.requires_grad
-    # inputs that need no gradient run as before, grad mode or not
-    assert rel_flash_attention(*(t.detach() for t in ts)).shape == ts[0].shape
-
-
-def test_attention_training_step_on_the_flash_path_raises():
+def test_flash_training_step_gives_gradients_on_the_cpu():
     att = RelPositionMultiHeadedAttention(2, 16, backend="flash", flash_min_len=8).train()
     x = torch.randn(1, 12, 16)
     pos = torch.randn(1, 23, 16)
-    with pytest.raises(NotImplementedError):
-        att(x, x, x, pos)
-    # with attention dropout it refuses even without autograd
-    att.dropout_rate = 0.1
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="dropout"):
-        att(x, x, x, pos)
-    # the fused path below the gate trains
-    att.dropout_rate, att.flash_min_len = 0.0, 64
+    assert att.route(12, 12, 23, None) == "flash"
     att(x, x, x, pos).sum().backward()
-    assert att.linear_pos.weight.grad is not None and att.linear_pos.weight.grad.abs().sum() > 0
+    for name, p in att.named_parameters():
+        if name != "linear_k.bias":  # true gradient 0: a softmax ignores a shift of every key
+            assert p.grad is not None and p.grad.abs().sum() > 0, name
+    # under no_grad the forward runs alone, with no graph
+    with torch.no_grad():
+        out = rel_flash_attention(*_flash_inputs())
+    assert out.shape == (B, H, 20, 8) and not out.requires_grad
+
+
+def test_flash_dropout_without_a_seed_raises():
+    ts = _flash_inputs()
+    with pytest.raises(ValueError, match="requires dropout_seed"):
+        rel_flash_attention(*ts, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        rel_flash_attention(*ts, dropout_rate=1.0, dropout_seed=3)
+    assert rel_flash_attention(*ts, dropout_rate=0.1, dropout_seed=3).shape == ts[0].shape
+
+
+def test_flash_module_with_the_same_seed_repeats_itself():
+    att = RelPositionMultiHeadedAttention(2, 16, dropout_rate=0.2, backend="flash",
+                                          flash_min_len=8).train()
+    x = torch.randn(1, 12, 16)
+    pos = torch.randn(1, 23, 16)
+
+    def run(seed):  # the dropout seed comes from torch's seeded generator
+        torch.manual_seed(seed)
+        return att(x, x, x, pos)
+
+    with torch.no_grad():
+        a, b, c = run(11), run(11), run(12)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert not torch.equal(a, c)
+        # eval() drops nothing: the seed does not matter
+        att.eval()
+        torch.testing.assert_close(run(1), run(2), rtol=0, atol=0)

@@ -44,6 +44,7 @@ from seq2seq_vc_tpu.train.state import TrainState as JaxTrainState
 from seq2seq_vc_torch.convert import aasvc_state_dict
 from seq2seq_vc_torch.losses import get_criterion
 from seq2seq_vc_torch.nn import alignment
+from seq2seq_vc_torch.nn.attention import FLASH_MIN_LEN
 from seq2seq_vc_torch.ops.forward_sum import beta_binomial_prior, forward_sum_loss
 from seq2seq_vc_torch.train import data
 from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
@@ -109,17 +110,18 @@ def _jax_step():
     return {k: float(v) for k, v in metrics.items()}, grads, new
 
 
-def _port_trainer(backend="xla", bwd="auto", seed=0, config=None, loader=(), **over):
-    port, _, _ = aasvc_pair(seed=seed, port_kw=dict(attention_backend=backend, rel_scores_bwd=bwd),
-                            **dict(NO_DROPOUT, **over))
+def _port_trainer(backend="xla", bwd="auto", seed=0, config=None, loader=(),
+                  flash_min_len=FLASH_MIN_LEN, **over):
+    port_kw = dict(attention_backend=backend, rel_scores_bwd=bwd, flash_min_len=flash_min_len)
+    port, _, _ = aasvc_pair(seed=seed, port_kw=port_kw, **dict(NO_DROPOUT, **over))
     state = TrainState(port, build_optimizer(port.parameters(), **OPT))
     return AASVCTrainer(state, {"L1Loss": get_criterion("L1Loss")}, dict(CONFIG, **(config or {})),
                         loader, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
-def _port_step(backend, bwd):
-    trainer = _port_trainer(backend, bwd)
+def _port_step(backend, bwd, flash_min_len=FLASH_MIN_LEN):
+    trainer = _port_trainer(backend, bwd, flash_min_len=flash_min_len)
     _inject_port_noise(trainer.model, _noise())
     trainer.model.train()
     loss, metrics = trainer.loss_fn(trainer._array_batch(_batch()), trainer._flags(),
