@@ -5,8 +5,9 @@
     python3 chip_smoke.py --bwd-sweep  # only: the rel-scores backward's two
                                        # variants timed over T (the bwd="auto" gate)
     python3 chip_smoke.py --flash-sweep  # only: one attention layer's forward +
-                                         # backward, fused route vs flash route,
-                                         # ms and memory over T (the flash gate)
+                                         # backward, fused (rel-pos) or dense
+                                         # (standard) route vs flash route, ms and
+                                         # memory over T (the flash gate)
 
 Phases, each printed on lines of its own:
 
@@ -69,7 +70,41 @@ Phases, each printed on lines of its own:
    step;
 11. a reference training step through the flash route: as phase 9 with the
    flash gate lowered below the batch's lengths (kernels 2, 6, 7 and 8 on
-   the card, their plain versions on the CPU).
+   the card, their plain versions on the CPU);
+12. VTN serving: a full-width ``Wav2WavARConverter`` (the VTN of
+   ``egs/arctic/vc1/conf/vtn.v1.yaml``, float32, ``attention_backend:
+   flash``, seeded random weights, and phase 2's HiFi-GAN) decodes with
+   threshold 1.1 and maxlenratio 4.0, as bench.py times the AR decode, so
+   that every decode runs its whole budget; requests: a 3.8 s clip, a batch
+   of 4 and a 135 s clip, whose encoder key length (~2100 after the x4
+   subsampling) crosses the flash gate. Warm-up, then the standard flash
+   forward (kernel 9) against its plain version (float32 and bfloat16, D 96
+   at T 640, at the long request's length and at a cross shape, rate 0 and
+   0.2, causal off and on, key padding and a fully masked row; and at the
+   main path's shape), then the timed requests with the launch counts set to
+   0 just before and read just after (6 launches of kernel 9 for the long
+   request, none for the short ones or for kernels 10-11), latency, RTF and
+   AR steps per second, peak memory, and a profile of the long request;
+13. a VTN reference check: the same weights in float32 with the prenet's
+   dropout 0 and the flash gate below a 1 s clip's encoder length convert
+   the clip on the card (kernel 9) and on the CPU (its plain version); the
+   decoded features and the waveforms must agree;
+14. VTN training at the common length: an ``ARVCTrainer`` on the
+   full-width VTN in bf16 with the YAML's dropouts (0.1, prenet 0.5), Adam
+   lr 8e-5, warmuplr 4000, clipping 1.0 and bce_pos_weight 10 takes 3 steps
+   at B 16 on sources and targets of 160-512 frames read through the port's
+   dataset, collater and loader (no flash launch expected): ms/step, peak
+   memory, finite loss, finite and non-zero attention gradients;
+15. VTN long training: B 16 with sources and targets of 8200-9200 frames,
+   so that every encoder layer's key length lies in FLASH_MIN_LEN ..
+   FLASH_MIN_LEN + 256 after the subsampling; kernels 9-11 against their
+   plain versions at the steps' shape (SDPA forward + backward with the
+   key-padding mask as the yardstick); 3 timed steps with 6 launches of each
+   of kernels 9, 10 and 11 per step, ms/step, peak memory, finite loss and
+   gradients, and a profile of one step;
+16. a VTN reference training step through the flash route: float32,
+   dropout off, the gate lowered; the loss and every gradient on the card
+   and on the CPU must agree to phase 9's tolerances.
 
 Then the ``kernels`` JSON line, the card line again, and last the result
 line. Any failed check makes the script exit with 1 without the result line;
@@ -151,17 +186,38 @@ KERNELS = {
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:732",
     ),
 }
+KERNELS.update({
+    "flash_attention": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/flash.cu",
+        replaces="seq2seq_vc_tpu/ops/flash_attention.py:111",
+    ),
+    "flash_bwd_dq": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/flash_bwd.cu",
+        replaces="seq2seq_vc_tpu/ops/flash_attention.py:229",
+    ),
+    "flash_bwd_dkv": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/flash_bwd.cu",
+        replaces="seq2seq_vc_tpu/ops/flash_attention.py:260",
+    ),
+})
 FLASH_BWD = ("rel_flash_bwd_dq", "rel_flash_bwd_dkv", "rel_flash_bwd_dpos")
+STD = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")  # the standard flash kernels
 # what each kernel's library_ms times (a yardstick the port never calls)
 LIBRARY = {"fused_rel_scores": "no single PyTorch call",
            "rel_band_bwd": "the bwd='xla' variant in torch ops",
            "rel_flash_attention": "SDPA with the band materialised as a bias",
-           **{n: "SDPA forward + backward with the band materialised as a bias" for n in FLASH_BWD}}
+           **{n: "SDPA forward + backward with the band materialised as a bias" for n in FLASH_BWD},
+           "flash_attention": "SDPA with the key-padding mask",
+           "flash_bwd_dq": "SDPA forward + backward with the key-padding mask",
+           "flash_bwd_dkv": "SDPA forward + backward with the key-padding mask"}
 # the kernels each main path runs (serving runs no backward; training at
 # key lengths from the flash gate runs only the flash kernels)
 PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 "train": ("fused_rel_scores", "rel_band_bwd"),
-                "train_long": ("rel_flash_attention", *FLASH_BWD)}
+                "train_long": ("rel_flash_attention", *FLASH_BWD),
+                "vtn_serve": ("flash_attention",),
+                "vtn_train": (),  # key lengths under the gate: the dense route only
+                "vtn_train_long": STD}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -180,6 +236,11 @@ TOLERANCE = {
     ("rel_flash_attention", torch.bfloat16): dict(atol=1e-3, rtol=1e-2),
     **{(n, torch.float32): dict(atol=1e-4, rtol=1e-4) for n in FLASH_BWD},
     **{(n, torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7) for n in FLASH_BWD},
+    # the standard flash kernels as the rel-pos ones
+    ("flash_attention", torch.float32): dict(atol=1e-4, rtol=1e-4),
+    ("flash_attention", torch.bfloat16): dict(atol=1e-3, rtol=1e-2),
+    **{(n, torch.float32): dict(atol=1e-4, rtol=1e-4) for n in STD[1:]},
+    **{(n, torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7) for n in STD[1:]},
 }
 REFERENCE_ATOL = 1e-3  # phase 4 waveforms, float32 on both devices
 # phase 9, one float32 training step on the card and on the CPU: the loss to
@@ -210,6 +271,37 @@ DEVICE = "cuda"  # the training path's device (a rehearsal on the CPU sets "cpu"
 WEIGHT_NOISE = 0.02
 KEY_PADDING = torch.ones(1, 1, 1, dtype=torch.bool)  # a (B, 1, T) mask, for routing
 LONG_SPAN = 256  # frames above the flash gate that the long-utterance batch spreads over
+
+# model_params of egs/arctic/vc1/conf/vtn.v1.yaml (float32 as the YAML leaves
+# it), with the encoder's self-attention on the flash route; the dropouts
+# are VTN's defaults (0.1, prenet 0.5)
+VTN_CONFIG = dict(
+    idim=80, odim=80, dprenet_layers=2, dprenet_units=256, adim=384, aheads=4, elayers=6,
+    eunits=1536, dlayers=6, dunits=1536, postnet_layers=5, postnet_filts=5, postnet_chans=256,
+    use_batch_norm=True, encoder_normalize_before=True, decoder_normalize_before=False,
+    encoder_concat_after=False, decoder_concat_after=False, decoder_reduction_factor=4,
+    attention_backend="flash",
+)
+# bench.py's AR decode: threshold 1.1 never stops, so every decode runs its
+# whole budget of maxlenratio 4.0 (output about as long as the input)
+VTN_INFERENCE = {"threshold": 1.1, "maxlenratio": 4.0, "minlenratio": 0.0}
+VTN_NO_DROPOUT = {k: 0.0 for k in (
+    "dprenet_dropout_rate", "transformer_enc_dropout_rate",
+    "transformer_enc_positional_dropout_rate", "transformer_enc_attn_dropout_rate",
+    "transformer_dec_dropout_rate", "transformer_dec_positional_dropout_rate",
+    "transformer_dec_attn_dropout_rate")}
+VTN_LONG = (8200, 9200)  # source and target frames of the long batch
+VTN_REFERENCE_ATOL = 1e-3  # phase 13's features and waveforms, float32 on both devices
+# the YAML's training settings beside TRAIN_OPT's (the same Adam, warmuplr
+# and clipping): Seq2SeqLoss with bce_pos_weight 10, batch 16, pad multiple 32
+VTN_BCE_POS_WEIGHT = 10.0
+# the VTN's modules whose outputs feed a ReLU (the subsampling convs, the
+# prenet's Linears, the feed-forward's first Linear): phase 16 holds a
+# module's own gradients to FLIP_RTOL when one of its outputs lies on the
+# other side of 0 on the other device, as phase 9 does the alignment module
+VTN_RELU_INPUTS = ("embed.conv.0", "embed.conv.2", "prenet.0.0", "prenet.1.0",
+                   "feed_forward.w_1")
+VTN_TRAIN_CONFIG = dict(gradient_accumulate_steps=1, log_interval_steps=1, seed=0)
 
 
 def log(*args):
@@ -259,10 +351,38 @@ def kernel_inputs(B, H, T, D, dtype, seed, lens=None):
     return qu, qv, k, v, pos, lens
 
 
-def bound(name, B, H, T, D, dtype, lens, lse=False):
+def std_live(lens, Tq: int, causal: bool) -> int:
+    """Live (query, key) pairs of one head: keys below each row's length
+    and, causal, at or before the query."""
+    if not causal:
+        return Tq * int(lens.sum())
+    i = torch.arange(Tq, device=lens.device)
+    return int(torch.minimum(lens[:, None].long(), i[None, :] + 1).sum())
+
+
+def bound(name, B, H, T, D, dtype, lens, lse=False, Tk=None, causal=False):
     """(bound_ms, bound_by): each input read once, each output written once;
-    the flash kernels' work counts only the keys each batch row has."""
+    the flash kernels' work counts only the keys each batch row has (and,
+    causal, the keys at or before each query). ``T`` is the query length,
+    ``Tk`` the key length of the standard kernels."""
     e = torch.finfo(dtype).bits // 8
+    if name in STD:
+        q_bytes = B * H * T * D * e
+        kv_bytes = 2 * H * int(lens.sum()) * D * e  # k and v up to each row's keys
+        live = H * std_live(lens, T, causal)
+        row_stats = B * H * T * 4  # one float a row: lse, delta
+        if name == "flash_attention":
+            # reads q, k, v and the lengths; writes the output (and lse)
+            n_bytes = 2 * q_bytes + kv_bytes + 4 * B + (row_stats if lse else 0)
+            ops = 4 * live * D  # scores and P.V, 2 per multiply-add
+        else:
+            # reads q, dO, k, v, lse, delta and the lengths; recomputes q.k and
+            # dO.v, then accumulates dq (1 more multiply-add) or dk and dv (2)
+            outs = q_bytes if name == "flash_bwd_dq" else 2 * B * H * Tk * D * e
+            n_bytes = 2 * q_bytes + kv_bytes + 2 * row_stats + 4 * B + outs
+            ops = 2 * live * D * (3 if name == "flash_bwd_dq" else 4)
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
     table = H * (2 * T - 1) * D * e
     qkv = B * H * T * D * e  # one (B, H, T, D) tensor
     if name == "fused_rel_scores":
@@ -390,6 +510,16 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
 
         fwd_bwd_ms, library_ms = flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate or 0.0)
 
+    return _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_ms,
+                    shape=(B, H, T, D), work=B * T * T * D,
+                    bound=bound(name, B, H, T, D, dtype, lens, lse=rate is not None),
+                    what=f"B,H,T,D={B},{H},{T},{D}", n_kernels="four")
+
+
+def _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_ms, shape,
+             work, bound, what, n_kernels, **extra):
+    """Compare ``kernel()`` with ``plain()`` at the stated tolerance, time
+    both, and return the check's row (logged)."""
     def flat(out):  # one float32 vector of a kernel's outputs
         return torch.cat([t.float().flatten() for t in out]) if isinstance(out, tuple) else out.float()
 
@@ -400,20 +530,108 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol)
     del got, want
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    bound_ms, bound_by = bound(name, B, H, T, D, dtype, lens, lse=rate is not None)
-    row = dict(name=name, label=label, shape=(B, H, T, D), kv_lens=lens.tolist(),
+    bound_ms, bound_by = bound
+    row = dict(name=name, label=label, shape=shape, work=work, kv_lens=lens.tolist(),
                dtype=str(dtype).split(".")[1], rate=rate,
                ok=ok, max_abs_err=err, atol=tol["atol"], rtol=tol["rtol"], ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               library=LIBRARY[name], fwd_bwd_ms=fwd_bwd_ms)
-    log(f"check {name} {label} B,H,T,D={B},{H},{T},{D} kv_lens={_short(row['kv_lens'])} "
+               library=LIBRARY[name], fwd_bwd_ms=fwd_bwd_ms, **extra)
+    log(f"check {name} {label} {what} kv_lens={_short(row['kv_lens'])} "
         f"{row['dtype']}{'' if rate is None else f' rate {rate} +lse'}: "
         f"{'ok' if ok else 'FAIL'} max_abs_err={err:.3e} (atol {tol['atol']}, rtol "
         f"{tol['rtol']}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={'none' if library_ms is None else f'{library_ms:.4f}'} ({LIBRARY[name]}) "
         f"bound_ms={bound_ms:.4f} ({bound_by})"
-        + ("" if fwd_bwd_ms is None else f"; the four kernels' forward + backward {fwd_bwd_ms:.4f} ms"))
+        + ("" if fwd_bwd_ms is None
+           else f"; the {n_kernels} kernels' forward + backward {fwd_bwd_ms:.4f} ms"))
     return row
+
+
+_STD_FWD_BWD = {}  # (shapes, lens, causal, rate) -> (port fwd+bwd ms, SDPA fwd+bwd ms)
+
+
+def std_valid(lens, Tq: int, Tk: int, causal: bool):
+    """(B, 1, Tq, Tk) bool: the keys each query sees (SDPA's mask)."""
+    from seq2seq_vc_torch.ops.flash_attention import _valid
+
+    return _valid(lens, Tk, lens.device, Tq, causal).expand(-1, 1, Tq, Tk)
+
+
+def std_fwd_bwd_ms(q, k, v, lens, d_out, causal, rate):
+    """The three standard flash kernels' forward + backward time, and beside
+    it the yardstick: SDPA's forward + backward with the key-padding mask
+    (the port never calls SDPA). Cached per shape."""
+    from seq2seq_vc_torch.ops.flash_attention import flash_attention
+
+    key = (tuple(q.shape), tuple(k.shape), str(q.dtype), tuple(lens.tolist()), causal, rate)
+    if key not in _STD_FWD_BWD:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        port_ms = cuda_ms(lambda: flash_attention(*leaves, lens, causal, rate, 11).backward(d_out))
+        valid = std_valid(lens, q.shape[2], k.shape[2], causal)
+        sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=valid, dropout_p=rate).backward(d_out))
+        del leaves
+        _STD_FWD_BWD[key] = (port_ms, sdpa_ms)
+    return _STD_FWD_BWD[key]
+
+
+def check_std_kernel(name, B, H, Tq, Tk, D, dtype, seed, label, lens=None, rate=None,
+                     causal=False):
+    """One standard flash kernel against its plain version on the same card
+    inputs: q (B, H, Tq, D), k and v (B, H, Tk, D). ``rate``: the training
+    form, with dropout at ``rate`` (0 included) and the forward's logsumexp;
+    None is the serving form."""
+    from seq2seq_vc_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = rand(B, H, Tq, D), rand(B, H, Tk, D), rand(B, H, Tk, D)
+    lens = torch.tensor([Tk] + [max(1, 2 * Tk // 3)] * (B - 1) if lens is None else lens,
+                        dtype=torch.int32, device="cuda")
+    drop = (rate, seed) if rate else (0.0, None)
+    fwd_bwd_ms = None
+    if name == "flash_attention":
+        if rate is None:
+            def kernel():
+                return fa.flash_attention(q, k, v, lens, causal)
+
+            def plain():
+                return fa.flash_attention_plain(q, k, v, lens, causal)
+        else:
+            def kernel():
+                return fa._std_fwd(q, k, v, lens, causal, *drop, need_lse=True)
+
+            def plain():
+                return fa.flash_attention_plain(q, k, v, lens, causal, *drop, return_lse=True)
+
+        # yardstick only: PyTorch's fused attention with the same mask
+        valid = std_valid(lens, Tq, Tk, causal)
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid, dropout_p=rate or 0.0))
+        del valid
+    else:
+        d_out = torch.randn(q.shape, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed + 2)).to(dtype)
+        out, lse = fa.flash_attention_plain(q, k, v, lens, causal, *drop, return_lse=True)
+        args = (q, k, v, lens, lse, fa._delta(out, d_out), d_out, causal, *drop)
+        wrapper, plain_fn = getattr(fa, name), getattr(fa, name + "_plain")
+
+        def kernel():
+            return wrapper(*args)
+
+        def plain():
+            return plain_fn(*args)
+
+        fwd_bwd_ms, library_ms = std_fwd_bwd_ms(q, k, v, lens, d_out, causal, rate or 0.0)
+    return _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_ms,
+                    shape=(B, H, Tq, D), work=B * Tq * Tk * D,
+                    bound=bound(name, B, H, Tq, D, dtype, lens, lse=rate is not None, Tk=Tk,
+                                causal=causal),
+                    what=f"B,H,Tq,Tk,D={B},{H},{Tq},{Tk},{D}{' causal' if causal else ''}",
+                    n_kernels="three", tk=Tk, causal=causal)
 
 
 def _short(lens):
@@ -446,14 +664,21 @@ def perturb_(module: torch.nn.Module, seed: int) -> None:
 def build_models(seed: int):
     """The flagship AAS-VC and the serving HiFi-GAN on the CPU, seeded."""
     from seq2seq_vc_torch.models.aas_vc import AASVC
-    from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
 
     torch.manual_seed(seed)
     model = AASVC(**FLAGSHIP)
     perturb_(model, seed)
+    return model.eval(), build_vocoder(seed + 1)
+
+
+def build_vocoder(seed: int):
+    """The serving HiFi-GAN on the CPU: its init from torch's default
+    generator, then seeded noise."""
+    from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
+
     vocoder = HifiganGenerator(**HIFIGAN)
-    perturb_(vocoder, seed + 1)
-    return model.eval(), vocoder.eval()
+    perturb_(vocoder, seed)
+    return vocoder.eval()
 
 
 def stats(seed: int):
@@ -503,16 +728,31 @@ def serve(conv, requests):
         lens = [len(w) for w in wavs]
         ok = all(n > 0 and n % conv.hop_size == 0 and np.isfinite(w).all()
                  for n, w in zip(lens, wavs))
+        steps = getattr(conv, "last_decode_steps", None)
         log(f"request {label}: {len(clips)} clip(s), {secs:.2f} s of audio, latency "
             f"{dt * 1e3:.1f} ms, RTF {dt / secs:.5f}, output samples {lens} "
-            f"(multiples of {conv.hop_size}, finite: {'yes' if ok else 'NO'})")
+            f"(multiples of {conv.hop_size}, finite: {'yes' if ok else 'NO'})"
+            + ("" if steps is None else f"; {steps} AR steps, {steps / dt:.1f} steps/s"))
         if not ok:
             failures.append(f"request {label}: bad output {lens}")
         results.append(dict(ms=dt * 1e3, out_frames=[n // conv.hop_size for n in lens]))
     return failures, results
 
 
-def profile_request(conv, request, latency_ms):
+def trace_kernels(prof):
+    """(name, ms, count) of each device activity in a trace, summed from its
+    raw events: building the profiler's event tree (``key_averages``) takes
+    minutes for a long AR decode's ~10^6 events."""
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(name, ms, n) for name, (ms, n) in acc.items()]
+
+
+def profile_request(conv, request, latency_ms,
+                    port_kernels=("rel_scores_fwd_kernel", "rel_flash_fwd_kernel")):
     """Device time by kernel for one request (torch.profiler, CUPTI), beside
     the request's untraced latency: what the device does and how much of the
     request it is busy."""
@@ -522,14 +762,12 @@ def profile_request(conv, request, latency_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         conv.convert_batch(clips)
         torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    kernels = trace_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels)
     if busy == 0:
         log(f"profile {label}: the trace holds no device time: not measured")
         return
-    port = {n: sum(ms for k, ms, _ in kernels if n in k)
-            for n in ("rel_scores_fwd_kernel", "rel_flash_fwd_kernel")}
+    port = {n: sum(ms for k, ms, _ in kernels if n in k) for n in port_kernels}
     log(f"profile {label}: device busy {busy:.3f} ms in kernels; untraced latency "
         f"{latency_ms:.1f} ms, so busy share {busy / latency_ms:.3f}; port kernels (ms) {port}")
     for key, ms, n in sorted(kernels, key=lambda r: -r[1])[:12]:
@@ -543,7 +781,7 @@ def kernel_wrappers():
 
     return {"fused_rel_scores": fused_rel_scores, "rel_band_bwd": rel_band_bwd,
             "rel_flash_attention": fa.rel_flash_attention,
-            **{name: getattr(fa, name) for name in FLASH_BWD}}
+            **{name: getattr(fa, name) for name in FLASH_BWD + STD}}
 
 
 def launch_counts():
@@ -637,11 +875,13 @@ def feature_items(lens, seed: int):
     return items
 
 
-def corpus_loader(root: Path, lens, seed: int):
+def corpus_loader(root: Path, lens, seed: int, collater=None):
     """A synthetic parallel corpus written as ``.npy`` files with one scp
     per side, read back through the port's dataset, collater and loader
     (the flagship's batch size and padding; the duration predictor reads
-    the source mel, as ``duration_predictor_feat: mel`` says)."""
+    the source mel, as ``duration_predictor_feat: mel`` says). ``collater``
+    replaces the flagship's NAR collater (and then no duration-predictor
+    input is read)."""
     from seq2seq_vc_torch.train.data import DataLoader, NARVCCollater, ParallelVCMelDataset
 
     root.mkdir(parents=True, exist_ok=True)
@@ -654,6 +894,8 @@ def corpus_loader(root: Path, lens, seed: int):
     for key, lines in scp.items():
         (root / f"{key}.scp").write_text("\n".join(lines) + "\n")
     src, trg = (str(root / f"{key}.scp") for key in scp)
+    if collater is not None:
+        return DataLoader(ParallelVCMelDataset(src, trg), collater, BATCH, seed=seed)
     collater = NARVCCollater(PAD_MULTIPLE, FLAGSHIP["encoder_reduction_factor"],
                              FLAGSHIP["post_encoder_reduction_factor"],
                              FLAGSHIP["decoder_reduction_factor"])
@@ -710,16 +952,17 @@ def watch_grads(state):
     return notes, state.optimizer.adam.register_step_pre_hook(hook), len(att)
 
 
-def train_steps(state, loader, steps: int, label: str):
-    """``steps`` optimizer steps through the trainer; logs each step's
-    time and loss from the trainer's own log. Returns the trainer."""
-    trainer = make_trainer(state, loader, steps)
+def train_steps(state, loader, steps: int, label: str, make=make_trainer):
+    """``steps`` optimizer steps through the trainer that ``make`` builds;
+    logs each step's time and loss terms from the trainer's own log.
+    Returns the trainer."""
+    trainer = make(state, loader, steps)
     trainer.run()
     for h in trainer.history:
+        terms = ", ".join(f"{k[len('train/'):-len('_loss')]} {v:.4f}" for k, v in h.items()
+                          if k.endswith("_loss"))
         log(f"train {label} step {h['steps']}: {h['train/step_time_sec'] * 1e3:.1f} ms, "
-            f"loss {h['train/loss']:.4f} (l1 {h['train/l1_loss']:.4f}, forward-sum "
-            f"{h['train/forward_sum_loss']:.4f}, bin {h['train/binary_loss']:.4f}, dur_nll "
-            f"{h['train/duration_loss']:.4f}), grad norm {h['train/grad_norm']:.4f}")
+            f"loss {h['train/loss']:.4f} ({terms}), grad norm {h['train/grad_norm']:.4f}")
     return trainer
 
 
@@ -747,13 +990,14 @@ def time_mas(batch, label: str):
 
 
 def profile_step(state, loader, step_ms: float, label: str,
-                 port_kernels=("rel_scores_fwd_kernel", "rel_scores_bwd_kernel")):
+                 port_kernels=("rel_scores_fwd_kernel", "rel_scores_bwd_kernel"),
+                 make=make_trainer):
     """Device time by kernel over one training step (torch.profiler),
     beside the untraced step time; ``port_kernels`` are summed by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        make_trainer(state, loader, 1).run()
+        make(state, loader, 1).run()
         torch.cuda.synchronize()
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
@@ -972,6 +1216,311 @@ def train_long_path(rows):
     return failures, launches
 
 
+# --------------------------------------------------------------- VTN paths
+def vtn_model(seed: int, **over):
+    """The full-width VTN on the CPU, seeded as ``flagship`` seeds the
+    AAS-VC; ``over`` replaces config fields."""
+    from seq2seq_vc_torch.models.vtn import VTN
+
+    torch.manual_seed(seed)
+    model = VTN(**dict(VTN_CONFIG, **over))
+    perturb_(model, seed)
+    return model
+
+
+def vtn_encoder_calls(model, n_padded: int, n_trues):
+    """The standard flash forward calls the VTN encoder makes on a batch
+    padded to ``n_padded`` frames with true lengths ``n_trues``: (B, H, T,
+    D, key lengths) for each layer on the flash route, with T and the key
+    lengths after the x4 subsampling (Conv2dSubsampling's mask slicing)."""
+    T = ((n_padded - 1) // 2 - 1) // 2
+    mask = torch.arange(n_padded)[None, :] < torch.as_tensor(list(n_trues))[:, None]
+    lens = tuple(int(n) for n in mask[:, :-2:2][:, :-2:2].sum(-1))
+    return [(len(lens), layer.self_attn.n_head, T, layer.self_attn.d_k, lens)
+            for layer in model.encoder.encoders
+            if layer.self_attn.route(T, KEY_PADDING) == "flash"]
+
+
+def vtn_request_calls(conv, clips):
+    """``vtn_encoder_calls`` of one request, from the converter's padding."""
+    batch, n_trues = conv._prepare(clips)
+    return vtn_encoder_calls(conv.model, 1 + (batch.shape[1] - conv.fft_size) // conv.hop_size,
+                             n_trues)
+
+
+def std_head_dim_checks(rows, names):
+    """The standard flash kernels ``names`` against their plain versions at
+    the VTN's head dim (4 heads of D 96): float32 and bfloat16, causal off
+    and on, the serving form (kernel 9 only) and the training form at rate
+    0 and 0.2, at T 640 with key padding and a fully masked batch row; and
+    at two cross shapes, fewer queries than keys and more."""
+    for name in names:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                for rate in ((None, 0.0, 0.2) if name == "flash_attention" else (0.0, 0.2)):
+                    rows.append(check_std_kernel(name, 3, 4, 640, 640, 96, dtype, seed=640,
+                                                 label="head-dim", lens=[640, 426, 0],
+                                                 rate=rate, causal=causal))
+            for Tq, Tk, causal in ((320, 640, False), (640, 200, True)):
+                rows.append(check_std_kernel(name, 3, 4, Tq, Tk, 96, dtype, seed=Tq + Tk,
+                                             label="cross", lens=[Tk, 2 * Tk // 3, 0],
+                                             rate=0.2, causal=causal))
+
+
+class _KeepOutput:
+    """Calls the wrapped AR decoder and keeps its last output."""
+
+    def __init__(self, decode):
+        self.decode, self.out = decode, None
+
+    def __call__(self, *args, **kwargs):
+        self.out = self.decode(*args, **kwargs)
+        return self.out
+
+
+def vtn_reference_check(model, vocoder, src, trg):
+    """Phase 13: float32 copies of the VTN's weights (prenet dropout 0, the
+    flash gate below a 1 s clip's encoder length) and of the vocoder
+    convert the clip on the card (kernel 9) and on the CPU (its plain
+    version); the decoded features and the waveforms must agree."""
+    from seq2seq_vc_torch.models.vtn import VTN
+    from seq2seq_vc_torch.pipeline import Wav2WavARConverter
+
+    m32 = VTN(**dict(VTN_CONFIG, flash_min_len=8, **VTN_NO_DROPOUT))
+    m32.load_state_dict(model.state_dict())
+    v32 = copy.deepcopy(vocoder)
+    v32.compute_dtype = torch.float32
+    audio = clip(1.0, seed=7)
+    feats, wavs, counts = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        conv = Wav2WavARConverter(copy.deepcopy(m32).eval(), copy.deepcopy(v32), src, trg,
+                                  dict(FEATS, inference=VTN_INFERENCE), device=dev)
+        conv.ar_decode = keep = _KeepOutput(conv.ar_decode)
+        before = launch_counts()
+        wavs[dev] = conv(audio)
+        counts[dev] = {k: v - before[k] for k, v in launch_counts().items()}
+        feats[dev] = keep.out["outs"][0, :int(keep.out["out_lens"][0])].cpu()
+    (fa, fb), (a, b) = (feats["cuda"], feats["cpu"]), (wavs["cuda"], wavs["cpu"])
+    same = fa.shape == fb.shape and len(a) == len(b)
+    f_err = float((fa - fb).abs().max()) if same else float("inf")
+    w_err = float(np.abs(a - b).max()) if same else float("inf")
+    want = {n: VTN_CONFIG["elayers"] if n == "flash_attention" else 0 for n in KERNELS}
+    ok = (same and f_err <= VTN_REFERENCE_ATOL and w_err <= VTN_REFERENCE_ATOL
+          and counts["cuda"] == want and not any(counts["cpu"].values()))
+    log(f"VTN reference float32 1.0 s clip: features card {tuple(fa.shape)} cpu "
+        f"{tuple(fb.shape)}, max abs diff {f_err:.3e}; waveforms card {len(a)} cpu {len(b)} "
+        f"samples, max abs diff {w_err:.3e} (atol {VTN_REFERENCE_ATOL}); launches card "
+        f"{counts['cuda']}, cpu {counts['cpu']}: {'ok' if ok else 'FAIL'}")
+    return [] if ok else [f"VTN reference check: features {f_err}, waveforms {w_err}, "
+                          f"launches {counts}"]
+
+
+def vtn_serve_path(rows, src, trg):
+    """Phases 12-13: VTN serving. Appends the kernel checks to ``rows``;
+    returns (failures, launches of the timed requests, by kernel)."""
+    from seq2seq_vc_torch.pipeline import Wav2WavARConverter
+
+    failures = []
+    with torch.no_grad():
+        model, vocoder = vtn_model(seed=20).eval(), build_vocoder(seed=21)
+        conv = Wav2WavARConverter(model, vocoder, src, trg, dict(FEATS, inference=VTN_INFERENCE))
+        requests = [
+            ("VTN single 3.8 s", [clip(3.8, 10)]),
+            ("VTN batch of 4", [clip(s, 11 + i) for i, s in enumerate((2.2, 3.0, 3.8, 4.6))]),
+            ("VTN single 135 s", [clip(135.0, 16)]),
+        ]
+        log(f"VTN serving: Wav2WavARConverter, the VTN at full width (float32, attention "
+            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once, then the "
+            f"synthesis ladder")
+        fails, _ = serve(conv, requests)
+        failures += fails
+        log(f"VTN warm-up synthesis buckets: {conv.warmup_synth()}")
+        calls = [vtn_request_calls(conv, clips) for _, clips in requests]
+        log(f"VTN encoder flash calls per request (B, H, T, D, key lengths): "
+            f"{[[(*c[:4], _short(list(c[4]))) for c in cs] for cs in calls]}")
+        if len(calls[-1]) != VTN_CONFIG["elayers"]:
+            failures.append(f"vtn_serve: the long request's encoder is not all on flash: {calls[-1]}")
+        std_head_dim_checks(rows, ("flash_attention",))
+        for B, H, T, D, lens in sorted({c for cs in calls for c in cs}):
+            rows.append(check_std_kernel("flash_attention", B, H, T, T, D, torch.float32, seed=T,
+                                         label="main-path", lens=list(lens)))
+
+        log("VTN main path: the same requests again")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        timed, per_request = [], []
+        for request in requests:
+            before = launch_counts()
+            fails, res = serve(conv, [request])
+            failures += fails
+            timed += res
+            per_request.append({k: v - before[k] for k, v in launch_counts().items()})
+        launches = launch_counts()
+        log(f"VTN main path launches {launches}; kernel 9 per request "
+            f"{[c['flash_attention'] for c in per_request]}, expected from the routing "
+            f"{[len(cs) for cs in calls]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for (label, _), got, cs in zip(requests, per_request, calls):
+            want = {n: len(cs) if n == "flash_attention" else 0 for n in KERNELS}
+            if got != want:
+                failures.append(f"vtn_serve {label}: launches {got}, expected {want}")
+        profile_request(conv, requests[-1], timed[-1]["ms"], port_kernels=("flash_fwd_kernel",))
+        failures += vtn_reference_check(model, vocoder, src, trg)
+    return failures, launches
+
+
+def make_vtn_trainer(state, loader, steps: int, device=None):
+    """An ``ARVCTrainer`` with the YAML's Seq2SeqLoss that takes ``steps``
+    more optimizer steps on ``state``."""
+    from seq2seq_vc_torch.losses import get_criterion
+    from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
+
+    config = dict(VTN_TRAIN_CONFIG, train_max_steps=state.steps + steps)
+    criterion = {"Seq2SeqLoss": get_criterion("Seq2SeqLoss", bce_pos_weight=VTN_BCE_POS_WEIGHT)}
+    return ARVCTrainer(state, criterion, config, loader, device=device or DEVICE)
+
+
+def vtn_long_lens(seed: int):
+    """BATCH (source, target) frame counts over VTN_LONG (131-147 s of 16
+    kHz audio at hop 256): targets spread evenly, sources the same lengths
+    shuffled, so that after the x4 subsampling every encoder key length
+    lies in FLASH_MIN_LEN .. FLASH_MIN_LEN + 256."""
+    trg = np.linspace(*VTN_LONG, BATCH).round().astype(int)
+    src = np.random.default_rng(seed).permutation(trg)
+    return list(zip(src.tolist(), trg.tolist()))
+
+
+def vtn_train_path(rows, path: str):
+    """Phase 14 (``path`` "vtn_train": B 16 at 160-512 frames, all on the
+    dense route) or 15 ("vtn_train_long": B 16 at VTN_LONG frames, the
+    encoder on kernels 9-11): a warm-up step, the kernel checks, 3 timed
+    steps and a profile of one. Appends the kernel checks to ``rows``;
+    returns (failures, launches of the timed steps, by kernel)."""
+    from seq2seq_vc_torch.train.data import ARVCCollater
+
+    failures = []
+    tmp = REPO / "build"
+    tmp.mkdir(exist_ok=True)
+    lens = corpus_lens(160, 512, seed=30) if path == "vtn_train" else vtn_long_lens(seed=31)
+    collater = ARVCCollater(PAD_MULTIPLE, VTN_CONFIG["decoder_reduction_factor"])
+    with tempfile.TemporaryDirectory(dir=tmp, prefix=f"chip_smoke_{path}_") as root:
+        loader = corpus_loader(Path(root), lens, seed=32, collater=collater)
+        batch = next(iter(loader))
+        state = train_state(vtn_model(seed=33, compute_dtype="bfloat16").train().to(DEVICE))
+        label = f"VTN T{batch['xs'].shape[1]}/{batch['ys'].shape[1]}"
+        log(f"{path}: ARVCTrainer, the VTN at full width (bf16, dropout 0.1, prenet 0.5), "
+            f"B{BATCH}; sources {sorted(batch['ilens'].tolist())}, targets "
+            f"{sorted(batch['olens'].tolist())} frames, padded (xs, ys) {batch['xs'].shape}, "
+            f"{batch['ys'].shape}")
+        train_steps(state, loader, 1, f"{label} warm-up", make=make_vtn_trainer)
+
+        rate = state.model.encoder.encoders[0].self_attn.dropout_rate
+        calls = [(name, *c, rate) for c in vtn_encoder_calls(state.model, batch["xs"].shape[1],
+                                                              batch["ilens"].tolist())
+                 for name in STD]
+        if path == "vtn_train_long":
+            std_head_dim_checks(rows, STD[1:])
+        for name, B, H, T, D, kv_lens, r in sorted(set(calls)):
+            rows.append(check_std_kernel(name, B, H, T, T, D, torch.bfloat16, seed=T,
+                                         label="main-path", lens=list(kv_lens), rate=r))
+
+        log(f"{path} main path: 3 steps at {label}")
+        notes, handle, n_att = watch_grads(state)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trainer = train_steps(state, loader, 3, label, make=make_vtn_trainer)
+        launches = launch_counts()
+        handle.remove()
+        expected = {n: 3 * sum(c[0] == n for c in calls) for n in KERNELS}
+        step_ms = [h["train/step_time_sec"] * 1e3 for h in trainer.history]
+        log(f"{path}: ms/step {[round(x, 1) for x in step_ms]} (mean {np.mean(step_ms):.1f}); "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {launches}, expected from the routing {expected}")
+        for name in KERNELS:
+            want = expected[name]
+            if launches[name] != want or (launches[name] == 0 and name in PATH_KERNELS[path]):
+                failures.append(f"{path} {name}: {launches[name]} launches, expected {want}")
+        if path == "vtn_train_long" and any(expected[n] != 3 * VTN_CONFIG["elayers"] for n in STD):
+            failures.append(f"{path}: the routing does not put every encoder layer on flash")
+        losses = [h["train/loss"] for h in trainer.history]
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"{path}: loss not finite: {losses}")
+        finite = [bool(f) for f, _ in notes]
+        att_min = [float(m) for _, m in notes]
+        log(f"{path} gradients per step: all finite {finite}; smallest norm among the "
+            f"{n_att} self-attention projections' weight gradients {att_min}")
+        if len(notes) != 3 or not all(finite) or not all(m > 0 for m in att_min):
+            failures.append(f"{path}: gradients finite {finite}, attention grad norms {att_min}")
+        profile_step(state, loader, float(np.mean(step_ms)), f"B{BATCH}, {label}",
+                     port_kernels=("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                   "flash_bwd_dkv_kernel"), make=make_vtn_trainer)
+        del state, trainer
+    return failures, launches
+
+
+def vtn_reference_step(seed: int):
+    """Phase 16: one float32 VTN training step's loss and gradients from
+    the same weights and batch (B 2, 100-128 frames), dropout off and the
+    flash gate below the encoder's key length, on the card (kernels 9, 10
+    and 11) and on the CPU (their plain versions), to phase 9's tolerances."""
+    from seq2seq_vc_torch.train.data import ARVCCollater
+
+    model = vtn_model(seed, flash_min_len=16, **VTN_NO_DROPOUT).train()
+    model.postnet.dropout_rate = 0.0
+    collater = ARVCCollater(PAD_MULTIPLE, VTN_CONFIG["decoder_reduction_factor"])
+    batch = collater(feature_items([(128, 128), (100, 112)], seed))
+    runs = {}
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        trainer = make_vtn_trainer(train_state(copy.deepcopy(model)), [], 1, device=dev)
+        pre = {}  # the ReLUs' inputs
+        for name, mod in trainer.model.named_modules():
+            if name.endswith(VTN_RELU_INPUTS):
+                mod.register_forward_hook(
+                    lambda mod, args, out, name=name: pre.__setitem__(name, out.detach().cpu()))
+        before = launch_counts()
+        loss, metrics = trainer.loss_fn(trainer._array_batch(batch), trainer._flags(),
+                                        trainer.generator)
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        runs[side] = (loss.item(), {k: v.item() for k, v in metrics.items()}, grads, counts, pre)
+    (la, ma, ga, ca, pa), (lb, mb, gb, cb, pb) = runs["card"], runs["cpu"]
+    flips = {n: [float(x) for x in pb[n][(pa[n] > 0) != (pb[n] > 0)]] for n in pb}
+    flips = {n: xs for n, xs in flips.items() if xs}
+    failures = [f"VTN reference step {name}: card {a} cpu {b}"
+                for name, a, b in [("loss", la, lb)] + [(k, ma[k], mb[k]) for k in mb]
+                if not (math.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b))]
+    if set(ga) != set(gb):
+        failures.append(f"VTN reference step: gradients of {sorted(set(ga) ^ set(gb))} on one side")
+    top = max(float(g.abs().max()) for g in gb.values())
+    worst = (0.0, "")
+    for name in sorted(set(ga) & set(gb)):
+        a, b = ga[name], gb[name]
+        if name.endswith("linear_k.bias"):  # rounding noise on both devices
+            if max(float(a.abs().max()), float(b.abs().max())) > NOISE_RTOL * top:
+                failures.append(f"VTN reference step {name}: not rounding noise")
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        # a tensor whose own output fed a ReLU input that flipped: FLIP_RTOL
+        flipped = name.rpartition(".")[0] in flips
+        worst = max(worst, (rel, name)) if not flipped else worst
+        if not (torch.isfinite(a).all() and rel <= (FLIP_RTOL if flipped else GRAD_RTOL)):
+            failures.append(f"VTN reference step {name}: gradient error {rel:.3e} of its largest")
+    want = {n: VTN_CONFIG["elayers"] if n in STD else 0 for n in KERNELS}
+    if ca != want or any(cb.values()):
+        failures.append(f"VTN reference step launches: card {ca}, cpu {cb}")
+    flip_errs = {n: float((ga[n + ".weight"] - gb[n + ".weight"]).abs().max()
+                          / gb[n + ".weight"].abs().max()) for n in flips}
+    log(f"VTN reference float32 train step, flash route (B 2, 100-128 frames, dropout off): "
+        f"loss card {la:.6f} cpu {lb:.6f}; terms card {ma} cpu {mb}; {len(gb)} gradient "
+        f"tensors, worst error of a tensor's largest {worst[0]:.3e} ({worst[1]}; rtol "
+        f"{GRAD_RTOL}); ReLU inputs on opposite sides of 0 (cpu values) {flips}, their "
+        f"modules' weight gradient errors {flip_errs} (rtol {FLIP_RTOL}); launches card {ca}, "
+        f"cpu {cb}: {'ok' if not failures else 'FAIL'}")
+    return failures
+
+
 def bwd_sweep() -> int:
     """The rel-scores backward's two variants, timed at the training step's
     batch (B 16, H 2) in bf16 over key lengths T at the encoder's and the
@@ -1014,38 +1563,67 @@ def sweep_layer(route: str, T: int, D: int, seed: int):
     return att, (x, x, x, pos, mask), dy
 
 
+def sweep_std_layer(route: str, T: int, seed: int):
+    """One VTN encoder self-attention layer (4 heads of D 96, bf16 compute,
+    attention dropout 0.1) in train() mode on the dense (``"xla"``) or the
+    flash route, with a B 16 batch of key lengths spread over [T/2, T]:
+    returns (module, inputs, output cotangent)."""
+    from seq2seq_vc_torch.nn.attention import MultiHeadedAttention
+
+    torch.manual_seed(seed)
+    n_feat, B = 384, 16
+    att = MultiHeadedAttention(4, n_feat, dropout_rate=0.1, backend=route, flash_min_len=0,
+                               compute_dtype=torch.bfloat16, device="cuda").train()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, T, n_feat, device="cuda", generator=g).requires_grad_()
+    lens = torch.linspace(T // 2, T, B, device="cuda").long()
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, :]
+    assert att.route(T, mask) == route
+    dy = torch.randn(B, T, n_feat, device="cuda", generator=g)
+    return att, (x, x, x, mask), dy
+
+
+def sweep_point(att, inputs, dy):
+    """(ms, GiB) of one layer's forward + backward: CUDA-event time and the
+    peak device memory above what the inputs hold."""
+    def step():
+        att(*inputs).backward(dy)
+
+    step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return cuda_ms(step, min_total_ms=300, max_iters=10), peak
+
+
 def flash_sweep() -> int:
-    """One attention layer's forward + backward at B 16, H 2, bf16, through
-    the fused route and the flash route, over key lengths T at the
-    encoder's and the decoder's head dims: each one's ms (CUDA events) and
-    its peak device memory above what the inputs hold (the data for
-    ``FLASH_MIN_LEN``)."""
+    """One attention layer's forward + backward in bf16 over key lengths
+    T, through each module's routes: the rel-pos layer (B 16, H 2, dropout
+    0.2) through the fused and the flash route at the AAS-VC encoder's and
+    decoder's head dims, and the standard layer (B 16, H 4, D 96, dropout
+    0.1: the VTN encoder's) through the dense and the flash route. Each
+    one's ms and peak memory: the data for ``FLASH_MIN_LEN``."""
     log(f"card: {card_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for D in (192, 768):
-        for T in (1024, 1536, 2048, 2560, 3072, 4096):
-            res = {}
-            for route in ("fused", "flash"):
-                att, inputs, dy = sweep_layer(route, T, D, seed=T + D)
-
-                def step():
-                    att(*inputs).backward(dy)
-
-                step()
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                step()
-                torch.cuda.synchronize()
-                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-                res[route] = (cuda_ms(step, min_total_ms=300, max_iters=10), peak)
-                del att, inputs, dy
-                torch.cuda.empty_cache()
-            (f_ms, f_gib), (l_ms, l_gib) = res["fused"], res["flash"]
-            log(f"flash sweep B16 H2 T{T} D{D} bf16 fwd+bwd: fused {f_ms:.3f} ms "
-                f"{f_gib:.3f} GiB, flash {l_ms:.3f} ms {l_gib:.3f} GiB; "
-                f"{'flash' if l_ms < f_ms else 'fused'} faster")
+    points = [(f"B16 H2 T{T} D{D}", ("fused", "flash"),
+               lambda route, T=T, D=D: sweep_layer(route, T, D, seed=T + D))
+              for D in (192, 768) for T in (1024, 1536, 2048, 2560, 3072, 4096)]
+    points += [(f"standard B16 H4 T{T} D96", ("xla", "flash"),
+                lambda route, T=T: sweep_std_layer(route, T, seed=T))
+               for T in (1024, 1536, 2048, 2560, 3072, 4096)]
+    for what, routes, layer in points:
+        res = {}
+        for route in routes:
+            res[route] = sweep_point(*layer(route))
+            torch.cuda.empty_cache()
+        (a_ms, a_gib), (f_ms, f_gib) = (res[r] for r in routes)
+        log(f"flash sweep {what} bf16 fwd+bwd: {routes[0]} {a_ms:.3f} ms {a_gib:.3f} GiB, "
+            f"flash {f_ms:.3f} ms {f_gib:.3f} GiB; "
+            f"{'flash' if f_ms < a_ms else routes[0]} faster")
     return 0
 
 
@@ -1127,6 +1705,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     fails, launches["train_long"] = train_long_path(rows)
     failures += fails
+    torch.cuda.empty_cache()
+    fails, launches["vtn_serve"] = vtn_serve_path(rows, src, trg)
+    failures += fails
+    for path in ("vtn_train", "vtn_train_long"):
+        torch.cuda.empty_cache()
+        fails, launches[path] = vtn_train_path(rows, path)
+        failures += fails
+    failures += vtn_reference_step(seed=34)
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]
 

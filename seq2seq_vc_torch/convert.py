@@ -1,6 +1,7 @@
 """JAX parameter trees -> state_dicts of the port's modules.
 
 The inverse of ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc`` and
+``convert_vtn`` and of
 ``seq2seq_vc_tpu/vocoder/convert_torch.py:torch_hifigan_to_flax``, written
 here so the port needs nothing of the JAX package. A tree is nested dicts
 of numpy arrays (``{"params": ...}`` or the inner dict). Every tensor of
@@ -91,23 +92,37 @@ _AASVC_RENAMES = [
     (r"^postnet\.postnet\.(\d+)\.1$", r"postnet.GroupNorm_\1"),
 ]
 
+_VTN_RENAMES = [
+    (r"(^|\.)embed\.conv\.0$", r"\1subsample.Conv_0"),
+    (r"(^|\.)embed\.conv\.2$", r"\1subsample.Conv_1"),
+    (r"(^|\.)embed\.out\.0$", r"\1subsample.Dense_0"),
+    (r"(^|\.)embed\.out\.1$", r"\1pos_enc"),
+    (r"^decoder\.embed\.0\.0\.prenet\.(\d+)\.0$", r"dprenet.Dense_\1"),
+    (r"^decoder\.embed\.0\.1$", "dprenet_proj"),
+    (r"^decoder\.embed\.1$", "decoder.pos_enc"),
+    (r"(^|\.)(encoders|decoders)\.(\d+)\.", r"\1layers_\3."),
+    (r"\.feed_forward\.w_1$", ".feed_forward.Dense_0"),
+    (r"\.feed_forward\.w_2$", ".feed_forward.Dense_1"),
+    (r"^postnet\.postnet\.(\d+)\.0$", r"postnet.Conv_\1"),
+    (r"^postnet\.postnet\.(\d+)\.1$", r"postnet.GroupNorm_\1"),
+]
+
 # the SDP's 1x1 convs are Dense layers in flax
 _SDP_DENSE = re.compile(r"^duration_predictor\.(pre|proj|post_pre|post_proj)$")
 
 
 def _to_torch(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(arr)).to(like.dtype)
+    t = torch.from_numpy(np.array(arr, order="C")).to(like.dtype)  # a writable copy
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"shape {tuple(t.shape)} does not match {tuple(like.shape)}")
     return t
 
 
-def aasvc_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """flax AASVC params -> a state_dict for the port's ``AASVC`` ``model``.
-
-    ``model`` may also be one of its parts on its own (a ``ConformerEncoder``
-    or a ``RelPositionMultiHeadedAttention``) with the matching flax tree.
-    """
+def _state_dict(tree: Dict[str, Any], model: torch.nn.Module, renames,
+                subsample_outs: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """Every tensor of ``model`` looked up in the flax ``tree`` by its module
+    path after ``renames``. ``subsample_outs`` maps each Conv2dSubsampling
+    output Linear to the conv whose channels order its input rows."""
     from .nn.conformer import MaskedGroupNorm
 
     src = _Tree(tree)
@@ -115,13 +130,13 @@ def aasvc_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, 
     for key, like in model.state_dict().items():
         mod_path, _, leaf = key.rpartition(".")
         flax_mod = mod_path
-        for pat, rep in _AASVC_RENAMES:
+        for pat, rep in renames:
             flax_mod = re.sub(pat, rep, flax_mod)
         path = tuple(flax_mod.split(".")) if flax_mod else ()
         mod = model.get_submodule(mod_path)
         if leaf == "bias":
             arr = src.pop(path + ("bias",))
-        elif leaf != "weight":  # pos_bias_u/v, flow m/logs: same layout
+        elif leaf != "weight":  # pos_bias_u/v, alpha, flow m/logs: same layout
             arr = src.pop(path + (leaf,)).reshape(like.shape)
         elif isinstance(mod, (torch.nn.LayerNorm, MaskedGroupNorm)):
             arr = src.pop(path + ("scale",))
@@ -131,9 +146,9 @@ def aasvc_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, 
             arr = src.pop(path + ("kernel",)).transpose(2, 1, 0)
         elif isinstance(mod, torch.nn.Conv2d):
             arr = src.pop(path + ("kernel",)).transpose(3, 2, 0, 1)
-        elif mod_path == "duration_predictor_projection.out":
+        elif mod_path in subsample_outs:
             k = src.pop(path + ("kernel",))  # (F*C, A), row f*C + c
-            C = model.get_submodule("duration_predictor_projection.conv.2").out_channels
+            C = model.get_submodule(subsample_outs[mod_path]).out_channels
             F = k.shape[0] // C
             arr = k.reshape(F, C, -1).transpose(2, 1, 0).reshape(-1, C * F)
         elif isinstance(mod, torch.nn.Linear):
@@ -143,6 +158,26 @@ def aasvc_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, 
         out[key] = _to_torch(arr, like)
     src.finish()
     return out
+
+
+def aasvc_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax AASVC params -> a state_dict for the port's ``AASVC`` ``model``.
+
+    ``model`` may also be one of its parts on its own (a ``ConformerEncoder``
+    or a ``RelPositionMultiHeadedAttention``) with the matching flax tree.
+    """
+    return _state_dict(tree, model, _AASVC_RENAMES, {
+        "duration_predictor_projection.out": "duration_predictor_projection.conv.2"})
+
+
+def vtn_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax VTN params -> a state_dict for the port's ``VTN`` ``model``.
+
+    ``model`` may also be one of its parts on its own (an ``Encoder`` or a
+    ``MultiHeadedAttention``) with the matching flax tree.
+    """
+    return _state_dict(tree, model, _VTN_RENAMES, {
+        f"{p}embed.out.0": f"{p}embed.conv.2" for p in ("encoder.", "")})
 
 
 def _wn_weight(src: _Tree, mod: Path_, wn: Path_, conv: str) -> np.ndarray:

@@ -26,13 +26,34 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Attention dropout's keep test, shared by the rel-pos flash forward and
-// its three backward kernels so that all draw the same mask. A counter-based
+// Rows [row0, row0 + n) of a row-major (rows, D) matrix into shared memory
+// as float, ld floats a row, by the NT threads of a block; rows at or past
+// `rows_valid` are zeros. Neighbouring threads read neighbouring columns.
+template <int NT, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, int row0, int n,
+                                           int rows_valid, int D) {
+  int r = threadIdx.x / D, c = threadIdx.x % D;
+  const int dr = NT / D, dc = NT % D;
+  while (r < n) {
+    const int row = row0 + r;
+    dst[r * ld + c] = row < rows_valid ? to_f(src[(size_t)row * D + c]) : 0.f;
+    r += dr;
+    c += dc;
+    if (c >= D) {
+      c -= D;
+      ++r;
+    }
+  }
+}
+
+// Attention dropout's keep test, shared by the flash forward kernels and
+// their backward kernels so that all draw the same mask. A counter-based
 // hash (the murmur3 finaliser) of the score element's index
-//   idx = (bh * t_pad + i) * t_pad + j   (wrapping 32-bit arithmetic)
-// where t_pad = round_up(T, 128) is the JAX package's padded length, not a
-// tile size of these kernels: the bits equal those of `_mix_bits` and
-// `_keep_from_bits` in seq2seq_vc_tpu/ops/flash_attention.py.
+//   idx = (bh * tq_pad + i) * tk_pad + j   (wrapping 32-bit arithmetic)
+// where tq_pad = round_up(Tq, 128) and tk_pad = round_up(Tk, 128) are the
+// JAX package's padded query and key lengths (equal for self-attention over
+// one sequence), not tile sizes of these kernels: the bits equal those of
+// `_mix_bits` and `_keep_from_bits` in seq2seq_vc_tpu/ops/flash_attention.py.
 __device__ __forceinline__ unsigned mix_bits(unsigned idx, unsigned seed) {
   unsigned x = idx * 0x9E3779B1u + seed;
   x ^= x >> 16;
@@ -45,9 +66,9 @@ __device__ __forceinline__ unsigned mix_bits(unsigned idx, unsigned seed) {
 
 // Whether element (bh, i, j) survives dropout at `rate`: the top 24 bits as
 // a float in [0, 1) (exact), compared in float32 as the JAX kernels do.
-__device__ __forceinline__ bool dropout_keep(unsigned seed, int bh, int i, int j, int t_pad,
-                                             float rate) {
-  const unsigned idx = ((unsigned)bh * (unsigned)t_pad + (unsigned)i) * (unsigned)t_pad +
+__device__ __forceinline__ bool dropout_keep(unsigned seed, int bh, int i, int j, int tq_pad,
+                                             int tk_pad, float rate) {
+  const unsigned idx = ((unsigned)bh * (unsigned)tq_pad + (unsigned)i) * (unsigned)tk_pad +
                        (unsigned)j;
   return (float)(mix_bits(idx, seed) >> 8) * (1.0f / 16777216.0f) >= rate;
 }

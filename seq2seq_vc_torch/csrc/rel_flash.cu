@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
       psum += p;  // the row sum is taken before the drop
       if constexpr (DROPOUT) {
         s_prob[ty][jl] =
-            s2s::dropout_keep(seed, bh, i0 + ty, j0 + jl, t_pad, rate) ? p * keep_scale : 0.f;
+            s2s::dropout_keep(seed, bh, i0 + ty, j0 + jl, t_pad, t_pad, rate) ? p * keep_scale : 0.f;
       } else {
         s_prob[ty][jl] = p;
       }

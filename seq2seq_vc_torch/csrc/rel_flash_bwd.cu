@@ -116,7 +116,7 @@ __device__ __forceinline__ void cell(const Args& a, float s_raw, float dp, float
                                      float& pd, float& ds) {
   const float p = valid ? expf(s_raw * a.scale - lse_i) : 0.f;
   if (a.rate > 0.f) {
-    pd = (valid && s2s::dropout_keep(a.seed, bh, i, j, a.t_pad, a.rate)) ? p * a.keep_scale
+    pd = (valid && s2s::dropout_keep(a.seed, bh, i, j, a.t_pad, a.t_pad, a.rate)) ? p * a.keep_scale
                                                                            : 0.f;
     ds = (pd * dp - p * delta_i) * a.scale;
   } else {

@@ -1,12 +1,14 @@
-"""Losses of the AAS-VC training step, resolved by name from the YAML
+"""Losses of the AAS-VC and VTN training steps, resolved by name from the YAML
 ``criterions`` block (mirrors seq2seq_vc_tpu/losses/__init__.py)."""
 
 from .duration import StochasticDurationPredictorLoss
 from .forward_sum import ForwardSumLoss
 from .l1 import L1Loss
+from .seq2seq import Seq2SeqLoss
 
 _CRITERIONS = {
     "L1Loss": L1Loss,
+    "Seq2SeqLoss": Seq2SeqLoss,
     "ForwardSumLoss": ForwardSumLoss,
     "StochasticDurationPredictorLoss": StochasticDurationPredictorLoss,
 }

@@ -1,0 +1,206 @@
+"""Voice Transformer Network, the AR mel-to-mel VC model (mirrors
+seq2seq_vc_tpu/models/vtn.py: ``setup``, ``encode``, ``__call__`` and
+``inference``).
+
+Conv2d-subsampled transformer encoder (its self-attention on the flash
+kernels from ``flash_min_len`` keys under ``attention_backend: flash``),
+Tacotron prenet and transformer decoder with reduction factor r, feature
+and stop heads, conv postnet. ``forward`` is the teacher-forced training
+pass; ``inference`` decodes autoregressively with per-layer K/V caches
+(``models/chunked_decode.py``). The constructor takes the JAX model's
+config fields by the same names and defaults; options the port does not
+have yet (a conformer encoder, speaker embeddings, batch-norm postnets,
+other input layers) raise ``NotImplementedError``. Submodule names are the
+reference torch names (the decoder's prenet and projection are
+``decoder.embed.0.0`` and ``decoder.embed.0.1``, its alpha
+``decoder.embed.1.alpha``), so a ``state_dict`` converts with
+``seq2seq_vc_tpu/convert/reference.py:convert_vtn``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..nn.attention import FLASH_MIN_LEN
+from ..nn.layers import Linear
+from ..nn.pre_postnets import Postnet, Prenet
+from ..nn.transformer import Decoder, Encoder
+from ..ops.masks import make_non_pad_mask, target_mask
+from .chunked_decode import ChunkedARDecodeMixin
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+class _PrenetProjection(torch.nn.Sequential):
+    """The decoder's input layer: Prenet (``0``) then the projection to
+    adim (``1``); the prenet's dropout draws from ``generator``."""
+
+    def forward(self, x, generator=None):
+        return self[1](self[0](x, generator))
+
+
+class VTN(ChunkedARDecodeMixin, torch.nn.Module):
+    def __init__(
+        self,
+        idim: int,
+        odim: int,
+        dprenet_layers: int = 2,
+        dprenet_units: int = 256,
+        adim: int = 384,
+        aheads: int = 4,
+        encoder_type: str = "transformer",
+        decoder_type: str = "transformer",
+        elayers: int = 6,
+        eunits: int = 1536,
+        dlayers: int = 6,
+        dunits: int = 1536,
+        postnet_layers: int = 5,
+        postnet_filts: int = 5,
+        postnet_chans: int = 256,
+        positionwise_layer_type: str = "linear",
+        dprenet_dropout_rate: float = 0.5,
+        transformer_enc_dropout_rate: float = 0.1,
+        transformer_enc_positional_dropout_rate: float = 0.1,
+        transformer_enc_attn_dropout_rate: float = 0.1,
+        transformer_dec_dropout_rate: float = 0.1,
+        transformer_dec_positional_dropout_rate: float = 0.1,
+        transformer_dec_attn_dropout_rate: float = 0.1,
+        use_batch_norm: bool = True,
+        encoder_normalize_before: bool = True,
+        decoder_normalize_before: bool = False,
+        encoder_concat_after: bool = False,
+        decoder_concat_after: bool = False,
+        decoder_reduction_factor: int = 2,
+        encoder_input_layer: str = "conv2d-scaled-pos-enc",
+        spk_embed_dim: Optional[int] = None,
+        initial_encoder_alpha: float = 1.0,
+        initial_decoder_alpha: float = 1.0,
+        postnet_norm_type: str = "group_norm",
+        attention_backend: str = "xla",
+        flash_min_len: int = FLASH_MIN_LEN,
+        compute_dtype: str = "float32",
+        device=None,
+        **unread: Any,
+    ):
+        """Config fields that the model does not read (init, guided
+        attention and conformer options with the transformer encoder) are
+        accepted in ``unread`` and ignored. ``flash_min_len`` is the
+        encoder's flash gate (``nn/attention.py``)."""
+        super().__init__()
+        unsupported = {
+            "encoder_type": (encoder_type, "transformer"),
+            "decoder_type": (decoder_type, "transformer"),
+            "positionwise_layer_type": (positionwise_layer_type, "linear"),
+            "encoder_input_layer": (encoder_input_layer, "conv2d-scaled-pos-enc"),
+            "postnet_norm_type": (postnet_norm_type, "group_norm"),
+            "spk_embed_dim": (spk_embed_dim, None),
+        }
+        for key, (got, want) in unsupported.items():
+            if got != want:
+                raise NotImplementedError(f"VTN {key}={got!r} is not ported yet")
+        self.idim, self.odim, self.adim = idim, odim, adim
+        self.decoder_reduction_factor = r = decoder_reduction_factor
+        cdt = _DTYPES[compute_dtype]
+        self.encoder = Encoder(
+            idim, attention_dim=adim, attention_heads=aheads, linear_units=eunits,
+            num_blocks=elayers, dropout_rate=transformer_enc_dropout_rate,
+            positional_dropout_rate=transformer_enc_positional_dropout_rate,
+            attention_dropout_rate=transformer_enc_attn_dropout_rate,
+            input_layer=encoder_input_layer, normalize_before=encoder_normalize_before,
+            concat_after=encoder_concat_after, positionwise_layer_type=positionwise_layer_type,
+            init_enc_alpha=initial_encoder_alpha, attention_backend=attention_backend,
+            flash_min_len=flash_min_len, compute_dtype=cdt, device=device,
+        )
+        prenet = _PrenetProjection(
+            Prenet(odim, dprenet_layers, dprenet_units, dprenet_dropout_rate, device=device),
+            Linear(dprenet_units, adim, device=device),
+        )
+        self.decoder = Decoder(
+            prenet, attention_dim=adim, attention_heads=aheads, linear_units=dunits,
+            num_blocks=dlayers, dropout_rate=transformer_dec_dropout_rate,
+            positional_dropout_rate=transformer_dec_positional_dropout_rate,
+            self_attention_dropout_rate=transformer_dec_attn_dropout_rate,
+            src_attention_dropout_rate=transformer_dec_attn_dropout_rate,
+            normalize_before=decoder_normalize_before, concat_after=decoder_concat_after,
+            init_dec_alpha=initial_decoder_alpha, compute_dtype=cdt, device=device,
+        )
+        self.feat_out = Linear(adim, odim * r, device=device)
+        self.prob_out = Linear(adim, r, device=device)
+        self.postnet = (
+            Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
+                    use_norm=use_batch_norm, device=device)
+            if postnet_layers > 0 else None
+        )
+
+    @property
+    def dprenet(self) -> Prenet:
+        return self.decoder.embed[0][0]
+
+    @property
+    def dprenet_proj(self) -> Linear:
+        return self.decoder.embed[0][1]
+
+    def encode(self, xs, ilens):
+        """(B, T', adim) float32 encoder states and their (B, T') mask."""
+        return self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
+
+    def forward(self, xs, ilens, ys, labels, olens, need_att_ws: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Teacher-forced forward (reference ``vtn.py:207-300``).
+
+        xs: (B, Tin, idim) source features; ilens: (B,); ys: (B, Lmax, odim)
+        targets, Lmax a multiple of r; labels: (B, Lmax) stop labels; olens:
+        (B,). The (L, B, H, Lmax // r, Tmem) cross-attention maps
+        (``att_ws``) are built only with ``need_att_ws``: at long lengths
+        they are the largest tensors of the step. ``generator`` draws the
+        prenet's dropout (default: torch's default generator).
+        """
+        r = self.decoder_reduction_factor
+        B, Lmax, _ = ys.shape
+        if Lmax % r:
+            raise ValueError(f"target length {Lmax} is not a multiple of r = {r}")
+        hs, h_masks = self.encode(xs, ilens)
+        # every r-th frame (the last of each group), shifted right
+        ys_in = ys[:, r - 1::r]
+        olens_in = torch.div(olens, r, rounding_mode="floor")
+        ys_in = torch.cat([torch.zeros_like(ys_in[:, :1]), ys_in[:, :-1]], dim=1)
+        y_masks = target_mask(olens_in, ys_in.shape[1])
+        zs = self.decoder(ys_in, y_masks, hs, h_masks, return_attns=need_att_ws,
+                          generator=generator)
+        zs, src_ws = zs if need_att_ws else (zs, None)
+        before_outs = self.feat_out(zs).reshape(B, -1, self.odim)
+        logits = self.prob_out(zs).reshape(B, -1)
+        after_outs = before_outs if self.postnet is None else before_outs + self.postnet(before_outs)
+        # targets and stop labels adjusted for the truncated tail (reference vtn.py:262-274)
+        olens_adj = olens - olens % r
+        pos = torch.arange(Lmax, device=ys.device)[None, :]
+        labels_adj = torch.where(pos == (olens_adj - 1)[:, None], 1.0, labels)
+        out = {
+            "after_outs": after_outs, "before_outs": before_outs, "logits": logits, "ys": ys,
+            "labels": labels_adj, "olens": olens_adj,
+            "ilens_ds_st": torch.div(torch.div(ilens - 1, 2, rounding_mode="floor") - 1, 2,
+                                     rounding_mode="floor"),
+            "olens_in": olens_in,
+        }
+        if need_att_ws:
+            out["att_ws"] = torch.stack(src_ws)
+        return out
+
+    @torch.no_grad()
+    def inference(self, xs, ilens, generator: Optional[torch.Generator] = None,
+                  threshold: float = 0.5, minlenratio: float = 0.0,
+                  maxlenratio: float = 10.0) -> Dict[str, Any]:
+        """Batched AR decode over the whole step budget in one loop, with
+        per-item stop thresholds and min/max length ratios.
+
+        Returns outs (B, MAXLEN*r, odim) postnet-refined features, probs (B,
+        MAXLEN*r) stop probabilities, out_lens (B,) valid output frames and
+        att_ws (L, B, H, MAXLEN, Tmem) cross-attention maps."""
+        st = self.decode_init(xs, ilens, maxlenratio)
+        st, outs, probs, att = self.decode_chunk(st, 0, st["maxlen"], threshold, minlenratio,
+                                                 maxlenratio, generator)
+        out_lens = self.decode_out_lens(st, maxlenratio)
+        return {"outs": self.decode_postnet(outs, out_lens), "probs": probs,
+                "out_lens": out_lens, "att_ws": att}

@@ -1,7 +1,12 @@
-"""Relative-position multi-head attention (mirrors
-seq2seq_vc_tpu/nn/attention.py:173-400).
+"""Multi-head attention: standard (``MultiHeadedAttention``, mirrors
+seq2seq_vc_tpu/nn/attention.py:76-170) and with relative positions
+(``RelPositionMultiHeadedAttention``, :173-400).
 
-Backends keep the JAX package's names: ``xla`` (dense PyTorch ops),
+``MultiHeadedAttention`` has two backends: ``xla`` (dense PyTorch ops) and
+``flash`` (the standard flash kernels, forward and backward, at key lengths
+>= ``flash_min_len`` under a key-padding mask; dense below it or with any
+other mask). The relative-position module's backends keep the JAX
+package's names: ``xla`` (dense PyTorch ops),
 ``fused`` (the fused rel-scores kernel, dense softmax and AV; its backward
 is the variant ``rel_scores_bwd`` names) and ``flash`` (the rel-pos flash
 kernels at key lengths >= ``flash_min_len``, forward and backward, the
@@ -19,17 +24,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import rel_flash_attention
+from ..ops.attention import scaled_dot_attention
+from ..ops.flash_attention import flash_attention, rel_flash_attention
 from ..ops.rel_scores import fused_rel_scores
 from .layers import Linear
 
 # Key length from which the `flash` backend takes the flash kernels, in
-# training and inference. PROVISIONAL: it is not the TPU's FLASH_MIN_LEN
-# (3072), which was tuned to TPU limits. `python3 chip_smoke.py
-# --flash-sweep` times one layer's forward + backward through both routes
-# on an H100 (PERF.md); the gate stays here until both routes' CUDA-core
-# kernels are redesigned, and is re-set from that sweep then. Below it the
-# `flash` backend takes the fused-scores kernel.
+# training and inference, in both modules. PROVISIONAL: it is not the
+# TPU's FLASH_MIN_LEN (3072), which was tuned to TPU limits. `python3
+# chip_smoke.py --flash-sweep` times one layer's forward + backward through
+# both routes of each module on an H100 (PERF.md); the gate stays here
+# until the CUDA-core kernels are redesigned, and is re-set from that sweep
+# then. Below it the rel-pos module's `flash` backend takes the
+# fused-scores kernel and the standard module's the dense ops.
 FLASH_MIN_LEN = 2048
 # dropout seeds are drawn in [0, SEED_HIGH), as the JAX package draws them
 SEED_HIGH = 2**31 - 1
@@ -56,6 +63,87 @@ def _expand_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _is_key_padding(mask) -> bool:
     return mask is None or mask.dim() == 2 or (mask.dim() == 3 and mask.shape[1] == 1)
+
+
+def _kv_lens(mask) -> Optional[torch.Tensor]:
+    """(B,) key lengths of a prefix-true key-padding mask (None: all keys)."""
+    if mask is None:
+        return None
+    return (mask if mask.dim() == 2 else mask[:, 0, :]).sum(-1).to(torch.int32)
+
+
+def _flash_seed(rate: float) -> Optional[int]:
+    return int(torch.randint(0, SEED_HIGH, ())) if rate > 0.0 else None
+
+
+class MultiHeadedAttention(torch.nn.Module):
+    """Standard scaled dot-product MHA with q/k/v/out projections.
+
+    Scores and softmax run in float32; projections and the weights-times-V
+    product in ``compute_dtype``. The ``flash`` backend takes the flash
+    kernels when no weights are asked for, the key length reaches
+    ``flash_min_len`` and the mask (if any) is a key-padding mask; in
+    ``train()`` mode its dropout seed is drawn from torch's default CPU
+    generator, one per call.
+    """
+
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
+                 backend: str = "xla", compute_dtype=None,
+                 flash_min_len: int = FLASH_MIN_LEN, device=None, dtype=None):
+        super().__init__()
+        if backend not in ("xla", "flash"):
+            raise ValueError(f"unknown attention backend: {backend}")
+        self.n_head = n_head
+        self.d_k = n_feat // n_head
+        self.dropout_rate = dropout_rate
+        self.backend = backend
+        self.flash_min_len = flash_min_len
+        kw = dict(compute_dtype=compute_dtype, device=device, dtype=dtype)
+        self.linear_q = Linear(n_feat, n_feat, **kw)
+        self.linear_k = Linear(n_feat, n_feat, **kw)
+        self.linear_v = Linear(n_feat, n_feat, **kw)
+        self.linear_out = Linear(n_feat, n_feat, **kw)
+
+    def route(self, t_key: int, mask, return_weights: bool = False) -> str:
+        """Which path a call takes: 'flash' or 'xla'."""
+        if (self.backend == "flash" and not return_weights and t_key >= self.flash_min_len
+                and _is_key_padding(mask)):
+            return "flash"
+        return "xla"
+
+    def forward(self, query, key, value, mask=None, return_weights: bool = False):
+        """mask: (B, Tk), (B, 1, Tk) or (B, Tq, Tk), True where attention is
+        allowed. Returns the (B, Tq, n_feat) output and, with
+        ``return_weights``, the float32 (B, H, Tq, Tk) weights (after
+        dropout in ``train()`` mode, as the JAX module returns them)."""
+        q = _split_heads(self.linear_q(query), self.n_head)
+        k = _split_heads(self.linear_k(key), self.n_head)
+        v = _split_heads(self.linear_v(value), self.n_head)
+        if self.route(key.shape[1], mask, return_weights) == "flash":
+            rate = float(self.dropout_rate) if self.training else 0.0
+            out = flash_attention(q, k, v, kv_lens=_kv_lens(mask), dropout_rate=rate,
+                                  dropout_seed=_flash_seed(rate))
+            return self.linear_out(_merge_heads(out))
+        out, w = scaled_dot_attention(q, k, v, mask=_expand_mask(mask), return_weights=True)
+        if self.training and self.dropout_rate > 0.0:
+            # torch's default generator draws the mask (the trainer seeds it)
+            w = F.dropout(w, self.dropout_rate, True)
+            out = torch.matmul(w.to(v.dtype), v)
+        out = self.linear_out(_merge_heads(out))
+        return (out, w) if return_weights else out
+
+    def project_kv(self, key, value):
+        """Head-split K/V projections, for decode caches: (B, H, T, d_k)."""
+        return (_split_heads(self.linear_k(key), self.n_head),
+                _split_heads(self.linear_v(value), self.n_head))
+
+    def attend_with_kv(self, query, k, v, mask=None, return_weights: bool = False):
+        """Attention over cached K/V (the incremental decode path)."""
+        q = _split_heads(self.linear_q(query), self.n_head)
+        out = scaled_dot_attention(q, k, v, mask=mask, return_weights=return_weights)
+        if return_weights:
+            return self.linear_out(_merge_heads(out[0])), out[1]
+        return self.linear_out(_merge_heads(out))
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -122,14 +210,9 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
 
         path = self.route(query.shape[1], key.shape[1], pos_emb.shape[1], mask)
         if path == "flash":
-            kv_lens = None
-            if mask is not None:
-                m2 = mask if mask.dim() == 2 else mask[:, 0, :]
-                kv_lens = m2.sum(-1).to(torch.int32)
             rate = float(self.dropout_rate) if self.training else 0.0
-            seed = int(torch.randint(0, SEED_HIGH, ())) if rate > 0.0 else None
-            out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=kv_lens,
-                                      dropout_rate=rate, dropout_seed=seed)
+            out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=_kv_lens(mask),
+                                      dropout_rate=rate, dropout_seed=_flash_seed(rate))
             return self.linear_out(_merge_heads(out))
         if path == "fused":
             scores = fused_rel_scores(q_u, q_v, k, p[0], bwd=self.rel_scores_bwd)

@@ -1,4 +1,9 @@
-"""Tacotron2-style postnet (mirrors seq2seq_vc_tpu/nn/pre_postnets.py:42).
+"""Tacotron2-style prenet and postnet (mirror
+seq2seq_vc_tpu/nn/pre_postnets.py:23, :42).
+
+The prenet's dropout is always on, at inference too (the reference relies
+on it for stable AR decoding), and draws from the ``torch.Generator`` its
+caller passes (torch's default generator of the input's device when none).
 
 The norm is ``MaskedGroupNorm`` (eps 1e-6), the JAX package's default in
 place of the reference BatchNorm. Names follow the reference:
@@ -12,7 +17,31 @@ import torch
 import torch.nn.functional as F
 
 from .conformer import MaskedGroupNorm
-from .layers import Conv1d
+from .layers import Conv1d, Linear
+
+
+class Prenet(torch.nn.Module):
+    """``n_layers`` x (Linear -> ReLU -> always-on dropout). Names follow the
+    reference: ``prenet.N.0`` is the Linear."""
+
+    def __init__(self, idim: int, n_layers: int = 2, n_units: int = 256,
+                 dropout_rate: float = 0.5, device=None, dtype=None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.prenet = torch.nn.ModuleList(
+            torch.nn.Sequential(Linear(idim if i == 0 else n_units, n_units, device=device,
+                                       dtype=dtype), torch.nn.ReLU())
+            for i in range(n_layers)
+        )
+
+    def forward(self, x, generator=None):
+        keep_p = 1.0 - self.dropout_rate
+        for layer in self.prenet:
+            x = layer(x)
+            if self.dropout_rate > 0.0:
+                keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
+                x = torch.where(keep, x / keep_p, 0.0)
+        return x
 
 
 class Postnet(torch.nn.Module):

@@ -1,11 +1,23 @@
-"""Relative-position flash attention (new-style rel-pos), forward and backward.
+"""Flash attention, forward and backward, as ``torch.autograd.Function``s:
+standard multi-head attention (``flash_attention``) and attention with
+new-style relative position scores (``rel_flash_attention``).
+
+``flash_attention`` computes ``dropout(softmax(q k^T / sqrt(D))) v`` with a
+key-length mask and an optional causal mask, for (B, H, Tq, D) queries and
+(B, H, Tk, D) keys (Tq and Tk may differ), online, without materialising
+the (Tq, Tk) scores:
+
+- forward: on a CUDA tensor the Hopper kernel in ``csrc/flash.cu`` (with
+  in-kernel dropout and, under autograd, the saved logsumexp), on a CPU
+  tensor ``flash_attention_plain``;
+- backward: on a CUDA tensor the two kernels of ``csrc/flash_bwd.cu``
+  (``flash_bwd_dq``, ``flash_bwd_dkv``), on a CPU tensor
+  ``flash_attention_bwd_plain``.
 
 ``rel_flash_attention`` computes ``dropout(softmax((q_u k^T +
-rel_shift(q_v pos^T)) / sqrt(D))) v`` with a key-length mask, online,
-without materialising the (T, T) scores, as a ``torch.autograd.Function``:
+rel_shift(q_v pos^T)) / sqrt(D))) v`` with a key-length mask:
 
-- forward: on a CUDA tensor the Hopper kernel in ``csrc/rel_flash.cu``
-  (with in-kernel dropout and, under autograd, the saved logsumexp), on a
+- forward: on a CUDA tensor the Hopper kernel in ``csrc/rel_flash.cu``, on a
   CPU tensor ``rel_flash_attention_plain``;
 - backward (FlashAttention-2 style: the score tiles are recomputed from
   q, k, the table and the saved logsumexp): on a CUDA tensor the three
@@ -16,11 +28,11 @@ without materialising the (T, T) scores, as a ``torch.autograd.Function``:
 Dropout acts on the *normalised* weights with 1/(1-rate) scaling (the
 softmax's row sum is taken before the drop), torch-style. Its keep mask is
 a counter-based hash (murmur3 finaliser) of the score element's index
-``(bh * t_pad + i) * t_pad + j`` with ``t_pad = round_up(T, 128)``: the
-same bits as the JAX package's kernels (seq2seq_vc_tpu/ops/flash_attention.py
-``_mix_bits``, ``_keep_from_bits``), which run with the default block of
-128. The forward and every backward kernel draw the same mask; the port's
-own tile sizes never enter the index.
+``(bh * tq_pad + i) * tk_pad + j`` with ``tq_pad = round_up(Tq, 128)`` and
+``tk_pad = round_up(Tk, 128)``: the same bits as the JAX package's kernels
+(seq2seq_vc_tpu/ops/flash_attention.py ``_mix_bits``, ``_keep_from_bits``),
+which run with the default blocks of 128. The forward and every backward
+kernel draw the same mask; the port's own tile sizes never enter the index.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ NEG_INF = -1e30  # finite mask value, as in the JAX kernels
 # the JAX entry's default block: the dropout index runs over rows and keys
 # padded to a multiple of it
 DROPOUT_BLOCK = 128
+STD_MAX_D = 256  # head dims the standard kernels take (csrc/flash.cu, flash_bwd.cu)
 _M32 = 0xFFFFFFFF
 
 _c = ctypes.c_void_p
@@ -102,12 +115,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _dropout(p, rate: float, seed):
-    """p (B, H, T, T) -> the kept weights scaled by 1/(1-rate) in float32."""
+    """p (B, H, Tq, Tk) -> the kept weights scaled by 1/(1-rate) in float32."""
     if rate <= 0.0:
         return p
-    B, H, T, _ = p.shape
-    t_pad = _round_up(T, DROPOUT_BLOCK)
-    keep = _keep_mask(seed, B * H, T, T, t_pad, t_pad, rate, p.device).view(B, H, T, T)
+    B, H, Tq, Tk = p.shape
+    tq, tk = _round_up(Tq, DROPOUT_BLOCK), _round_up(Tk, DROPOUT_BLOCK)
+    keep = _keep_mask(seed, B * H, Tq, Tk, tq, tk, rate, p.device).view(B, H, Tq, Tk)
     return torch.where(keep, p * _keep_scale(rate), 0.0)
 
 
@@ -125,9 +138,14 @@ def _kv_lens(kv_lens, B, T, device):
     return kv_lens.to(device=device, dtype=torch.int32)
 
 
-def _valid(lens, T, device):
-    """(B, 1, 1, T) whether key j lies below its batch row's length."""
-    return (torch.arange(T, device=device)[None, :] < lens[:, None])[:, None, None, :]
+def _valid(lens, T, device, Tq=None, causal=False):
+    """(B, 1, 1 or Tq, T) whether key j lies below its batch row's length
+    (and, ``causal``, at or before query row i)."""
+    valid = (torch.arange(T, device=device)[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        valid = valid & (torch.arange(T, device=device)[None, :]
+                         <= torch.arange(Tq, device=device)[:, None])
+    return valid
 
 
 def rel_flash_attention_plain(q_u, q_v, k, v, pos, kv_lens=None, dropout_rate: float = 0.0,
@@ -138,35 +156,48 @@ def rel_flash_attention_plain(q_u, q_v, k, v, pos, kv_lens=None, dropout_rate: f
     ``return_lse``, the (B, H, T) float32 logsumexp of each row's scores
     (``-1e30`` for a row with no live key, whose context is zeros)."""
     B, H, T, _ = q_u.shape
-    lens = _kv_lens(kv_lens, B, T, q_u.device)
-    valid = _valid(lens, T, q_u.device)
-    s = torch.where(valid, fused_rel_scores_plain(q_u, q_v, k, pos), NEG_INF)
+    valid = _valid(_kv_lens(kv_lens, B, T, q_u.device), T, q_u.device)
+    return _attend(fused_rel_scores_plain(q_u, q_v, k, pos), valid, v, dropout_rate,
+                   dropout_seed, q_u.dtype, return_lse)
+
+
+def _attend(s, valid, v, rate: float, seed, dtype, return_lse: bool):
+    """The plain forwards' shared tail: the masked softmax of the float32
+    (scaled) scores ``s``, dropout on the normalised weights, times v. The
+    context in ``dtype`` and, with ``return_lse``, the (B, H, Tq) logsumexp
+    (``-1e30`` for a row with no live key, whose context is zeros)."""
+    s = torch.where(valid, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
-    p_av = _dropout(p, dropout_rate, dropout_seed)
-    out = torch.einsum("bhqk,bhkd->bhqd", p_av, v.float()) / torch.where(l == 0, 1.0, l)
-    out = out.to(q_u.dtype)
+    out = torch.matmul(_dropout(p, rate, seed), v.float()) / torch.where(l == 0, 1.0, l)
+    out = out.to(dtype)
     if not return_lse:
         return out
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)), NEG_INF)
     return out, lse[..., 0]
 
 
-def _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, rate, seed):
-    """The backward's recomputed tiles, whole: (kept weights pd, score
-    cotangent ds before the 1/sqrt(D) scale), both (B, H, T, T) float32,
-    as the JAX package's ``_rel_block_grads``."""
-    B, H, T, _ = q_u.shape
-    valid = _valid(_kv_lens(kv_lens, B, T, q_u.device), T, q_u.device)
-    s = fused_rel_scores_plain(q_u, q_v, k, pos)
+def _tile_grads(s, valid, v, lse, delta, d_out, rate: float, seed):
+    """The plain backwards' recomputed tiles, whole, from the float32
+    (scaled) scores ``s``: (kept weights pd, the scaled scores' cotangent
+    ds), both (B, H, Tq, Tk) float32, as the JAX package's
+    ``_std_block_grads`` and ``_rel_block_grads`` before their scale."""
     p = torch.where(valid, torch.exp(s - lse.float()[..., None]), 0.0)
-    dp = torch.einsum("bhqd,bhkd->bhqk", d_out.float(), v.float())
+    dp = torch.matmul(d_out.float(), v.float().transpose(-1, -2))
     delta = delta.float()[..., None]
     if rate > 0.0:
         pd = _dropout(p, rate, seed)
         return pd, pd * dp - p * delta
     return p, p * (dp - delta)
+
+
+def _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, rate, seed):
+    """The rel-pos backward's (pd, ds before the 1/sqrt(D) scale)."""
+    B, H, T, _ = q_u.shape
+    valid = _valid(_kv_lens(kv_lens, B, T, q_u.device), T, q_u.device)
+    return _tile_grads(fused_rel_scores_plain(q_u, q_v, k, pos), valid, v, lse, delta, d_out,
+                       rate, seed)
 
 
 def _delta(out, d_out):
@@ -227,11 +258,12 @@ def _check_cuda(name, D):
         raise ValueError(f"{name}: head dim {D} > 1024 not supported")
 
 
-def _dropout_args(rate: float, seed, T: int):
-    """(rate, 1/(1-rate), seed as uint32, t_pad) as the kernels take them."""
+def _dropout_args(rate: float, seed, *lengths: int):
+    """(rate, 1/(1-rate), seed as uint32, then each length padded for the
+    hash index) as the kernels take them."""
     keep_scale = _keep_scale(rate) if rate > 0.0 else 1.0
     return (_f(rate), _f(keep_scale), ctypes.c_uint32(int(seed or 0) & _M32),
-            _round_up(T, DROPOUT_BLOCK))
+            *(_round_up(t, DROPOUT_BLOCK) for t in lengths))
 
 
 def _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse):
@@ -421,3 +453,214 @@ rel_flash_attention.launches = 0  # forward kernel launches (CPU calls do not co
 rel_flash_bwd_dq.launches = 0  # backward kernel launches, one counter each
 rel_flash_bwd_dkv.launches = 0
 rel_flash_bwd_dpos.launches = 0
+
+
+# ------------------------------------------------ standard flash attention
+def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False,
+                          dropout_rate: float = 0.0, dropout_seed=None,
+                          return_lse: bool = False):
+    """Plain PyTorch version of the standard forward kernel (float32
+    arithmetic): q (B, H, Tq, D), k and v (B, H, Tk, D).
+
+    Returns the (B, H, Tq, D) context in q's dtype and, with ``return_lse``,
+    the (B, H, Tq) float32 logsumexp of each row's live scores (``-1e30``
+    for a row with no live key, whose context is zeros)."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    valid = _valid(_kv_lens(kv_lens, B, Tk, q.device), Tk, q.device, Tq, causal)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(D))
+    return _attend(s, valid, v, dropout_rate, dropout_seed, q.dtype, return_lse)
+
+
+def _std_recompute(q, k, v, kv_lens, lse, delta, d_out, causal, rate, seed):
+    """The standard backward's (pd, ds times the 1/sqrt(D) scale), as the
+    JAX package's ``_std_block_grads``."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    valid = _valid(_kv_lens(kv_lens, B, Tk, q.device), Tk, q.device, Tq, causal)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    pd, ds = _tile_grads(s, valid, v, lse, delta, d_out, rate, seed)
+    return pd, ds * scale
+
+
+def flash_bwd_dq_plain(q, k, v, kv_lens, lse, delta, d_out, causal=False,
+                       dropout_rate=0.0, dropout_seed=None):
+    """Plain version of the dq kernel: dq in q's dtype."""
+    _, ds = _std_recompute(q, k, v, kv_lens, lse, delta, d_out, causal, dropout_rate,
+                           dropout_seed)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, kv_lens, lse, delta, d_out, causal=False,
+                        dropout_rate=0.0, dropout_seed=None):
+    """Plain version of the dk/dv kernel: (dk, dv) in the dtypes of k, v."""
+    pd, ds = _std_recompute(q, k, v, kv_lens, lse, delta, d_out, causal, dropout_rate,
+                            dropout_seed)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype)
+    dv = torch.matmul(pd.transpose(-1, -2), d_out.float()).to(v.dtype)
+    return dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, d_out, causal: bool = False,
+                              dropout_rate: float = 0.0, dropout_seed=None):
+    """Plain PyTorch version of the whole standard backward (float32
+    arithmetic): (dq, dk, dv) in the dtypes of (q, k, v), from the forward's
+    output ``out`` and logsumexp ``lse`` and the output's cotangent."""
+    pd, ds = _std_recompute(q, k, v, kv_lens, lse, _delta(out, d_out), d_out, causal,
+                            dropout_rate, dropout_seed)
+    dq = torch.matmul(ds, k.float()).to(q.dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype)
+    dv = torch.matmul(pd.transpose(-1, -2), d_out.float()).to(v.dtype)
+    return dq, dk, dv
+
+
+def _check_std(name, q, k, v, extra=()):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    _check_inputs(name, (q, k, v) + tuple(t for t, _ in extra),
+                  ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D)) + tuple(s for _, s in extra))
+    _check_device(name, q)
+    if q.device.type == "cuda" and D > STD_MAX_D:
+        raise ValueError(f"{name}: head dim {D} > {STD_MAX_D} not supported")
+
+
+def _std_fwd(q, k, v, lens, causal, rate, seed, need_lse):
+    """Forward: kernel 9 on a CUDA tensor, the plain version on a CPU one.
+    Returns (out, lse or None)."""
+    if q.device.type == "cpu":
+        if need_lse:
+            return flash_attention_plain(q, k, v, lens, causal, rate, seed, True)
+        return flash_attention_plain(q, k, v, lens, causal, rate, seed), None
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(qc)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if need_lse else None
+    fn = native.load("flash").flash_fwd
+    fn.restype = _i
+    fn.argtypes = [_i] + [_c] * 6 + [_i] * 5 + [_f, _i, _f, _f, ctypes.c_uint32, _i, _i, _c]
+    with torch.cuda.device(q.device):
+        rc = fn(DTYPE_CODES[q.dtype], qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                lens.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+                B * H, H, Tq, Tk, D, 1.0 / math.sqrt(D), int(causal),
+                *_dropout_args(rate, seed, Tq, Tk), _stream(q))
+    native.check(rc, "flash_fwd")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _std_bwd_args(name, q, k, v, kv_lens, lse, delta, d_out):
+    B, H, Tq, D = q.shape
+    _check_std(name, q, k, v, ((d_out, (B, H, Tq, D)),))
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if tuple(t.shape) != (B, H, Tq):
+            raise ValueError(f"{name}: {what} must be {(B, H, Tq)}, got {tuple(t.shape)}")
+    lens = _kv_lens(kv_lens, B, k.shape[2], q.device).contiguous()
+    return [t.contiguous() for t in (q, k, v)] + [lens, lse.float().contiguous(),
+                                                   delta.float().contiguous(), d_out.contiguous()]
+
+
+def _std_bwd_launch(symbol, ins, outs, causal, rate, seed):
+    q, k = ins[0], ins[1]
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    fn = getattr(native.load("flash_bwd"), symbol)
+    fn.restype = _i
+    fn.argtypes = ([_i] + [_c] * (len(ins) + len(outs)) + [_i] * 5
+                   + [_f, _i, _f, _f, ctypes.c_uint32, _i, _i, _c])
+    with torch.cuda.device(q.device):
+        rc = fn(DTYPE_CODES[q.dtype], *(t.data_ptr() for t in ins + list(outs)),
+                B * H, H, Tq, Tk, D, 1.0 / math.sqrt(D), int(causal),
+                *_dropout_args(rate, seed, Tq, Tk), _stream(q))
+    native.check(rc, symbol)
+
+
+def flash_bwd_dq(q, k, v, kv_lens, lse, delta, d_out, causal: bool = False,
+                 dropout_rate: float = 0.0, dropout_seed=None):
+    """dq: on a CUDA tensor kernel 10 of ``csrc/flash_bwd.cu`` (one launch),
+    on a CPU tensor ``flash_bwd_dq_plain``. ``lse`` and ``delta =
+    rowsum(dO * O)`` are (B, H, Tq) float32."""
+    ins = _std_bwd_args("flash_bwd_dq", q, k, v, kv_lens, lse, delta, d_out)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(*ins, causal, dropout_rate, dropout_seed)
+    dq = torch.empty_like(ins[0])
+    _std_bwd_launch("flash_bwd_dq", ins, (dq,), causal, dropout_rate, dropout_seed)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, kv_lens, lse, delta, d_out, causal: bool = False,
+                  dropout_rate: float = 0.0, dropout_seed=None):
+    """(dk, dv): on a CUDA tensor kernel 11 of ``csrc/flash_bwd.cu`` (one
+    launch), on a CPU tensor ``flash_bwd_dkv_plain``."""
+    ins = _std_bwd_args("flash_bwd_dkv", q, k, v, kv_lens, lse, delta, d_out)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(*ins, causal, dropout_rate, dropout_seed)
+    dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
+    _std_bwd_launch("flash_bwd_dkv", ins, (dk, dv), causal, dropout_rate, dropout_seed)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, kv_lens, out, lse, d_out, causal: bool = False,
+                        dropout_rate: float = 0.0, dropout_seed=None):
+    """(dq, dk, dv): on a CUDA tensor kernels 10 and 11, on a CPU tensor
+    ``flash_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, kv_lens, out, lse, d_out, causal,
+                                         dropout_rate, dropout_seed)
+    args = (q, k, v, kv_lens, lse, _delta(out, d_out), d_out, causal, dropout_rate,
+            dropout_seed)
+    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, lens, causal, rate, seed):
+        out, lse = _std_fwd(q, k, v, lens, causal, rate, seed, need_lse=True)
+        ctx.save_for_backward(q, k, v, lens, out, lse)
+        ctx.causal, ctx.rate, ctx.seed = causal, rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, lens, out, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, lens, out, lse, d_out, ctx.causal, ctx.rate,
+                                    ctx.seed)
+        return (*grads, None, None, None, None)
+
+
+def flash_attention(
+    q, k, v, kv_lens: Optional[torch.Tensor] = None, causal: bool = False,
+    dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Standard multi-head flash attention, differentiable, with optional
+    in-kernel dropout (the JAX package's ``flash_attention``).
+
+    Args:
+        q: (B, H, Tq, D) queries; k, v: (B, H, Tk, D) keys and values.
+        kv_lens: (B,) valid key lengths (None: all Tk keys).
+        causal: key j is live for query i only where j <= i.
+        dropout_rate: attention-weight dropout probability.
+        dropout_seed: a host int in [0, 2^31); required when dropout_rate > 0.
+            The forward and the backward draw the same mask from it.
+    Returns:
+        (B, H, Tq, D) context in q's dtype. Rows with no live key are zeros.
+    """
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
+    _check_std("flash_attention", q, k, v)
+    lens = _kv_lens(kv_lens, q.shape[0], k.shape[2], q.device).contiguous()
+    causal, rate = bool(causal), float(dropout_rate)
+    seed = None if dropout_seed is None else int(dropout_seed)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, lens, causal, rate, seed)
+    return _std_fwd(q, k, v, lens, causal, rate, seed, need_lse=False)[0]
+
+
+flash_attention.launches = 0  # kernel 9 launches (CPU calls do not count)
+flash_bwd_dq.launches = 0  # kernel 10
+flash_bwd_dkv.launches = 0  # kernel 11

@@ -1,10 +1,14 @@
 """wav-in / wav-out conversion on the card (mirrors
-seq2seq_vc_tpu/pipeline.py:26-302, ``Wav2WavConverter``).
+seq2seq_vc_tpu/pipeline.py: ``Wav2WavConverter``, :26-302, and
+``Wav2WavARConverter``, :305-560).
 
-One request runs log-mel analysis -> normalisation -> ``AASVC.inference``
--> de-normalisation and vocoder re-normalisation -> chunked HiFi-GAN, all
-on one device, with one host fetch of the predicted length between the
-model and the synthesis stage.
+A NAR request (AAS-VC) runs log-mel analysis -> normalisation ->
+``AASVC.inference`` -> de-normalisation and vocoder re-normalisation ->
+chunked HiFi-GAN, all on one device, with one host fetch of the predicted
+length between the model and the synthesis stage. An AR request (VTN)
+replaces the model stage with the chunked AR decode of
+``models/ar_driver.ChunkedARDecoder``, whose host reads one stop flag per
+chunk.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from .dsp.features import _logmel
 from .dsp.mel import mel_filterbank
 from .dsp.stft import hann_window, num_frames
 from .models.aas_vc import AASVC
+from .models.ar_driver import ChunkedARDecoder
 from .vocoder.hifigan import HifiganGenerator, chunked_generate
 
 
@@ -175,3 +180,81 @@ class Wav2WavConverter:
                 chunked_generate(self.vocoder, torch.zeros((b, d), device=self.device)).cpu()
                 n += 1
         return n
+
+
+class Wav2WavARConverter(Wav2WavConverter):
+    """Wav->wav conversion through an AR model (VTN): batched log-mel
+    analysis, the chunked AR decode (geometric chunks, speculative flag
+    reads, an expected-length first chunk), the stat chain and chunked
+    HiFi-GAN per item on its length bucket. Same serving surface as
+    ``Wav2WavConverter`` (``__call__``, ``convert_batch``,
+    ``warmup_synth``).
+
+    ``generator`` draws the prenet's always-on dropout; by default a
+    generator on the device seeded with 0 per request. Synthesis is serial
+    after the decode: overlapping it with the decode (the JAX package's
+    ``stream_vocoder``) is not ported yet.
+    """
+
+    def __init__(self, model, vocoder: HifiganGenerator, src_stats: Dict[str, np.ndarray],
+                 trg_stats: Dict[str, np.ndarray], config: Dict[str, Any],
+                 vocoder_stats: Optional[Dict[str, np.ndarray]] = None,
+                 bucket_frames: int = 64, device=None):
+        super().__init__(model, vocoder, src_stats, trg_stats, config, vocoder_stats,
+                         bucket_frames, device)
+        inf = config.get("inference", {}) or {}
+        self._est_ratio = float(inf.get("decode_est_len_ratio", 1.2))
+        self._r = int(model.decoder_reduction_factor)
+        self.ar_decode = ChunkedARDecoder(
+            self.model, threshold=inf.get("threshold", 0.5),
+            minlenratio=inf.get("minlenratio", 0.0), maxlenratio=inf.get("maxlenratio", 6.0),
+            base_chunk=int(inf.get("decode_chunk_steps", 32)),
+            max_chunk=int(inf.get("decode_max_chunk_steps", 256)),
+        )
+        self.last_decode_steps = 0  # AR steps the last request's decode ran
+
+    def _prepare(self, audios):
+        """Reflect-padded audio batch, true frame counts and the padded
+        frame count (a multiple of the bucket and of r)."""
+        pad = self.fft_size // 2
+        xs = [np.pad(a, (pad, pad), mode="reflect") for a in audios]
+        n_trues = [num_frames(len(a), self.hop_size) for a in audios]
+        n_raw = max(1 + (len(x) - self.fft_size) // self.hop_size for x in xs)
+        q = int(np.lcm(self.bucket_frames, max(self._r, 1)))
+        n_padded = -(-n_raw // q) * q
+        target_len = self.fft_size + (n_padded - 1) * self.hop_size
+        batch = np.zeros((len(xs), target_len), np.float32)
+        for i, x in enumerate(xs):
+            n = min(len(x), target_len)
+            batch[i, :n] = x[:n]
+        return batch, n_trues
+
+    @torch.no_grad()
+    def convert_batch(self, audios, generator: Optional[torch.Generator] = None,
+                      stream_vocoder: bool = False):
+        """Convert several waveforms with one batched AR decode (each item
+        stops on its own); each item then synthesises on its own length
+        bucket. Returns waveforms in input order."""
+        if stream_vocoder:
+            raise NotImplementedError("stream_vocoder (synthesis overlapped with the decode) "
+                                      "is not ported yet")
+        audios = [np.asarray(a, np.float32) for a in audios]
+        if not audios:
+            return []
+        batch, n_trues = self._prepare(audios)
+        x = torch.as_tensor(batch, device=self.device)
+        mel = _logmel(x, self._window, self._mel_t, self.fft_size, self.hop_size, 10.0)
+        mel = (mel - self._src_mean) / self._src_scale
+        est = int(np.ceil(self._est_ratio * max(n_trues) / self._r))
+        lens = torch.as_tensor(np.asarray(n_trues, np.int64), device=self.device)
+        out = self.ar_decode(mel, lens, self._generator(generator), est_steps=est)
+        self.last_decode_steps = int(out["outs"].shape[1]) // self._r
+        feats = out["outs"] * self._trg_scale + self._trg_mean
+        feats = (feats - self._voc_mean) / self._voc_scale
+        out_lens = out["out_lens"].cpu().numpy()
+        self.last_synth_cap = int(feats.shape[1])
+        wavs = []
+        for i in range(len(audios)):
+            self.last_out_frames = max(1, int(out_lens[i]))
+            wavs.append(self._synth(feats[i], self.last_out_frames))
+        return wavs

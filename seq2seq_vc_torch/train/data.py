@@ -1,5 +1,5 @@
-"""Training data: scp loaders, the parallel mel dataset, the NAR collater
-and the batching loader (mirrors seq2seq_vc_tpu/train/data.py and the scp
+"""Training data: scp loaders, the parallel mel dataset, the NAR and AR
+collaters and the batching loader (mirrors seq2seq_vc_tpu/train/data.py and the scp
 loaders of seq2seq_vc_tpu/utils/io.py).
 
 Feature storage: an scp of ``.npy`` paths, an scp of HDF5 entries
@@ -219,6 +219,33 @@ class NARVCCollater:
             items["dp_inputs"] = pad_batch(dps, self.src_multiple, pad_to.get("src"))
             items["dplens"] = np.array([d.shape[0] for d in dps], np.int32)
         return items
+
+
+class ARVCCollater:
+    """AR VC batch: xs, ilens, ys, olens, stop labels and utt_ids. The target
+    pads to a multiple of the bucket and of the decoder reduction factor;
+    a target's stop labels are 1 from its last frame on."""
+
+    def __init__(self, pad_multiple: int = 32, reduction_factor: int = 2):
+        self.src_multiple = pad_multiple
+        self.trg_multiple = int(np.lcm(pad_multiple, reduction_factor))
+
+    def __call__(self, batch: List[Dict[str, Any]],
+                 pad_to: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+        pad_to = pad_to or {}
+        xs = [b["src_feat"] for b in batch]
+        ys = [b["trg_feat"] for b in batch]
+        olens = np.array([y.shape[0] for y in ys], np.int32)
+        ys = pad_batch(ys, self.trg_multiple, pad_to.get("trg"))
+        labels = (np.arange(ys.shape[1])[None, :] >= olens[:, None] - 1).astype(np.float32)
+        return {
+            "xs": pad_batch(xs, self.src_multiple, pad_to.get("src")),
+            "ilens": np.array([x.shape[0] for x in xs], np.int32),
+            "ys": ys,
+            "olens": olens,
+            "labels": labels,
+            "utt_ids": [b["utt_id"] for b in batch],
+        }
 
 
 class DataLoader:

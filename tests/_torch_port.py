@@ -8,10 +8,12 @@ tests/test_torch_kernels_cuda.py, which imports no JAX.
 import numpy as np
 import torch
 
-from seq2seq_vc_tpu.convert.reference import convert_aasvc
+from seq2seq_vc_tpu.convert.reference import convert_aasvc, convert_vtn
 from seq2seq_vc_tpu.models import AASVC as JaxAASVC
+from seq2seq_vc_tpu.models import VTN as JaxVTN
 from seq2seq_vc_torch.convert import aasvc_state_dict
 from seq2seq_vc_torch.models.aas_vc import AASVC
+from seq2seq_vc_torch.models.vtn import VTN
 
 # the AAS-VC test configuration: the flagship's structure at toy widths
 TINY_AASVC = dict(
@@ -22,6 +24,17 @@ TINY_AASVC = dict(
     conformer_dec_kernel_size=7, duration_predictor_use_encoder_outputs=False,
     encoder_normalize_before=True, decoder_normalize_before=True,
     stochastic_duration_predictor_noise_scale=0.0,
+)
+
+
+# the VTN test configuration: vtn.v1.yaml's structure (post-LN decoder,
+# reduction factor 4, group-norm postnet) at toy widths, prenet dropout off
+# (its always-on bits cannot be reproduced across frameworks)
+TINY_VTN = dict(
+    idim=80, odim=80, adim=32, aheads=2, elayers=2, eunits=64, dlayers=2, dunits=64,
+    dprenet_units=24, postnet_layers=2, postnet_chans=16, decoder_reduction_factor=4,
+    encoder_normalize_before=True, decoder_normalize_before=False,
+    dprenet_dropout_rate=0.0,
 )
 
 
@@ -59,3 +72,13 @@ def assert_state_dicts_equal(a, b) -> None:
 
 def np_inputs(rng: np.random.Generator, *shapes):
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def vtn_pair(seed: int = 0, port_kw=None, **over):
+    """(port VTN, JAX VTN, flax params), weights from the port's init
+    carried to flax by the JAX package's converter."""
+    cfg = dict(TINY_VTN, **over)
+    torch.manual_seed(seed)
+    port = perturb_(VTN(**cfg, **(port_kw or {})).eval(), seed)
+    jax_model = JaxVTN(**cfg)
+    return port, jax_model, convert_vtn(port.state_dict(), jax_model)

@@ -21,7 +21,8 @@ ulp may separate them: atol 1e-2, rtol 2^-7. The flash backward kernels
 products in another order: atol 1e-4, rtol 1e-4 in float32; in bf16 one
 rounding of the float32 result on both sides: atol 1e-2, rtol 2^-7. The
 dropout masks are the same bits on both sides, so the rate does not change
-a tolerance.
+a tolerance. The standard flash kernels (forward, lse, dq, dk/dv) as the
+rel-pos ones.
 """
 
 import numpy as np
@@ -30,6 +31,11 @@ import torch
 
 from seq2seq_vc_torch.ops import flash_attention as fa
 from seq2seq_vc_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
     rel_flash_attention,
     rel_flash_attention_bwd_plain,
     rel_flash_attention_plain,
@@ -60,15 +66,16 @@ def cuda_device():
 
 COUNTED = (fused_rel_scores, rel_band_bwd, rel_flash_attention, rel_flash_bwd_dq,
            rel_flash_bwd_dkv, rel_flash_bwd_dpos)
+STD_COUNTED = (flash_attention, flash_bwd_dq, flash_bwd_dkv)
 BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=1e-2, rtol=2 ** -7)}
 
 
 @pytest.fixture
 def zero_counts():
-    for fn in COUNTED:
+    for fn in COUNTED + STD_COUNTED:
         fn.launches = 0
     yield
-    for fn in COUNTED:
+    for fn in COUNTED + STD_COUNTED:
         fn.launches = 0
 
 
@@ -214,3 +221,86 @@ def test_flash_autograd_on_the_card_goes_through_the_four_kernels(cuda_device, z
     for name, t, w in zip(("q_u", "q_v", "k", "v", "pos"), ts, want):
         np.testing.assert_allclose(t.grad.cpu().numpy(), w.cpu().numpy(), err_msg=name,
                                    **BWD_TOL["float32"])
+
+
+# (Tq, Tk, D): self-attention at the VTN's head dim 96 and at 64, cross
+# shapes both ways, and the largest head dim the kernels take
+STD_SHAPES = [(37, 37, 64), (130, 130, 96), (45, 130, 96), (130, 45, 96), (70, 70, 256)]
+
+
+def _std_inputs(device, dtype, Tq, Tk, D, seed, B=3, H=2):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Tq, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, H, Tk, D)).astype(np.float32) for _ in range(2))
+    lens = torch.tensor([Tk, Tk // 3, 0], dtype=torch.int32, device=device)
+    return [torch.from_numpy(a).to(device, dtype) for a in (q, k, v)] + [lens]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Tq,Tk,D", STD_SHAPES)
+def test_flash_kernel_and_lse_match_plain(cuda_device, causal, rate, dtype, Tq, Tk, D):
+    dt = getattr(torch, dtype)
+    q, k, v, lens = _std_inputs(cuda_device, dt, Tq, Tk, D, 11)
+    out, lse = fa._std_fwd(q, k, v, lens, causal, rate, 99, need_lse=True)
+    serving = flash_attention(q, k, v, kv_lens=lens, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == q.shape
+    want, want_lse = flash_attention_plain(q, k, v, lens, causal, rate, 99, return_lse=True)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(serving.float().cpu().numpy(),
+                               flash_attention_plain(q, k, v, lens, causal).float().cpu().numpy(),
+                               **tol)
+    assert not out[2].any() and (lse[2] == fa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Tq,Tk,D", STD_SHAPES)
+def test_flash_bwd_kernels_match_plain(cuda_device, causal, rate, dtype, Tq, Tk, D):
+    dt = getattr(torch, dtype)
+    q, k, v, lens = _std_inputs(cuda_device, dt, Tq, Tk, D, 12)
+    d_out = torch.randn(q.shape, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(1)).to(dt)
+    out, lse = flash_attention_plain(q, k, v, lens, causal, rate, 5, return_lse=True)
+    args = (q, k, v, lens, lse, fa._delta(out, d_out), d_out, causal, rate, 5)
+    for kernel, plain, names in ((flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
+                                 (flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        for name, a, b in zip(names, got, want):
+            assert a.dtype == dt and a.shape == b.shape, name
+            np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                       err_msg=name, **BWD_TOL[dtype])
+
+
+def test_flash_autograd_on_the_card_goes_through_the_three_kernels(cuda_device, zero_counts):
+    q, k, v, lens = _std_inputs(cuda_device, torch.float32, 45, 130, 96, 13)
+    ts = [t.requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*ts, kv_lens=lens, dropout_rate=0.2, dropout_seed=17)
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in STD_COUNTED] == [1, 1, 1]
+    assert [fn.launches for fn in COUNTED] == [0] * len(COUNTED)
+    plain_out, lse = flash_attention_plain(*(t.detach() for t in ts), lens, False, 0.2, 17,
+                                           return_lse=True)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), plain_out.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    want = flash_attention_bwd_plain(*(t.detach() for t in ts), lens, plain_out, lse, g,
+                                     False, 0.2, 17)
+    for name, t, w in zip(("q", "k", "v"), ts, want):
+        np.testing.assert_allclose(t.grad.cpu().numpy(), w.cpu().numpy(), err_msg=name,
+                                   **BWD_TOL["float32"])
+
+
+def test_flash_wrapper_refuses_head_dims_past_256(cuda_device):
+    q = torch.zeros(1, 2, 8, 264, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)

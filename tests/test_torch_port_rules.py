@@ -20,8 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import aasvc_pair
+from _torch_port import aasvc_pair, vtn_pair
 from seq2seq_vc_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
     rel_flash_attention,
     rel_flash_attention_plain,
     rel_flash_bwd_dkv,
@@ -29,8 +33,9 @@ from seq2seq_vc_torch.ops.flash_attention import (
     rel_flash_bwd_dq,
 )
 from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain, rel_band_bwd
-from seq2seq_vc_torch.pipeline import Wav2WavConverter, resolve_device
+from seq2seq_vc_torch.pipeline import Wav2WavARConverter, Wav2WavConverter, resolve_device
 from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
+from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
 from seq2seq_vc_torch.train.optim import build_optimizer
 from seq2seq_vc_torch.train.state import TrainState
 from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
@@ -59,7 +64,7 @@ def _inputs(B=2, H=2, T=20, D=8, seed=0):
 
 
 COUNTED = (fused_rel_scores, rel_band_bwd, rel_flash_attention, rel_flash_bwd_dq,
-           rel_flash_bwd_dkv, rel_flash_bwd_dpos)
+           rel_flash_bwd_dkv, rel_flash_bwd_dpos, flash_attention, flash_bwd_dq, flash_bwd_dkv)
 
 
 @pytest.fixture
@@ -79,7 +84,9 @@ def test_port_imports_no_jax():
     assert "seq2seq_vc_torch.pipeline" in got["modules"]
     assert "seq2seq_vc_torch.ops.flash_attention" in got["modules"]
     assert {"seq2seq_vc_torch.train.trainer", "seq2seq_vc_torch.train.data",
-            "seq2seq_vc_torch.losses.forward_sum"} <= set(got["modules"])
+            "seq2seq_vc_torch.losses.forward_sum", "seq2seq_vc_torch.models.vtn",
+            "seq2seq_vc_torch.models.ar_driver", "seq2seq_vc_torch.train.ar_vc",
+            "seq2seq_vc_torch.losses.seq2seq"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -98,6 +105,14 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AASVCTrainer(state, {}, {"train_max_steps": 1}, [])
     assert AASVCTrainer(state, {}, {"train_max_steps": 1}, [], device="cpu").device.type == "cpu"
+    vtn, _, _ = vtn_pair(seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Wav2WavARConverter(vtn, voc, stats, stats, {})
+    assert Wav2WavARConverter(vtn, voc, stats, stats, {}, device="cpu").device.type == "cpu"
+    state = TrainState(vtn, build_optimizer(vtn.parameters()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ARVCTrainer(state, {}, {"train_max_steps": 1}, [])
+    assert ARVCTrainer(state, {}, {"train_max_steps": 1}, [], device="cpu").device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_versions(zero_counts):
@@ -117,6 +132,16 @@ def test_cpu_tensors_take_the_plain_versions(zero_counts):
     rel_flash_attention(*ts, lens, dropout_rate=0.2, dropout_seed=3).sum().backward()
     fused_rel_scores(*ts[:3], ts[4], bwd="banded").sum().backward()
     assert all(t.grad is not None for t in ts)
+    # the standard flash kernels: a cross shape, forward and backward, and a
+    # whole VTN whose encoder routes to them, decoding
+    torch.testing.assert_close(flash_attention(qu[:, :, :9], k, v, lens, causal=True),
+                               flash_attention_plain(qu[:, :, :9], k, v, lens, causal=True),
+                               rtol=0, atol=0)
+    ts = [t.detach().requires_grad_() for t in (qu, k, v)]
+    flash_attention(*ts, lens, dropout_rate=0.2, dropout_seed=3).sum().backward()
+    assert all(t.grad is not None for t in ts)
+    vtn, _, _ = vtn_pair(seed=0, port_kw=dict(attention_backend="flash", flash_min_len=8))
+    vtn.inference(x, torch.tensor([48]), maxlenratio=1.0)
     assert [fn.launches for fn in COUNTED] == [0] * len(COUNTED)
 
 
@@ -126,6 +151,8 @@ def test_other_devices_are_refused():
         fused_rel_scores(qu, qv, k, pos)
     with pytest.raises(ValueError, match="unsupported device"):
         rel_flash_attention(qu, qv, k, v, pos)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(qu, k, v)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
