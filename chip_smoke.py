@@ -104,11 +104,35 @@ Phases, each printed on lines of its own:
    gradients, and a profile of one step;
 16. a VTN reference training step through the flash route: float32,
    dropout off, the gate lowered; the loss and every gradient on the card
-   and on the CPU must agree to phase 9's tolerances.
+   and on the CPU must agree to phase 9's tolerances;
+17. legacy serving: the flagship with ``conformer_rel_pos_type: legacy``
+   (seeded random weights) serves phase 2's three requests. The legacy
+   attention never takes the fused kernel, so below the flash gate it runs
+   the dense ops and kernel 2's legacy form (q_v and the table at twice the
+   head dim: 1536 in the decoder) launches exactly in the 30 s request's
+   decoder; that kernel against its plain version at both head dims (float32
+   and bfloat16) and at the main path's shape, then the timed requests with
+   the launch counts set to 0 just before and read just after;
+18. a legacy reference check: phase 5 on the legacy flagship (the legacy
+   kernel 2 on the card, its plain version on the CPU);
+19. legacy long training: phase 10 on a fresh legacy flagship, every layer
+   on the legacy form of kernels 2, 6, 7 and 8 (their checks at both head
+   dims, float32 and bfloat16, rate 0 and 0.2, and at the steps' shapes,
+   against SDPA with the dense legacy band as a bias), one warm-up step and
+   2 timed steps (8 launches of each a step), and a profile of one step;
+20. a legacy reference training step: phase 11 in the legacy form;
+21. the fused route's ``pallas`` backward: a flagship with ``rel_scores_bwd:
+   pallas`` takes one warm-up step and 2 timed steps at B 16 on 480-960
+   frames (8 launches of each of kernels 4 and 5 a step, none of kernel 3);
+   kernels 4 and 5 against their plain versions at T 512 and 960, D 192 and
+   768, float32 and bfloat16, and at the steps' shapes (the ``xla``
+   variant's time as their yardstick).
 
-Then the ``kernels`` JSON line, the card line again, and last the result
-line. Any failed check makes the script exit with 1 without the result line;
-with no CUDA device it exits at once.
+Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
+form of kernels 2 and 6-8 as rows of their own, each with its launches by
+path), the card line again, and last the result line. Any failed check
+makes the script exit with 1 without the result line; with no CUDA device
+it exits at once.
 """
 
 from __future__ import annotations
@@ -116,6 +140,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -202,22 +227,46 @@ KERNELS.update({
 })
 FLASH_BWD = ("rel_flash_bwd_dq", "rel_flash_bwd_dkv", "rel_flash_bwd_dpos")
 STD = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")  # the standard flash kernels
+PAIR = ("rel_band_bwd_dqv", "rel_band_bwd_dpos")  # kernels 4 and 5: bwd="pallas"
+KERNELS.update({
+    "rel_band_bwd_dqv": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_scores_bwd_pair.cu",
+        replaces="seq2seq_vc_tpu/ops/rel_scores.py:103",
+    ),
+    "rel_band_bwd_dpos": dict(
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_scores_bwd_pair.cu",
+        replaces="seq2seq_vc_tpu/ops/rel_scores.py:122",
+    ),
+})
+# the legacy form of kernels 2 and 6-8 (q_v and the table at twice the head
+# dim), rows of their own: same sources, same TPU kernels, own launch counts
+LEGACY_TAG = "[legacy]"
+LEGACY = tuple(n + LEGACY_TAG for n in ("rel_flash_attention", *FLASH_BWD))
+KERNELS.update({n: dict(KERNELS[n.removesuffix(LEGACY_TAG)]) for n in LEGACY})
 # what each kernel's library_ms times (a yardstick the port never calls)
 LIBRARY = {"fused_rel_scores": "no single PyTorch call",
-           "rel_band_bwd": "the bwd='xla' variant in torch ops",
+           **{n: "the bwd='xla' variant in torch ops" for n in ("rel_band_bwd", *PAIR)},
            "rel_flash_attention": "SDPA with the band materialised as a bias",
            **{n: "SDPA forward + backward with the band materialised as a bias" for n in FLASH_BWD},
+           "rel_flash_attention[legacy]": "SDPA with the dense legacy band as a bias",
+           **{n: "SDPA forward + backward with the dense legacy band as a bias"
+              for n in LEGACY[1:]},
            "flash_attention": "SDPA with the key-padding mask",
            "flash_bwd_dq": "SDPA forward + backward with the key-padding mask",
            "flash_bwd_dkv": "SDPA forward + backward with the key-padding mask"}
 # the kernels each main path runs (serving runs no backward; training at
-# key lengths from the flash gate runs only the flash kernels)
+# key lengths from the flash gate runs only the flash kernels; the legacy
+# form never takes the fused kernel, so its serving and its training under
+# the gate run the dense ops)
 PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 "train": ("fused_rel_scores", "rel_band_bwd"),
                 "train_long": ("rel_flash_attention", *FLASH_BWD),
                 "vtn_serve": ("flash_attention",),
                 "vtn_train": (),  # key lengths under the gate: the dense route only
-                "vtn_train_long": STD}
+                "vtn_train_long": STD,
+                "legacy_serve": LEGACY[:1],
+                "train_long_legacy": LEGACY,
+                "train_pallas": ("fused_rel_scores", *PAIR)}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -242,6 +291,12 @@ TOLERANCE = {
     **{(n, torch.float32): dict(atol=1e-4, rtol=1e-4) for n in STD[1:]},
     **{(n, torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7) for n in STD[1:]},
 }
+# the legacy form as the new style (the same sums, twice as long on the
+# band); kernels 4 and 5 as kernel 3, whose two outputs they are
+TOLERANCE.update({(n, dt): TOLERANCE[(n.removesuffix(LEGACY_TAG), dt)]
+                  for n in LEGACY for dt in (torch.float32, torch.bfloat16)})
+TOLERANCE.update({(n, dt): TOLERANCE[("rel_band_bwd", dt)]
+                  for n in PAIR for dt in (torch.float32, torch.bfloat16)})
 REFERENCE_ATOL = 1e-3  # phase 4 waveforms, float32 on both devices
 # phase 9, one float32 training step on the card and on the CPU: the loss to
 # rtol 1e-4, each gradient tensor to 1e-3 of its largest magnitude (float32
@@ -254,6 +309,8 @@ REFERENCE_ATOL = 1e-3  # phase 4 waveforms, float32 on both devices
 # differs. The step counts such flips, and where there are any, holds the
 # alignment module's own tensors to 5e-2 of their largest.
 STEP_RTOL, GRAD_RTOL, NOISE_RTOL, FLIP_RTOL = 1e-4, 1e-3, 1e-4, 5e-2
+# the flagship with legacy relative positions (phases 17-20)
+LEGACY_CONFIG = dict(conformer_rel_pos_type="legacy")
 ALIGN_RELU_INPUTS = ("t_conv1", "f_conv1", "f_conv2")
 
 # the training settings of the same file (batch_size 16, pad_multiple 32)
@@ -335,16 +392,17 @@ def cuda_ms(fn, min_total_ms: float = 200.0, max_iters: int = 50) -> float:
 
 
 # ---------------------------------------------------------------- kernels
-def kernel_inputs(B, H, T, D, dtype, seed, lens=None):
+def kernel_inputs(B, H, T, D, dtype, seed, lens=None, legacy=False):
     """Seeded inputs; ``lens`` are the key lengths (default: the first batch
-    row sees every key, the others two thirds of them)."""
+    row sees every key, the others two thirds of them). The table is (H,
+    2T-1, D), or with ``legacy`` the legacy form's (H, T, D)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
     qu, qv, k, v = (rand(B, H, T, D) for _ in range(4))
-    pos = rand(H, 2 * T - 1, D)
+    pos = rand(H, T if legacy else 2 * T - 1, D)
     if lens is None:
         lens = [T] + [max(1, 2 * T // 3)] * (B - 1)
     lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -364,8 +422,14 @@ def bound(name, B, H, T, D, dtype, lens, lse=False, Tk=None, causal=False):
     """(bound_ms, bound_by): each input read once, each output written once;
     the flash kernels' work counts only the keys each batch row has (and,
     causal, the keys at or before each query). ``T`` is the query length,
-    ``Tk`` the key length of the standard kernels."""
+    ``Tk`` the key length of the standard kernels. The legacy form counts
+    its function's work, not its kernel's: a band score is D multiply-adds
+    (q_v[i] or q_v[i+1] against one table row, or none), the table is (H,
+    T, D), and dq_v and dpos come out D wide. The kernels' doubled width
+    (QW = 2D, half of it against zeros) is waste against this bound."""
     e = torch.finfo(dtype).bits // 8
+    legacy = name.endswith(LEGACY_TAG)
+    name = name.removesuffix(LEGACY_TAG)
     if name in STD:
         q_bytes = B * H * T * D * e
         kv_bytes = 2 * H * int(lens.sum()) * D * e  # k and v up to each row's keys
@@ -383,7 +447,7 @@ def bound(name, B, H, T, D, dtype, lens, lse=False, Tk=None, causal=False):
             ops = 2 * live * D * (3 if name == "flash_bwd_dq" else 4)
         t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-    table = H * (2 * T - 1) * D * e
+    table = H * (T if legacy else 2 * T - 1) * D * e
     qkv = B * H * T * D * e  # one (B, H, T, D) tensor
     if name == "fused_rel_scores":
         n_bytes = 3 * qkv + table + B * H * T * T * 4
@@ -393,23 +457,29 @@ def bound(name, B, H, T, D, dtype, lens, lse=False, Tk=None, causal=False):
         # live band cells per (b, h), each in the two products
         n_bytes = B * H * T * T * 4 + 2 * (qkv + table)
         ops = 4 * B * H * T * T * D
+    elif name in PAIR:
+        # one of kernel 3's two products: reads g and the table (dq_v) or
+        # q_v (dpos), writes the other shape
+        n_bytes = B * H * T * T * 4 + qkv + table
+        ops = 2 * B * H * T * T * D
     else:
         keys = int(lens.sum())
         live = H * T * keys  # live scores
         if name == "rel_flash_attention":
             # reads q_u, q_v and k, v up to each row's keys, the table and the
             # lengths; writes the output (and the logsumexp)
-            n_bytes = 2 * qkv + 2 * H * keys * D * e + table + 4 * B + qkv + (B * H * T * 4 if lse else 0)
+            n_bytes = (2 * qkv + 2 * H * keys * D * e + table + 4 * B + qkv
+                       + (B * H * T * 4 if lse else 0))
             ops = 6 * live * D  # scores, band and P.V
         else:
             # reads q_u, q_v, dO, k and v, the table, lse, delta and the
-            # lengths; recomputes the scores and dO.v (3 multiply-adds per live
-            # score per column), then its outputs: dq_u and dq_v, or dk and dv
-            # (2 more), or dpos (1 more)
-            outs = {"rel_flash_bwd_dq": 2 * qkv, "rel_flash_bwd_dkv": 2 * qkv,
-                    "rel_flash_bwd_dpos": table}[name]
-            n_bytes = 5 * qkv + table + 2 * B * H * T * 4 + 4 * B + outs
-            ops = 2 * live * D * (4 if name == "rel_flash_bwd_dpos" else 5)
+            # lengths; recomputes the scores and dO.v (3D multiply-adds per
+            # live score), then its outputs: dq_u and dq_v (2D more), dk and
+            # dv (2D), or dpos (D)
+            outs = {"rel_flash_bwd_dq": (2 * qkv, 2), "rel_flash_bwd_dkv": (2 * qkv, 2),
+                    "rel_flash_bwd_dpos": (table, 1)}[name]
+            n_bytes = 5 * qkv + table + 2 * B * H * T * 4 + 4 * B + outs[0]
+            ops = 2 * live * D * (3 + outs[1])
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -417,24 +487,27 @@ def bound(name, B, H, T, D, dtype, lens, lse=False, Tk=None, causal=False):
 _FWD_BWD = {}  # (shape, lens, rate) -> (port fwd+bwd ms, SDPA fwd+bwd ms)
 
 
-def flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate):
+def flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate, legacy=False):
     """The four flash kernels' forward + backward time, and beside it the
-    yardstick: SDPA's forward + backward with the band materialised as a
-    float bias (the port never calls SDPA). Cached per shape."""
-    from seq2seq_vc_torch.ops.flash_attention import rel_flash_attention
+    yardstick: SDPA's forward + backward with the band (new style, or the
+    dense legacy band) materialised as a float bias (the port never calls
+    SDPA). Cached per shape."""
+    from seq2seq_vc_torch.ops.flash_attention import legacy_rel_inputs, rel_flash_attention
     from seq2seq_vc_torch.ops.rel_scores import rel_band
 
-    key = (tuple(qu.shape), str(qu.dtype), tuple(lens.tolist()), rate)
+    key = (tuple(qu.shape), str(qu.dtype), tuple(lens.tolist()), rate, legacy)
     if key not in _FWD_BWD:
         T, D = qu.shape[2], qu.shape[3]
         leaves = [t.detach().requires_grad_() for t in (qu, qv, k, v, pos)]
-        port_ms = cuda_ms(lambda: rel_flash_attention(*leaves, lens, rate, 11).backward(d_out))
+        port_ms = cuda_ms(lambda: rel_flash_attention(*leaves, lens, rate, 11, legacy=legacy)
+                          .backward(d_out))
         valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        bias = (rel_band(qv, pos) / math.sqrt(D)).masked_fill(~valid, float("-inf")).to(qu.dtype)
+        band = rel_band(*legacy_rel_inputs(qv, pos)) if legacy else rel_band(qv, pos)
+        bias = (band / math.sqrt(D)).masked_fill(~valid, float("-inf")).to(qu.dtype)
         q, kk, vv = leaves[0], leaves[2], leaves[3]
         sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kk, vv, attn_mask=bias, dropout_p=rate).backward(d_out))
-        del bias, leaves
+        del bias, band, leaves
         _FWD_BWD[key] = (port_ms, sdpa_ms)
     return _FWD_BWD[key]
 
@@ -442,65 +515,68 @@ def flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate):
 def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     """One kernel against its plain version on the same card inputs.
     ``rate``: the flash kernels' training form, with dropout at ``rate``
-    (0 included) and the forward's logsumexp; None is the serving form."""
+    (0 included) and the forward's logsumexp; None is the serving form. A
+    ``[legacy]`` name runs the rel-pos flash kernel in the legacy form, on
+    the q_v and table that ``legacy_rel_inputs`` assembles (QW = 2D)."""
     from seq2seq_vc_torch.ops import flash_attention as fa
-    from seq2seq_vc_torch.ops.flash_attention import (
-        rel_flash_attention, rel_flash_attention_plain,
-    )
-    from seq2seq_vc_torch.ops.rel_scores import (
-        fused_rel_scores, fused_rel_scores_plain, rel_band, rel_band_bwd,
-        rel_band_bwd_plain, rel_band_bwd_xla,
-    )
+    from seq2seq_vc_torch.ops import rel_scores as rs
 
-    qu, qv, k, v, pos, lens = kernel_inputs(B, H, T, D, dtype, seed, lens)
+    base, legacy = name.removesuffix(LEGACY_TAG), name.endswith(LEGACY_TAG)
+    qu, qv, k, v, pos, lens = kernel_inputs(B, H, T, D, dtype, seed, lens, legacy)
+    # what the kernels take: q_v and the table at their width QW
+    qv_k, pos_k = fa.legacy_rel_inputs(qv, pos) if legacy else (qv, pos)
     library_ms = fwd_bwd_ms = None
     drop = (rate, seed) if rate else (0.0, None)
-    if name == "fused_rel_scores":
+    if base == "fused_rel_scores":
         def kernel():
-            return fused_rel_scores(qu, qv, k, pos)
+            return rs.fused_rel_scores(qu, qv, k, pos)
 
         def plain():
-            return fused_rel_scores_plain(qu, qv, k, pos)
-    elif name == "rel_band_bwd":
+            return rs.fused_rel_scores_plain(qu, qv, k, pos)
+    elif base in ("rel_band_bwd", *PAIR):
         g = torch.randn(B, H, T, T, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+        wrapper, plain_fn = getattr(rs, base), getattr(rs, base + "_plain")
 
         def kernel():
-            return rel_band_bwd(g, qv, pos)
+            return wrapper(g, qv, pos)
 
         def plain():
-            return rel_band_bwd_plain(g, qv, pos)
+            return plain_fn(g, qv, pos)
 
         # yardstick only: the "xla" backward variant, the dense torch ops
         # that the kernel competes with under bwd="auto"
-        library_ms = cuda_ms(lambda: rel_band_bwd_xla(g, qv, pos))
-    elif name == "rel_flash_attention":
+        library_ms = cuda_ms(lambda: rs.rel_band_bwd_xla(g, qv, pos))
+    elif base == "rel_flash_attention":
         if rate is None:
             def kernel():
-                return rel_flash_attention(qu, qv, k, v, pos, lens)
+                return fa._fwd(qu, qv_k, k, v, pos_k, lens, 0.0, None, need_lse=False)[0]
 
             def plain():
-                return rel_flash_attention_plain(qu, qv, k, v, pos, lens)
+                return fa.rel_flash_attention_plain(qu, qv_k, k, v, pos_k, lens)
         else:
             def kernel():
-                return fa._fwd(qu, qv, k, v, pos, lens, *drop, need_lse=True)
+                return fa._fwd(qu, qv_k, k, v, pos_k, lens, *drop, need_lse=True)
 
             def plain():
-                return rel_flash_attention_plain(qu, qv, k, v, pos, lens, *drop, return_lse=True)
+                return fa.rel_flash_attention_plain(qu, qv_k, k, v, pos_k, lens, *drop,
+                                                    return_lse=True)
 
         # yardstick only: PyTorch's fused attention with the rel-pos band
         # materialised as an additive bias (the port never calls it)
         valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        bias = (rel_band(qv, pos) / math.sqrt(D)).masked_fill(~valid, float("-inf")).to(dtype)
+        bias = rs.rel_band(qv_k, pos_k) / math.sqrt(D)
+        bias = bias.masked_fill(~valid, float("-inf")).to(dtype)
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qu, k, v, attn_mask=bias, dropout_p=rate or 0.0))
         del bias
     else:
         d_out = torch.randn(qu.shape, device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(seed + 2)).to(dtype)
-        out, lse = rel_flash_attention_plain(qu, qv, k, v, pos, lens, *drop, return_lse=True)
-        args = (qu, qv, k, v, pos, lens, lse, fa._delta(out, d_out), d_out, *drop)
-        wrapper, plain_fn = getattr(fa, name), getattr(fa, name + "_plain")
+        out, lse = fa.rel_flash_attention_plain(qu, qv_k, k, v, pos_k, lens, *drop,
+                                                return_lse=True)
+        args = (qu, qv_k, k, v, pos_k, lens, lse, fa._delta(out, d_out), d_out, *drop)
+        wrapper, plain_fn = getattr(fa, base), getattr(fa, base + "_plain")
 
         def kernel():
             return wrapper(*args)
@@ -508,7 +584,8 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
         def plain():
             return plain_fn(*args)
 
-        fwd_bwd_ms, library_ms = flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate or 0.0)
+        fwd_bwd_ms, library_ms = flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate or 0.0,
+                                                  legacy)
 
     return _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_ms,
                     shape=(B, H, T, D), work=B * T * T * D,
@@ -661,12 +738,13 @@ def perturb_(module: torch.nn.Module, seed: int) -> None:
             p.add_(WEIGHT_NOISE * torch.randn(p.shape, generator=g).to(p.device, p.dtype))
 
 
-def build_models(seed: int):
-    """The flagship AAS-VC and the serving HiFi-GAN on the CPU, seeded."""
+def build_models(seed: int, **over):
+    """The flagship AAS-VC (``over`` replaces config fields) and the serving
+    HiFi-GAN on the CPU, seeded."""
     from seq2seq_vc_torch.models.aas_vc import AASVC
 
     torch.manual_seed(seed)
-    model = AASVC(**FLAGSHIP)
+    model = AASVC(**dict(FLAGSHIP, **over))
     perturb_(model, seed)
     return model.eval(), build_vocoder(seed + 1)
 
@@ -706,11 +784,22 @@ def planned_calls(conv, requests, out_frames):
                                (m.decoder, max_out, dec_lens)):
             for layer in stack.encoders:
                 att = layer.self_attn
-                path = att.route(T, T, 2 * T - 1, KEY_PADDING)
+                path = att.route(T, T, T if att.legacy else 2 * T - 1, KEY_PADDING)
                 name = {"fused": "fused_rel_scores", "flash": "rel_flash_attention"}.get(path)
                 if name:
+                    name += LEGACY_TAG if att.legacy else ""
                     calls.append((name, len(clips), att.n_head, T, att.d_k, lens))
     return calls
+
+
+def serving_requests():
+    """The AAS-VC serving requests: a 3.8 s clip, a batch of 4 and a 30 s
+    clip whose decoder key length crosses the flash gate."""
+    return [
+        ("single 3.8 s", [clip(3.8, 10)]),
+        ("batch of 4", [clip(s, 11 + i) for i, s in enumerate((2.2, 3.0, 3.8, 4.6))]),
+        ("single 30 s", [clip(30.0, 15)]),
+    ]
 
 
 def serve(conv, requests):
@@ -774,34 +863,39 @@ def profile_request(conv, request, latency_ms,
         log(f"  {ms:9.3f} ms {ms / busy:6.1%} x{n:<4d} {key[:100]}")
 
 
-def kernel_wrappers():
-    """The kernel wrappers of the main path, by name; each counts its launches."""
+def launch_counters():
+    """Each kernel's launch counter, by name: (wrapper, attribute). The
+    legacy form of the rel-pos flash kernels counts in its wrapper's
+    ``legacy_launches``."""
     from seq2seq_vc_torch.ops import flash_attention as fa
-    from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, rel_band_bwd
+    from seq2seq_vc_torch.ops import rel_scores as rs
 
-    return {"fused_rel_scores": fused_rel_scores, "rel_band_bwd": rel_band_bwd,
-            "rel_flash_attention": fa.rel_flash_attention,
-            **{name: getattr(fa, name) for name in FLASH_BWD + STD}}
+    wrappers = {n: getattr(rs, n) for n in ("fused_rel_scores", "rel_band_bwd", *PAIR)}
+    wrappers.update({n: getattr(fa, n) for n in ("rel_flash_attention", *FLASH_BWD, *STD)})
+    counters = {n: (fn, "launches") for n, fn in wrappers.items()}
+    counters.update({n: (wrappers[n.removesuffix(LEGACY_TAG)], "legacy_launches") for n in LEGACY})
+    return counters
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
 def reset_launch_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
-def reference_check(model, vocoder, src, trg):
-    """Float32 copies of the same weights convert one clip on the card and
-    on the CPU; the decoder's flash gate is lowered so that both kernels
-    (and on the CPU both plain versions) run. One CPU generator draws the
-    duration noise for both."""
+def reference_check(model, vocoder, src, trg, path="serve", **over):
+    """Float32 copies of the same weights (``over`` replaces config fields
+    of the flagship, as for ``model``) convert one clip on the card and on
+    the CPU; the decoder's flash gate is lowered so that the kernels of
+    ``path`` (and on the CPU their plain versions) run, and no other. One
+    CPU generator draws the duration noise for both."""
     from seq2seq_vc_torch.models.aas_vc import AASVC
     from seq2seq_vc_torch.pipeline import Wav2WavConverter
 
-    m32 = AASVC(**dict(FLAGSHIP, compute_dtype="float32", flash_min_len=256))
+    m32 = AASVC(**dict(FLAGSHIP, compute_dtype="float32", flash_min_len=256, **over))
     m32.load_state_dict(model.state_dict())
     v32 = copy.deepcopy(vocoder)
     v32.compute_dtype = torch.float32
@@ -816,10 +910,11 @@ def reference_check(model, vocoder, src, trg):
     a, b = wavs["cuda"], wavs["cpu"]
     same_len = len(a) == len(b)
     err = float(np.abs(a - b).max()) if same_len else float("inf")
+    others = set(KERNELS) - set(PATH_KERNELS[path])
     ok = same_len and err <= REFERENCE_ATOL \
-        and all(counts["cuda"][n] for n in PATH_KERNELS["serve"]) \
-        and not any(counts["cpu"].values())
-    log(f"reference float32 1.0 s clip: card {len(a)} samples, cpu {len(b)} samples, "
+        and all(counts["cuda"][n] for n in PATH_KERNELS[path]) \
+        and not any(counts["cuda"][n] for n in others) and not any(counts["cpu"].values())
+    log(f"reference float32 1.0 s clip ({path}): card {len(a)} samples, cpu {len(b)} samples, "
         f"max abs diff {err:.3e} (atol {REFERENCE_ATOL}); launches card {counts['cuda']}, "
         f"cpu {counts['cpu']}: {'ok' if ok else 'FAIL'}")
     return [] if ok else [f"reference check: card vs cpu diff {err}, lengths {len(a)} {len(b)}"]
@@ -905,8 +1000,9 @@ def corpus_loader(root: Path, lens, seed: int, collater=None):
 def train_calls(model, batch):
     """The kernel launches one training step on ``batch`` makes: (kernel
     name, B, H, T, D, key lengths) for each fused forward and each banded
-    backward, and for each flash forward and its three backward kernels,
-    from each layer's routing and its ``bwd`` variant at the padded
+    backward (or kernels 4 and 5 for ``bwd="pallas"``), and for each flash
+    forward and its three backward kernels (in the legacy form for a legacy
+    layer), from each layer's routing and its ``bwd`` variant at the padded
     lengths (the fused kernels take no key lengths: all T there)."""
     from seq2seq_vc_torch.ops.rel_scores import resolve_bwd
 
@@ -923,13 +1019,14 @@ def train_calls(model, batch):
         for layer in stack.encoders:
             att = layer.self_attn
             shape = (B, att.n_head, T, att.d_k)
-            path = att.route(T, T, 2 * T - 1, KEY_PADDING)
+            path = att.route(T, T, T if att.legacy else 2 * T - 1, KEY_PADDING)
             if path == "flash":
-                calls += [(n, *shape, lens) for n in PATH_KERNELS["train_long"]]
+                names = PATH_KERNELS["train_long_legacy" if att.legacy else "train_long"]
+                calls += [(n, *shape, lens) for n in names]
             elif path == "fused":
-                calls.append(("fused_rel_scores", *shape, (T,) * B))
-                if resolve_bwd(att.rel_scores_bwd, T) == "banded":
-                    calls.append(("rel_band_bwd", *shape, (T,) * B))
+                bwd = {"banded": ("rel_band_bwd",), "pallas": PAIR}.get(
+                    resolve_bwd(att.rel_scores_bwd, T), ())
+                calls += [(n, *shape, (T,) * B) for n in ("fused_rel_scores", *bwd)]
     return calls
 
 
@@ -1019,11 +1116,13 @@ def reference_step(seed: int, path: str = "train"):
     the CPU (through their plain versions), dropout off. ``path`` "train":
     the fused route (kernels 1 and 3); "train_long": the flash gate lowered
     below the batch's lengths, so that every layer takes the flash route
-    (kernels 2, 6, 7 and 8). The trainer's own CPU generator draws the
-    duration predictor's e_q, the same on both."""
+    (kernels 2, 6, 7 and 8); "train_long_legacy": the same in the legacy
+    form. The trainer's own CPU generator draws the duration predictor's
+    e_q, the same on both."""
     from seq2seq_vc_torch.train.data import NARVCCollater
 
-    route = {"train": dict(rel_scores_bwd="banded"), "train_long": dict(flash_min_len=64)}[path]
+    route = {"train": dict(rel_scores_bwd="banded"), "train_long": dict(flash_min_len=64),
+             "train_long_legacy": dict(flash_min_len=64, **LEGACY_CONFIG)}[path]
     model = flagship(seed, compute_dtype="float32", **route, **NO_DROPOUT)
     collater = NARVCCollater(PAD_MULTIPLE, 1, FLAGSHIP["post_encoder_reduction_factor"], 1)
     batch = collater(feature_items([(128, 128), (100, 112)], seed))
@@ -1148,30 +1247,36 @@ def long_lens(seed: int):
     return list(zip(src.tolist(), trg.tolist()))
 
 
-def train_long_path(rows):
-    """Phases 10-11: long-utterance training through the flash kernels.
-    Appends the kernel checks to ``rows``; returns (failures, launches of
-    the timed steps, by kernel)."""
+def train_long_path(rows, path="train_long"):
+    """Phases 10-11 (``path`` "train_long"): long-utterance training through
+    the flash kernels, 3 timed steps; phases 19-20 ("train_long_legacy"):
+    the legacy flagship, through the flash kernels' legacy form, 2 timed
+    steps. Appends the kernel checks to ``rows``; returns (failures,
+    launches of the timed steps, by kernel)."""
     failures = []
+    legacy = path == "train_long_legacy"
+    steps = 2 if legacy else 3
     tmp = REPO / "build"
     tmp.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=tmp, prefix="chip_smoke_long_") as root:
+    with tempfile.TemporaryDirectory(dir=tmp, prefix=f"chip_smoke_{path}_") as root:
         loader = corpus_loader(Path(root), long_lens(seed=6), seed=6)
         batch = next(iter(loader))
-        state = train_state(flagship(seed=5).to(DEVICE))
+        state = train_state(flagship(seed=45 if legacy else 5,
+                                     **(LEGACY_CONFIG if legacy else {})).to(DEVICE))
         label = f"T{batch['xs'].shape[1]}/{batch['ys'].shape[1]}"
-        log(f"long-utterance training: AASVCTrainer, flagship at full width (bf16, dropout 0.2), "
+        log(f"{path}: AASVCTrainer, flagship at full width (bf16, dropout 0.2"
+            f"{', legacy relative positions' if legacy else ''}), "
             f"B{BATCH}; sources {sorted(batch['ilens'].tolist())}, targets "
             f"{sorted(batch['olens'].tolist())} frames, padded (xs, ys) "
             f"{batch['xs'].shape}, {batch['ys'].shape}")
-        log("long training warm-up: one step")
-        train_steps(state, loader, 1, "long warm-up")
+        log(f"{path} warm-up: one step")
+        train_steps(state, loader, 1, f"{path} warm-up")
 
         calls = train_calls(state.model, batch)
         for D, T in ((192, 640), (768, 1300)):
             for dtype in (torch.float32, torch.bfloat16):
                 for rate in (0.0, 0.2):
-                    for name in PATH_KERNELS["train_long"]:
+                    for name in PATH_KERNELS[path]:
                         rows.append(check_kernel(name, 3, 2, T, D, dtype, seed=T + D,
                                                  label="head-dim", lens=[T, 2 * T // 3, 0],
                                                  rate=rate))
@@ -1179,40 +1284,40 @@ def train_long_path(rows):
             rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D,
                                      label="main-path", lens=list(lens), rate=0.2))
 
-        log(f"long training main path: 3 steps at {label}")
+        log(f"{path} main path: {steps} steps at {label}")
         notes, handle, n_att = watch_grads(state)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        trainer = train_steps(state, loader, 3, label)
+        trainer = train_steps(state, loader, steps, label)
         launches = launch_counts()
         handle.remove()
-        expected = {n: 3 * sum(c[0] == n for c in calls) for n in KERNELS}
+        expected = {n: steps * sum(c[0] == n for c in calls) for n in KERNELS}
         step_ms = [h["train/step_time_sec"] * 1e3 for h in trainer.history]
-        log(f"long training: ms/step {[round(x, 1) for x in step_ms]} (mean "
+        log(f"{path}: ms/step {[round(x, 1) for x in step_ms]} (mean "
             f"{np.mean(step_ms):.1f}); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, "
             f"expected from the routing {expected}")
         for name in KERNELS:
             want = expected[name]
-            if launches[name] != want or (launches[name] == 0 and name in PATH_KERNELS["train_long"]):
-                failures.append(f"train_long {name}: {launches[name]} launches, expected {want}")
-        if any(expected[n] != 3 * 8 for n in PATH_KERNELS["train_long"]):
-            failures.append(f"train_long: the routing does not put all 8 layers on flash: {expected}")
+            if launches[name] != want or (launches[name] == 0 and name in PATH_KERNELS[path]):
+                failures.append(f"{path} {name}: {launches[name]} launches, expected {want}")
+        if any(expected[n] != steps * 8 for n in PATH_KERNELS[path]):
+            failures.append(f"{path}: the routing does not put all 8 layers on flash: {expected}")
         losses = [h["train/loss"] for h in trainer.history]
         if not all(math.isfinite(x) for x in losses):
-            failures.append(f"train_long: loss not finite: {losses}")
+            failures.append(f"{path}: loss not finite: {losses}")
         finite = [bool(f) for f, _ in notes]
         att_min = [float(m) for _, m in notes]
-        log(f"long training gradients per step: all finite {finite}; smallest norm among the "
+        log(f"{path} gradients per step: all finite {finite}; smallest norm among the "
             f"{n_att} attention projections' weight gradients {att_min}")
-        if len(notes) != 3 or not all(finite) or not all(m > 0 for m in att_min):
-            failures.append(f"train_long: gradients finite {finite}, attention grad norms {att_min}")
+        if len(notes) != steps or not all(finite) or not all(m > 0 for m in att_min):
+            failures.append(f"{path}: gradients finite {finite}, attention grad norms {att_min}")
         profile_step(state, loader, float(np.mean(step_ms)), f"B{BATCH}, {label}",
                      port_kernels=("rel_flash_fwd_kernel", "rel_flash_bwd_dq_kernel",
                                    "rel_flash_bwd_dkv_kernel", "rel_flash_bwd_dpos_kernel",
                                    "rel_flash_bwd_dpos_sum_kernel"))
         del state, trainer
-    failures += reference_step(seed=8, path="train_long")
+    failures += reference_step(seed=46 if legacy else 8, path=path)
     return failures, launches
 
 
@@ -1521,6 +1626,130 @@ def vtn_reference_step(seed: int):
     return failures
 
 
+# ------------------------------------------- legacy relative positions
+def legacy_serve_path(rows, src, trg):
+    """Phases 17-18: the flagship with legacy relative positions serves the
+    same three requests. Below the flash gate the legacy attention takes the
+    dense ops (it never takes the fused kernel), so kernel 2's legacy form
+    must launch exactly in the 30 s request's decoder. Then a float32
+    conversion card vs CPU with the decoder's gate lowered. Appends the
+    kernel checks to ``rows``; returns (failures, launches of the timed
+    requests, by kernel)."""
+    from seq2seq_vc_torch.pipeline import Wav2WavConverter
+
+    failures = []
+    with torch.no_grad():
+        model, vocoder = build_models(seed=40, **LEGACY_CONFIG)
+        conv = Wav2WavConverter(model, vocoder, src, trg, FEATS)
+        requests = serving_requests()
+        log("legacy serving: Wav2WavConverter, the flagship with conformer_rel_pos_type "
+            "legacy at full width (bf16, attention backend flash); warm-up: each request once, "
+            "then the synthesis ladder")
+        fails, warm = serve(conv, requests)
+        failures += fails
+        log(f"legacy warm-up synthesis buckets: {conv.warmup_synth()}")
+        calls = [planned_calls(conv, [r], [w["out_frames"]]) for r, w in zip(requests, warm)]
+        log(f"legacy kernel calls per request (name, B, H, T, D, key lengths): {calls}")
+        if [len(cs) for cs in calls] != [0, 0, FLAGSHIP["dlayers"]] or any(
+                c[0] != LEGACY[0] or c[4] != FLAGSHIP["adim"] * 4 // FLAGSHIP["aheads"]
+                for c in calls[-1]):
+            failures.append(f"legacy_serve: the routing does not put exactly the 30 s "
+                            f"request's decoder on kernel 2's legacy form: {calls}")
+        for D, T in ((192, 640), (768, 1300)):
+            for dtype in (torch.float32, torch.bfloat16):
+                rows.append(check_kernel(LEGACY[0], 2, 2, T, D, dtype, seed=T + D,
+                                         label="head-dim", lens=[T, 2 * T // 3]))
+        for B, H, T, D, lens in sorted({c[1:] for cs in calls for c in cs}):
+            rows.append(check_kernel(LEGACY[0], B, H, T, D, torch.bfloat16, seed=T,
+                                     label="main-path", lens=lens))
+
+        log("legacy serving main path: the same requests again")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        per_request = []
+        for request in requests:
+            before = launch_counts()
+            fails, _ = serve(conv, [request])
+            failures += fails
+            per_request.append({k: v - before[k] for k, v in launch_counts().items()})
+        launches = launch_counts()
+        log(f"legacy serving launches {launches}; kernel 2's legacy form per request "
+            f"{[c[LEGACY[0]] for c in per_request]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for (label, _), got, cs in zip(requests, per_request, calls):
+            want = {n: sum(c[0] == n for c in cs) for n in KERNELS}
+            if got != want:
+                failures.append(f"legacy_serve {label}: launches {got}, expected {want}")
+        failures += reference_check(model, vocoder, src, trg, "legacy_serve", **LEGACY_CONFIG)
+    return failures, launches
+
+
+def train_pallas_path(rows):
+    """Phase 21: the fused route's backward through kernels 4 and 5. An
+    ``AASVCTrainer`` on the full-width flagship with ``rel_scores_bwd:
+    pallas`` takes one warm-up step and 2 timed steps at B 16 on 480-960
+    frames: one launch of each of kernels 4 and 5 per fused-route layer
+    backward, none of kernel 3. Kernels 4 and 5 against their plain
+    versions at the fused route's training shapes (T 512 and 960, D 192 and
+    768) in float32 and bfloat16, and at the steps' shapes. Appends the
+    kernel checks to ``rows``; returns (failures, launches of the timed
+    steps, by kernel)."""
+    failures = []
+    tmp = REPO / "build"
+    tmp.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp, prefix="chip_smoke_pallas_") as root:
+        loader = corpus_loader(Path(root), corpus_lens(480, 960, seed=960), seed=960)
+        batch = next(iter(loader))
+        state = train_state(flagship(seed=47, rel_scores_bwd="pallas").to(DEVICE))
+        label = f"T{batch['xs'].shape[1]}/{batch['ys'].shape[1]}"
+        log(f"train_pallas: AASVCTrainer, flagship at full width (bf16, dropout 0.2, "
+            f"rel_scores_bwd pallas), B{BATCH}, padded (xs, ys) {batch['xs'].shape}, "
+            f"{batch['ys'].shape}; warm-up: one step")
+        train_steps(state, loader, 1, "pallas warm-up")
+
+        calls = train_calls(state.model, batch)
+        for T in (512, 960):
+            for D in (192, 768):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for name in PAIR:
+                        rows.append(check_kernel(name, BATCH, 2, T, D, dtype, seed=T + D,
+                                                 label="head-dim"))
+        for name, B, H, T, D, lens in sorted({c for c in calls if c[0] in PAIR}):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D + 1,
+                                     label="main-path", lens=list(lens)))
+
+        log(f"train_pallas main path: 2 steps at {label}")
+        notes, handle, n_att = watch_grads(state)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trainer = train_steps(state, loader, 2, label)
+        launches = launch_counts()
+        handle.remove()
+        expected = {n: 2 * sum(c[0] == n for c in calls) for n in KERNELS}
+        step_ms = [h["train/step_time_sec"] * 1e3 for h in trainer.history]
+        log(f"train_pallas: ms/step {[round(x, 1) for x in step_ms]} (mean "
+            f"{np.mean(step_ms):.1f}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, "
+            f"expected from the routing {expected}")
+        for name in KERNELS:
+            want = expected[name]
+            if launches[name] != want or (launches[name] == 0 and name in PATH_KERNELS["train_pallas"]):
+                failures.append(f"train_pallas {name}: {launches[name]} launches, expected {want}")
+        if any(expected[n] != 2 * 8 for n in PATH_KERNELS["train_pallas"]) or launches["rel_band_bwd"]:
+            failures.append(f"train_pallas: not every layer's backward on kernels 4-5: {expected}")
+        losses = [h["train/loss"] for h in trainer.history]
+        finite = [bool(f) for f, _ in notes]
+        att_min = [float(m) for _, m in notes]
+        log(f"train_pallas gradients per step: all finite {finite}; smallest norm among the "
+            f"{n_att} attention projections' weight gradients {att_min}")
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"train_pallas: loss not finite: {losses}")
+        if len(notes) != 2 or not all(finite) or not all(m > 0 for m in att_min):
+            failures.append(f"train_pallas: gradients finite {finite}, attention grad norms {att_min}")
+        del state, trainer
+    return failures, launches
+
+
 def bwd_sweep() -> int:
     """The rel-scores backward's two variants, timed at the training step's
     batch (B 16, H 2) in bf16 over key lengths T at the encoder's and the
@@ -1627,6 +1856,28 @@ def flash_sweep() -> int:
     return 0
 
 
+def ptxas_report(text: str):
+    """(entry function, its registers line, its spill line) for each kernel
+    variant in ``nvcc -Xptxas -v`` output; names demangled by ``c++filt``
+    where the machine has it."""
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn, spill = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            rows.append([fn, line.split(":", 1)[-1].strip(), spill])
+            fn = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, name in zip(rows, out):
+                r[0] = name
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1639,6 +1890,7 @@ def main() -> int:
         return sweeps[sys.argv[1]]()
     from seq2seq_vc_torch.pipeline import Wav2WavConverter
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1653,20 +1905,15 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
         f"(per kernel: { {k: round(v['seconds'], 1) for k, v in built.items()} })")
     for name, res in built.items():
-        for line in res["log"].splitlines():
-            if "registers" in line or "spill" in line and "0 bytes spill" not in line:
-                log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        for fn, regs, spill in ptxas_report(res["log"]):
+            log(f"  ptxas {name}: {fn}: {regs}; {spill}")
 
     failures = []
     with torch.no_grad():
         model, vocoder = build_models(seed=0)
         src, trg = stats(1), stats(2)
         conv = Wav2WavConverter(model, vocoder, src, trg, FEATS)  # on the card
-        requests = [
-            ("single 3.8 s", [clip(3.8, 10)]),
-            ("batch of 4", [clip(s, 11 + i) for i, s in enumerate((2.2, 3.0, 3.8, 4.6))]),
-            ("single 30 s", [clip(30.0, 15)]),
-        ]
+        requests = serving_requests()
         log("warm-up: each request once, then the synthesis ladder")
         fails, warm = serve(conv, requests)
         failures += fails
@@ -1713,6 +1960,15 @@ def main() -> int:
         fails, launches[path] = vtn_train_path(rows, path)
         failures += fails
     failures += vtn_reference_step(seed=34)
+    phases = (("legacy_serve", lambda: legacy_serve_path(rows, src, trg)),
+              ("train_long_legacy", lambda: train_long_path(rows, "train_long_legacy")),
+              ("train_pallas", lambda: train_pallas_path(rows)))
+    for path, run in phases:
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        fails, launches[path] = run()
+        failures += fails
+        log(f"phase {path}: {time.perf_counter() - t_phase:.1f} s")
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]
 
@@ -1730,6 +1986,7 @@ def main() -> int:
             library=LIBRARY[name], launches_by_path=by_path,
             shape_bhtd=list(top["shape"]), kv_lens=top["kv_lens"], dtype=top["dtype"],
         ))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     log(card)  # nvidia-smi's name and power limit, as it gives them
     if failures:

@@ -1,14 +1,22 @@
-// Relative-position flash attention, forward (new-style rel-pos), with
-// in-kernel attention dropout and the saved logsumexp.
+// Relative-position flash attention, forward, with in-kernel attention
+// dropout and the saved logsumexp.
 //
 // Replaces the TPU kernel `_rel_fwd_kernel` of
 // seq2seq_vc_tpu/ops/flash_attention.py (launched by `_rel_core.fwd_impl`,
-// entry `rel_flash_attention`), legacy=False:
+// entry `rel_flash_attention`), legacy=False and legacy=True:
 //
 //   s[i, j] = (q_u[i] . k[j] + q_v[i] . pos[h, T-1-i+j]) * scale,  j < kv_len[b]
 //   p[i, j] = softmax_j(s[i, :])
 //   out[i]  = sum_j keep(i, j) * p[i, j] / (1 - rate) * v[j]
 //   lse[i]  = logsumexp_j s[i, :]   (-1e30 for a row with no live key)
+//
+// q_u, k and v have the head dim D; q_v and the table have their own width
+// QW: D in the new style, 2*D in the legacy form, whose wrapper folds the
+// three cases of the legacy rel_shift into this one band product by
+// widening q_v to [q_v[i], q_v[i+1]] and stacking a second table beside the
+// first (ops/flash_attention.py `legacy_rel_inputs`). The D-chunk loop runs
+// the three products over the first D columns and then the band alone over
+// the columns past D; scale = 1/sqrt(D) either way.
 //
 // Dropout acts on the normalised weights: the row sum is taken before the
 // drop, and keep(i, j) is the shared hash of csrc/common.cuh, a pure
@@ -28,13 +36,14 @@
 // a thread and no shared memory. V rows are read straight from device
 // memory, coalesced along D. A row whose kv_len is 0 returns zeros.
 //
-// Bound: per head 6*T*T*D multiply-adds at most (scores, band window, P.V)
-// against ~4*T*D inputs read once, so at the main path's shapes the card's
-// tensor-core rate would make it bound by operations. This first version
-// multiplies on the CUDA cores in float FMA, so it is bound by FMA issue and
-// shared-memory reads; tensor cores (mma/wgmma) are later work. The dropout
-// hash adds ~10 integer operations per score, against 2*D+ multiply-adds;
-// it is compiled in only where the rate is above 0.
+// Bound: per head (2*D + QW)*T*T multiply-adds at most (q_u.k, the band
+// and P.V: 3*T*T*D in the new style) against ~4*T*D inputs read
+// once, so at the main path's shapes the card's tensor-core rate would make
+// it bound by operations. This first version multiplies on the CUDA cores
+// in float FMA, so it is bound by FMA issue and shared-memory reads; tensor
+// cores (mma/wgmma) are later work. The dropout hash adds ~10 integer
+// operations per score, against 2*D+ multiply-adds; it is compiled in only
+// where the rate is above 0.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -61,7 +70,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ pos,
     const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
-    int H, int L, int D, float scale, float rate, float keep_scale, unsigned seed,
+    int H, int L, int D, int QW, float scale, float rate, float keep_scale, unsigned seed,
     int t_pad) {
   __shared__ float s_qu[BM * LDS];
   __shared__ float s_qv[BM * LDS];
@@ -82,10 +91,10 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
 
   const size_t base = (size_t)bh * L * D;
   const T* qu_b = qu + base;
-  const T* qv_b = qv + base;
+  const T* qv_b = qv + (size_t)bh * L * QW;
   const T* k_b = k + base;
   const T* v_b = v + base;
-  const T* pos_h = pos + (size_t)h * n_pos * D;
+  const T* pos_h = pos + (size_t)h * n_pos * QW;
 
   float acc[BM][NC];
 #pragma unroll
@@ -100,13 +109,14 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
     const int r0 = L - BM - i0 + j0;
     float sacc[4] = {0.f, 0.f, 0.f, 0.f};
     float racc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += DK) {
+    int d0 = 0;
+    for (; d0 < D; d0 += DK) {
       for (int e = tid; e < BM * DK; e += NT) {
         const int r = e / DK, c = e % DK;
         const int i = i0 + r, d = d0 + c;
         const bool ok = i < L && d < D;
         s_qu[r * LDS + c] = ok ? to_f(qu_b[(size_t)i * D + d]) : 0.f;
-        s_qv[r * LDS + c] = ok ? to_f(qv_b[(size_t)i * D + d]) : 0.f;
+        s_qv[r * LDS + c] = (i < L && d < QW) ? to_f(qv_b[(size_t)i * QW + d]) : 0.f;
       }
       for (int e = tid; e < BN * DK; e += NT) {
         const int r = e / DK, c = e % DK;
@@ -117,7 +127,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
         const int r = e / DK, c = e % DK;
         const int p = r0 + r, d = d0 + c;
         s_p[r * LDS + c] =
-            (p >= 0 && p < n_pos && d < D) ? to_f(pos_h[(size_t)p * D + d]) : 0.f;
+            (p >= 0 && p < n_pos && d < QW) ? to_f(pos_h[(size_t)p * QW + d]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -126,6 +136,28 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
         const float a_v = s_qv[ty * LDS + c];
 #pragma unroll
         for (int b = 0; b < 4; ++b) sacc[b] = fmaf(a_u, s_k[(tx + 16 * b) * LDS + c], sacc[b]);
+#pragma unroll
+        for (int w = 0; w < 5; ++w) racc[w] = fmaf(a_v, s_p[(tx + 16 * w) * LDS + c], racc[w]);
+      }
+      __syncthreads();
+    }
+    // the legacy form: the band over the q_v/table columns past D
+    for (; d0 < QW; d0 += DK) {
+      for (int e = tid; e < BM * DK; e += NT) {
+        const int r = e / DK, c = e % DK;
+        const int i = i0 + r, d = d0 + c;
+        s_qv[r * LDS + c] = (i < L && d < QW) ? to_f(qv_b[(size_t)i * QW + d]) : 0.f;
+      }
+      for (int e = tid; e < WIN * DK; e += NT) {
+        const int r = e / DK, c = e % DK;
+        const int p = r0 + r, d = d0 + c;
+        s_p[r * LDS + c] =
+            (p >= 0 && p < n_pos && d < QW) ? to_f(pos_h[(size_t)p * QW + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < DK; ++c) {
+        const float a_v = s_qv[ty * LDS + c];
 #pragma unroll
         for (int w = 0; w < 5; ++w) racc[w] = fmaf(a_v, s_p[(tx + 16 * w) * LDS + c], racc[w]);
       }
@@ -217,7 +249,7 @@ struct Args {
   const int* kv_lens;
   void* out;
   float* lse;
-  int BH, H, L, D;
+  int BH, H, L, D, QW;
   float scale, rate, keep_scale;
   unsigned seed;
   int t_pad;
@@ -229,8 +261,8 @@ cudaError_t launch_variant(const Args& a, cudaStream_t stream) {
   rel_flash_fwd_kernel<T, NC, DROPOUT, LSE><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(a.qu), static_cast<const T*>(a.qv), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.pos), a.kv_lens,
-      static_cast<T*>(a.out), a.lse, a.H, a.L, a.D, a.scale, a.rate, a.keep_scale, a.seed,
-      a.t_pad);
+      static_cast<T*>(a.out), a.lse, a.H, a.L, a.D, a.QW, a.scale, a.rate, a.keep_scale,
+      a.seed, a.t_pad);
   return cudaGetLastError();
 }
 
@@ -255,21 +287,22 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// q_u, q_v, k, v: (BH, L, D) contiguous; pos: (H, 2L-1, D); kv_lens: (BH/H,)
-// int32 on the device; out: (BH, L, D) in the input type; lse: (BH, L)
-// float32, or null for none. D <= 1024. Dropout: rate in [0, 1) (0: none),
+// q_u, k, v: (BH, L, D) contiguous; q_v: (BH, L, QW); pos: (H, 2L-1, QW);
+// kv_lens: (BH/H,) int32 on the device; out: (BH, L, D) in the input type;
+// lse: (BH, L) float32, or null for none. D <= 1024; QW = D (new style) or
+// 2*D (legacy), any width the wrapper allows. Dropout: rate in [0, 1) (0: none),
 // keep_scale = 1/(1-rate) in float32, the seed, and t_pad = round_up(L, 128)
 // for the hash index. Returns the launch's cudaError_t (0 = launched).
 extern "C" int rel_flash_fwd(int dtype, const void* qu, const void* qv,
                              const void* k, const void* v, const void* pos,
                              const void* kv_lens, void* out, void* lse, int BH, int H,
-                             int L, int D, float scale, float rate, float keep_scale,
+                             int L, int D, int QW, float scale, float rate, float keep_scale,
                              unsigned seed, int t_pad, void* stream) {
-  if (BH <= 0 || H <= 0 || L <= 0 || D <= 0 || BH % H != 0 || BH > 65535 || t_pad < L ||
-      rate < 0.f || rate >= 1.f)
+  if (BH <= 0 || H <= 0 || L <= 0 || D <= 0 || QW <= 0 || BH % H != 0 || BH > 65535 ||
+      t_pad < L || rate < 0.f || rate >= 1.f)
     return cudaErrorInvalidValue;
   const Args a{qu, qv, k, v, pos, static_cast<const int*>(kv_lens), out,
-               static_cast<float*>(lse), BH, H, L, D, scale, rate, keep_scale, seed, t_pad};
+               static_cast<float*>(lse), BH, H, L, D, QW, scale, rate, keep_scale, seed, t_pad};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case s2s::kFloat32:

@@ -1,9 +1,9 @@
-// Relative-position flash attention, backward (new-style rel-pos): three
-// kernels that recompute the score tiles FlashAttention-2 style, so the
-// (T, T) scores, weights and dropout mask never reach device memory.
+// Relative-position flash attention, backward: three kernels that recompute
+// the score tiles FlashAttention-2 style, so the (T, T) scores, weights and
+// dropout mask never reach device memory.
 //
 // Replaces the TPU kernels of seq2seq_vc_tpu/ops/flash_attention.py
-// (launched by `_rel_core.core_bwd`), legacy=False:
+// (launched by `_rel_core.core_bwd`), legacy=False and legacy=True:
 //   - rel_flash_bwd_dq   <- `_rel_bwd_dq_kernel`   (dq_u, dq_v)
 //   - rel_flash_bwd_dkv  <- `_rel_bwd_dkv_kernel`  (dk, dv)
 //   - rel_flash_bwd_dpos <- `_rel_bwd_dpos_kernel` (the table gradient)
@@ -21,6 +21,11 @@
 //   dq_u[i] = sum_j ds k[j]              dq_v[i] = sum_j ds pos[T-1-i+j]
 //   dk[j]   = sum_i ds q_u[i]            dv[j]   = sum_i pd dO[i]
 //   dpos[r] = sum_b sum_i ds(i, j = i + r - (T-1)) q_v[i]
+//
+// q_u, k, v and dO have the head dim D; q_v, the table, dq_v and dpos have
+// their own width QW: D in the new style, 2*D in the legacy form (see
+// csrc/rel_flash.cu). Each recompute runs the three products over the first
+// D columns, then the band alone over the columns past D.
 //
 // keep(i, j) is the hash of csrc/common.cuh over the index
 // (bh * t_pad + i) * t_pad + j with t_pad = round_up(T, 128), the JAX
@@ -44,7 +49,12 @@
 // and each thread accumulates its output columns tid + 256*m of all 16 owned
 // rows in registers, reading the walked rows (k, pos, dO, q_u, q_v) straight
 // from device memory, coalesced along D: at the decoder's D = 768 that is
-// two 16 x 768 float accumulators, 96 registers a thread.
+// two 16 x 768 float accumulators, 96 registers a thread. An output wider
+// than 1024 columns (dq_v and dpos in the legacy form at D = 768: QW =
+// 1536) is split into column chunks of at most 1024 over the grid's z axis,
+// each block recomputing the same tiles for its chunk, so that no thread
+// holds more than 4 columns of each accumulator; every other launch has one
+// chunk.
 //
 // - dq: a block owns 16 query rows and walks the key tiles up to kv_len.
 // - dk/dv: a block owns 16 keys and walks every query tile; a key block at
@@ -56,8 +66,9 @@
 //   adds the groups' partial sums in a fixed order: deterministic, no atomics.
 //
 // Bound: each kernel recomputes the scores (q_u.k, the band and dO.v:
-// 3*D multiply-adds per live score) and adds 2*D (dq, dk/dv) or D (dpos)
-// for its outputs: ~17*D multiply-adds per live score over the three, against
+// 2*D + QW multiply-adds per live score) and adds D + QW (dq), 2*D (dk/dv)
+// or QW (dpos) for its outputs: ~17*D multiply-adds per live score over the
+// three in the new style (23*D in the legacy form), against
 // ~5*T*D inputs per head read once. At the main path's shapes the
 // tensor-core rate would make them bound by operations; this first version
 // multiplies on the CUDA cores in float FMA from shared memory, so it is
@@ -79,6 +90,7 @@ constexpr int DK = 32;             // depth of one staged D-chunk
 constexpr int LDS = DK + 1;        // padded row stride of staged tiles
 constexpr int LDT = OWN + 1;       // padded row stride of (WALK, OWN) tiles
 constexpr int kDposSplit = 4;      // batch groups of the dpos kernel, at most
+constexpr int kMaxNC = 4;          // output columns a thread owns, at most (per accumulator)
 
 using s2s::from_f;
 using s2s::to_f;
@@ -86,13 +98,24 @@ using s2s::to_f;
 // batch groups of the dpos kernel for batch size B
 int dpos_groups(int B) { return std::max(1, std::min(B, kDposSplit)); }
 
+// An output of W columns in nz chunks of NT*nc columns each (grid z): as few
+// chunks as hold W at kMaxNC columns a thread, then the fewest columns a
+// thread that still cover W.
+struct Chunks {
+  int nc, nz;
+};
+Chunks column_chunks(int W) {
+  const int nz = (W + kMaxNC * NT - 1) / (kMaxNC * NT);
+  return {(W + nz * NT - 1) / (nz * NT), nz};
+}
+
 struct Args {
   const void *qu, *qv, *k, *v, *pos, *dout;
   const int* kv_lens;
   const float *lse, *delta;
   void *out0, *out1;  // dq_u, dq_v | dk, dv | dpos, -
-  float* partial;     // dpos only: (n_split, H, 2L-1, D) float32
-  int B, H, L, D;
+  float* partial;     // dpos only: (n_split, H, 2L-1, QW) float32
+  int B, H, L, D, QW;
   float scale, rate, keep_scale;
   unsigned seed;
   int t_pad;
@@ -132,18 +155,19 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_kernel(Args a) {
   __shared__ float s_k[WALK * LDS], s_v[WALK * LDS], s_p[WIN * LDS];
   __shared__ float s_ds[OWN][WALK + 1];
 
-  const int L = a.L, D = a.D, n_pos = 2 * L - 1;
+  const int L = a.L, D = a.D, QW = a.QW, n_pos = 2 * L - 1;
   const int i0 = blockIdx.x * OWN;
   const int bh = blockIdx.y, h = bh % a.H;
+  const int c0 = blockIdx.z * NT * NC;  // this block's column chunk of dq_u and dq_v
   const int kv_len = max(0, min(a.kv_lens[bh / a.H], L));
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t base = (size_t)bh * L * D;
+  const size_t base = (size_t)bh * L * D, base_w = (size_t)bh * L * QW;
   const T* qu = static_cast<const T*>(a.qu) + base;
-  const T* qv = static_cast<const T*>(a.qv) + base;
+  const T* qv = static_cast<const T*>(a.qv) + base_w;
   const T* k = static_cast<const T*>(a.k) + base;
   const T* v = static_cast<const T*>(a.v) + base;
   const T* dout = static_cast<const T*>(a.dout) + base;
-  const T* pos = static_cast<const T*>(a.pos) + (size_t)h * n_pos * D;
+  const T* pos = static_cast<const T*>(a.pos) + (size_t)h * n_pos * QW;
 
   const int i = i0 + ty;  // the query row this thread scores
   const float lse_i = i < L ? a.lse[(size_t)bh * L + i] : 0.f;
@@ -159,13 +183,14 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_kernel(Args a) {
   for (int j0 = 0; j0 < kv_len; j0 += WALK) {
     const int r_lo = L - OWN - i0 + j0;  // table row of window row 0
     float ss[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += DK) {
+    int d0 = 0;
+    for (; d0 < D; d0 += DK) {
       stage(s_qu, qu, OWN, i0, 0, L, d0, D);
-      stage(s_qv, qv, OWN, i0, 0, L, d0, D);
+      stage(s_qv, qv, OWN, i0, 0, L, d0, QW);
       stage(s_do, dout, OWN, i0, 0, L, d0, D);
       stage(s_k, k, WALK, j0, 0, L, d0, D);
       stage(s_v, v, WALK, j0, 0, L, d0, D);
-      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, D);
+      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, QW);
       __syncthreads();
 #pragma unroll 4
       for (int c = 0; c < DK; ++c) {
@@ -177,6 +202,19 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_kernel(Args a) {
           ss[b] = fmaf(av, s_p[(jl - ty + OWN - 1) * LDS + c], ss[b]);
           dp[b] = fmaf(ao, s_v[jl * LDS + c], dp[b]);
         }
+      }
+      __syncthreads();
+    }
+    for (; d0 < QW; d0 += DK) {  // the legacy form: the band past column D
+      stage(s_qv, qv, OWN, i0, 0, L, d0, QW);
+      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, QW);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < DK; ++c) {
+        const float av = s_qv[ty * LDS + c];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          ss[b] = fmaf(av, s_p[(tx + 16 * b - ty + OWN - 1) * LDS + c], ss[b]);
       }
       __syncthreads();
     }
@@ -193,21 +231,24 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_kernel(Args a) {
     const int nk = min(WALK, kv_len - j0);
 #pragma unroll
     for (int m = 0; m < NC; ++m) {
-      const int c = tid + NT * m;
-      if (c >= D) continue;
-      const T* k_col = k + (size_t)j0 * D + c;
-      for (int n = 0; n < nk; ++n) {
-        const float kk = to_f(k_col[(size_t)n * D]);
+      const int c = c0 + tid + NT * m;
+      if (c < D) {
+        const T* k_col = k + (size_t)j0 * D + c;
+        for (int n = 0; n < nk; ++n) {
+          const float kk = to_f(k_col[(size_t)n * D]);
 #pragma unroll
-        for (int r = 0; r < OWN; ++r) acc_u[r][m] = fmaf(s_ds[r][n], kk, acc_u[r][m]);
+          for (int r = 0; r < OWN; ++r) acc_u[r][m] = fmaf(s_ds[r][n], kk, acc_u[r][m]);
+        }
       }
-      for (int w = 0; w < nk + OWN - 1; ++w) {
-        const int prow = r_lo + w;
-        const float pv = (prow >= 0 && prow < n_pos) ? to_f(pos[(size_t)prow * D + c]) : 0.f;
+      if (c < QW) {
+        for (int w = 0; w < nk + OWN - 1; ++w) {
+          const int prow = r_lo + w;
+          const float pv = (prow >= 0 && prow < n_pos) ? to_f(pos[(size_t)prow * QW + c]) : 0.f;
 #pragma unroll
-        for (int r = 0; r < OWN; ++r) {
-          const int n = w + r - (OWN - 1);  // key of row r on window row w
-          if (n >= 0 && n < nk) acc_v[r][m] = fmaf(s_ds[r][n], pv, acc_v[r][m]);
+          for (int r = 0; r < OWN; ++r) {
+            const int n = w + r - (OWN - 1);  // key of row r on window row w
+            if (n >= 0 && n < nk) acc_v[r][m] = fmaf(s_ds[r][n], pv, acc_v[r][m]);
+          }
         }
       }
     }
@@ -215,16 +256,15 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_kernel(Args a) {
   }
 
   T* dqu = static_cast<T*>(a.out0) + base;
-  T* dqv = static_cast<T*>(a.out1) + base;
+  T* dqv = static_cast<T*>(a.out1) + base_w;
 #pragma unroll
   for (int m = 0; m < NC; ++m) {
-    const int c = tid + NT * m;
-    if (c >= D) continue;
+    const int c = c0 + tid + NT * m;
 #pragma unroll
     for (int r = 0; r < OWN; ++r) {
       if (i0 + r < L) {
-        dqu[(size_t)(i0 + r) * D + c] = from_f<T>(acc_u[r][m]);
-        dqv[(size_t)(i0 + r) * D + c] = from_f<T>(acc_v[r][m]);
+        if (c < D) dqu[(size_t)(i0 + r) * D + c] = from_f<T>(acc_u[r][m]);
+        if (c < QW) dqv[(size_t)(i0 + r) * QW + c] = from_f<T>(acc_v[r][m]);
       }
     }
   }
@@ -245,18 +285,18 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_kernel(Args a) {
   float* s_pd = smem;              // (WALK, LDT), over the staging
   float* s_ds = smem + WALK * LDT;
 
-  const int L = a.L, D = a.D, n_pos = 2 * L - 1;
+  const int L = a.L, D = a.D, QW = a.QW, n_pos = 2 * L - 1;
   const int j0 = blockIdx.x * OWN;
   const int bh = blockIdx.y, h = bh % a.H;
   const int kv_len = max(0, min(a.kv_lens[bh / a.H], L));
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t base = (size_t)bh * L * D;
   const T* qu = static_cast<const T*>(a.qu) + base;
-  const T* qv = static_cast<const T*>(a.qv) + base;
+  const T* qv = static_cast<const T*>(a.qv) + (size_t)bh * L * QW;
   const T* k = static_cast<const T*>(a.k) + base;
   const T* v = static_cast<const T*>(a.v) + base;
   const T* dout = static_cast<const T*>(a.dout) + base;
-  const T* pos = static_cast<const T*>(a.pos) + (size_t)h * n_pos * D;
+  const T* pos = static_cast<const T*>(a.pos) + (size_t)h * n_pos * QW;
   const int j = j0 + ty;  // the key this thread scores
 
   float acc_k[OWN][NC], acc_v[OWN][NC];
@@ -274,13 +314,14 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_kernel(Args a) {
       s_delta[tid] = i < L ? a.delta[(size_t)bh * L + i] : 0.f;
     }
     float ss[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += DK) {
+    int d0 = 0;
+    for (; d0 < D; d0 += DK) {
       stage(s_qu, qu, WALK, i0, 0, L, d0, D);
-      stage(s_qv, qv, WALK, i0, 0, L, d0, D);
+      stage(s_qv, qv, WALK, i0, 0, L, d0, QW);
       stage(s_do, dout, WALK, i0, 0, L, d0, D);
       stage(s_k, k, OWN, j0, 0, L, d0, D);
       stage(s_v, v, OWN, j0, 0, L, d0, D);
-      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, D);
+      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, QW);
       __syncthreads();
 #pragma unroll 4
       for (int c = 0; c < DK; ++c) {
@@ -291,6 +332,20 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_kernel(Args a) {
           ss[b] = fmaf(s_qu[il * LDS + c], ak, ss[b]);
           ss[b] = fmaf(s_qv[il * LDS + c], s_p[(ty - il + WALK - 1) * LDS + c], ss[b]);
           dp[b] = fmaf(s_do[il * LDS + c], avv, dp[b]);
+        }
+      }
+      __syncthreads();
+    }
+    for (; d0 < QW; d0 += DK) {  // the legacy form: the band past column D
+      stage(s_qv, qv, WALK, i0, 0, L, d0, QW);
+      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, QW);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < DK; ++c) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int il = tx + 16 * b;
+          ss[b] = fmaf(s_qv[il * LDS + c], s_p[(ty - il + WALK - 1) * LDS + c], ss[b]);
         }
       }
       __syncthreads();
@@ -354,12 +409,13 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_kernel(Args a, int n_sp
   float* s_pos = s_vw + WIN * LDS;
   float* s_ds = smem;               // (WALK, LDT), over the staging
 
-  const int L = a.L, D = a.D, n_pos = 2 * L - 1;
+  const int L = a.L, D = a.D, QW = a.QW, n_pos = 2 * L - 1;
   const int r0 = blockIdx.x * OWN;
   const int h = blockIdx.y % a.H, group = blockIdx.y / a.H;
+  const int c0 = blockIdx.z * NT * NC;  // this block's column chunk of dpos
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int r = r0 + ty;  // the table row this thread scores
-  const T* pos = static_cast<const T*>(a.pos) + (size_t)h * n_pos * D;
+  const T* pos = static_cast<const T*>(a.pos) + (size_t)h * n_pos * QW;
 
   float acc[OWN][NC];
 #pragma unroll
@@ -373,7 +429,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_kernel(Args a, int n_sp
     const int kv_len = max(0, min(a.kv_lens[b], L));
     const size_t base = (size_t)bh * L * D;
     const T* qu = static_cast<const T*>(a.qu) + base;
-    const T* qv = static_cast<const T*>(a.qv) + base;
+    const T* qv = static_cast<const T*>(a.qv) + (size_t)bh * L * QW;
     const T* k = static_cast<const T*>(a.k) + base;
     const T* v = static_cast<const T*>(a.v) + base;
     const T* dout = static_cast<const T*>(a.dout) + base;
@@ -389,13 +445,14 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_kernel(Args a, int n_sp
         s_delta[tid] = i < L ? a.delta[(size_t)bh * L + i] : 0.f;
       }
       float ss[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int d0 = 0; d0 < D; d0 += DK) {
+      int d0 = 0;
+      for (; d0 < D; d0 += DK) {
         stage(s_qu, qu, WALK, i0, 0, L, d0, D);
-        stage(s_qv, qv, WALK, i0, 0, L, d0, D);
+        stage(s_qv, qv, WALK, i0, 0, L, d0, QW);
         stage(s_do, dout, WALK, i0, 0, L, d0, D);
         stage(s_kw, k, WIN, j_lo, 0, kv_len, d0, D);
         stage(s_vw, v, WIN, j_lo, 0, kv_len, d0, D);
-        stage(s_pos, pos, OWN, r0, 0, n_pos, d0, D);
+        stage(s_pos, pos, OWN, r0, 0, n_pos, d0, QW);
         __syncthreads();
 #pragma unroll 4
         for (int c = 0; c < DK; ++c) {
@@ -407,6 +464,18 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_kernel(Args a, int n_sp
             ss[q] = fmaf(s_qv[il * LDS + c], ap, ss[q]);
             dp[q] = fmaf(s_do[il * LDS + c], s_vw[(il + ty) * LDS + c], dp[q]);
           }
+        }
+        __syncthreads();
+      }
+      for (; d0 < QW; d0 += DK) {  // the legacy form: the band past column D
+        stage(s_qv, qv, WALK, i0, 0, L, d0, QW);
+        stage(s_pos, pos, OWN, r0, 0, n_pos, d0, QW);
+        __syncthreads();
+#pragma unroll 4
+        for (int c = 0; c < DK; ++c) {
+          const float ap = s_pos[ty * LDS + c];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ss[q] = fmaf(s_qv[(tx + 16 * q) * LDS + c], ap, ss[q]);
         }
         __syncthreads();
       }
@@ -424,10 +493,10 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_kernel(Args a, int n_sp
       const int nq = min(WALK, L - i0);
 #pragma unroll
       for (int m = 0; m < NC; ++m) {
-        const int c = tid + NT * m;
-        if (c >= D) continue;
+        const int c = c0 + tid + NT * m;
+        if (c >= QW) continue;
         for (int n = 0; n < nq; ++n) {
-          const float q = to_f(qv[(size_t)(i0 + n) * D + c]);
+          const float q = to_f(qv[(size_t)(i0 + n) * QW + c]);
 #pragma unroll
           for (int rr = 0; rr < OWN; ++rr) acc[rr][m] = fmaf(s_ds[n * LDT + rr], q, acc[rr][m]);
         }
@@ -436,14 +505,14 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_kernel(Args a, int n_sp
     }
   }
 
-  float* part = a.partial + ((size_t)group * a.H + h) * n_pos * D;
+  float* part = a.partial + ((size_t)group * a.H + h) * n_pos * QW;
 #pragma unroll
   for (int m = 0; m < NC; ++m) {
-    const int c = tid + NT * m;
-    if (c >= D) continue;
+    const int c = c0 + tid + NT * m;
+    if (c >= QW) continue;
 #pragma unroll
     for (int rr = 0; rr < OWN; ++rr) {
-      if (r0 + rr < n_pos) part[(size_t)(r0 + rr) * D + c] = acc[rr][m];
+      if (r0 + rr < n_pos) part[(size_t)(r0 + rr) * QW + c] = acc[rr][m];
     }
   }
 }
@@ -463,10 +532,10 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_sum_kernel(const float*
 enum Which { kDq, kDkv, kDpos };
 
 template <typename T, int NC>
-cudaError_t launch_nc(Which which, const Args& a, cudaStream_t stream) {
+cudaError_t launch_nc(Which which, const Args& a, int nz, cudaStream_t stream) {
   const int BH = a.B * a.H;
   if (which == kDq) {
-    rel_flash_bwd_dq_kernel<T, NC><<<dim3((a.L + OWN - 1) / OWN, BH), NT, 0, stream>>>(a);
+    rel_flash_bwd_dq_kernel<T, NC><<<dim3((a.L + OWN - 1) / OWN, BH, nz), NT, 0, stream>>>(a);
     return cudaGetLastError();
   }
   if (which == kDkv) {
@@ -476,10 +545,10 @@ cudaError_t launch_nc(Which which, const Args& a, cudaStream_t stream) {
   const int n_split = dpos_groups(a.B);
   const int n_pos = 2 * a.L - 1;
   rel_flash_bwd_dpos_kernel<T, NC>
-      <<<dim3((n_pos + OWN - 1) / OWN, a.H * n_split), NT, 0, stream>>>(a, n_split);
+      <<<dim3((n_pos + OWN - 1) / OWN, a.H * n_split, nz), NT, 0, stream>>>(a, n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n = (size_t)a.H * n_pos * a.D;
+  const size_t n = (size_t)a.H * n_pos * a.QW;
   const unsigned blocks = (unsigned)std::min<size_t>((n + NT - 1) / NT, 4096);
   rel_flash_bwd_dpos_sum_kernel<T><<<blocks, NT, 0, stream>>>(a.partial, static_cast<T*>(a.out0),
                                                               n_split, n);
@@ -488,17 +557,28 @@ cudaError_t launch_nc(Which which, const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
-  // NC = output columns per thread: D <= 256 * NC
-  if (a.D <= NT) return launch_nc<T, 1>(which, a, stream);
-  if (a.D <= 2 * NT) return launch_nc<T, 2>(which, a, stream);
-  if (a.D <= 3 * NT) return launch_nc<T, 3>(which, a, stream);
-  if (a.D <= 4 * NT) return launch_nc<T, 4>(which, a, stream);
-  return cudaErrorInvalidValue;
+  // the output's columns: dq_u and dq_v (one chunking for both), dk and dv,
+  // or dpos; NC = columns a thread owns in its chunk
+  const int W = which == kDq ? std::max(a.D, a.QW) : which == kDkv ? a.D : a.QW;
+  const Chunks ch = column_chunks(W);
+  if (which == kDkv && ch.nz != 1) return cudaErrorInvalidValue;
+  switch (ch.nc) {
+    case 1:
+      return launch_nc<T, 1>(which, a, ch.nz, stream);
+    case 2:
+      return launch_nc<T, 2>(which, a, ch.nz, stream);
+    case 3:
+      return launch_nc<T, 3>(which, a, ch.nz, stream);
+    case 4:
+      return launch_nc<T, 4>(which, a, ch.nz, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 int run(Which which, int dtype, const Args& a, void* stream) {
-  if (a.B <= 0 || a.H <= 0 || a.L <= 0 || a.D <= 0 || a.B * a.H > 65535 || a.t_pad < a.L ||
-      a.rate < 0.f || a.rate >= 1.f)
+  if (a.B <= 0 || a.H <= 0 || a.L <= 0 || a.D <= 0 || a.QW <= 0 || a.B * a.H > 65535 ||
+      a.t_pad < a.L || a.rate < 0.f || a.rate >= 1.f)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -513,35 +593,36 @@ int run(Which which, int dtype, const Args& a, void* stream) {
 
 }  // namespace
 
-// Shared arguments: q_u, q_v, k, v, dout (B*H, L, D) and pos (H, 2L-1, D),
-// contiguous, in the storage type `dtype`; kv_lens (B,) int32; lse, delta
-// (B*H, L) float32; scale = 1/sqrt(D); dropout rate in [0, 1) (0: none),
-// keep_scale = 1/(1-rate) in float32, the seed, t_pad = round_up(L, 128).
-// Outputs in the storage type, every element written. D <= 1024. Each
-// returns the launch's cudaError_t (0 = launched).
+// Shared arguments: q_u, k, v, dout (B*H, L, D), q_v (B*H, L, QW) and pos
+// (H, 2L-1, QW), contiguous, in the storage type `dtype`; kv_lens (B,)
+// int32; lse, delta (B*H, L) float32; scale = 1/sqrt(D); dropout rate in
+// [0, 1) (0: none), keep_scale = 1/(1-rate) in float32, the seed, t_pad =
+// round_up(L, 128). Outputs in the storage type, every element written.
+// D <= 1024, QW <= 2048 (QW = D new style, 2*D legacy). Each returns the
+// launch's cudaError_t (0 = launched).
 #define S2S_BWD_ARGS                                                                    \
   int dtype, const void *qu, const void *qv, const void *k, const void *v,            \
       const void *pos, const void *kv_lens, const void *lse, const void *delta,       \
       const void *dout
 #define S2S_BWD_TAIL                                                                    \
-  int B, int H, int L, int D, float scale, float rate, float keep_scale, unsigned seed, \
-      int t_pad, void *stream
+  int B, int H, int L, int D, int QW, float scale, float rate, float keep_scale,         \
+      unsigned seed, int t_pad, void *stream
 
 static Args make_args(const void* qu, const void* qv, const void* k, const void* v,
                       const void* pos, const void* kv_lens, const void* lse,
                       const void* delta, const void* dout, void* out0, void* out1,
-                      float* partial, int B, int H, int L, int D, float scale, float rate,
-                      float keep_scale, unsigned seed, int t_pad) {
+                      float* partial, int B, int H, int L, int D, int QW, float scale,
+                      float rate, float keep_scale, unsigned seed, int t_pad) {
   return Args{qu, qv, k, v, pos, dout, static_cast<const int*>(kv_lens),
               static_cast<const float*>(lse), static_cast<const float*>(delta), out0, out1,
-              partial, B, H, L, D, scale, rate, keep_scale, seed, t_pad};
+              partial, B, H, L, D, QW, scale, rate, keep_scale, seed, t_pad};
 }
 
-// dq_u, dq_v: (B*H, L, D)
+// dq_u: (B*H, L, D); dq_v: (B*H, L, QW)
 extern "C" int rel_flash_bwd_dq(S2S_BWD_ARGS, void* dqu, void* dqv, S2S_BWD_TAIL) {
   return run(kDq, dtype,
              make_args(qu, qv, k, v, pos, kv_lens, lse, delta, dout, dqu, dqv, nullptr, B, H,
-                       L, D, scale, rate, keep_scale, seed, t_pad),
+                       L, D, QW, scale, rate, keep_scale, seed, t_pad),
              stream);
 }
 
@@ -549,7 +630,7 @@ extern "C" int rel_flash_bwd_dq(S2S_BWD_ARGS, void* dqu, void* dqv, S2S_BWD_TAIL
 extern "C" int rel_flash_bwd_dkv(S2S_BWD_ARGS, void* dk, void* dv, S2S_BWD_TAIL) {
   return run(kDkv, dtype,
              make_args(qu, qv, k, v, pos, kv_lens, lse, delta, dout, dk, dv, nullptr, B, H, L,
-                       D, scale, rate, keep_scale, seed, t_pad),
+                       D, QW, scale, rate, keep_scale, seed, t_pad),
              stream);
 }
 
@@ -557,12 +638,12 @@ extern "C" int rel_flash_bwd_dkv(S2S_BWD_ARGS, void* dk, void* dv, S2S_BWD_TAIL)
 // dimension of its float32 scratch.
 extern "C" int rel_flash_bwd_dpos_groups(int B) { return dpos_groups(B); }
 
-// dpos: (H, 2L-1, D); partial: (rel_flash_bwd_dpos_groups(B), H, 2L-1, D)
+// dpos: (H, 2L-1, QW); partial: (rel_flash_bwd_dpos_groups(B), H, 2L-1, QW)
 // float32 scratch
 extern "C" int rel_flash_bwd_dpos(S2S_BWD_ARGS, void* dpos, void* partial, S2S_BWD_TAIL) {
   return run(kDpos, dtype,
              make_args(qu, qv, k, v, pos, kv_lens, lse, delta, dout, dpos, nullptr,
-                       static_cast<float*>(partial), B, H, L, D, scale, rate, keep_scale, seed,
-                       t_pad),
+                       static_cast<float*>(partial), B, H, L, D, QW, scale, rate, keep_scale,
+                       seed, t_pad),
              stream);
 }

@@ -12,9 +12,8 @@
 //
 // G is the (T, 2T-1) band cotangent. Both results are products with G,
 // which never reaches device memory: a kernel tile reads it straight from
-// g, because row i of G over table rows [r0, r0+n) is the CONTIGUOUS run
-// g[i, i+r0-(T-1) .. +n) of row i of g. So both halves are plain tiled
-// products whose A operand is loaded along the diagonals of g:
+// g along its diagonals (csrc/rel_band_tiles.cuh), so both halves are plain
+// tiled products:
 //
 // - dq_v: a block owns BM query rows and one BC-wide chunk of D, and walks
 //   the table rows its queries touch (T+BM-1 of them) in steps of BK:
@@ -22,7 +21,9 @@
 // - dpos: a block owns BM table rows and one BC chunk of D, and walks every
 //   (b, i) whose g row reaches them: acc(BM, BC) += G^T(BM, BK) . q_v(BK, BC).
 //   Each table row's sum is taken by one block in a fixed order, so the
-//   result is deterministic (no atomics, no partial buffers).
+//   result is deterministic (no atomics, no partial buffers). This half is
+//   `band::dpos_block`, which kernel 5 (csrc/rel_scores_bwd_pair.cu) runs on
+//   its own.
 //
 // One launch runs both: the grid's first blocks are the dpos tiles (each
 // walks B*T rows of g), the rest the dq_v tiles (T+BM rows each), so the
@@ -45,36 +46,13 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "rel_band_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // output rows per block: query rows (dq_v), table rows (dpos)
-constexpr int BC = 64;   // output columns per block: one chunk of D
-constexpr int BK = 32;   // depth of one step of the reduction
-constexpr int NT = 256;  // threads: a 16 x 16 grid, 4 x 4 outputs each
-constexpr int LDA = BM + 1;  // padded row stride: conflict-free transposed stores
-
+using namespace s2s::band;
 using s2s::from_f;
 using s2s::to_f;
-
-// acc += s_a^T s_b over one BK step: s_a is (BK, BM) (A stored by k), s_b is
-// (BK, BC); thread (tx, ty) owns rows ty + 16a and columns tx + 16c.
-__device__ __forceinline__ void tile_fma(const float (*s_a)[LDA], const float (*s_b)[BC],
-                                         float (&acc)[4][4], int tx, int ty) {
-#pragma unroll 8
-  for (int kk = 0; kk < BK; ++kk) {
-    float a[4], b[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) a[m] = s_a[kk][ty + 16 * m];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = s_b[kk][tx + 16 * c];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(a[m], b[c], acc[m][c]);
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(NT) rel_scores_bwd_kernel(
@@ -90,62 +68,20 @@ __global__ void __launch_bounds__(NT) rel_scores_bwd_kernel(
   const int n_pos = 2 * L - 1;
   const int n_dc = (D + BC - 1) / BC;
 
+  // block index -> (D chunk, row block, head or batch-head); the chunk
+  // varies fastest, so the blocks that share a g tile run side by side
+  if ((int)blockIdx.x < n_dpos_blocks) {
+    dpos_block(g, qv, dpos, B, H, L, D, scale, (int)blockIdx.x, s_a, s_b);
+    return;
+  }
+  int blk = (int)blockIdx.x - n_dpos_blocks;
+  const int d0 = (blk % n_dc) * BC;
+  blk /= n_dc;
   float acc[4][4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-  }
-
-  // block index -> (D chunk, row block, head or batch-head); the chunk
-  // varies fastest, so the blocks that share a g tile run side by side
-  const bool is_dpos = (int)blockIdx.x < n_dpos_blocks;
-  int blk = is_dpos ? (int)blockIdx.x : (int)blockIdx.x - n_dpos_blocks;
-  const int d0 = (blk % n_dc) * BC;
-  blk /= n_dc;
-
-  if (is_dpos) {
-    // ---- dpos: table rows r0 .. r0+BM-1 of head h, over every (b, i)
-    const int n_rb = (n_pos + BM - 1) / BM;
-    const int r0 = (blk % n_rb) * BM;
-    const int h = blk / n_rb;
-    // rows i whose g row reaches a table row of this block
-    const int i_lo = max(0, L - r0 - BM);
-    const int i_hi = min(L - 1, 2 * L - 2 - r0);
-    for (int b = 0; b < B; ++b) {
-      const size_t bh = (size_t)b * H + h;
-      const float* g_b = g + bh * L * L;
-      const T* qv_b = qv + bh * L * D;
-      for (int k0 = i_lo; k0 <= i_hi; k0 += BK) {
-        // A^T: s_a[kk][m] = G[i, r] with i = k0+kk, r = r0+m; consecutive
-        // threads take consecutive r, i.e. consecutive keys of g row i
-        for (int e = tid; e < BK * BM; e += NT) {
-          const int kk = e / BM, m = e % BM;
-          const int i = k0 + kk, j = i + r0 + m - (L - 1);
-          s_a[kk][m] = (i <= i_hi && j >= 0 && j < L) ? g_b[(size_t)i * L + j] : 0.f;
-        }
-        for (int e = tid; e < BK * BC; e += NT) {
-          const int kk = e / BC, c = e % BC;
-          const int i = k0 + kk, d = d0 + c;
-          s_b[kk][c] = (i <= i_hi && d < D) ? to_f(qv_b[(size_t)i * D + d]) : 0.f;
-        }
-        __syncthreads();
-        tile_fma(s_a, s_b, acc, tx, ty);
-        __syncthreads();
-      }
-    }
-    T* out = dpos + (size_t)h * n_pos * D;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int r = r0 + ty + 16 * m;
-      if (r >= n_pos) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = d0 + tx + 16 * c;
-        if (d < D) out[(size_t)r * D + d] = from_f<T>(acc[m][c] * scale);
-      }
-    }
-    return;
   }
 
   // ---- dq_v: query rows i0 .. i0+BM-1 of (b, h), over the table rows they touch
@@ -191,7 +127,7 @@ template <typename T>
 cudaError_t launch(const float* g, const void* qv, const void* pos, void* dqv, void* dpos,
                    int B, int H, int L, int D, float scale, cudaStream_t stream) {
   const long n_dc = (D + BC - 1) / BC;
-  const long n_dpos = n_dc * ((2L * L - 1 + BM - 1) / BM) * H;
+  const long n_dpos = dpos_blocks(H, L, D);
   const long n_dqv = n_dc * ((L + BM - 1) / BM) * (long)B * H;
   if (n_dpos + n_dqv > 0x7fffffffL) return cudaErrorInvalidValue;
   rel_scores_bwd_kernel<T><<<(unsigned)(n_dpos + n_dqv), NT, 0, stream>>>(

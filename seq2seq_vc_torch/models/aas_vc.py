@@ -36,6 +36,20 @@ MAX_DP_OUTPUT = 10  # duration clamp (reference ``aas_vc.py:35``)
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
+def _conformer_types(rel_pos_type: str, pos_enc: str, self_attn: str):
+    """The conformer's (pos-enc, self-attention) layer types for
+    ``conformer_rel_pos_type`` (the JAX model's ``_conformer_types``):
+    ``legacy`` turns the new-style ones into their legacy forms."""
+    if rel_pos_type == "legacy":
+        if pos_enc == "rel_pos":
+            pos_enc = "legacy_rel_pos"
+        if self_attn == "rel_selfattn":
+            self_attn = "legacy_rel_selfattn"
+    elif rel_pos_type != "latest":
+        raise ValueError(f"conformer_rel_pos_type {rel_pos_type!r}")
+    return pos_enc, self_attn
+
+
 class AASVC(torch.nn.Module):
     def __init__(
         self,
@@ -105,7 +119,6 @@ class AASVC(torch.nn.Module):
             "decoder_type": (decoder_type, "conformer"),
             "duration_predictor_type": (duration_predictor_type, "stochastic"),
             "positionwise_layer_type": (positionwise_layer_type, "linear"),
-            "conformer_rel_pos_type": (conformer_rel_pos_type, "latest"),
             "postnet_norm_type": (postnet_norm_type, "group_norm"),
             "spk_embed_dim": (spk_embed_dim, None),
         }
@@ -120,11 +133,13 @@ class AASVC(torch.nn.Module):
         self.duration_predictor_use_encoder_outputs = duration_predictor_use_encoder_outputs
         self.stochastic_duration_predictor_noise_scale = stochastic_duration_predictor_noise_scale
         cdt = _DTYPES[compute_dtype]
+        pos_enc, self_attn = _conformer_types(conformer_rel_pos_type, conformer_pos_enc_layer_type,
+                                              conformer_self_attn_layer_type)
         common = dict(
             positionwise_layer_type=positionwise_layer_type,
             macaron_style=use_macaron_style_in_conformer,
-            pos_enc_layer_type=conformer_pos_enc_layer_type,
-            selfattention_layer_type=conformer_self_attn_layer_type,
+            pos_enc_layer_type=pos_enc,
+            selfattention_layer_type=self_attn,
             use_cnn_module=use_cnn_in_conformer,
             conv_norm_type=conformer_conv_norm_type,
             attention_backend=attention_backend,

@@ -1,6 +1,7 @@
 """Multi-head attention: standard (``MultiHeadedAttention``, mirrors
-seq2seq_vc_tpu/nn/attention.py:76-170) and with relative positions
-(``RelPositionMultiHeadedAttention``, :173-400).
+seq2seq_vc_tpu/nn/attention.py:76-170) and with relative positions, new
+style (``RelPositionMultiHeadedAttention``, :173-400) and legacy
+(``LegacyRelPositionMultiHeadedAttention``, :403-406).
 
 ``MultiHeadedAttention`` has two backends: ``xla`` (dense PyTorch ops) and
 ``flash`` (the standard flash kernels, forward and backward, at key lengths
@@ -10,7 +11,9 @@ package's names: ``xla`` (dense PyTorch ops),
 ``fused`` (the fused rel-scores kernel, dense softmax and AV; its backward
 is the variant ``rel_scores_bwd`` names) and ``flash`` (the rel-pos flash
 kernels at key lengths >= ``flash_min_len``, forward and backward, the
-fused path below it). Attention dropout acts on the softmax weights in
+fused path below it; the legacy module never takes the fused kernel, so
+below the gate it takes the dense ops, as in the JAX package). Attention
+dropout acts on the softmax weights in
 ``train()`` mode: on the flash path inside the kernels, from one seed per
 call drawn from torch's default CPU generator (which the trainer seeds), as
 the JAX package draws one from its dropout rng.
@@ -146,12 +149,15 @@ class MultiHeadedAttention(torch.nn.Module):
         return self.linear_out(_merge_heads(out))
 
 
-def rel_shift(x: torch.Tensor) -> torch.Tensor:
-    """New-style Transformer-XL shift: (B, H, T, 2T-1) -> (B, H, T, T)."""
+def rel_shift(x: torch.Tensor, legacy: bool = False) -> torch.Tensor:
+    """Transformer-XL shift. New style: (B, H, T, 2T-1) scores against
+    +-(T-1) positions -> (B, H, T, T). Legacy: (B, H, T, T) -> (B, H, T, T)
+    by the same view moves, whose wrap gives ``bd[i, j] = x[i, T-1-(i-j)]``
+    for j <= i, 0 for j = i + 1 and ``x[i+1, j-i-2]`` for j >= i + 2."""
     b, h, t, n = x.shape
     x = torch.nn.functional.pad(x, (1, 0))
     x = x.reshape(b, h, n + 1, t)[:, :, 1:, :].reshape(b, h, t, n)
-    return x[:, :, :, : (n + 1) // 2]
+    return x if legacy else x[:, :, :, : (n + 1) // 2]
 
 
 class RelPositionMultiHeadedAttention(torch.nn.Module):
@@ -160,6 +166,8 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
     Expects pos_emb of shape (1, 2T-1, n_feat) from RelPositionalEncoding.
     Scores and softmax run in float32; projections in ``compute_dtype``.
     """
+
+    legacy = False  # the legacy form: LegacyRelPositionMultiHeadedAttention
 
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
                  zero_triu: bool = False, backend: str = "xla", compute_dtype=None,
@@ -194,7 +202,7 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
         ):
             return "flash"
         if (
-            self.backend in ("fused", "flash") and not self.zero_triu
+            self.backend in ("fused", "flash") and not self.legacy and not self.zero_triu
             and t_key == t_query and n_pos == 2 * t_query - 1
         ):
             return "fused"
@@ -212,13 +220,15 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
         if path == "flash":
             rate = float(self.dropout_rate) if self.training else 0.0
             out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=_kv_lens(mask),
-                                      dropout_rate=rate, dropout_seed=_flash_seed(rate))
+                                      dropout_rate=rate, dropout_seed=_flash_seed(rate),
+                                      legacy=self.legacy)
             return self.linear_out(_merge_heads(out))
         if path == "fused":
             scores = fused_rel_scores(q_u, q_v, k, p[0], bwd=self.rel_scores_bwd)
         else:
             matrix_ac = torch.einsum("bhqd,bhkd->bhqk", q_u.float(), k.float())
-            matrix_bd = rel_shift(torch.einsum("bhqd,bhpd->bhqp", q_v.float(), p.float()))
+            matrix_bd = rel_shift(torch.einsum("bhqd,bhpd->bhqp", q_v.float(), p.float()),
+                                  self.legacy)
             if self.zero_triu:
                 matrix_bd = torch.tril(matrix_bd)
             scores = (matrix_ac + matrix_bd) / math.sqrt(self.d_k)
@@ -233,3 +243,11 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
         w = F.dropout(w, self.dropout_rate, self.training)
         out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), v.float()).to(v.dtype)
         return self.linear_out(_merge_heads(out))
+
+
+class LegacyRelPositionMultiHeadedAttention(RelPositionMultiHeadedAttention):
+    """Legacy variant: pos_emb of shape (1, T, n_feat) from
+    LegacyRelPositionalEncoding, the legacy ``rel_shift``; on the flash
+    route the same kernels at twice the q_v/table width."""
+
+    legacy = True

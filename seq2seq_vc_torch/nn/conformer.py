@@ -1,6 +1,8 @@
 """Conformer encoder (mirrors seq2seq_vc_tpu/nn/conformer.py).
 
-Macaron FFN x0.5, rel-pos self-attention, GLU conv module, final LN. In
+Macaron FFN x0.5, rel-pos self-attention (new style, or legacy with the
+``legacy_rel_selfattn`` layer type and the ``legacy_rel_pos`` encoding),
+GLU conv module, final LN. In
 ``train()`` mode dropout acts where the JAX modules apply it: after the
 input layer, on the positional encoding, inside the feed-forwards, on the
 attention weights, and on each residual branch. The
@@ -18,7 +20,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .attention import FLASH_MIN_LEN, RelPositionMultiHeadedAttention
+from .attention import (
+    FLASH_MIN_LEN,
+    LegacyRelPositionMultiHeadedAttention,
+    RelPositionMultiHeadedAttention,
+)
 from .layers import Conv1d, LayerNorm, Linear
 from .transformer import LN_EPS, _make_pos_enc, _positionwise
 
@@ -85,7 +91,7 @@ class ConformerEncoderLayer(torch.nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  zero_triu: bool = False, attention_backend: str = "xla",
                  flash_min_len: int = FLASH_MIN_LEN, rel_scores_bwd: str = "auto",
-                 compute_dtype=None, device=None, dtype=None):
+                 legacy: bool = False, compute_dtype=None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ln = dict(compute_dtype=compute_dtype, **kw)
@@ -94,7 +100,9 @@ class ConformerEncoderLayer(torch.nn.Module):
         self.concat_after = concat_after
         self.macaron_style = macaron_style
         self.use_cnn_module = use_cnn_module
-        self.self_attn = RelPositionMultiHeadedAttention(
+        attention = (LegacyRelPositionMultiHeadedAttention if legacy
+                     else RelPositionMultiHeadedAttention)
+        self.self_attn = attention(
             n_head, size, attention_dropout_rate, zero_triu=zero_triu,
             backend=attention_backend, compute_dtype=compute_dtype,
             flash_min_len=flash_min_len, rel_scores_bwd=rel_scores_bwd, **kw,
@@ -172,7 +180,7 @@ class ConformerEncoder(torch.nn.Module):
                  rel_scores_bwd: str = "auto", compute_dtype=None, device=None,
                  dtype=None):
         super().__init__()
-        if selfattention_layer_type != "rel_selfattn":
+        if selfattention_layer_type not in ("rel_selfattn", "legacy_rel_selfattn"):
             raise NotImplementedError(
                 f"selfattention_layer_type {selfattention_layer_type!r} is not ported yet"
             )
@@ -196,7 +204,8 @@ class ConformerEncoder(torch.nn.Module):
                 attention_dropout_rate, normalize_before, concat_after,
                 positionwise_layer_type, macaron_style, use_cnn_module,
                 cnn_module_kernel, zero_triu, attention_backend, flash_min_len,
-                rel_scores_bwd, compute_dtype, **kw,
+                rel_scores_bwd, selfattention_layer_type == "legacy_rel_selfattn",
+                compute_dtype, **kw,
             )
             for _ in range(num_blocks)
         )

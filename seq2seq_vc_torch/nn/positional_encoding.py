@@ -1,6 +1,7 @@
 """Positional encodings (mirror seq2seq_vc_tpu/nn/positional_encoding.py):
 the sinusoidal table and the scaled encoding with a learnable alpha (VTN,
-:22-31, :75-97) and the new-style relative encoding (:34, :100)."""
+:22-31, :75-97), the new-style relative encoding (:34, :100) and the legacy
+one (:158-172)."""
 
 from __future__ import annotations
 
@@ -50,6 +51,23 @@ class RelPositionalEncoding(torch.nn.Module):
     def forward(self, x: torch.Tensor):
         x = x * math.sqrt(self.d_model)
         pos_emb = relative_pe(x.shape[1], self.d_model, x.dtype, x.device)[None]
+        p, on = self.dropout_rate, self.training
+        return F.dropout(x, p, on), F.dropout(pos_emb, p, on)
+
+
+class LegacyRelPositionalEncoding(torch.nn.Module):
+    """Legacy relative encoding: returns (x * sqrt(d), pos_emb (1, T, d)),
+    the sinusoidal table of the positive positions 0 .. T-1, each through
+    its own dropout draw in ``train()`` mode, as the JAX module."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
+        super().__init__()
+        self.d_model = d_model
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x: torch.Tensor):
+        x = x * math.sqrt(self.d_model)
+        pos_emb = sinusoidal_pe(x.shape[1], self.d_model, x.dtype, x.device)[None]
         p, on = self.dropout_rate, self.training
         return F.dropout(x, p, on), F.dropout(pos_emb, p, on)
 

@@ -24,7 +24,11 @@ import torch.nn.functional as F
 
 from .attention import FLASH_MIN_LEN, MultiHeadedAttention
 from .layers import LayerNorm, Linear
-from .positional_encoding import RelPositionalEncoding, ScaledPositionalEncoding
+from .positional_encoding import (
+    LegacyRelPositionalEncoding,
+    RelPositionalEncoding,
+    ScaledPositionalEncoding,
+)
 
 LN_EPS = 1e-12  # the reference layer_norm.py uses eps=1e-12
 
@@ -59,6 +63,8 @@ def _positionwise(kind: str, idim: int, linear_units: int, dropout_rate: float =
 def _make_pos_enc(kind: str, d: int, dropout_rate: float = 0.1):
     if kind == "rel_pos":
         return RelPositionalEncoding(d, dropout_rate)
+    if kind == "legacy_rel_pos":
+        return LegacyRelPositionalEncoding(d, dropout_rate)
     raise NotImplementedError(f"pos_enc type {kind!r} is not ported yet")
 
 

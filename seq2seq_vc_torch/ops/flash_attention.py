@@ -15,7 +15,10 @@ the (Tq, Tk) scores:
   ``flash_attention_bwd_plain``.
 
 ``rel_flash_attention`` computes ``dropout(softmax((q_u k^T +
-rel_shift(q_v pos^T)) / sqrt(D))) v`` with a key-length mask:
+rel_shift(q_v pos^T)) / sqrt(D))) v`` with a key-length mask, in the
+new-style or (``legacy=True``) the legacy relative-position form; the
+legacy form runs the same kernels at twice the q_v/table width
+(``legacy_rel_inputs``):
 
 - forward: on a CUDA tensor the Hopper kernel in ``csrc/rel_flash.cu``, on a
   CPU tensor ``rel_flash_attention_plain``;
@@ -42,6 +45,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import native
 from .rel_scores import (
@@ -50,6 +54,8 @@ from .rel_scores import (
     _check_inputs,
     _score_side_grads,
     fused_rel_scores_plain,
+    rel_band_bwd_dpos_plain,
+    rel_band_bwd_dqv_plain,
     rel_band_bwd_plain,
 )
 
@@ -58,6 +64,8 @@ NEG_INF = -1e30  # finite mask value, as in the JAX kernels
 # padded to a multiple of it
 DROPOUT_BLOCK = 128
 STD_MAX_D = 256  # head dims the standard kernels take (csrc/flash.cu, flash_bwd.cu)
+REL_MAX_D = 1024  # head dims the rel-pos kernels take (csrc/rel_flash.cu, rel_flash_bwd.cu)
+REL_MAX_QW = 2048  # and q_v/table widths: 2 * D in the legacy form
 _M32 = 0xFFFFFFFF
 
 _c = ctypes.c_void_p
@@ -151,6 +159,7 @@ def _valid(lens, T, device, Tq=None, causal=False):
 def rel_flash_attention_plain(q_u, q_v, k, v, pos, kv_lens=None, dropout_rate: float = 0.0,
                               dropout_seed=None, return_lse: bool = False):
     """Plain PyTorch version of the forward kernel (float32 arithmetic).
+    q_v and pos may be wider than the head dim D (the legacy form's QW).
 
     Returns the (B, H, T, D) context in the input dtype and, with
     ``return_lse``, the (B, H, T) float32 logsumexp of each row's scores
@@ -205,14 +214,18 @@ def _delta(out, d_out):
     return (d_out.float() * out.float()).sum(-1)
 
 
+def _rsqrt_d(q_u) -> float:
+    """The scores' scale 1/sqrt(D), D the head dim (not the q_v width)."""
+    return 1.0 / math.sqrt(q_u.shape[-1])
+
+
 def rel_flash_bwd_dq_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
                            dropout_rate=0.0, dropout_seed=None):
     """Plain version of the dq kernel: (dq_u, dq_v) in the dtypes of q_u, q_v."""
     _, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, dropout_rate,
                        dropout_seed)
-    dq_u = (torch.matmul(ds, k.float()) * (1.0 / math.sqrt(q_u.shape[-1]))).to(q_u.dtype)
-    dq_v, _ = rel_band_bwd_plain(ds, q_v, pos)
-    return dq_u, dq_v
+    dq_u = (torch.matmul(ds, k.float()) * _rsqrt_d(q_u)).to(q_u.dtype)
+    return dq_u, rel_band_bwd_dqv_plain(ds, q_v, pos, _rsqrt_d(q_u))
 
 
 def rel_flash_bwd_dkv_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
@@ -220,18 +233,17 @@ def rel_flash_bwd_dkv_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
     """Plain version of the dk/dv kernel: (dk, dv) in the dtypes of k, v."""
     pd, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, dropout_rate,
                         dropout_seed)
-    scale = 1.0 / math.sqrt(q_u.shape[-1])
-    dk = (torch.matmul(ds.transpose(-1, -2), q_u.float()) * scale).to(k.dtype)
+    dk = (torch.matmul(ds.transpose(-1, -2), q_u.float()) * _rsqrt_d(q_u)).to(k.dtype)
     dv = torch.matmul(pd.transpose(-1, -2), d_out.float())
     return dk, dv.to(v.dtype)
 
 
 def rel_flash_bwd_dpos_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
                              dropout_rate=0.0, dropout_seed=None):
-    """Plain version of the dpos kernel: the (H, 2T-1, D) table gradient."""
+    """Plain version of the dpos kernel: the (H, 2T-1, QW) table gradient."""
     _, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, dropout_rate,
                        dropout_seed)
-    return rel_band_bwd_plain(ds, q_v, pos)[1]
+    return rel_band_bwd_dpos_plain(ds, q_v, pos, _rsqrt_d(q_u))
 
 
 def rel_flash_attention_bwd_plain(q_u, q_v, k, v, pos, kv_lens, out, lse, d_out,
@@ -242,9 +254,9 @@ def rel_flash_attention_bwd_plain(q_u, q_v, k, v, pos, kv_lens, out, lse, d_out,
     cotangent ``d_out``."""
     pd, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, _delta(out, d_out), d_out,
                         dropout_rate, dropout_seed)
-    dq_u, dk = _score_side_grads(ds, q_u, k, 1.0 / math.sqrt(q_u.shape[-1]))
+    dq_u, dk = _score_side_grads(ds, q_u, k, _rsqrt_d(q_u))
     dv = torch.matmul(pd.transpose(-1, -2), d_out.float()).to(v.dtype)
-    dq_v, dpos = rel_band_bwd_plain(ds, q_v, pos)
+    dq_v, dpos = rel_band_bwd_plain(ds, q_v, pos, _rsqrt_d(q_u))
     return dq_u, dq_v, dk, dv, dpos
 
 
@@ -253,9 +265,12 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda(name, D):
-    if D > 1024:
-        raise ValueError(f"{name}: head dim {D} > 1024 not supported")
+def _check_cuda(name, D, QW):
+    """Raise on widths the rel-pos kernels do not take."""
+    if D > REL_MAX_D:
+        raise ValueError(f"{name}: head dim {D} > {REL_MAX_D} not supported")
+    if QW > REL_MAX_QW:
+        raise ValueError(f"{name}: q_v/table width {QW} > {REL_MAX_QW} not supported")
 
 
 def _dropout_args(rate: float, seed, *lengths: int):
@@ -264,6 +279,16 @@ def _dropout_args(rate: float, seed, *lengths: int):
     keep_scale = _keep_scale(rate) if rate > 0.0 else 1.0
     return (_f(rate), _f(keep_scale), ctypes.c_uint32(int(seed or 0) & _M32),
             *(_round_up(t, DROPOUT_BLOCK) for t in lengths))
+
+
+def _count(wrapper, q_u, q_v) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``launches`` at the new
+    style's q_v width (the head dim), in ``legacy_launches`` at the legacy
+    form's wider one."""
+    if q_v.shape[-1] == q_u.shape[-1]:
+        wrapper.launches += 1
+    else:
+        wrapper.legacy_launches += 1
 
 
 def _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse):
@@ -277,25 +302,26 @@ def _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse):
     out = torch.empty_like(q_u, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q_u.device) if need_lse else None
     _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed)
-    rel_flash_attention.launches += 1
+    _count(rel_flash_attention, q_u, q_v)
     return out, lse
 
 
 def _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed):
     """One forward kernel launch into ``out`` (and ``lse`` unless None)."""
     B, H, T, D = q_u.shape
-    _check_cuda("rel_flash_attention", D)
+    QW = q_v.shape[-1]
+    _check_cuda("rel_flash_attention", D, QW)
     qu, qv, kc, vc, pc = (t.contiguous() for t in (q_u, q_v, k, v, pos))
     fn = native.load("rel_flash").rel_flash_fwd
     fn.restype = _i
-    fn.argtypes = [_i, _c, _c, _c, _c, _c, _c, _c, _c, _i, _i, _i, _i, _f,
+    fn.argtypes = [_i, _c, _c, _c, _c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _f,
                    _f, _f, ctypes.c_uint32, _i, _c]
     with torch.cuda.device(q_u.device):
         rc = fn(
             DTYPE_CODES[q_u.dtype], qu.data_ptr(), qv.data_ptr(), kc.data_ptr(),
             vc.data_ptr(), pc.data_ptr(), lens.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B * H, H, T, D, 1.0 / math.sqrt(D), *_dropout_args(rate, seed, T), _stream(q_u),
+            B * H, H, T, D, QW, _rsqrt_d(q_u), *_dropout_args(rate, seed, T), _stream(q_u),
         )
     native.check(rc, "rel_flash_fwd")
 
@@ -305,24 +331,27 @@ def _bwd_launch(symbol, q_u, q_v, k, v, pos, lens, lse, delta, d_out, outs, rate
     """One backward kernel launch: the shared argument list of
     ``csrc/rel_flash_bwd.cu``'s C functions, then ``outs`` and ``extra``."""
     B, H, T, D = q_u.shape
-    _check_cuda(symbol, D)
+    QW = q_v.shape[-1]
+    _check_cuda(symbol, D, QW)
     ins = [t.contiguous() for t in (q_u, q_v, k, v, pos, lens, lse, delta, d_out)]
     fn = getattr(native.load("rel_flash_bwd"), symbol)
     fn.restype = _i
     fn.argtypes = ([_i] + [_c] * (len(ins) + len(outs) + len(extra))
-                   + [_i, _i, _i, _i, _f, _f, _f, ctypes.c_uint32, _i, _c])
+                   + [_i, _i, _i, _i, _i, _f, _f, _f, ctypes.c_uint32, _i, _c])
     with torch.cuda.device(q_u.device):
         rc = fn(
             DTYPE_CODES[q_u.dtype], *(t.data_ptr() for t in ins + list(outs) + list(extra)),
-            B, H, T, D, 1.0 / math.sqrt(D), *_dropout_args(rate, seed, T), _stream(q_u),
+            B, H, T, D, QW, _rsqrt_d(q_u), *_dropout_args(rate, seed, T), _stream(q_u),
         )
     native.check(rc, symbol)
 
 
 def _bwd_inputs(name, q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out):
     B, H, T, D = q_u.shape
+    QW = q_v.shape[-1]  # q_v and the table: D, or 2 * D in the legacy form
     _check_inputs(name, (q_u, q_v, k, v, pos, d_out),
-                  ((B, H, T, D),) * 4 + ((H, 2 * T - 1, D), (B, H, T, D)))
+                  ((B, H, T, D), (B, H, T, QW), (B, H, T, D), (B, H, T, D), (H, 2 * T - 1, QW),
+                   (B, H, T, D)))
     for t, what in ((lse, "lse"), (delta, "delta")):
         if tuple(t.shape) != (B, H, T):
             raise ValueError(f"{name}: {what} must be {(B, H, T)}, got {tuple(t.shape)}")
@@ -342,7 +371,7 @@ def rel_flash_bwd_dq(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
         return rel_flash_bwd_dq_plain(*args, dropout_rate, dropout_seed)
     dq_u, dq_v = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q_u, q_v))
     _bwd_launch("rel_flash_bwd_dq", *args, (dq_u, dq_v), dropout_rate, dropout_seed)
-    rel_flash_bwd_dq.launches += 1
+    _count(rel_flash_bwd_dq, q_u, q_v)
     return dq_u, dq_v
 
 
@@ -357,13 +386,13 @@ def rel_flash_bwd_dkv(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
         return rel_flash_bwd_dkv_plain(*args, dropout_rate, dropout_seed)
     dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (k, v))
     _bwd_launch("rel_flash_bwd_dkv", *args, (dk, dv), dropout_rate, dropout_seed)
-    rel_flash_bwd_dkv.launches += 1
+    _count(rel_flash_bwd_dkv, q_u, q_v)
     return dk, dv
 
 
 def rel_flash_bwd_dpos(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
                        dropout_rate: float = 0.0, dropout_seed=None):
-    """The table gradient dpos (H, 2T-1, D): on a CUDA tensor kernel 8 of
+    """The table gradient dpos (H, 2T-1, QW): on a CUDA tensor kernel 8 of
     ``csrc/rel_flash_bwd.cu`` (per-batch-group partial sums and a fixed-order
     second pass in the same call: deterministic, no atomics), on a CPU
     tensor ``rel_flash_bwd_dpos_plain``."""
@@ -372,14 +401,15 @@ def rel_flash_bwd_dpos(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
     args = (q_u, q_v, k, v, pos, lens, lse, delta, d_out)
     if q_u.device.type == "cpu":
         return rel_flash_bwd_dpos_plain(*args, dropout_rate, dropout_seed)
-    B, H, T, D = q_u.shape
+    B, H, T, _ = q_u.shape
     dpos = torch.empty_like(pos, memory_format=torch.contiguous_format)
     groups = native.load("rel_flash_bwd").rel_flash_bwd_dpos_groups
     groups.restype, groups.argtypes = _i, [_i]
-    partial = torch.empty((groups(B), H, 2 * T - 1, D), dtype=torch.float32, device=q_u.device)
+    partial = torch.empty((groups(B), H, 2 * T - 1, q_v.shape[-1]), dtype=torch.float32,
+                          device=q_u.device)
     _bwd_launch("rel_flash_bwd_dpos", *args, (dpos,), dropout_rate, dropout_seed,
                 extra=(partial,))
-    rel_flash_bwd_dpos.launches += 1
+    _count(rel_flash_bwd_dpos, q_u, q_v)
     return dpos
 
 
@@ -413,9 +443,34 @@ class _RelFlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def legacy_rel_inputs(q_v, pos):
+    """The legacy form's (q_v2, table) for the kernels, in plain
+    differentiable ops (the JAX package's assembly in ``rel_flash_attention``,
+    without its padding): the legacy ``rel_shift`` gives
+
+        bd[i, j] = q_v[i]   . pos[T-1-(i-j)]   for j <= i
+        bd[i, j] = 0                           for j == i + 1
+        bd[i, j] = q_v[i+1] . pos[j-i-2]       for j >= i + 2,
+
+    which is one band product of q_v2 = [q_v[i], q_v[i+1]] (B, H, T, 2D)
+    with a (H, 2T-1, 2D) table in the new style's row order (row p <->
+    distance T-1-p): columns [0, D) hold pos[0 .. T-1] in rows 0 .. T-1,
+    columns [D, 2D) hold pos[0 .. T-3] in rows T+1 .. 2T-2, and every other
+    entry (row T, distance -1, among them) is zero. Autograd maps the
+    kernels' dq_v and dpos back through it.
+
+    q_v: (B, H, T, D); pos: (H, T, D), row p <-> absolute position p."""
+    H, T, D = pos.shape
+    q_next = F.pad(q_v[:, :, 1:], (0, 0, 0, 1))
+    n_hi = max(0, T - 2)
+    lo = F.pad(pos, (0, 0, 0, T - 1))
+    hi = F.pad(pos[:, :n_hi], (0, 0, 2 * T - 1 - n_hi, 0))
+    return torch.cat([q_v, q_next], dim=-1), torch.cat([lo, hi], dim=-1)
+
+
 def rel_flash_attention(
     q_u, q_v, k, v, pos, kv_lens: Optional[torch.Tensor] = None,
-    dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+    dropout_rate: float = 0.0, dropout_seed: Optional[int] = None, legacy: bool = False,
 ) -> torch.Tensor:
     """Flash attention with Transformer-XL relative position scores,
     differentiable, with optional in-kernel dropout.
@@ -423,11 +478,15 @@ def rel_flash_attention(
     Args:
         q_u, q_v: (B, H, T, D) queries with pos_bias_u / pos_bias_v added.
         k, v: (B, H, T, D).
-        pos: (H, 2T-1, D), row p <-> relative distance T-1-p.
+        pos: new style (H, 2T-1, D), row p <-> relative distance T-1-p;
+            legacy (H, T, D), row p <-> absolute position p.
         kv_lens: (B,) valid key lengths (None: all T keys).
         dropout_rate: attention-weight dropout probability.
         dropout_seed: a host int in [0, 2^31); required when dropout_rate > 0.
             The forward and the backward draw the same mask from it.
+        legacy: the legacy relative-position form (the reference's
+            ``LegacyRelPositionMultiHeadedAttention``): the same kernels at
+            twice the q_v/table width, on ``legacy_rel_inputs``.
     Returns:
         (B, H, T, D) context in the input dtype. Rows of a batch item whose
         kv_len is 0 are zeros.
@@ -439,9 +498,11 @@ def rel_flash_attention(
     B, H, T, D = q_u.shape
     _check_inputs(
         "rel_flash_attention", (q_u, q_v, k, v, pos),
-        ((B, H, T, D),) * 4 + ((H, 2 * T - 1, D),),
+        ((B, H, T, D),) * 4 + ((H, T if legacy else 2 * T - 1, D),),
     )
     _check_device("rel_flash_attention", q_u)
+    if legacy:
+        q_v, pos = legacy_rel_inputs(q_v, pos)
     lens = _kv_lens(kv_lens, B, T, q_u.device).contiguous()
     rate, seed = float(dropout_rate), (None if dropout_seed is None else int(dropout_seed))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q_u, q_v, k, v, pos)):
@@ -449,10 +510,10 @@ def rel_flash_attention(
     return _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse=False)[0]
 
 
-rel_flash_attention.launches = 0  # forward kernel launches (CPU calls do not count)
-rel_flash_bwd_dq.launches = 0  # backward kernel launches, one counter each
-rel_flash_bwd_dkv.launches = 0
-rel_flash_bwd_dpos.launches = 0
+# kernel launches (CPU calls do not count), one counter for each kernel and
+# form: ``launches`` new style, ``legacy_launches`` the legacy form
+for _wrapper in (rel_flash_attention, rel_flash_bwd_dq, rel_flash_bwd_dkv, rel_flash_bwd_dpos):
+    _wrapper.launches = _wrapper.legacy_launches = 0
 
 
 # ------------------------------------------------ standard flash attention

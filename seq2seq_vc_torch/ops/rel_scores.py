@@ -17,6 +17,13 @@ chosen by ``bwd``:
 - ``"banded"``: ``rel_band_bwd``, on a CUDA tensor the Hopper kernel in
   ``csrc/rel_scores_bwd.cu`` (the band cotangent never reaches device
   memory), on a CPU tensor ``rel_band_bwd_plain``;
+- ``"pallas"``: the diagonal-reduction pair, two launches: ``dq_v`` from
+  ``rel_band_bwd_dqv`` (a block owns query rows and walks the key tiles)
+  and ``dpos`` from ``rel_band_bwd_dpos`` (a block owns table rows and
+  walks the band diagonals), the Hopper kernels in
+  ``csrc/rel_scores_bwd_pair.cu`` on a CUDA tensor, their plain versions
+  on a CPU one. The name is the JAX package's (``S2S_REL_SCORES_BWD=pallas``
+  there), so a run that names it carries over; ``"auto"`` never picks it;
 - ``"auto"``: ``"banded"`` from ``AUTO_BANDED_MIN_LEN`` key frames up,
   ``"xla"`` below.
 """
@@ -40,7 +47,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # one (PERF.md), so the gate sits at the shortest length timed; below it
 # nothing was measured. Not the TPU's AUTO_BANDED_MIN_LEN (768).
 AUTO_BANDED_MIN_LEN = 128
-BWD_VARIANTS = ("auto", "xla", "banded")
+BWD_VARIANTS = ("auto", "xla", "banded", "pallas")
 
 _c = ctypes.c_void_p
 
@@ -98,23 +105,44 @@ def _score_side_grads(g, q_u, k, scale):
     return dq_u, dk
 
 
-def rel_band_bwd_plain(g, q_v, pos):
-    """Plain PyTorch version of the backward kernel (float32 arithmetic):
-    (dq_v, dpos) from the (B, H, T, T) score cotangent ``g``.
-
-    The band cotangent G[b, h, i, r] = g[b, h, i, i + r - (T-1)] (zero where
-    that key index leaves [0, T)) is gathered by index arithmetic along the
-    diagonals, as ``rel_band`` gathers the forward band. dq_v comes in
-    q_v's dtype, dpos in pos's, summed over the batch in float32 before
-    the cast.
-    """
-    B, H, T, D = q_v.shape
-    scale = 1.0 / math.sqrt(D)
+def _band_cotangent(g, T: int):
+    """The (B, H, T, 2T-1) band cotangent G[b, h, i, r] = g[b, h, i, i + r -
+    (T-1)] (zero where that key index leaves [0, T)) in float32, gathered by
+    index arithmetic along the diagonals, as ``rel_band`` gathers the
+    forward band."""
+    B, H = g.shape[:2]
     idx, valid = _band_index(T, g.device)
-    band = torch.gather(g.float(), 3, idx.expand(B, H, T, 2 * T - 1)) * valid
-    dq_v = (torch.einsum("bhir,hrd->bhid", band, pos.float()) * scale).to(q_v.dtype)
-    dpos = (torch.einsum("bhir,bhid->hrd", band, q_v.float()) * scale).to(pos.dtype)
-    return dq_v, dpos
+    return torch.gather(g.float(), 3, idx.expand(B, H, T, 2 * T - 1)) * valid
+
+
+def _scale(q_v, scale):
+    return 1.0 / math.sqrt(q_v.shape[-1]) if scale is None else scale
+
+
+def rel_band_bwd_dqv_plain(g, q_v, pos, scale=None):
+    """Plain PyTorch version of the dq_v kernel (float32 arithmetic):
+    ``dq_v = scale * G . pos`` in q_v's dtype, from the (B, H, T, T) score
+    cotangent ``g``. ``scale`` defaults to 1/sqrt(q_v's width); a caller
+    whose q_v is wider than its head dim (legacy rel-pos) passes its own."""
+    band = _band_cotangent(g, q_v.shape[2])
+    dq_v = torch.einsum("bhir,hrd->bhid", band, pos.float()) * _scale(q_v, scale)
+    return dq_v.to(q_v.dtype)
+
+
+def rel_band_bwd_dpos_plain(g, q_v, pos, scale=None):
+    """Plain PyTorch version of the table-gradient kernel (float32
+    arithmetic): ``dpos = scale * sum_b G^T . q_v`` in pos's dtype, summed
+    over the batch in float32 before the cast."""
+    band = _band_cotangent(g, q_v.shape[2])
+    dpos = torch.einsum("bhir,bhid->hrd", band, q_v.float()) * _scale(q_v, scale)
+    return dpos.to(pos.dtype)
+
+
+def rel_band_bwd_plain(g, q_v, pos, scale=None):
+    """Plain PyTorch version of the backward kernel: (dq_v, dpos) from the
+    (B, H, T, T) score cotangent ``g``, the two plain versions above."""
+    return (rel_band_bwd_dqv_plain(g, q_v, pos, scale),
+            rel_band_bwd_dpos_plain(g, q_v, pos, scale))
 
 
 def _rel_unshift(g: torch.Tensor) -> torch.Tensor:
@@ -137,36 +165,73 @@ def rel_band_bwd_xla(g, q_v, pos):
     return dq_v, dpos
 
 
+def _band_bwd_args(name, g, q_v, pos):
+    """Raise on inputs the backward wrappers do not take."""
+    B, H, T, D = q_v.shape
+    _check_inputs(name, (q_v, pos), ((B, H, T, D), (H, 2 * T - 1, D)))
+    if tuple(g.shape) != (B, H, T, T):
+        raise ValueError(f"{name}: g must be {(B, H, T, T)}, got {tuple(g.shape)}")
+    _check_device(name, q_v)
+
+
+def _band_bwd_launch(library, symbol, g, q_v, pos, outs):
+    """One launch of a backward kernel of ``library`` taking (g, q_v, pos,
+    *outs, B, H, T, D, scale, stream)."""
+    B, H, T, D = q_v.shape
+    gc, qv, pc = g.float().contiguous(), q_v.contiguous(), pos.contiguous()
+    fn = getattr(native.load(library), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [_c] * (3 + len(outs))
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, _c])
+    with torch.cuda.device(q_v.device):
+        rc = fn(
+            DTYPE_CODES[q_v.dtype], gc.data_ptr(), qv.data_ptr(), pc.data_ptr(),
+            *(t.data_ptr() for t in outs), B, H, T, D, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q_v.device).cuda_stream,
+        )
+    native.check(rc, symbol)
+
+
 def rel_band_bwd(g, q_v, pos):
     """(dq_v, dpos) of the scores from their cotangent ``g``: on a CUDA
     tensor the Hopper kernel in ``csrc/rel_scores_bwd.cu`` (one launch), on
     a CPU tensor ``rel_band_bwd_plain``. q_v (B, H, T, D) and pos
     (H, 2T-1, D) as ``fused_rel_scores`` takes them; ``g`` (B, H, T, T) is
     read as float32."""
-    B, H, T, D = q_v.shape
-    _check_inputs("rel_band_bwd", (q_v, pos), ((B, H, T, D), (H, 2 * T - 1, D)))
-    if tuple(g.shape) != (B, H, T, T):
-        raise ValueError(f"rel_band_bwd: g must be {(B, H, T, T)}, got {tuple(g.shape)}")
-    _check_device("rel_band_bwd", q_v)
+    _band_bwd_args("rel_band_bwd", g, q_v, pos)
     if q_v.device.type == "cpu":
         return rel_band_bwd_plain(g, q_v, pos)
-    gc = g.float().contiguous()
-    qv, pc = q_v.contiguous(), pos.contiguous()
-    dq_v, dpos = torch.empty_like(qv), torch.empty_like(pc)
-    lib = native.load("rel_scores_bwd")
-    fn = lib.rel_scores_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, _c]
-    with torch.cuda.device(q_v.device):
-        rc = fn(
-            DTYPE_CODES[q_v.dtype], gc.data_ptr(), qv.data_ptr(), pc.data_ptr(),
-            dq_v.data_ptr(), dpos.data_ptr(), B, H, T, D, 1.0 / math.sqrt(D),
-            torch.cuda.current_stream(q_v.device).cuda_stream,
-        )
-    native.check(rc, "rel_scores_bwd")
+    dq_v = torch.empty_like(q_v, memory_format=torch.contiguous_format)
+    dpos = torch.empty_like(pos, memory_format=torch.contiguous_format)
+    _band_bwd_launch("rel_scores_bwd", "rel_scores_bwd", g, q_v, pos, (dq_v, dpos))
     rel_band_bwd.launches += 1
     return dq_v, dpos
+
+
+def rel_band_bwd_dqv(g, q_v, pos):
+    """dq_v of the scores from their cotangent ``g``: on a CUDA tensor
+    kernel 4 of ``csrc/rel_scores_bwd_pair.cu`` (one launch), on a CPU
+    tensor ``rel_band_bwd_dqv_plain``. Inputs as ``rel_band_bwd``."""
+    _band_bwd_args("rel_band_bwd_dqv", g, q_v, pos)
+    if q_v.device.type == "cpu":
+        return rel_band_bwd_dqv_plain(g, q_v, pos)
+    dq_v = torch.empty_like(q_v, memory_format=torch.contiguous_format)
+    _band_bwd_launch("rel_scores_bwd_pair", "rel_scores_bwd_dqv", g, q_v, pos, (dq_v,))
+    rel_band_bwd_dqv.launches += 1
+    return dq_v
+
+
+def rel_band_bwd_dpos(g, q_v, pos):
+    """The table gradient dpos (H, 2T-1, D) from the score cotangent ``g``:
+    on a CUDA tensor kernel 5 of ``csrc/rel_scores_bwd_pair.cu`` (one
+    launch, deterministic), on a CPU tensor ``rel_band_bwd_dpos_plain``."""
+    _band_bwd_args("rel_band_bwd_dpos", g, q_v, pos)
+    if q_v.device.type == "cpu":
+        return rel_band_bwd_dpos_plain(g, q_v, pos)
+    dpos = torch.empty_like(pos, memory_format=torch.contiguous_format)
+    _band_bwd_launch("rel_scores_bwd_pair", "rel_scores_bwd_dpos", g, q_v, pos, (dpos,))
+    rel_band_bwd_dpos.launches += 1
+    return dpos
 
 
 def fused_rel_scores_bwd_plain(g, q_u, q_v, k, pos):
@@ -179,7 +244,7 @@ def fused_rel_scores_bwd_plain(g, q_u, q_v, k, pos):
 
 def resolve_bwd(bwd: str, t: int) -> str:
     """``"auto"`` -> ``"banded"`` from ``AUTO_BANDED_MIN_LEN`` keys up, else
-    ``"xla"``; the other variants stand as they are."""
+    ``"xla"`` (never ``"pallas"``); the other variants stand as they are."""
     if bwd not in BWD_VARIANTS:
         raise ValueError(f"fused_rel_scores: unknown bwd {bwd!r} (one of {BWD_VARIANTS})")
     if bwd == "auto":
@@ -212,10 +277,13 @@ def _fwd(q_u, q_v, k, pos) -> torch.Tensor:
 
 def fused_rel_scores_bwd(g, q_u, q_v, k, pos, bwd: str = "banded"):
     """(dq_u, dq_v, dk, dpos) from the score cotangent ``g``: dq_u and dk by
-    matmuls, dq_v and dpos by the ``bwd`` variant (``"banded"``: the kernel
-    on a CUDA tensor, ``"xla"``: the dense band rebuild)."""
-    band_bwd = rel_band_bwd_xla if bwd == "xla" else rel_band_bwd
-    dq_v, dpos = band_bwd(g, q_v, pos)
+    matmuls, dq_v and dpos by the ``bwd`` variant (``"banded"``: kernel 3 on
+    a CUDA tensor, ``"pallas"``: kernels 4 and 5, ``"xla"``: the dense band
+    rebuild)."""
+    if bwd == "pallas":
+        dq_v, dpos = rel_band_bwd_dqv(g, q_v, pos), rel_band_bwd_dpos(g, q_v, pos)
+    else:
+        dq_v, dpos = (rel_band_bwd_xla if bwd == "xla" else rel_band_bwd)(g, q_v, pos)
     dq_u, dk = _score_side_grads(g.float(), q_u, k, 1.0 / math.sqrt(q_u.shape[-1]))
     return dq_u, dq_v, dk, dpos
 
@@ -240,8 +308,8 @@ def fused_rel_scores(q_u, q_v, k, pos, bwd: str = "auto") -> torch.Tensor:
         k: (B, H, T, D) keys.
         pos: (H, 2T-1, D) head-split projected rel-pos table
             (RelPositionalEncoding row order: row p <-> distance T-1-p).
-        bwd: backward variant, ``"auto"``, ``"xla"`` or ``"banded"`` (see
-            the module docstring); resolved here from T.
+        bwd: backward variant, ``"auto"``, ``"xla"``, ``"banded"`` or
+            ``"pallas"`` (see the module docstring); resolved here from T.
     Returns:
         (B, H, T, T) float32 scores, already scaled by 1/sqrt(D). Callers
         apply their padding mask before the softmax.
@@ -257,3 +325,5 @@ def fused_rel_scores(q_u, q_v, k, pos, bwd: str = "auto") -> torch.Tensor:
 
 fused_rel_scores.launches = 0  # forward kernel launches (CPU calls do not count)
 rel_band_bwd.launches = 0  # backward kernel launches (CPU calls do not count)
+rel_band_bwd_dqv.launches = 0  # kernel 4
+rel_band_bwd_dpos.launches = 0  # kernel 5

@@ -22,7 +22,9 @@ products in another order: atol 1e-4, rtol 1e-4 in float32; in bf16 one
 rounding of the float32 result on both sides: atol 1e-2, rtol 2^-7. The
 dropout masks are the same bits on both sides, so the rate does not change
 a tolerance. The standard flash kernels (forward, lse, dq, dk/dv) as the
-rel-pos ones.
+rel-pos ones. The legacy form (q_v and the table at QW = 2D) and kernels 4
+and 5 (the ``bwd="pallas"`` pair) as the kernels they share their
+arithmetic with: the rel-pos flash kernels and kernel 3.
 """
 
 import numpy as np
@@ -48,6 +50,10 @@ from seq2seq_vc_torch.ops.rel_scores import (
     fused_rel_scores_bwd_plain,
     fused_rel_scores_plain,
     rel_band_bwd,
+    rel_band_bwd_dpos,
+    rel_band_bwd_dpos_plain,
+    rel_band_bwd_dqv,
+    rel_band_bwd_dqv_plain,
     rel_band_bwd_plain,
 )
 
@@ -67,16 +73,23 @@ def cuda_device():
 COUNTED = (fused_rel_scores, rel_band_bwd, rel_flash_attention, rel_flash_bwd_dq,
            rel_flash_bwd_dkv, rel_flash_bwd_dpos)
 STD_COUNTED = (flash_attention, flash_bwd_dq, flash_bwd_dkv)
+PAIR_COUNTED = (rel_band_bwd_dqv, rel_band_bwd_dpos)
+LEGACY_COUNTED = COUNTED[2:]  # the rel-pos flash kernels, whose legacy launches count apart
 BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=1e-2, rtol=2 ** -7)}
+
+
+def _zero():
+    for fn in COUNTED + STD_COUNTED + PAIR_COUNTED:
+        fn.launches = 0
+    for fn in LEGACY_COUNTED:
+        fn.legacy_launches = 0
 
 
 @pytest.fixture
 def zero_counts():
-    for fn in COUNTED + STD_COUNTED:
-        fn.launches = 0
+    _zero()
     yield
-    for fn in COUNTED + STD_COUNTED:
-        fn.launches = 0
+    _zero()
 
 
 def _inputs(device, dtype, B, H, T, D, seed):
@@ -304,3 +317,117 @@ def test_flash_wrapper_refuses_head_dims_past_256(cuda_device):
     q = torch.zeros(1, 2, 8, 264, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
+
+
+# ----------------------------------------- the legacy form: QW = 2D
+def _legacy_inputs(device, dtype, B, H, T, D, seed):
+    """(q_u, q_v2, k, v, table) at the kernels' legacy widths: q_v2 and the
+    table of ``legacy_rel_inputs`` (QW = 2D)."""
+    qu, qv, k, v, _ = _inputs(device, dtype, B, H, T, D, seed)
+    pos = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((H, T, D))
+                           .astype(np.float32)).to(device, dtype)
+    qv2, table = fa.legacy_rel_inputs(qv, pos)
+    return [qu, qv2, k, v, table], (qv, pos)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
+def test_legacy_rel_flash_kernels_match_plain(cuda_device, zero_counts, rate, dtype, T, D):
+    dt = getattr(torch, dtype)
+    ins, _ = _legacy_inputs(cuda_device, dt, 3, 2, T, D, 14)
+    assert ins[1].shape[-1] == ins[4].shape[-1] == 2 * D
+    lens = torch.tensor([T, T // 3, 0], dtype=torch.int32, device=cuda_device)
+    out, lse = fa._fwd(*ins, lens, rate, 99, need_lse=True)
+    want, want_lse = rel_flash_attention_plain(*ins, lens, rate, 99, return_lse=True)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-4)
+    d_out = torch.randn(out.shape, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(2)).to(dt)
+    args = (*ins, lens, want_lse, fa._delta(want, d_out), d_out, rate, 5)
+    for kernel, plain, names in (
+        (rel_flash_bwd_dq, fa.rel_flash_bwd_dq_plain, ("dq_u", "dq_v")),
+        (rel_flash_bwd_dkv, fa.rel_flash_bwd_dkv_plain, ("dk", "dv")),
+        (rel_flash_bwd_dpos, fa.rel_flash_bwd_dpos_plain, ("dpos",)),
+    ):
+        got, want_g = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        got, want_g = (x if isinstance(x, tuple) else (x,) for x in (got, want_g))
+        for name, a, b in zip(names, got, want_g):
+            assert a.dtype == dt and a.shape == b.shape, name
+            np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                       err_msg=name, **BWD_TOL[dtype])
+    # every launch counted as the legacy form's
+    assert [fn.launches for fn in LEGACY_COUNTED] == [0] * 4
+    assert [fn.legacy_launches for fn in LEGACY_COUNTED] == [1] * 4
+
+
+def test_legacy_flash_autograd_on_the_card_goes_through_the_legacy_kernels(cuda_device,
+                                                                           zero_counts):
+    qu, qv, k, v, _ = _inputs(cuda_device, torch.float32, 3, 2, 70, 48, 15)
+    pos = torch.randn(2, 70, 48, device=cuda_device)
+    ts = [t.requires_grad_() for t in (qu, qv, k, v, pos)]
+    lens = torch.tensor([70, 33, 0], dtype=torch.int32, device=cuda_device)
+    out = rel_flash_attention(*ts, kv_lens=lens, dropout_rate=0.2, dropout_seed=17, legacy=True)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert [fn.legacy_launches for fn in LEGACY_COUNTED] == [1, 1, 1, 1]
+    assert [fn.launches for fn in COUNTED + PAIR_COUNTED] == [0] * 8
+    # the same function through the plain versions, autograd on the assembly
+    leaves = [t.detach().clone().requires_grad_() for t in ts]
+    qv2, table = fa.legacy_rel_inputs(leaves[1], leaves[4])
+    want_out, lse = rel_flash_attention_plain(leaves[0], qv2, *leaves[2:4], table, lens, 0.2, 17,
+                                              return_lse=True)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want_out.detach().cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        grads = rel_flash_attention_bwd_plain(leaves[0], qv2, *leaves[2:4], table, lens,
+                                              want_out, lse, g, 0.2, 17)
+    torch.autograd.backward([qv2, table], [grads[1], grads[4]])
+    want = (grads[0], leaves[1].grad, grads[2], grads[3], leaves[4].grad)
+    for name, t, w in zip(("q_u", "q_v", "k", "v", "pos"), ts, want):
+        np.testing.assert_allclose(t.grad.cpu().numpy(), w.cpu().numpy(), err_msg=name,
+                                   **BWD_TOL["float32"])
+
+
+def test_legacy_wrapper_refuses_widths_past_the_kernels(cuda_device):
+    big = [torch.zeros(1, 2, 4, 1040, device=cuda_device) for _ in range(4)]
+    with pytest.raises(ValueError, match="head dim"):
+        rel_flash_attention(*big, torch.zeros(2, 4, 1040, device=cuda_device), legacy=True)
+
+
+# ------------------------------------ kernels 4 and 5: bwd="pallas"
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
+def test_rel_scores_pair_kernels_match_plain(cuda_device, zero_counts, dtype, T, D):
+    dt = getattr(torch, dtype)
+    _, qv, _, _, pos = _inputs(cuda_device, dt, 3, 2, T, D, 16)
+    g = torch.from_numpy(
+        np.random.default_rng(17).standard_normal((3, 2, T, T)).astype(np.float32)
+    ).to(cuda_device)
+    got = (rel_band_bwd_dqv(g, qv, pos), rel_band_bwd_dpos(g, qv, pos))
+    torch.cuda.synchronize()
+    want = (rel_band_bwd_dqv_plain(g, qv, pos), rel_band_bwd_dpos_plain(g, qv, pos))
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=2 ** -7)
+    for name, a, b, x in zip(("dq_v", "dpos"), got, want, (qv, pos)):
+        assert a.dtype == dt and a.shape == x.shape, name
+        np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                   err_msg=name, **tol)
+    assert [fn.launches for fn in PAIR_COUNTED] == [1, 1]
+
+
+def test_pallas_backward_on_the_card_goes_through_kernels_4_and_5(cuda_device, zero_counts):
+    qu, qv, k, _, pos = (t.requires_grad_() for t in _inputs(cuda_device, torch.float32,
+                                                               2, 2, 37, 48, 18))
+    s = fused_rel_scores(qu, qv, k, pos, bwd="pallas")
+    g = torch.randn_like(s)
+    s.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_rel_scores.launches, rel_band_bwd.launches) == (1, 0)
+    assert [fn.launches for fn in PAIR_COUNTED] == [1, 1]
+    want = fused_rel_scores_bwd_plain(g, *(t.detach() for t in (qu, qv, k, pos)))
+    for t, w in zip((qu, qv, k, pos), want):
+        np.testing.assert_allclose(t.grad.cpu().numpy(), w.cpu().numpy(), atol=1e-4, rtol=1e-5)

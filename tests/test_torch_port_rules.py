@@ -32,7 +32,13 @@ from seq2seq_vc_torch.ops.flash_attention import (
     rel_flash_bwd_dpos,
     rel_flash_bwd_dq,
 )
-from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain, rel_band_bwd
+from seq2seq_vc_torch.ops.rel_scores import (
+    fused_rel_scores,
+    fused_rel_scores_plain,
+    rel_band_bwd,
+    rel_band_bwd_dpos,
+    rel_band_bwd_dqv,
+)
 from seq2seq_vc_torch.pipeline import Wav2WavARConverter, Wav2WavConverter, resolve_device
 from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
 from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
@@ -64,16 +70,27 @@ def _inputs(B=2, H=2, T=20, D=8, seed=0):
 
 
 COUNTED = (fused_rel_scores, rel_band_bwd, rel_flash_attention, rel_flash_bwd_dq,
-           rel_flash_bwd_dkv, rel_flash_bwd_dpos, flash_attention, flash_bwd_dq, flash_bwd_dkv)
+           rel_flash_bwd_dkv, rel_flash_bwd_dpos, flash_attention, flash_bwd_dq, flash_bwd_dkv,
+           rel_band_bwd_dqv, rel_band_bwd_dpos)
+LEGACY_COUNTED = (rel_flash_attention, rel_flash_bwd_dq, rel_flash_bwd_dkv, rel_flash_bwd_dpos)
+
+
+def _counts():
+    return ([fn.launches for fn in COUNTED], [fn.legacy_launches for fn in LEGACY_COUNTED])
+
+
+def _zero():
+    for fn in COUNTED:
+        fn.launches = 0
+    for fn in LEGACY_COUNTED:
+        fn.legacy_launches = 0
 
 
 @pytest.fixture
 def zero_counts():
-    for fn in COUNTED:
-        fn.launches = 0
+    _zero()
     yield
-    for fn in COUNTED:
-        fn.launches = 0
+    _zero()
 
 
 def test_port_imports_no_jax():
@@ -142,7 +159,24 @@ def test_cpu_tensors_take_the_plain_versions(zero_counts):
     assert all(t.grad is not None for t in ts)
     vtn, _, _ = vtn_pair(seed=0, port_kw=dict(attention_backend="flash", flash_min_len=8))
     vtn.inference(x, torch.tensor([48]), maxlenratio=1.0)
-    assert [fn.launches for fn in COUNTED] == [0] * len(COUNTED)
+    # the legacy form of the rel-pos flash kernels, forward and backward, and
+    # a legacy AAS-VC whose attention routes to them
+    ts = [t.detach().requires_grad_() for t in (qu, qv, k, v)]
+    legacy_pos = pos[:, :20].detach().requires_grad_()
+    rel_flash_attention(*ts, legacy_pos, lens, dropout_rate=0.2, dropout_seed=3,
+                        legacy=True).sum().backward()
+    assert legacy_pos.grad is not None and all(t.grad is not None for t in ts)
+    legacy, _, _ = aasvc_pair(seed=0, port_kw=dict(attention_backend="flash", flash_min_len=40),
+                              conformer_rel_pos_type="legacy")
+    legacy.inference(x, torch.tensor([48]), x, max_output_frames=64)
+    # the bwd="pallas" pair, alone and under autograd
+    g = torch.randn(2, 2, 20, 20)
+    assert rel_band_bwd_dqv(g, qv, pos).shape == qv.shape
+    assert rel_band_bwd_dpos(g, qv, pos).shape == pos.shape
+    ts = [t.detach().requires_grad_() for t in (qu, qv, k, pos)]
+    fused_rel_scores(*ts, bwd="pallas").sum().backward()
+    assert all(t.grad is not None for t in ts)
+    assert _counts() == ([0] * len(COUNTED), [0] * len(LEGACY_COUNTED))
 
 
 def test_other_devices_are_refused():

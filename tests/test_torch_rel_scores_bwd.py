@@ -108,8 +108,9 @@ def test_auto_gate_picks_the_variant(monkeypatch):
     assert resolve_bwd("auto", AUTO_BANDED_MIN_LEN) == "banded"
     assert resolve_bwd("xla", 10 * AUTO_BANDED_MIN_LEN) == "xla"
     assert resolve_bwd("banded", 1) == "banded"
+    assert resolve_bwd("pallas", 10 * AUTO_BANDED_MIN_LEN) == "pallas"  # named, never picked
     with pytest.raises(ValueError, match="unknown bwd"):
-        resolve_bwd("pallas", 8)
+        resolve_bwd("bogus", 8)
 
     taken = []
     monkeypatch.setattr(rel_scores, "rel_band_bwd",
