@@ -14,7 +14,9 @@ Phases, each printed on lines of its own:
 1. the card (``nvidia-smi`` name and power limit), the TF32 switches (both
    off), and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
-   registers and spills;
+   registers and spills, and the HMMA instructions of every variant of the
+   tensor-core kernels (2 and 6) in ``cuobjdump -sass``: each bfloat16
+   variant must issue them;
 2. warm-up: a full-width ``Wav2WavConverter`` (the AAS-VC flagship of
    ``egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml`` and the HiFi-GAN that
    ``bench.py`` serves) with seeded random weights serves a 3.8 s clip, a
@@ -108,10 +110,11 @@ Phases, each printed on lines of its own:
 17. legacy serving: the flagship with ``conformer_rel_pos_type: legacy``
    (seeded random weights) serves phase 2's three requests. The legacy
    attention never takes the fused kernel, so below the flash gate it runs
-   the dense ops and kernel 2's legacy form (q_v and the table at twice the
-   head dim: 1536 in the decoder) launches exactly in the 30 s request's
-   decoder; that kernel against its plain version at both head dims (float32
-   and bfloat16) and at the main path's shape, then the timed requests with
+   the dense ops and kernel 2's legacy form (q_v and the (H, T, D) table D
+   wide, each band cell reading q_v row i or i+1 by the sign of j - i)
+   launches exactly in the 30 s request's decoder; that kernel against its
+   plain version at both head dims (float32 and bfloat16) and at the main
+   path's shape, then the timed requests with
    the launch counts set to 0 just before and read just after;
 18. a legacy reference check: phase 5 on the legacy flagship (the legacy
    kernel 2 on the card, its plain version on the CPU);
@@ -199,7 +202,7 @@ KERNELS = {
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:578",
     ),
     "rel_flash_bwd_dq": dict(
-        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd.cu",
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd_dq.cu",
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:654",
     ),
     "rel_flash_bwd_dkv": dict(
@@ -238,8 +241,9 @@ KERNELS.update({
         replaces="seq2seq_vc_tpu/ops/rel_scores.py:122",
     ),
 })
-# the legacy form of kernels 2 and 6-8 (q_v and the table at twice the head
-# dim), rows of their own: same sources, same TPU kernels, own launch counts
+# the legacy form of kernels 2 and 6-8 (2 and 6 D wide, 7 and 8 on the
+# doubled q_v and table), rows of their own: same sources, same TPU kernels,
+# own launch counts
 LEGACY_TAG = "[legacy]"
 LEGACY = tuple(n + LEGACY_TAG for n in ("rel_flash_attention", *FLASH_BWD))
 KERNELS.update({n: dict(KERNELS[n.removesuffix(LEGACY_TAG)]) for n in LEGACY})
@@ -425,8 +429,8 @@ def bound(name, B, H, T, D, dtype, lens, lse=False, Tk=None, causal=False):
     ``Tk`` the key length of the standard kernels. The legacy form counts
     its function's work, not its kernel's: a band score is D multiply-adds
     (q_v[i] or q_v[i+1] against one table row, or none), the table is (H,
-    T, D), and dq_v and dpos come out D wide. The kernels' doubled width
-    (QW = 2D, half of it against zeros) is waste against this bound."""
+    T, D), and dq_v and dpos come out D wide. Kernels 7 and 8's doubled
+    width (QW = 2D, half of it against zeros) is waste against this bound."""
     e = torch.finfo(dtype).bits // 8
     legacy = name.endswith(LEGACY_TAG)
     name = name.removesuffix(LEGACY_TAG)
@@ -492,7 +496,7 @@ def flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate, legacy=False):
     yardstick: SDPA's forward + backward with the band (new style, or the
     dense legacy band) materialised as a float bias (the port never calls
     SDPA). Cached per shape."""
-    from seq2seq_vc_torch.ops.flash_attention import legacy_rel_inputs, rel_flash_attention
+    from seq2seq_vc_torch.ops.flash_attention import legacy_band, rel_flash_attention
     from seq2seq_vc_torch.ops.rel_scores import rel_band
 
     key = (tuple(qu.shape), str(qu.dtype), tuple(lens.tolist()), rate, legacy)
@@ -502,7 +506,7 @@ def flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate, legacy=False):
         port_ms = cuda_ms(lambda: rel_flash_attention(*leaves, lens, rate, 11, legacy=legacy)
                           .backward(d_out))
         valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        band = rel_band(*legacy_rel_inputs(qv, pos)) if legacy else rel_band(qv, pos)
+        band = legacy_band(qv, pos) if legacy else rel_band(qv, pos)
         bias = (band / math.sqrt(D)).masked_fill(~valid, float("-inf")).to(qu.dtype)
         q, kk, vv = leaves[0], leaves[2], leaves[3]
         sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -516,15 +520,19 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     """One kernel against its plain version on the same card inputs.
     ``rate``: the flash kernels' training form, with dropout at ``rate``
     (0 included) and the forward's logsumexp; None is the serving form. A
-    ``[legacy]`` name runs the rel-pos flash kernel in the legacy form, on
-    the q_v and table that ``legacy_rel_inputs`` assembles (QW = 2D)."""
+    ``[legacy]`` name runs the rel-pos flash kernel in the legacy form:
+    the forward and dq kernels on q_v and the (H, T, D) table as the module
+    holds them, the dk/dv and dpos kernels on the doubled q_v and table that
+    ``legacy_rel_inputs`` assembles (QW = 2D)."""
     from seq2seq_vc_torch.ops import flash_attention as fa
     from seq2seq_vc_torch.ops import rel_scores as rs
 
     base, legacy = name.removesuffix(LEGACY_TAG), name.endswith(LEGACY_TAG)
     qu, qv, k, v, pos, lens = kernel_inputs(B, H, T, D, dtype, seed, lens, legacy)
-    # what the kernels take: q_v and the table at their width QW
-    qv_k, pos_k = fa.legacy_rel_inputs(qv, pos) if legacy else (qv, pos)
+    # what the kernels take: kernels 7 and 8 the doubled legacy inputs
+    wide = legacy and base in ("rel_flash_bwd_dkv", "rel_flash_bwd_dpos")
+    qv_k, pos_k = fa.legacy_rel_inputs(qv, pos) if wide else (qv, pos)
+    legacy_kw = dict(legacy=True) if legacy and not wide else {}
     library_ms = fwd_bwd_ms = None
     drop = (rate, seed) if rate else (0.0, None)
     if base == "fused_rel_scores":
@@ -550,22 +558,23 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     elif base == "rel_flash_attention":
         if rate is None:
             def kernel():
-                return fa._fwd(qu, qv_k, k, v, pos_k, lens, 0.0, None, need_lse=False)[0]
+                return fa._fwd(qu, qv, k, v, pos, lens, 0.0, None, need_lse=False,
+                               legacy=legacy)[0]
 
             def plain():
-                return fa.rel_flash_attention_plain(qu, qv_k, k, v, pos_k, lens)
+                return fa.rel_flash_attention_plain(qu, qv, k, v, pos, lens, legacy=legacy)
         else:
             def kernel():
-                return fa._fwd(qu, qv_k, k, v, pos_k, lens, *drop, need_lse=True)
+                return fa._fwd(qu, qv, k, v, pos, lens, *drop, need_lse=True, legacy=legacy)
 
             def plain():
-                return fa.rel_flash_attention_plain(qu, qv_k, k, v, pos_k, lens, *drop,
-                                                    return_lse=True)
+                return fa.rel_flash_attention_plain(qu, qv, k, v, pos, lens, *drop,
+                                                    return_lse=True, legacy=legacy)
 
         # yardstick only: PyTorch's fused attention with the rel-pos band
         # materialised as an additive bias (the port never calls it)
         valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        bias = rs.rel_band(qv_k, pos_k) / math.sqrt(D)
+        bias = (fa.legacy_band(qv, pos) if legacy else rs.rel_band(qv, pos)) / math.sqrt(D)
         bias = bias.masked_fill(~valid, float("-inf")).to(dtype)
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qu, k, v, attn_mask=bias, dropout_p=rate or 0.0))
@@ -573,16 +582,16 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     else:
         d_out = torch.randn(qu.shape, device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(seed + 2)).to(dtype)
-        out, lse = fa.rel_flash_attention_plain(qu, qv_k, k, v, pos_k, lens, *drop,
-                                                return_lse=True)
+        out, lse = fa.rel_flash_attention_plain(qu, qv, k, v, pos, lens, *drop,
+                                                return_lse=True, legacy=legacy)
         args = (qu, qv_k, k, v, pos_k, lens, lse, fa._delta(out, d_out), d_out, *drop)
         wrapper, plain_fn = getattr(fa, base), getattr(fa, base + "_plain")
 
         def kernel():
-            return wrapper(*args)
+            return wrapper(*args, **legacy_kw)
 
         def plain():
-            return plain_fn(*args)
+            return plain_fn(*args, **legacy_kw)
 
         fwd_bwd_ms, library_ms = flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate or 0.0,
                                                   legacy)
@@ -1878,6 +1887,43 @@ def ptxas_report(text: str):
     return rows
 
 
+# the tensor-core kernels: their bfloat16 instantiations must issue HMMA
+TENSOR_CORE = {"rel_flash": "rel_flash_fwd_kernel", "rel_flash_bwd_dq": "rel_flash_bwd_dq_kernel"}
+
+
+def sass_hmma():
+    """(rows, failures): for each kernel variant of the tensor-core sources,
+    its HMMA instructions in ``cuobjdump -sass`` of the built library (names
+    demangled by ``c++filt``); a bfloat16 variant without one fails."""
+    from seq2seq_vc_torch.ops import native
+
+    tool = shutil.which("cuobjdump") or str(Path(native._nvcc()).with_name("cuobjdump"))
+    rows, failures = [], []
+    for lib, kernel in TENSOR_CORE.items():
+        sass = subprocess.run([tool, "-sass", str(native._library_path(lib))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                fn = line.split("Function : ", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+        names = list(counts)
+        if shutil.which("c++filt"):
+            out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                                 text=True, timeout=60).stdout.splitlines()
+            names = out if len(out) == len(names) else names
+        for name, n in zip(names, counts.values()):
+            name = name[:name.rfind(">") + 1] or name  # the variant, without its parameters
+            rows.append((lib, name, n))
+            if kernel in name and "bfloat16" in name and n == 0:
+                failures.append(f"sass {lib}: {name} issues no HMMA")
+        if not any(kernel in name and "bfloat16" in name for name in names):
+            failures.append(f"sass {lib}: no bfloat16 variant of {kernel} found")
+    return rows, failures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1907,8 +1953,10 @@ def main() -> int:
     for name, res in built.items():
         for fn, regs, spill in ptxas_report(res["log"]):
             log(f"  ptxas {name}: {fn}: {regs}; {spill}")
+    sass_rows, failures = sass_hmma()
+    for lib, fn, n in sass_rows:
+        log(f"  sass {lib}: {fn}: {n} HMMA")
 
-    failures = []
     with torch.no_grad():
         model, vocoder = build_models(seed=0)
         src, trg = stats(1), stats(2)

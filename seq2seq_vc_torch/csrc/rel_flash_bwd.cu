@@ -1,10 +1,10 @@
-// Relative-position flash attention, backward: three kernels that recompute
+// Relative-position flash attention, backward: two kernels that recompute
 // the score tiles FlashAttention-2 style, so the (T, T) scores, weights and
-// dropout mask never reach device memory.
+// dropout mask never reach device memory. (The third, dq, is on the tensor
+// cores in csrc/rel_flash_bwd_dq.cu.)
 //
 // Replaces the TPU kernels of seq2seq_vc_tpu/ops/flash_attention.py
 // (launched by `_rel_core.core_bwd`), legacy=False and legacy=True:
-//   - rel_flash_bwd_dq   <- `_rel_bwd_dq_kernel`   (dq_u, dq_v)
 //   - rel_flash_bwd_dkv  <- `_rel_bwd_dkv_kernel`  (dk, dv)
 //   - rel_flash_bwd_dpos <- `_rel_bwd_dpos_kernel` (the table gradient)
 //
@@ -18,14 +18,16 @@
 //   ds   = (pd * dp - p * delta[i]) * scale          (as `_rel_block_grads`)
 //
 // and then:
-//   dq_u[i] = sum_j ds k[j]              dq_v[i] = sum_j ds pos[T-1-i+j]
 //   dk[j]   = sum_i ds q_u[i]            dv[j]   = sum_i pd dO[i]
 //   dpos[r] = sum_b sum_i ds(i, j = i + r - (T-1)) q_v[i]
 //
-// q_u, k, v and dO have the head dim D; q_v, the table, dq_v and dpos have
-// their own width QW: D in the new style, 2*D in the legacy form (see
-// csrc/rel_flash.cu). Each recompute runs the three products over the first
-// D columns, then the band alone over the columns past D.
+// q_u, k, v and dO have the head dim D; q_v, the table and dpos have
+// their own width QW: D in the new style, 2*D in the legacy form, whose
+// wrapper folds the three cases of the legacy rel_shift into this one band
+// product by widening q_v to [q_v[i], q_v[i+1]] and stacking a second table
+// beside the first (ops/flash_attention.py `legacy_rel_inputs`). Each
+// recompute runs the three products over the first D columns, then the band
+// alone over the columns past D.
 //
 // keep(i, j) is the hash of csrc/common.cuh over the index
 // (bh * t_pad + i) * t_pad + j with t_pad = round_up(T, 128), the JAX
@@ -41,22 +43,20 @@
 // (H, n_tab, B, nq) grid with a resident VMEM accumulator were Mosaic and
 // VMEM workarounds and have no counterpart here.
 //
-// Layout, shared by the three kernels: 256 threads as 16 rows x 16 lanes;
-// a tile has 16 "owned" rows (the block's output rows: queries for dq,
-// keys for dk/dv, table rows for dpos) against 64 "walked" rows (keys for
-// dq, queries for dk/dv and dpos), 4 cells per thread. D is staged in
+// Layout, shared by the two kernels: 256 threads as 16 rows x 16 lanes;
+// a tile has 16 "owned" rows (the block's output rows: keys for dk/dv,
+// table rows for dpos) against 64 "walked" rows (queries), 4 cells per
+// thread. D is staged in
 // chunks of 32. The recomputed ds (and pd) tile then goes to shared memory,
 // and each thread accumulates its output columns tid + 256*m of all 16 owned
 // rows in registers, reading the walked rows (k, pos, dO, q_u, q_v) straight
 // from device memory, coalesced along D: at the decoder's D = 768 that is
 // two 16 x 768 float accumulators, 96 registers a thread. An output wider
-// than 1024 columns (dq_v and dpos in the legacy form at D = 768: QW =
-// 1536) is split into column chunks of at most 1024 over the grid's z axis,
+// than 1024 columns (dpos in the legacy form at D = 768: QW = 1536) is split into column chunks of at most 1024 over the grid's z axis,
 // each block recomputing the same tiles for its chunk, so that no thread
 // holds more than 4 columns of each accumulator; every other launch has one
 // chunk.
 //
-// - dq: a block owns 16 query rows and walks the key tiles up to kv_len.
 // - dk/dv: a block owns 16 keys and walks every query tile; a key block at
 //   or past kv_len writes zeros at once.
 // - dpos: a block owns 16 table rows of one head and walks, for the batch
@@ -66,9 +66,9 @@
 //   adds the groups' partial sums in a fixed order: deterministic, no atomics.
 //
 // Bound: each kernel recomputes the scores (q_u.k, the band and dO.v:
-// 2*D + QW multiply-adds per live score) and adds D + QW (dq), 2*D (dk/dv)
-// or QW (dpos) for its outputs: ~17*D multiply-adds per live score over the
-// three in the new style (23*D in the legacy form), against
+// 2*D + QW multiply-adds per live score) and adds 2*D (dk/dv) or QW (dpos)
+// for its outputs: ~12*D multiply-adds per live score over the two in the
+// new style (16*D in the legacy form), against
 // ~5*T*D inputs per head read once. At the main path's shapes the
 // tensor-core rate would make them bound by operations; this first version
 // multiplies on the CUDA cores in float FMA from shared memory, so it is
@@ -113,7 +113,7 @@ struct Args {
   const void *qu, *qv, *k, *v, *pos, *dout;
   const int* kv_lens;
   const float *lse, *delta;
-  void *out0, *out1;  // dq_u, dq_v | dk, dv | dpos, -
+  void *out0, *out1;  // dk, dv | dpos, -
   float* partial;     // dpos only: (n_split, H, 2L-1, QW) float32
   int B, H, L, D, QW;
   float scale, rate, keep_scale;
@@ -145,128 +145,6 @@ __device__ __forceinline__ void cell(const Args& a, float s_raw, float dp, float
   } else {
     pd = p;
     ds = p * (dp - delta_i) * a.scale;
-  }
-}
-
-// ---------------------------------------------------------------- dq
-template <typename T, int NC>
-__global__ void __launch_bounds__(NT) rel_flash_bwd_dq_kernel(Args a) {
-  __shared__ float s_qu[OWN * LDS], s_qv[OWN * LDS], s_do[OWN * LDS];
-  __shared__ float s_k[WALK * LDS], s_v[WALK * LDS], s_p[WIN * LDS];
-  __shared__ float s_ds[OWN][WALK + 1];
-
-  const int L = a.L, D = a.D, QW = a.QW, n_pos = 2 * L - 1;
-  const int i0 = blockIdx.x * OWN;
-  const int bh = blockIdx.y, h = bh % a.H;
-  const int c0 = blockIdx.z * NT * NC;  // this block's column chunk of dq_u and dq_v
-  const int kv_len = max(0, min(a.kv_lens[bh / a.H], L));
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t base = (size_t)bh * L * D, base_w = (size_t)bh * L * QW;
-  const T* qu = static_cast<const T*>(a.qu) + base;
-  const T* qv = static_cast<const T*>(a.qv) + base_w;
-  const T* k = static_cast<const T*>(a.k) + base;
-  const T* v = static_cast<const T*>(a.v) + base;
-  const T* dout = static_cast<const T*>(a.dout) + base;
-  const T* pos = static_cast<const T*>(a.pos) + (size_t)h * n_pos * QW;
-
-  const int i = i0 + ty;  // the query row this thread scores
-  const float lse_i = i < L ? a.lse[(size_t)bh * L + i] : 0.f;
-  const float delta_i = i < L ? a.delta[(size_t)bh * L + i] : 0.f;
-
-  float acc_u[OWN][NC], acc_v[OWN][NC];
-#pragma unroll
-  for (int r = 0; r < OWN; ++r) {
-#pragma unroll
-    for (int m = 0; m < NC; ++m) acc_u[r][m] = acc_v[r][m] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < kv_len; j0 += WALK) {
-    const int r_lo = L - OWN - i0 + j0;  // table row of window row 0
-    float ss[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    int d0 = 0;
-    for (; d0 < D; d0 += DK) {
-      stage(s_qu, qu, OWN, i0, 0, L, d0, D);
-      stage(s_qv, qv, OWN, i0, 0, L, d0, QW);
-      stage(s_do, dout, OWN, i0, 0, L, d0, D);
-      stage(s_k, k, WALK, j0, 0, L, d0, D);
-      stage(s_v, v, WALK, j0, 0, L, d0, D);
-      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, QW);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < DK; ++c) {
-        const float au = s_qu[ty * LDS + c], av = s_qv[ty * LDS + c], ao = s_do[ty * LDS + c];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int jl = tx + 16 * b;
-          ss[b] = fmaf(au, s_k[jl * LDS + c], ss[b]);
-          ss[b] = fmaf(av, s_p[(jl - ty + OWN - 1) * LDS + c], ss[b]);
-          dp[b] = fmaf(ao, s_v[jl * LDS + c], dp[b]);
-        }
-      }
-      __syncthreads();
-    }
-    for (; d0 < QW; d0 += DK) {  // the legacy form: the band past column D
-      stage(s_qv, qv, OWN, i0, 0, L, d0, QW);
-      stage(s_p, pos, WIN, r_lo, 0, n_pos, d0, QW);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < DK; ++c) {
-        const float av = s_qv[ty * LDS + c];
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          ss[b] = fmaf(av, s_p[(tx + 16 * b - ty + OWN - 1) * LDS + c], ss[b]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int jl = tx + 16 * b, j = j0 + jl;
-      float pd, ds;
-      cell(a, ss[b], dp[b], lse_i, delta_i, i < L && j < kv_len, bh, i, j, pd, ds);
-      s_ds[ty][jl] = ds;
-    }
-    __syncthreads();
-
-    // dq_u += ds . k over this tile's live keys; dq_v += ds . pos window
-    const int nk = min(WALK, kv_len - j0);
-#pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      const int c = c0 + tid + NT * m;
-      if (c < D) {
-        const T* k_col = k + (size_t)j0 * D + c;
-        for (int n = 0; n < nk; ++n) {
-          const float kk = to_f(k_col[(size_t)n * D]);
-#pragma unroll
-          for (int r = 0; r < OWN; ++r) acc_u[r][m] = fmaf(s_ds[r][n], kk, acc_u[r][m]);
-        }
-      }
-      if (c < QW) {
-        for (int w = 0; w < nk + OWN - 1; ++w) {
-          const int prow = r_lo + w;
-          const float pv = (prow >= 0 && prow < n_pos) ? to_f(pos[(size_t)prow * QW + c]) : 0.f;
-#pragma unroll
-          for (int r = 0; r < OWN; ++r) {
-            const int n = w + r - (OWN - 1);  // key of row r on window row w
-            if (n >= 0 && n < nk) acc_v[r][m] = fmaf(s_ds[r][n], pv, acc_v[r][m]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  T* dqu = static_cast<T*>(a.out0) + base;
-  T* dqv = static_cast<T*>(a.out1) + base_w;
-#pragma unroll
-  for (int m = 0; m < NC; ++m) {
-    const int c = c0 + tid + NT * m;
-#pragma unroll
-    for (int r = 0; r < OWN; ++r) {
-      if (i0 + r < L) {
-        if (c < D) dqu[(size_t)(i0 + r) * D + c] = from_f<T>(acc_u[r][m]);
-        if (c < QW) dqv[(size_t)(i0 + r) * QW + c] = from_f<T>(acc_v[r][m]);
-      }
-    }
   }
 }
 
@@ -529,15 +407,11 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dpos_sum_kernel(const float*
   }
 }
 
-enum Which { kDq, kDkv, kDpos };
+enum Which { kDkv, kDpos };
 
 template <typename T, int NC>
 cudaError_t launch_nc(Which which, const Args& a, int nz, cudaStream_t stream) {
   const int BH = a.B * a.H;
-  if (which == kDq) {
-    rel_flash_bwd_dq_kernel<T, NC><<<dim3((a.L + OWN - 1) / OWN, BH, nz), NT, 0, stream>>>(a);
-    return cudaGetLastError();
-  }
   if (which == kDkv) {
     rel_flash_bwd_dkv_kernel<T, NC><<<dim3((a.L + OWN - 1) / OWN, BH), NT, 0, stream>>>(a);
     return cudaGetLastError();
@@ -557,9 +431,9 @@ cudaError_t launch_nc(Which which, const Args& a, int nz, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
-  // the output's columns: dq_u and dq_v (one chunking for both), dk and dv,
-  // or dpos; NC = columns a thread owns in its chunk
-  const int W = which == kDq ? std::max(a.D, a.QW) : which == kDkv ? a.D : a.QW;
+  // the output's columns: dk and dv, or dpos; NC = columns a thread owns
+  // in its chunk
+  const int W = which == kDkv ? a.D : a.QW;
   const Chunks ch = column_chunks(W);
   if (which == kDkv && ch.nz != 1) return cudaErrorInvalidValue;
   switch (ch.nc) {
@@ -616,14 +490,6 @@ static Args make_args(const void* qu, const void* qv, const void* k, const void*
   return Args{qu, qv, k, v, pos, dout, static_cast<const int*>(kv_lens),
               static_cast<const float*>(lse), static_cast<const float*>(delta), out0, out1,
               partial, B, H, L, D, QW, scale, rate, keep_scale, seed, t_pad};
-}
-
-// dq_u: (B*H, L, D); dq_v: (B*H, L, QW)
-extern "C" int rel_flash_bwd_dq(S2S_BWD_ARGS, void* dqu, void* dqv, S2S_BWD_TAIL) {
-  return run(kDq, dtype,
-             make_args(qu, qv, k, v, pos, kv_lens, lse, delta, dout, dqu, dqv, nullptr, B, H,
-                       L, D, QW, scale, rate, keep_scale, seed, t_pad),
-             stream);
 }
 
 // dk, dv: (B*H, L, D)

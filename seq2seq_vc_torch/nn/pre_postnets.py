@@ -35,12 +35,16 @@ class Prenet(torch.nn.Module):
         )
 
     def forward(self, x, generator=None):
+        """The dropout draws from ``generator`` on the generator's device
+        (so one CPU generator gives a model on the card and one on the CPU
+        the same mask), or from torch's default generator of x's device."""
         keep_p = 1.0 - self.dropout_rate
         for layer in self.prenet:
             x = layer(x)
             if self.dropout_rate > 0.0:
-                keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
-                x = torch.where(keep, x / keep_p, 0.0)
+                u = torch.rand(x.shape, generator=generator,
+                               device=x.device if generator is None else generator.device)
+                x = torch.where(u.to(x.device) < keep_p, x / keep_p, 0.0)
         return x
 
 

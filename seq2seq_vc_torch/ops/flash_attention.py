@@ -16,17 +16,22 @@ the (Tq, Tk) scores:
 
 ``rel_flash_attention`` computes ``dropout(softmax((q_u k^T +
 rel_shift(q_v pos^T)) / sqrt(D))) v`` with a key-length mask, in the
-new-style or (``legacy=True``) the legacy relative-position form; the
-legacy form runs the same kernels at twice the q_v/table width
-(``legacy_rel_inputs``):
+new-style or (``legacy=True``) the legacy relative-position form:
 
 - forward: on a CUDA tensor the Hopper kernel in ``csrc/rel_flash.cu``, on a
   CPU tensor ``rel_flash_attention_plain``;
 - backward (FlashAttention-2 style: the score tiles are recomputed from
-  q, k, the table and the saved logsumexp): on a CUDA tensor the three
-  kernels of ``csrc/rel_flash_bwd.cu`` (``rel_flash_bwd_dq``,
-  ``rel_flash_bwd_dkv``, ``rel_flash_bwd_dpos``), on a CPU tensor
-  ``rel_flash_attention_bwd_plain``.
+  q, k, the table and the saved logsumexp): on a CUDA tensor the dq kernel
+  of ``csrc/rel_flash_bwd_dq.cu`` (``rel_flash_bwd_dq``) and the two
+  kernels of ``csrc/rel_flash_bwd.cu`` (``rel_flash_bwd_dkv``,
+  ``rel_flash_bwd_dpos``), on a CPU tensor their plain versions.
+
+The forward and dq kernels take the legacy form D wide, as the module holds
+it: q_v (B, H, T, D) and the (H, T, D) table, each band cell reading q_v row
+i or i+1 and its table row by the sign of j - i (``legacy_band``). The
+dk/dv and dpos kernels still take it at twice the width, on the q_v2 and
+table that ``legacy_rel_inputs`` assembles; ``legacy_dpos`` maps their
+table gradient back.
 
 Dropout acts on the *normalised* weights with 1/(1-rate) scaling (the
 softmax's row sum is taken before the drop), torch-style. Its keep mask is
@@ -156,18 +161,75 @@ def _valid(lens, T, device, Tq=None, causal=False):
     return valid
 
 
+def legacy_band(q_v, pos):
+    """The legacy ``rel_shift``'s band, (B, H, T, T) float32, from its three
+    cases computed directly (q_v: (B, H, T, D); pos: (H, T, D), row p <->
+    absolute position p):
+
+        bd[i, j] = q_v[i]   . pos[T-1-(i-j)]   for j <= i
+        bd[i, j] = 0                           for j == i + 1
+        bd[i, j] = q_v[i+1] . pos[j-i-2]       for j >= i + 2
+    """
+    B, H, T, _ = q_v.shape
+    raw = torch.einsum("bhqd,hpd->bhqp", q_v.float(), pos.float())  # (B, H, T, T)
+    raw_next = F.pad(raw[:, :, 1:], (0, 0, 0, 1))  # row i: q_v[i+1]
+    i = torch.arange(T, device=q_v.device)[:, None]
+    j = torch.arange(T, device=q_v.device)[None, :]
+    lo = torch.gather(raw, 3, (T - 1 - i + j).clamp(0, T - 1).expand(B, H, T, T))
+    hi = torch.gather(raw_next, 3, (j - i - 2).clamp(0, T - 1).expand(B, H, T, T))
+    return torch.where(j <= i, lo, torch.where(j >= i + 2, hi, 0.0))
+
+
+def legacy_band_dqv(g, pos):
+    """The legacy band's q_v cotangent in two halves, (lo, hi), both (B, H,
+    T, D) float32, from the (B, H, T, T) band cotangent ``g``:
+
+        lo[i] = sum_{j <= i}   g[i, j] pos[T-1-i+j]   (q_v row i's)
+        hi[i] = sum_{j >= i+2} g[i, j] pos[j-i-2]     (q_v row i+1's)
+
+    ``shift_legacy_dqv(lo, hi)`` adds them into dq_v."""
+    B, H, T, _ = g.shape
+    i = torch.arange(T, device=g.device)[:, None]
+    p = torch.arange(T, device=g.device)[None, :]
+    j_lo, j_hi = p + i - (T - 1), p + i + 2  # the key of table row p in each case
+    g = g.float()
+    d_lo = torch.gather(g, 3, j_lo.clamp(0, T - 1).expand(B, H, T, T)) * (j_lo >= 0)
+    d_hi = torch.gather(g, 3, j_hi.clamp(0, T - 1).expand(B, H, T, T)) * (j_hi < T)
+    return (torch.einsum("bhip,hpd->bhid", d_lo, pos.float()),
+            torch.einsum("bhip,hpd->bhid", d_hi, pos.float()))
+
+
+def shift_legacy_dqv(lo, hi):
+    """dq_v = lo + hi moved down one row: the contributions in ``hi[i]``
+    belong to q_v row i + 1 (the last row's are zero: no key lies past
+    T)."""
+    return lo + F.pad(hi[:, :, :-1], (0, 0, 1, 0))
+
+
+def _scores(q_u, q_v, k, pos, legacy: bool):
+    """The (B, H, T, T) float32 scores, scaled, in either form."""
+    if not legacy:
+        return fused_rel_scores_plain(q_u, q_v, k, pos)
+    ac = torch.einsum("bhqd,bhkd->bhqk", q_u.float(), k.float())
+    return (ac + legacy_band(q_v, pos)) / math.sqrt(q_u.shape[-1])
+
+
 def rel_flash_attention_plain(q_u, q_v, k, v, pos, kv_lens=None, dropout_rate: float = 0.0,
-                              dropout_seed=None, return_lse: bool = False):
+                              dropout_seed=None, return_lse: bool = False,
+                              legacy: bool = False):
     """Plain PyTorch version of the forward kernel (float32 arithmetic).
-    q_v and pos may be wider than the head dim D (the legacy form's QW).
+    ``legacy``: q_v (B, H, T, D) and the (H, T, D) table of the legacy form
+    (``legacy_band``); otherwise the new style, whose q_v and table may be
+    wider than the head dim D (the doubled legacy inputs of
+    ``legacy_rel_inputs``).
 
     Returns the (B, H, T, D) context in the input dtype and, with
     ``return_lse``, the (B, H, T) float32 logsumexp of each row's scores
     (``-1e30`` for a row with no live key, whose context is zeros)."""
     B, H, T, _ = q_u.shape
     valid = _valid(_kv_lens(kv_lens, B, T, q_u.device), T, q_u.device)
-    return _attend(fused_rel_scores_plain(q_u, q_v, k, pos), valid, v, dropout_rate,
-                   dropout_seed, q_u.dtype, return_lse)
+    return _attend(_scores(q_u, q_v, k, pos, legacy), valid, v, dropout_rate, dropout_seed,
+                   q_u.dtype, return_lse)
 
 
 def _attend(s, valid, v, rate: float, seed, dtype, return_lse: bool):
@@ -201,12 +263,12 @@ def _tile_grads(s, valid, v, lse, delta, d_out, rate: float, seed):
     return p, p * (dp - delta)
 
 
-def _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, rate, seed):
+def _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, rate, seed, legacy=False):
     """The rel-pos backward's (pd, ds before the 1/sqrt(D) scale)."""
     B, H, T, _ = q_u.shape
     valid = _valid(_kv_lens(kv_lens, B, T, q_u.device), T, q_u.device)
-    return _tile_grads(fused_rel_scores_plain(q_u, q_v, k, pos), valid, v, lse, delta, d_out,
-                       rate, seed)
+    return _tile_grads(_scores(q_u, q_v, k, pos, legacy), valid, v, lse, delta, d_out, rate,
+                       seed)
 
 
 def _delta(out, d_out):
@@ -220,11 +282,15 @@ def _rsqrt_d(q_u) -> float:
 
 
 def rel_flash_bwd_dq_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
-                           dropout_rate=0.0, dropout_seed=None):
-    """Plain version of the dq kernel: (dq_u, dq_v) in the dtypes of q_u, q_v."""
+                           dropout_rate=0.0, dropout_seed=None, legacy: bool = False):
+    """Plain version of the dq kernel: (dq_u, dq_v) in the dtypes of q_u, q_v;
+    ``legacy`` as in ``rel_flash_attention_plain`` (dq_v then D wide)."""
     _, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, dropout_rate,
-                       dropout_seed)
+                       dropout_seed, legacy)
     dq_u = (torch.matmul(ds, k.float()) * _rsqrt_d(q_u)).to(q_u.dtype)
+    if legacy:
+        dq_v = shift_legacy_dqv(*legacy_band_dqv(ds * _rsqrt_d(q_u), pos))
+        return dq_u, dq_v.to(q_v.dtype)
     return dq_u, rel_band_bwd_dqv_plain(ds, q_v, pos, _rsqrt_d(q_u))
 
 
@@ -281,36 +347,33 @@ def _dropout_args(rate: float, seed, *lengths: int):
             *(_round_up(t, DROPOUT_BLOCK) for t in lengths))
 
 
-def _count(wrapper, q_u, q_v) -> None:
-    """Count one launch of ``wrapper``'s kernel: in ``launches`` at the new
-    style's q_v width (the head dim), in ``legacy_launches`` at the legacy
-    form's wider one."""
-    if q_v.shape[-1] == q_u.shape[-1]:
-        wrapper.launches += 1
-    else:
+def _count(wrapper, legacy: bool) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``launches`` in the new
+    style, in ``legacy_launches`` in the legacy form."""
+    if legacy:
         wrapper.legacy_launches += 1
+    else:
+        wrapper.launches += 1
 
 
-def _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse):
+def _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse, legacy=False):
     """Forward: kernel 2 on a CUDA tensor, the plain version on a CPU one.
     Returns (out, lse or None)."""
     if q_u.device.type == "cpu":
-        if need_lse:
-            return rel_flash_attention_plain(q_u, q_v, k, v, pos, lens, rate, seed, True)
-        return rel_flash_attention_plain(q_u, q_v, k, v, pos, lens, rate, seed), None
+        out = rel_flash_attention_plain(q_u, q_v, k, v, pos, lens, rate, seed, need_lse, legacy)
+        return out if need_lse else (out, None)
     B, H, T, _ = q_u.shape
     out = torch.empty_like(q_u, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q_u.device) if need_lse else None
-    _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed)
-    _count(rel_flash_attention, q_u, q_v)
+    _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed, legacy)
+    _count(rel_flash_attention, legacy)
     return out, lse
 
 
-def _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed):
+def _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed, legacy=False):
     """One forward kernel launch into ``out`` (and ``lse`` unless None)."""
     B, H, T, D = q_u.shape
-    QW = q_v.shape[-1]
-    _check_cuda("rel_flash_attention", D, QW)
+    _check_cuda("rel_flash_attention", D, q_v.shape[-1])
     qu, qv, kc, vc, pc = (t.contiguous() for t in (q_u, q_v, k, v, pos))
     fn = native.load("rel_flash").rel_flash_fwd
     fn.restype = _i
@@ -321,37 +384,42 @@ def _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed):
             DTYPE_CODES[q_u.dtype], qu.data_ptr(), qv.data_ptr(), kc.data_ptr(),
             vc.data_ptr(), pc.data_ptr(), lens.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B * H, H, T, D, QW, _rsqrt_d(q_u), *_dropout_args(rate, seed, T), _stream(q_u),
+            B * H, H, T, D, int(legacy), _rsqrt_d(q_u), *_dropout_args(rate, seed, T),
+            _stream(q_u),
         )
     native.check(rc, "rel_flash_fwd")
 
 
-def _bwd_launch(symbol, q_u, q_v, k, v, pos, lens, lse, delta, d_out, outs, rate, seed,
-                extra=()):
-    """One backward kernel launch: the shared argument list of
-    ``csrc/rel_flash_bwd.cu``'s C functions, then ``outs`` and ``extra``."""
+def _bwd_launch(library, symbol, q_u, q_v, k, v, pos, lens, lse, delta, d_out, outs, rate,
+                seed, width, extra=()):
+    """One backward kernel launch: the shared argument list of the C
+    functions of ``csrc/<library>.cu``, then ``outs`` and ``extra``; ``width``
+    is the q_v/table width argument (``csrc/rel_flash_bwd.cu``) or the
+    legacy flag (``csrc/rel_flash_bwd_dq.cu``)."""
     B, H, T, D = q_u.shape
-    QW = q_v.shape[-1]
-    _check_cuda(symbol, D, QW)
+    _check_cuda(symbol, D, q_v.shape[-1])
     ins = [t.contiguous() for t in (q_u, q_v, k, v, pos, lens, lse, delta, d_out)]
-    fn = getattr(native.load("rel_flash_bwd"), symbol)
+    fn = getattr(native.load(library), symbol)
     fn.restype = _i
     fn.argtypes = ([_i] + [_c] * (len(ins) + len(outs) + len(extra))
                    + [_i, _i, _i, _i, _i, _f, _f, _f, ctypes.c_uint32, _i, _c])
     with torch.cuda.device(q_u.device):
         rc = fn(
-            DTYPE_CODES[q_u.dtype], *(t.data_ptr() for t in ins + list(outs) + list(extra)),
-            B, H, T, D, QW, _rsqrt_d(q_u), *_dropout_args(rate, seed, T), _stream(q_u),
+            DTYPE_CODES[q_u.dtype],
+            *(None if t is None else t.data_ptr() for t in ins + list(outs) + list(extra)),
+            B, H, T, D, width, _rsqrt_d(q_u), *_dropout_args(rate, seed, T), _stream(q_u),
         )
     native.check(rc, symbol)
 
 
-def _bwd_inputs(name, q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out):
+def _bwd_inputs(name, q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, legacy=False):
     B, H, T, D = q_u.shape
-    QW = q_v.shape[-1]  # q_v and the table: D, or 2 * D in the legacy form
+    # q_v and the table: D, or 2 * D in the doubled legacy inputs of kernels
+    # 7 and 8; the legacy form D wide with an (H, T, D) table
+    QW = q_v.shape[-1]
     _check_inputs(name, (q_u, q_v, k, v, pos, d_out),
-                  ((B, H, T, D), (B, H, T, QW), (B, H, T, D), (B, H, T, D), (H, 2 * T - 1, QW),
-                   (B, H, T, D)))
+                  ((B, H, T, D), (B, H, T, D if legacy else QW), (B, H, T, D), (B, H, T, D),
+                   (H, T if legacy else 2 * T - 1, D if legacy else QW), (B, H, T, D)))
     for t, what in ((lse, "lse"), (delta, "delta")):
         if tuple(t.shape) != (B, H, T):
             raise ValueError(f"{name}: {what} must be {(B, H, T)}, got {tuple(t.shape)}")
@@ -360,33 +428,52 @@ def _bwd_inputs(name, q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out):
 
 
 def rel_flash_bwd_dq(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
-                     dropout_rate: float = 0.0, dropout_seed=None):
-    """(dq_u, dq_v): on a CUDA tensor kernel 6 of ``csrc/rel_flash_bwd.cu``
+                     dropout_rate: float = 0.0, dropout_seed=None, legacy: bool = False):
+    """(dq_u, dq_v): on a CUDA tensor kernel 6 of ``csrc/rel_flash_bwd_dq.cu``
     (one launch), on a CPU tensor ``rel_flash_bwd_dq_plain``. ``lse`` and
-    ``delta = rowsum(dO * O)`` are (B, H, T) float32."""
+    ``delta = rowsum(dO * O)`` are (B, H, T) float32. ``legacy``: q_v (B, H,
+    T, D) and the (H, T, D) table of the legacy form; the kernel then writes
+    dq_v's two halves in float32 (``legacy_band_dqv``) and
+    ``shift_legacy_dqv`` adds them."""
     lens, lse, delta = _bwd_inputs("rel_flash_bwd_dq", q_u, q_v, k, v, pos, kv_lens, lse,
-                                   delta, d_out)
+                                   delta, d_out, legacy)
     args = (q_u, q_v, k, v, pos, lens, lse, delta, d_out)
     if q_u.device.type == "cpu":
-        return rel_flash_bwd_dq_plain(*args, dropout_rate, dropout_seed)
-    dq_u, dq_v = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q_u, q_v))
-    _bwd_launch("rel_flash_bwd_dq", *args, (dq_u, dq_v), dropout_rate, dropout_seed)
-    _count(rel_flash_bwd_dq, q_u, q_v)
-    return dq_u, dq_v
+        return rel_flash_bwd_dq_plain(*args, dropout_rate, dropout_seed, legacy)
+    dq_u = torch.empty_like(q_u, memory_format=torch.contiguous_format)
+    if legacy:
+        lo, hi = (torch.empty(q_v.shape, dtype=torch.float32, device=q_v.device)
+                  for _ in range(2))
+        outs = (dq_u, lo, hi)
+    else:
+        outs = (dq_u, torch.empty_like(q_v, memory_format=torch.contiguous_format), None)
+    _bwd_launch("rel_flash_bwd_dq", "rel_flash_bwd_dq", *args, outs, dropout_rate,
+                dropout_seed, int(legacy))
+    _count(rel_flash_bwd_dq, legacy)
+    if legacy:
+        return dq_u, shift_legacy_dqv(lo, hi).to(q_v.dtype)
+    return dq_u, outs[1]
+
+
+def _wide(q_u, q_v) -> bool:
+    """Whether q_v is wider than the head dim: the doubled legacy inputs."""
+    return q_v.shape[-1] != q_u.shape[-1]
 
 
 def rel_flash_bwd_dkv(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
                       dropout_rate: float = 0.0, dropout_seed=None):
     """(dk, dv): on a CUDA tensor kernel 7 of ``csrc/rel_flash_bwd.cu``, on a
-    CPU tensor ``rel_flash_bwd_dkv_plain``."""
+    CPU tensor ``rel_flash_bwd_dkv_plain``. The legacy form takes the doubled
+    inputs of ``legacy_rel_inputs``."""
     lens, lse, delta = _bwd_inputs("rel_flash_bwd_dkv", q_u, q_v, k, v, pos, kv_lens, lse,
                                    delta, d_out)
     args = (q_u, q_v, k, v, pos, lens, lse, delta, d_out)
     if q_u.device.type == "cpu":
         return rel_flash_bwd_dkv_plain(*args, dropout_rate, dropout_seed)
     dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (k, v))
-    _bwd_launch("rel_flash_bwd_dkv", *args, (dk, dv), dropout_rate, dropout_seed)
-    _count(rel_flash_bwd_dkv, q_u, q_v)
+    _bwd_launch("rel_flash_bwd", "rel_flash_bwd_dkv", *args, (dk, dv), dropout_rate,
+                dropout_seed, q_v.shape[-1])
+    _count(rel_flash_bwd_dkv, _wide(q_u, q_v))
     return dk, dv
 
 
@@ -395,7 +482,8 @@ def rel_flash_bwd_dpos(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
     """The table gradient dpos (H, 2T-1, QW): on a CUDA tensor kernel 8 of
     ``csrc/rel_flash_bwd.cu`` (per-batch-group partial sums and a fixed-order
     second pass in the same call: deterministic, no atomics), on a CPU
-    tensor ``rel_flash_bwd_dpos_plain``."""
+    tensor ``rel_flash_bwd_dpos_plain``. The legacy form takes the doubled
+    inputs of ``legacy_rel_inputs``; ``legacy_dpos`` maps its result back."""
     lens, lse, delta = _bwd_inputs("rel_flash_bwd_dpos", q_u, q_v, k, v, pos, kv_lens, lse,
                                    delta, d_out)
     args = (q_u, q_v, k, v, pos, lens, lse, delta, d_out)
@@ -407,57 +495,59 @@ def rel_flash_bwd_dpos(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
     groups.restype, groups.argtypes = _i, [_i]
     partial = torch.empty((groups(B), H, 2 * T - 1, q_v.shape[-1]), dtype=torch.float32,
                           device=q_u.device)
-    _bwd_launch("rel_flash_bwd_dpos", *args, (dpos,), dropout_rate, dropout_seed,
-                extra=(partial,))
-    _count(rel_flash_bwd_dpos, q_u, q_v)
+    _bwd_launch("rel_flash_bwd", "rel_flash_bwd_dpos", *args, (dpos,), dropout_rate,
+                dropout_seed, q_v.shape[-1], extra=(partial,))
+    _count(rel_flash_bwd_dpos, _wide(q_u, q_v))
     return dpos
 
 
 def rel_flash_attention_bwd(q_u, q_v, k, v, pos, kv_lens, out, lse, d_out,
-                            dropout_rate: float = 0.0, dropout_seed=None):
+                            dropout_rate: float = 0.0, dropout_seed=None, legacy: bool = False):
     """(dq_u, dq_v, dk, dv, dpos): on a CUDA tensor kernels 6, 7 and 8, on a
-    CPU tensor ``rel_flash_attention_bwd_plain``."""
-    if q_u.device.type == "cpu":
+    CPU tensor their plain versions. ``legacy``: q_v and pos as the legacy
+    form holds them (D wide, an (H, T, D) table); kernel 6 takes them so,
+    kernels 7 and 8 the doubled inputs of ``legacy_rel_inputs``, assembled
+    here, and ``legacy_dpos`` maps the table gradient back."""
+    if not legacy and q_u.device.type == "cpu":
         return rel_flash_attention_bwd_plain(q_u, q_v, k, v, pos, kv_lens, out, lse, d_out,
                                              dropout_rate, dropout_seed)
-    args = (q_u, q_v, k, v, pos, kv_lens, lse, _delta(out, d_out), d_out.contiguous(),
-            dropout_rate, dropout_seed)
-    dq_u, dq_v = rel_flash_bwd_dq(*args)
+    delta, d_out = _delta(out, d_out), d_out.contiguous()
+    drop = (dropout_rate, dropout_seed)
+    dq_u, dq_v = rel_flash_bwd_dq(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, *drop,
+                                  legacy=legacy)
+    if legacy:
+        q_v, pos = legacy_rel_inputs(q_v, pos)
+    args = (q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, *drop)
     dk, dv = rel_flash_bwd_dkv(*args)
-    return dq_u, dq_v, dk, dv, rel_flash_bwd_dpos(*args)
+    dpos = rel_flash_bwd_dpos(*args)
+    return dq_u, dq_v, dk, dv, legacy_dpos(dpos) if legacy else dpos
 
 
 class _RelFlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q_u, q_v, k, v, pos, lens, rate, seed):
-        out, lse = _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse=True)
+    def forward(ctx, q_u, q_v, k, v, pos, lens, rate, seed, legacy):
+        out, lse = _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse=True, legacy=legacy)
         ctx.save_for_backward(q_u, q_v, k, v, pos, lens, out, lse)
-        ctx.rate, ctx.seed = rate, seed
+        ctx.rate, ctx.seed, ctx.legacy = rate, seed, legacy
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         q_u, q_v, k, v, pos, lens, out, lse = ctx.saved_tensors
         grads = rel_flash_attention_bwd(q_u, q_v, k, v, pos, lens, out, lse, d_out,
-                                        ctx.rate, ctx.seed)
-        return (*grads, None, None, None)
+                                        ctx.rate, ctx.seed, ctx.legacy)
+        return (*grads, None, None, None, None)
 
 
 def legacy_rel_inputs(q_v, pos):
-    """The legacy form's (q_v2, table) for the kernels, in plain
-    differentiable ops (the JAX package's assembly in ``rel_flash_attention``,
-    without its padding): the legacy ``rel_shift`` gives
-
-        bd[i, j] = q_v[i]   . pos[T-1-(i-j)]   for j <= i
-        bd[i, j] = 0                           for j == i + 1
-        bd[i, j] = q_v[i+1] . pos[j-i-2]       for j >= i + 2,
-
-    which is one band product of q_v2 = [q_v[i], q_v[i+1]] (B, H, T, 2D)
-    with a (H, 2T-1, 2D) table in the new style's row order (row p <->
-    distance T-1-p): columns [0, D) hold pos[0 .. T-1] in rows 0 .. T-1,
-    columns [D, 2D) hold pos[0 .. T-3] in rows T+1 .. 2T-2, and every other
-    entry (row T, distance -1, among them) is zero. Autograd maps the
-    kernels' dq_v and dpos back through it.
+    """The legacy form's doubled (q_v2, table), the inputs of kernels 7 and 8
+    and of their plain versions (the JAX package's assembly in
+    ``rel_flash_attention``, without its padding): the legacy ``rel_shift``
+    (``legacy_band``) is one band product of q_v2 = [q_v[i], q_v[i+1]] (B,
+    H, T, 2D) with a (H, 2T-1, 2D) table in the new style's row order (row
+    p <-> distance T-1-p): columns [0, D) hold pos[0 .. T-1] in rows 0 ..
+    T-1, columns [D, 2D) hold pos[0 .. T-3] in rows T+1 .. 2T-2, and every
+    other entry (row T, distance -1, among them) is zero.
 
     q_v: (B, H, T, D); pos: (H, T, D), row p <-> absolute position p."""
     H, T, D = pos.shape
@@ -466,6 +556,19 @@ def legacy_rel_inputs(q_v, pos):
     lo = F.pad(pos, (0, 0, 0, T - 1))
     hi = F.pad(pos[:, :n_hi], (0, 0, 2 * T - 1 - n_hi, 0))
     return torch.cat([q_v, q_next], dim=-1), torch.cat([lo, hi], dim=-1)
+
+
+def legacy_dpos(dtable):
+    """The adjoint of ``legacy_rel_inputs``' table assembly: the (H, 2T-1,
+    2D) gradient of the doubled table mapped back to the (H, T, D) legacy
+    table, in dtable's dtype (float32 arithmetic: pos[p] gets rows p of the
+    first half and, for p < T-2, row T+1+p of the second)."""
+    H, n, D2 = dtable.shape
+    T, D = (n + 1) // 2, D2 // 2
+    n_hi = max(0, T - 2)
+    dpos = dtable[:, :T, :D].float()
+    hi = dtable[:, n - n_hi:, D:].float()
+    return (dpos + F.pad(hi, (0, 0, 0, T - n_hi))).to(dtable.dtype)
 
 
 def rel_flash_attention(
@@ -485,8 +588,9 @@ def rel_flash_attention(
         dropout_seed: a host int in [0, 2^31); required when dropout_rate > 0.
             The forward and the backward draw the same mask from it.
         legacy: the legacy relative-position form (the reference's
-            ``LegacyRelPositionMultiHeadedAttention``): the same kernels at
-            twice the q_v/table width, on ``legacy_rel_inputs``.
+            ``LegacyRelPositionMultiHeadedAttention``, ``legacy_band``): the
+            forward and dq kernels on q_v and the table as given, the dk/dv
+            and dpos kernels on ``legacy_rel_inputs``.
     Returns:
         (B, H, T, D) context in the input dtype. Rows of a batch item whose
         kv_len is 0 are zeros.
@@ -501,13 +605,12 @@ def rel_flash_attention(
         ((B, H, T, D),) * 4 + ((H, T if legacy else 2 * T - 1, D),),
     )
     _check_device("rel_flash_attention", q_u)
-    if legacy:
-        q_v, pos = legacy_rel_inputs(q_v, pos)
     lens = _kv_lens(kv_lens, B, T, q_u.device).contiguous()
     rate, seed = float(dropout_rate), (None if dropout_seed is None else int(dropout_seed))
+    legacy = bool(legacy)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q_u, q_v, k, v, pos)):
-        return _RelFlashAttention.apply(q_u, q_v, k, v, pos, lens, rate, seed)
-    return _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse=False)[0]
+        return _RelFlashAttention.apply(q_u, q_v, k, v, pos, lens, rate, seed, legacy)
+    return _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse=False, legacy=legacy)[0]
 
 
 # kernel launches (CPU calls do not count), one counter for each kernel and

@@ -18,7 +18,7 @@ class ARVCTrainer(Trainer):
 
     def loss_fn(self, batch: Dict[str, Any], flags, generator):
         out = self.model(batch["xs"], batch["ilens"], batch["ys"], batch["labels"],
-                         batch["olens"])
+                         batch["olens"], generator=generator)
         l1_loss, bce_loss = self.criterion["Seq2SeqLoss"](
             out["after_outs"], out["before_outs"], out["logits"], out["ys"], out["labels"],
             out["olens"],

@@ -8,9 +8,10 @@ intervals, and checkpoints in the port's own ``torch.save`` format.
 Randomness: dropout draws from torch's default generators, which the
 trainer seeds from ``config["seed"]`` (PyTorch's dropout takes no
 generator argument). Every other draw of the step (the stochastic duration
-predictor's ``e_q``) comes from ``self.generator``, a CPU generator that the
-trainer owns, so that a step on the card and one on the CPU draw the same
-numbers.
+predictor's ``e_q``, the VTN prenet's always-on dropout) comes from
+``self.generator``, a CPU generator that the trainer owns, so that a step on
+the card and one on the CPU draw the same numbers, and each evaluation from
+a fresh one seeded 1, so that the dev loss of the same weights is the same.
 
 Metrics stay on the device until the log interval, where one sync fetches
 them all. Each log appends the interval's averages to ``history``.

@@ -22,9 +22,11 @@ products in another order: atol 1e-4, rtol 1e-4 in float32; in bf16 one
 rounding of the float32 result on both sides: atol 1e-2, rtol 2^-7. The
 dropout masks are the same bits on both sides, so the rate does not change
 a tolerance. The standard flash kernels (forward, lse, dq, dk/dv) as the
-rel-pos ones. The legacy form (q_v and the table at QW = 2D) and kernels 4
-and 5 (the ``bwd="pallas"`` pair) as the kernels they share their
-arithmetic with: the rel-pos flash kernels and kernel 3.
+rel-pos ones. The legacy form and kernels 4 and 5 (the ``bwd="pallas"`` pair)
+as the kernels they share their arithmetic with: the rel-pos flash kernels
+and kernel 3. Kernels 2 and 6 in bf16 feed the weights P and dS to the
+tensor cores rounded to bf16 (2^-9 relative each, in sums of many terms of
+either sign), well inside the bf16 tolerances above.
 """
 
 import numpy as np
@@ -319,15 +321,15 @@ def test_flash_wrapper_refuses_head_dims_past_256(cuda_device):
         flash_attention(q, q, q)
 
 
-# ----------------------------------------- the legacy form: QW = 2D
+# ------------------------------ the legacy form: D wide in kernels 2 and 6
 def _legacy_inputs(device, dtype, B, H, T, D, seed):
-    """(q_u, q_v2, k, v, table) at the kernels' legacy widths: q_v2 and the
-    table of ``legacy_rel_inputs`` (QW = 2D)."""
+    """(q_u, q_v, k, v, pos) of the legacy form, D wide with the (H, T, D)
+    table, and the doubled (q_v2, table) of ``legacy_rel_inputs`` that
+    kernels 7 and 8 take (QW = 2D)."""
     qu, qv, k, v, _ = _inputs(device, dtype, B, H, T, D, seed)
     pos = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((H, T, D))
                            .astype(np.float32)).to(device, dtype)
-    qv2, table = fa.legacy_rel_inputs(qv, pos)
-    return [qu, qv2, k, v, table], (qv, pos)
+    return [qu, qv, k, v, pos], fa.legacy_rel_inputs(qv, pos)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -335,24 +337,26 @@ def _legacy_inputs(device, dtype, B, H, T, D, seed):
 @pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
 def test_legacy_rel_flash_kernels_match_plain(cuda_device, zero_counts, rate, dtype, T, D):
     dt = getattr(torch, dtype)
-    ins, _ = _legacy_inputs(cuda_device, dt, 3, 2, T, D, 14)
-    assert ins[1].shape[-1] == ins[4].shape[-1] == 2 * D
+    ins, (qv2, table) = _legacy_inputs(cuda_device, dt, 3, 2, T, D, 14)
+    assert qv2.shape[-1] == table.shape[-1] == 2 * D
     lens = torch.tensor([T, T // 3, 0], dtype=torch.int32, device=cuda_device)
-    out, lse = fa._fwd(*ins, lens, rate, 99, need_lse=True)
-    want, want_lse = rel_flash_attention_plain(*ins, lens, rate, 99, return_lse=True)
+    out, lse = fa._fwd(*ins, lens, rate, 99, need_lse=True, legacy=True)
+    want, want_lse = rel_flash_attention_plain(*ins, lens, rate, 99, return_lse=True, legacy=True)
     torch.cuda.synchronize()
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-4)
     d_out = torch.randn(out.shape, device=cuda_device,
                         generator=torch.Generator(device=cuda_device).manual_seed(2)).to(dt)
-    args = (*ins, lens, want_lse, fa._delta(want, d_out), d_out, rate, 5)
-    for kernel, plain, names in (
-        (rel_flash_bwd_dq, fa.rel_flash_bwd_dq_plain, ("dq_u", "dq_v")),
-        (rel_flash_bwd_dkv, fa.rel_flash_bwd_dkv_plain, ("dk", "dv")),
-        (rel_flash_bwd_dpos, fa.rel_flash_bwd_dpos_plain, ("dpos",)),
+    delta = fa._delta(want, d_out)
+    wide = (ins[0], qv2, *ins[2:4], table)
+    for kernel, plain, names, args, kw in (
+        (rel_flash_bwd_dq, fa.rel_flash_bwd_dq_plain, ("dq_u", "dq_v"), ins, dict(legacy=True)),
+        (rel_flash_bwd_dkv, fa.rel_flash_bwd_dkv_plain, ("dk", "dv"), wide, {}),
+        (rel_flash_bwd_dpos, fa.rel_flash_bwd_dpos_plain, ("dpos",), wide, {}),
     ):
-        got, want_g = kernel(*args), plain(*args)
+        got = kernel(*args, lens, want_lse, delta, d_out, rate, 5, **kw)
+        want_g = plain(*args, lens, want_lse, delta, d_out, rate, 5, **kw)
         torch.cuda.synchronize()
         got, want_g = (x if isinstance(x, tuple) else (x,) for x in (got, want_g))
         for name, a, b in zip(names, got, want_g):
@@ -362,6 +366,46 @@ def test_legacy_rel_flash_kernels_match_plain(cuda_device, zero_counts, rate, dt
     # every launch counted as the legacy form's
     assert [fn.launches for fn in LEGACY_COUNTED] == [0] * 4
     assert [fn.legacy_launches for fn in LEGACY_COUNTED] == [1] * 4
+
+
+# kernels 2 and 6 on the tensor cores (bf16) and in FMA (float32): both head
+# dims, both forms, rate 0 and 0.2, key padding and a fully masked row; T
+# 200 spans four row blocks and four key tiles, so legacy tiles fall below,
+# above and across the diagonal. Tolerances as above.
+@pytest.mark.parametrize("legacy", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [192, 768])
+def test_tensor_core_fwd_and_dq_match_plain(cuda_device, zero_counts, legacy, rate, dtype, D):
+    dt, T = getattr(torch, dtype), 200
+    ins = (_legacy_inputs(cuda_device, dt, 3, 2, T, D, 18)[0] if legacy
+           else _inputs(cuda_device, dt, 3, 2, T, D, 18))
+    lens = torch.tensor([T, 77, 0], dtype=torch.int32, device=cuda_device)
+    out, lse = fa._fwd(*ins, lens, rate, 41, need_lse=True, legacy=legacy)
+    serving = rel_flash_attention(*ins, kv_lens=lens, legacy=legacy)
+    want, want_lse = rel_flash_attention_plain(*ins, lens, rate, 41, return_lse=True,
+                                               legacy=legacy)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        serving.float().cpu().numpy(),
+        rel_flash_attention_plain(*ins, lens, legacy=legacy).float().cpu().numpy(), **tol)
+    assert not out[2].any() and (lse[2] == fa.NEG_INF).all()
+    d_out = torch.randn(out.shape, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(3)).to(dt)
+    args = (*ins, lens, want_lse, fa._delta(want, d_out), d_out, rate, 41)
+    got = rel_flash_bwd_dq(*args, legacy=legacy)
+    want_g = fa.rel_flash_bwd_dq_plain(*args, legacy=legacy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq_u", "dq_v"), got, want_g):
+        assert a.dtype == dt and a.shape == b.shape == ins[0].shape, name
+        np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                   err_msg=name, **BWD_TOL[dtype])
+    assert not got[0][2].any() and not got[1][2].any()  # no live key, no gradient
+    counter = "legacy_launches" if legacy else "launches"
+    assert [getattr(fn, counter) for fn in (rel_flash_attention, rel_flash_bwd_dq)] == [2, 1]
 
 
 def test_legacy_flash_autograd_on_the_card_goes_through_the_legacy_kernels(cuda_device,

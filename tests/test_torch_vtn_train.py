@@ -239,3 +239,21 @@ def test_trainer_runs_on_a_corpus_read_through_the_loader(tmp_path):
     with pytest.raises(NotImplementedError, match="guided"):
         ARVCTrainer(state, _criterion(), dict(CONFIG, use_guided_attn_loss=True), [],
                     device="cpu")
+
+
+def test_evaluate_gives_the_same_dev_loss_twice():
+    """The prenet's always-on dropout (rate 0.5) draws from the step's
+    generator, which ``evaluate`` seeds afresh for each dev batch: two
+    evaluations of the same weights give the same dev loss, and a
+    different generator gives a different one."""
+    port, _, _ = vtn_pair(seed=2, dprenet_dropout_rate=0.5)
+    state = TrainState(port, build_optimizer(port.parameters(), **OPT))
+    trainer = ARVCTrainer(state, _criterion(), dict(CONFIG), [], dev_loader=[_batch()],
+                          device="cpu")
+    first, second = trainer.evaluate(), trainer.evaluate()
+    assert first == second and np.isfinite(first["loss"])
+    trainer.model.eval()
+    with torch.no_grad():
+        batch = trainer._array_batch(_batch())
+        other = trainer.loss_fn(batch, trainer._flags(), torch.Generator().manual_seed(7))[0]
+    assert float(other) != first["loss"]
