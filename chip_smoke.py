@@ -15,7 +15,7 @@ Phases, each printed on lines of its own:
    off), and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
    registers and spills, and the HMMA instructions of every variant of the
-   tensor-core kernels (2 and 6) in ``cuobjdump -sass``: each bfloat16
+   tensor-core kernels (2 and 6-8) in ``cuobjdump -sass``: each bfloat16
    variant must issue them;
 2. warm-up: a full-width ``Wav2WavConverter`` (the AAS-VC flagship of
    ``egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml`` and the HiFi-GAN that
@@ -206,11 +206,11 @@ KERNELS = {
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:654",
     ),
     "rel_flash_bwd_dkv": dict(
-        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd.cu",
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd_dkv.cu",
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:695",
     ),
     "rel_flash_bwd_dpos": dict(
-        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd.cu",
+        route="cuda", source="seq2seq_vc_torch/csrc/rel_flash_bwd_dpos.cu",
         replaces="seq2seq_vc_tpu/ops/flash_attention.py:732",
     ),
 }
@@ -241,9 +241,9 @@ KERNELS.update({
         replaces="seq2seq_vc_tpu/ops/rel_scores.py:122",
     ),
 })
-# the legacy form of kernels 2 and 6-8 (2 and 6 D wide, 7 and 8 on the
-# doubled q_v and table), rows of their own: same sources, same TPU kernels,
-# own launch counts
+# the legacy form of kernels 2 and 6-8 (D wide, on q_v and the (H, T, D)
+# table as the module holds them), rows of their own: same sources, same
+# TPU kernels, own launch counts
 LEGACY_TAG = "[legacy]"
 LEGACY = tuple(n + LEGACY_TAG for n in ("rel_flash_attention", *FLASH_BWD))
 KERNELS.update({n: dict(KERNELS[n.removesuffix(LEGACY_TAG)]) for n in LEGACY})
@@ -295,8 +295,9 @@ TOLERANCE = {
     **{(n, torch.float32): dict(atol=1e-4, rtol=1e-4) for n in STD[1:]},
     **{(n, torch.bfloat16): dict(atol=1e-2, rtol=2 ** -7) for n in STD[1:]},
 }
-# the legacy form as the new style (the same sums, twice as long on the
-# band); kernels 4 and 5 as kernel 3, whose two outputs they are
+# the legacy form as the new style (the same sums: a legacy band cell is D
+# products, as a new-style one); kernels 4 and 5 as kernel 3, whose two
+# outputs they are
 TOLERANCE.update({(n, dt): TOLERANCE[(n.removesuffix(LEGACY_TAG), dt)]
                   for n in LEGACY for dt in (torch.float32, torch.bfloat16)})
 TOLERANCE.update({(n, dt): TOLERANCE[("rel_band_bwd", dt)]
@@ -429,8 +430,7 @@ def bound(name, B, H, T, D, dtype, lens, lse=False, Tk=None, causal=False):
     ``Tk`` the key length of the standard kernels. The legacy form counts
     its function's work, not its kernel's: a band score is D multiply-adds
     (q_v[i] or q_v[i+1] against one table row, or none), the table is (H,
-    T, D), and dq_v and dpos come out D wide. Kernels 7 and 8's doubled
-    width (QW = 2D, half of it against zeros) is waste against this bound."""
+    T, D), and dq_v and dpos come out D wide."""
     e = torch.finfo(dtype).bits // 8
     legacy = name.endswith(LEGACY_TAG)
     name = name.removesuffix(LEGACY_TAG)
@@ -520,19 +520,13 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     """One kernel against its plain version on the same card inputs.
     ``rate``: the flash kernels' training form, with dropout at ``rate``
     (0 included) and the forward's logsumexp; None is the serving form. A
-    ``[legacy]`` name runs the rel-pos flash kernel in the legacy form:
-    the forward and dq kernels on q_v and the (H, T, D) table as the module
-    holds them, the dk/dv and dpos kernels on the doubled q_v and table that
-    ``legacy_rel_inputs`` assembles (QW = 2D)."""
+    ``[legacy]`` name runs the rel-pos flash kernel in the legacy form, on
+    q_v and the (H, T, D) table as the module holds them."""
     from seq2seq_vc_torch.ops import flash_attention as fa
     from seq2seq_vc_torch.ops import rel_scores as rs
 
     base, legacy = name.removesuffix(LEGACY_TAG), name.endswith(LEGACY_TAG)
     qu, qv, k, v, pos, lens = kernel_inputs(B, H, T, D, dtype, seed, lens, legacy)
-    # what the kernels take: kernels 7 and 8 the doubled legacy inputs
-    wide = legacy and base in ("rel_flash_bwd_dkv", "rel_flash_bwd_dpos")
-    qv_k, pos_k = fa.legacy_rel_inputs(qv, pos) if wide else (qv, pos)
-    legacy_kw = dict(legacy=True) if legacy and not wide else {}
     library_ms = fwd_bwd_ms = None
     drop = (rate, seed) if rate else (0.0, None)
     if base == "fused_rel_scores":
@@ -584,14 +578,14 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
                             generator=torch.Generator(device="cuda").manual_seed(seed + 2)).to(dtype)
         out, lse = fa.rel_flash_attention_plain(qu, qv, k, v, pos, lens, *drop,
                                                 return_lse=True, legacy=legacy)
-        args = (qu, qv_k, k, v, pos_k, lens, lse, fa._delta(out, d_out), d_out, *drop)
+        args = (qu, qv, k, v, pos, lens, lse, fa._delta(out, d_out), d_out, *drop)
         wrapper, plain_fn = getattr(fa, base), getattr(fa, base + "_plain")
 
         def kernel():
-            return wrapper(*args, **legacy_kw)
+            return wrapper(*args, legacy=legacy)
 
         def plain():
-            return plain_fn(*args, **legacy_kw)
+            return plain_fn(*args, legacy=legacy)
 
         fwd_bwd_ms, library_ms = flash_fwd_bwd_ms(qu, qv, k, v, pos, lens, d_out, rate or 0.0,
                                                   legacy)
@@ -1888,7 +1882,9 @@ def ptxas_report(text: str):
 
 
 # the tensor-core kernels: their bfloat16 instantiations must issue HMMA
-TENSOR_CORE = {"rel_flash": "rel_flash_fwd_kernel", "rel_flash_bwd_dq": "rel_flash_bwd_dq_kernel"}
+TENSOR_CORE = {"rel_flash": "rel_flash_fwd_kernel", "rel_flash_bwd_dq": "rel_flash_bwd_dq_kernel",
+               "rel_flash_bwd_dkv": "rel_flash_bwd_dkv_kernel",
+               "rel_flash_bwd_dpos": "rel_flash_bwd_dpos_kernel"}
 
 
 def sass_hmma():

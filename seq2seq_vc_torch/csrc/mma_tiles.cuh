@@ -1,5 +1,6 @@
-// Tensor-core tile helpers shared by the rel-pos flash forward
-// (csrc/rel_flash.cu) and dq (csrc/rel_flash_bwd_dq.cu) kernels.
+// Tensor-core tile helpers shared by the rel-pos flash kernels: the forward
+// (csrc/rel_flash.cu) and the backward's dq, dk/dv and dpos
+// (csrc/rel_flash_bwd_dq.cu, rel_flash_bwd_dkv.cu, rel_flash_bwd_dpos.cu).
 //
 // One warp multiplies a 16 x 16 tile A by a 16 x 8 tile B into an m16n8
 // fragment of float32 accumulators: lane l holds the cells (l/4, 2*(l%4)),

@@ -259,18 +259,9 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_kernel(Args a, bool align
             const int jl = tx + 16 * c, j = j0 + jl;
             const bool valid = i < L && j < kv_len;
             const float x = s_s[ty * LDS + jl] + band(s_raw, LDR, LEGACY, sl, ty, jl, j - i);
-            const float p = valid ? expf(x * a.scale - s_lse[ty]) : 0.f;
-            const float dp = s_dp[ty * LDS + jl];
-            float ds;
-            if (a.rate > 0.f) {
-              const float pd =
-                  (valid && s2s::dropout_keep(a.seed, bh, i, j, a.t_pad, a.t_pad, a.rate))
-                      ? p * a.keep_scale
-                      : 0.f;
-              ds = (pd * dp - p * s_delta[ty]) * a.scale;
-            } else {
-              ds = p * (dp - s_delta[ty]) * a.scale;
-            }
+            float pd, ds;
+            cell_grads(a, x, s_dp[ty * LDS + jl], s_lse[ty], s_delta[ty], valid, bh, i, j, pd,
+                       ds);
             s_ds[ty * LDD + jl] = from_f<T>(ds);
           }
           __syncthreads();

@@ -1,8 +1,10 @@
 // The tiling shared by the rel-pos flash forward (csrc/rel_flash.cu) and dq
-// (csrc/rel_flash_bwd_dq.cu) kernels: a block owns BM query rows and walks
-// the keys in tiles of BN; each tile's band term comes from the window of
-// BM+BN-1 table rows it touches, multiplied as a (BM, WINR) product and
-// skewed by index arithmetic in shared memory.
+// (csrc/rel_flash_bwd_dq.cu) kernels, whose band slots the dk/dv kernel
+// (csrc/rel_flash_bwd_dkv.cu) takes too, and the backward's per-cell
+// recompute (`cell_grads`, also csrc/rel_flash_bwd_dpos.cu's). A block owns
+// BM query rows and walks the keys in tiles of BN; each tile's band term
+// comes from the window of BM+BN-1 table rows it touches, multiplied as a
+// (BM, WINR) product and skewed by index arithmetic in shared memory.
 //
 // The band's windows ("slots"). New style: one, table rows T-1-i+j. Legacy
 // (the table (H, T, D), row p <-> absolute position p): cells j <= i read
@@ -56,17 +58,19 @@ struct Slots {
   int row0[2];  // table row of window row 0
 };
 
-// the slots of query tile i0 against key tile j0; T = L
+// the slots of a tile of TM queries from i0 against TN keys from j0 (window
+// row w = j - i + TM - 1, TM + TN - 1 rows); T = L
+template <int TM = BM, int TN = BN>
 __device__ __forceinline__ Slots tile_slots(bool legacy, int L, int i0, int j0) {
   Slots s;
-  const int lo = L - BM - i0 + j0;  // row T-1-i+j at window row 0
+  const int lo = L - TM - i0 + j0;  // row T-1-i+j at window row 0
   s.n = 1;
   s.aoff[0] = s.aoff[1] = 0;
   s.row0[0] = s.row0[1] = lo;
   if (!legacy) return s;
-  const bool has_lo = j0 <= i0 + BM - 1;       // some cell j <= i
-  const bool has_hi = j0 + BN - 1 >= i0 + 2;   // some cell j >= i + 2
-  const int hi = j0 - i0 - BM - 1;             // row j-i-2 at window row 0
+  const bool has_lo = j0 <= i0 + TM - 1;       // some cell j <= i
+  const bool has_hi = j0 + TN - 1 >= i0 + 2;   // some cell j >= i + 2
+  const int hi = j0 - i0 - TM - 1;             // row j-i-2 at window row 0
   if (has_lo && has_hi) {
     s.n = 2;
     s.aoff[1] = 1;
@@ -92,6 +96,26 @@ __device__ __forceinline__ float band(const float* raw, int ldr, bool legacy, co
 // whether cell (r, jl), d = j - i, belongs to slot `slot`'s band
 __device__ __forceinline__ bool in_slot(bool legacy, const Slots& s, int slot, int d) {
   return !legacy || (s.aoff[slot] == 0 ? d <= 0 : d >= 2);
+}
+
+// The backward's per-cell recompute (`_rel_block_grads`), shared by the dq,
+// dk/dv and dpos kernels: from the raw score x = q_u.k + band and dp = dO.v
+// of cell (query i, key j), p = exp(x * scale - lse), pd = keep(i, j) ? p /
+// (1 - rate) : 0 (pd = p at rate 0) and ds = (pd * dp - p * delta) * scale;
+// both 0 where !valid. `a` carries scale, rate, keep_scale, seed and t_pad.
+template <typename A>
+__device__ __forceinline__ void cell_grads(const A& a, float x, float dp, float lse, float delta,
+                                           bool valid, int bh, int i, int j, float& pd,
+                                           float& ds) {
+  const float p = valid ? expf(x * a.scale - lse) : 0.f;
+  if (a.rate > 0.f) {
+    pd = (valid && dropout_keep(a.seed, bh, i, j, a.t_pad, a.t_pad, a.rate)) ? p * a.keep_scale
+                                                                             : 0.f;
+    ds = (pd * dp - p * delta) * a.scale;
+  } else {
+    pd = p;
+    ds = p * (dp - delta) * a.scale;
+  }
 }
 
 // output n-tiles (8 columns each) a warp owns for head dim D: D <= 64 * NTW

@@ -21,17 +21,18 @@ new-style or (``legacy=True``) the legacy relative-position form:
 - forward: on a CUDA tensor the Hopper kernel in ``csrc/rel_flash.cu``, on a
   CPU tensor ``rel_flash_attention_plain``;
 - backward (FlashAttention-2 style: the score tiles are recomputed from
-  q, k, the table and the saved logsumexp): on a CUDA tensor the dq kernel
-  of ``csrc/rel_flash_bwd_dq.cu`` (``rel_flash_bwd_dq``) and the two
-  kernels of ``csrc/rel_flash_bwd.cu`` (``rel_flash_bwd_dkv``,
-  ``rel_flash_bwd_dpos``), on a CPU tensor their plain versions.
+  q, k, the table and the saved logsumexp): on a CUDA tensor the three
+  tensor-core kernels of ``csrc/rel_flash_bwd_dq.cu`` (``rel_flash_bwd_dq``),
+  ``csrc/rel_flash_bwd_dkv.cu`` (``rel_flash_bwd_dkv``) and
+  ``csrc/rel_flash_bwd_dpos.cu`` (``rel_flash_bwd_dpos``), on a CPU tensor
+  their plain versions.
 
-The forward and dq kernels take the legacy form D wide, as the module holds
-it: q_v (B, H, T, D) and the (H, T, D) table, each band cell reading q_v row
-i or i+1 and its table row by the sign of j - i (``legacy_band``). The
-dk/dv and dpos kernels still take it at twice the width, on the q_v2 and
-table that ``legacy_rel_inputs`` assembles; ``legacy_dpos`` maps their
-table gradient back.
+Every kernel takes the legacy form D wide, as the module holds it: q_v (B,
+H, T, D) and the (H, T, D) table, each band cell reading q_v row i or i+1
+and its table row by the sign of j - i (``legacy_band``; its adjoints
+``legacy_band_dqv`` and ``legacy_band_dpos``). Nothing doubled is
+assembled: ``legacy_rel_inputs`` and ``legacy_dpos``, the doubled-width
+derivation of the same function, serve the tests only.
 
 Dropout acts on the *normalised* weights with 1/(1-rate) scaling (the
 softmax's row sum is taken before the drop), torch-style. Its keep mask is
@@ -69,8 +70,7 @@ NEG_INF = -1e30  # finite mask value, as in the JAX kernels
 # padded to a multiple of it
 DROPOUT_BLOCK = 128
 STD_MAX_D = 256  # head dims the standard kernels take (csrc/flash.cu, flash_bwd.cu)
-REL_MAX_D = 1024  # head dims the rel-pos kernels take (csrc/rel_flash.cu, rel_flash_bwd.cu)
-REL_MAX_QW = 2048  # and q_v/table widths: 2 * D in the legacy form
+REL_MAX_D = 1024  # head dims the rel-pos flash kernels take (csrc/rel_flash*.cu)
 _M32 = 0xFFFFFFFF
 
 _c = ctypes.c_void_p
@@ -199,6 +199,27 @@ def legacy_band_dqv(g, pos):
             torch.einsum("bhip,hpd->bhid", d_hi, pos.float()))
 
 
+def legacy_band_dpos(g, q_v):
+    """The legacy band's table cotangent, (H, T, D) float32, from the (B, H,
+    T, T) band cotangent ``g``, summed over the batch (the adjoint of
+    ``legacy_band`` in ``pos``, as ``legacy_band_dqv`` is in ``q_v``):
+
+        dpos[p] = sum_b sum_i g[i, i+p-(T-1)] q_v[i]     (j <= i: "lo")
+                + sum_b sum_i g[i, i+p+2]     q_v[i+1]   (j >= i+2: "hi")
+
+    the hi term only where the key i+p+2 and the row i+1 lie below T."""
+    B, H, T, _ = g.shape
+    i = torch.arange(T, device=g.device)[:, None]
+    p = torch.arange(T, device=g.device)[None, :]
+    j_lo, j_hi = p + i - (T - 1), p + i + 2  # the key of table row p in each case
+    g = g.float()
+    d_lo = torch.gather(g, 3, j_lo.clamp(0, T - 1).expand(B, H, T, T)) * (j_lo >= 0)
+    d_hi = torch.gather(g, 3, j_hi.clamp(0, T - 1).expand(B, H, T, T)) * (j_hi < T)
+    q_next = F.pad(q_v[:, :, 1:], (0, 0, 0, 1)).float()
+    return (torch.einsum("bhip,bhid->hpd", d_lo, q_v.float())
+            + torch.einsum("bhip,bhid->hpd", d_hi, q_next))
+
+
 def shift_legacy_dqv(lo, hi):
     """dq_v = lo + hi moved down one row: the contributions in ``hi[i]``
     belong to q_v row i + 1 (the last row's are zero: no key lies past
@@ -295,34 +316,48 @@ def rel_flash_bwd_dq_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
 
 
 def rel_flash_bwd_dkv_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
-                            dropout_rate=0.0, dropout_seed=None):
-    """Plain version of the dk/dv kernel: (dk, dv) in the dtypes of k, v."""
+                            dropout_rate=0.0, dropout_seed=None, legacy: bool = False):
+    """Plain version of the dk/dv kernel: (dk, dv) in the dtypes of k, v;
+    ``legacy`` as in ``rel_flash_attention_plain``."""
     pd, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, dropout_rate,
-                        dropout_seed)
+                        dropout_seed, legacy)
     dk = (torch.matmul(ds.transpose(-1, -2), q_u.float()) * _rsqrt_d(q_u)).to(k.dtype)
     dv = torch.matmul(pd.transpose(-1, -2), d_out.float())
     return dk, dv.to(v.dtype)
 
 
+def _band_dpos(ds, q_v, pos, scale, legacy: bool):
+    """The table gradient in pos's dtype from the unscaled ``ds``."""
+    if legacy:
+        return legacy_band_dpos(ds * scale, q_v).to(pos.dtype)
+    return rel_band_bwd_dpos_plain(ds, q_v, pos, scale)
+
+
 def rel_flash_bwd_dpos_plain(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
-                             dropout_rate=0.0, dropout_seed=None):
-    """Plain version of the dpos kernel: the (H, 2T-1, QW) table gradient."""
+                             dropout_rate=0.0, dropout_seed=None, legacy: bool = False):
+    """Plain version of the dpos kernel: the table gradient in pos's shape,
+    (H, 2T-1, QW) or, ``legacy``, (H, T, D) (``legacy_band_dpos``)."""
     _, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, dropout_rate,
-                       dropout_seed)
-    return rel_band_bwd_dpos_plain(ds, q_v, pos, _rsqrt_d(q_u))
+                       dropout_seed, legacy)
+    return _band_dpos(ds, q_v, pos, _rsqrt_d(q_u), legacy)
 
 
 def rel_flash_attention_bwd_plain(q_u, q_v, k, v, pos, kv_lens, out, lse, d_out,
-                                  dropout_rate: float = 0.0, dropout_seed=None):
+                                  dropout_rate: float = 0.0, dropout_seed=None,
+                                  legacy: bool = False):
     """Plain PyTorch version of the whole backward (float32 arithmetic):
     (dq_u, dq_v, dk, dv, dpos) in the dtypes of (q_u, q_v, k, v, pos), from
     the forward's output ``out`` and logsumexp ``lse`` and the output's
-    cotangent ``d_out``."""
+    cotangent ``d_out``; ``legacy`` as in ``rel_flash_attention_plain``."""
     pd, ds = _recompute(q_u, q_v, k, v, pos, kv_lens, lse, _delta(out, d_out), d_out,
-                        dropout_rate, dropout_seed)
-    dq_u, dk = _score_side_grads(ds, q_u, k, _rsqrt_d(q_u))
+                        dropout_rate, dropout_seed, legacy)
+    scale = _rsqrt_d(q_u)
+    dq_u, dk = _score_side_grads(ds, q_u, k, scale)
     dv = torch.matmul(pd.transpose(-1, -2), d_out.float()).to(v.dtype)
-    dq_v, dpos = rel_band_bwd_plain(ds, q_v, pos, _rsqrt_d(q_u))
+    if legacy:
+        dq_v = shift_legacy_dqv(*legacy_band_dqv(ds * scale, pos)).to(q_v.dtype)
+        return dq_u, dq_v, dk, dv, _band_dpos(ds, q_v, pos, scale, legacy)
+    dq_v, dpos = rel_band_bwd_plain(ds, q_v, pos, scale)
     return dq_u, dq_v, dk, dv, dpos
 
 
@@ -331,12 +366,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda(name, D, QW):
-    """Raise on widths the rel-pos kernels do not take."""
+def _check_cuda(name, D):
+    """Raise on head dims the rel-pos kernels do not take."""
     if D > REL_MAX_D:
         raise ValueError(f"{name}: head dim {D} > {REL_MAX_D} not supported")
-    if QW > REL_MAX_QW:
-        raise ValueError(f"{name}: q_v/table width {QW} > {REL_MAX_QW} not supported")
 
 
 def _dropout_args(rate: float, seed, *lengths: int):
@@ -373,7 +406,7 @@ def _fwd(q_u, q_v, k, v, pos, lens, rate, seed, need_lse, legacy=False):
 def _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed, legacy=False):
     """One forward kernel launch into ``out`` (and ``lse`` unless None)."""
     B, H, T, D = q_u.shape
-    _check_cuda("rel_flash_attention", D, q_v.shape[-1])
+    _check_cuda("rel_flash_attention", D)
     qu, qv, kc, vc, pc = (t.contiguous() for t in (q_u, q_v, k, v, pos))
     fn = native.load("rel_flash").rel_flash_fwd
     fn.restype = _i
@@ -390,36 +423,31 @@ def _fwd_launch(q_u, q_v, k, v, pos, lens, out, lse, rate, seed, legacy=False):
     native.check(rc, "rel_flash_fwd")
 
 
-def _bwd_launch(library, symbol, q_u, q_v, k, v, pos, lens, lse, delta, d_out, outs, rate,
-                seed, width, extra=()):
-    """One backward kernel launch: the shared argument list of the C
-    functions of ``csrc/<library>.cu``, then ``outs`` and ``extra``; ``width``
-    is the q_v/table width argument (``csrc/rel_flash_bwd.cu``) or the
-    legacy flag (``csrc/rel_flash_bwd_dq.cu``)."""
+def _bwd_launch(symbol, q_u, q_v, k, v, pos, lens, lse, delta, d_out, outs, rate, seed,
+                legacy: bool):
+    """One backward kernel launch: the argument list shared by the C
+    functions of ``csrc/<symbol>.cu``, with ``outs`` (outputs and scratch)
+    after the inputs."""
     B, H, T, D = q_u.shape
-    _check_cuda(symbol, D, q_v.shape[-1])
+    _check_cuda(symbol, D)
     ins = [t.contiguous() for t in (q_u, q_v, k, v, pos, lens, lse, delta, d_out)]
-    fn = getattr(native.load(library), symbol)
+    fn = getattr(native.load(symbol), symbol)
     fn.restype = _i
-    fn.argtypes = ([_i] + [_c] * (len(ins) + len(outs) + len(extra))
+    fn.argtypes = ([_i] + [_c] * (len(ins) + len(outs))
                    + [_i, _i, _i, _i, _i, _f, _f, _f, ctypes.c_uint32, _i, _c])
     with torch.cuda.device(q_u.device):
         rc = fn(
             DTYPE_CODES[q_u.dtype],
-            *(None if t is None else t.data_ptr() for t in ins + list(outs) + list(extra)),
-            B, H, T, D, width, _rsqrt_d(q_u), *_dropout_args(rate, seed, T), _stream(q_u),
+            *(None if t is None else t.data_ptr() for t in ins + list(outs)),
+            B, H, T, D, int(legacy), _rsqrt_d(q_u), *_dropout_args(rate, seed, T), _stream(q_u),
         )
     native.check(rc, symbol)
 
 
 def _bwd_inputs(name, q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, legacy=False):
     B, H, T, D = q_u.shape
-    # q_v and the table: D, or 2 * D in the doubled legacy inputs of kernels
-    # 7 and 8; the legacy form D wide with an (H, T, D) table
-    QW = q_v.shape[-1]
     _check_inputs(name, (q_u, q_v, k, v, pos, d_out),
-                  ((B, H, T, D), (B, H, T, D if legacy else QW), (B, H, T, D), (B, H, T, D),
-                   (H, T if legacy else 2 * T - 1, D if legacy else QW), (B, H, T, D)))
+                  ((B, H, T, D),) * 4 + ((H, T if legacy else 2 * T - 1, D), (B, H, T, D)))
     for t, what in ((lse, "lse"), (delta, "delta")):
         if tuple(t.shape) != (B, H, T):
             raise ValueError(f"{name}: {what} must be {(B, H, T)}, got {tuple(t.shape)}")
@@ -447,80 +475,65 @@ def rel_flash_bwd_dq(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
         outs = (dq_u, lo, hi)
     else:
         outs = (dq_u, torch.empty_like(q_v, memory_format=torch.contiguous_format), None)
-    _bwd_launch("rel_flash_bwd_dq", "rel_flash_bwd_dq", *args, outs, dropout_rate,
-                dropout_seed, int(legacy))
+    _bwd_launch("rel_flash_bwd_dq", *args, outs, dropout_rate, dropout_seed, legacy)
     _count(rel_flash_bwd_dq, legacy)
     if legacy:
         return dq_u, shift_legacy_dqv(lo, hi).to(q_v.dtype)
     return dq_u, outs[1]
 
 
-def _wide(q_u, q_v) -> bool:
-    """Whether q_v is wider than the head dim: the doubled legacy inputs."""
-    return q_v.shape[-1] != q_u.shape[-1]
-
-
 def rel_flash_bwd_dkv(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
-                      dropout_rate: float = 0.0, dropout_seed=None):
-    """(dk, dv): on a CUDA tensor kernel 7 of ``csrc/rel_flash_bwd.cu``, on a
-    CPU tensor ``rel_flash_bwd_dkv_plain``. The legacy form takes the doubled
-    inputs of ``legacy_rel_inputs``."""
+                      dropout_rate: float = 0.0, dropout_seed=None, legacy: bool = False):
+    """(dk, dv): on a CUDA tensor kernel 7 of ``csrc/rel_flash_bwd_dkv.cu``
+    (one launch), on a CPU tensor ``rel_flash_bwd_dkv_plain``. Arguments as
+    ``rel_flash_bwd_dq``'s."""
     lens, lse, delta = _bwd_inputs("rel_flash_bwd_dkv", q_u, q_v, k, v, pos, kv_lens, lse,
-                                   delta, d_out)
+                                   delta, d_out, legacy)
     args = (q_u, q_v, k, v, pos, lens, lse, delta, d_out)
     if q_u.device.type == "cpu":
-        return rel_flash_bwd_dkv_plain(*args, dropout_rate, dropout_seed)
+        return rel_flash_bwd_dkv_plain(*args, dropout_rate, dropout_seed, legacy)
     dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (k, v))
-    _bwd_launch("rel_flash_bwd", "rel_flash_bwd_dkv", *args, (dk, dv), dropout_rate,
-                dropout_seed, q_v.shape[-1])
-    _count(rel_flash_bwd_dkv, _wide(q_u, q_v))
+    _bwd_launch("rel_flash_bwd_dkv", *args, (dk, dv), dropout_rate, dropout_seed, legacy)
+    _count(rel_flash_bwd_dkv, legacy)
     return dk, dv
 
 
 def rel_flash_bwd_dpos(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out,
-                       dropout_rate: float = 0.0, dropout_seed=None):
-    """The table gradient dpos (H, 2T-1, QW): on a CUDA tensor kernel 8 of
-    ``csrc/rel_flash_bwd.cu`` (per-batch-group partial sums and a fixed-order
-    second pass in the same call: deterministic, no atomics), on a CPU
-    tensor ``rel_flash_bwd_dpos_plain``. The legacy form takes the doubled
-    inputs of ``legacy_rel_inputs``; ``legacy_dpos`` maps its result back."""
+                       dropout_rate: float = 0.0, dropout_seed=None, legacy: bool = False):
+    """The table gradient dpos in pos's shape: on a CUDA tensor kernel 8 of
+    ``csrc/rel_flash_bwd_dpos.cu`` (per-batch-group partial sums and a
+    fixed-order second pass in the same call: deterministic, no atomics), on
+    a CPU tensor ``rel_flash_bwd_dpos_plain``. Arguments as
+    ``rel_flash_bwd_dq``'s."""
     lens, lse, delta = _bwd_inputs("rel_flash_bwd_dpos", q_u, q_v, k, v, pos, kv_lens, lse,
-                                   delta, d_out)
+                                   delta, d_out, legacy)
     args = (q_u, q_v, k, v, pos, lens, lse, delta, d_out)
     if q_u.device.type == "cpu":
-        return rel_flash_bwd_dpos_plain(*args, dropout_rate, dropout_seed)
-    B, H, T, _ = q_u.shape
+        return rel_flash_bwd_dpos_plain(*args, dropout_rate, dropout_seed, legacy)
     dpos = torch.empty_like(pos, memory_format=torch.contiguous_format)
-    groups = native.load("rel_flash_bwd").rel_flash_bwd_dpos_groups
+    groups = native.load("rel_flash_bwd_dpos").rel_flash_bwd_dpos_groups
     groups.restype, groups.argtypes = _i, [_i]
-    partial = torch.empty((groups(B), H, 2 * T - 1, q_v.shape[-1]), dtype=torch.float32,
+    partial = torch.empty((groups(q_u.shape[0]), *pos.shape), dtype=torch.float32,
                           device=q_u.device)
-    _bwd_launch("rel_flash_bwd", "rel_flash_bwd_dpos", *args, (dpos,), dropout_rate,
-                dropout_seed, q_v.shape[-1], extra=(partial,))
-    _count(rel_flash_bwd_dpos, _wide(q_u, q_v))
+    _bwd_launch("rel_flash_bwd_dpos", *args, (dpos, partial), dropout_rate, dropout_seed,
+                legacy)
+    _count(rel_flash_bwd_dpos, legacy)
     return dpos
 
 
 def rel_flash_attention_bwd(q_u, q_v, k, v, pos, kv_lens, out, lse, d_out,
                             dropout_rate: float = 0.0, dropout_seed=None, legacy: bool = False):
     """(dq_u, dq_v, dk, dv, dpos): on a CUDA tensor kernels 6, 7 and 8, on a
-    CPU tensor their plain versions. ``legacy``: q_v and pos as the legacy
-    form holds them (D wide, an (H, T, D) table); kernel 6 takes them so,
-    kernels 7 and 8 the doubled inputs of ``legacy_rel_inputs``, assembled
-    here, and ``legacy_dpos`` maps the table gradient back."""
-    if not legacy and q_u.device.type == "cpu":
+    CPU tensor ``rel_flash_attention_bwd_plain``. ``legacy``: q_v and pos as
+    the legacy form holds them (D wide, an (H, T, D) table), as every kernel
+    takes them."""
+    if q_u.device.type == "cpu":
         return rel_flash_attention_bwd_plain(q_u, q_v, k, v, pos, kv_lens, out, lse, d_out,
-                                             dropout_rate, dropout_seed)
+                                             dropout_rate, dropout_seed, legacy)
     delta, d_out = _delta(out, d_out), d_out.contiguous()
-    drop = (dropout_rate, dropout_seed)
-    dq_u, dq_v = rel_flash_bwd_dq(q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, *drop,
-                                  legacy=legacy)
-    if legacy:
-        q_v, pos = legacy_rel_inputs(q_v, pos)
-    args = (q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, *drop)
-    dk, dv = rel_flash_bwd_dkv(*args)
-    dpos = rel_flash_bwd_dpos(*args)
-    return dq_u, dq_v, dk, dv, legacy_dpos(dpos) if legacy else dpos
+    args = (q_u, q_v, k, v, pos, kv_lens, lse, delta, d_out, dropout_rate, dropout_seed)
+    return (*rel_flash_bwd_dq(*args, legacy=legacy), *rel_flash_bwd_dkv(*args, legacy=legacy),
+            rel_flash_bwd_dpos(*args, legacy=legacy))
 
 
 class _RelFlashAttention(torch.autograd.Function):
@@ -540,9 +553,10 @@ class _RelFlashAttention(torch.autograd.Function):
 
 
 def legacy_rel_inputs(q_v, pos):
-    """The legacy form's doubled (q_v2, table), the inputs of kernels 7 and 8
-    and of their plain versions (the JAX package's assembly in
-    ``rel_flash_attention``, without its padding): the legacy ``rel_shift``
+    """The legacy form's doubled (q_v2, table): the JAX package's assembly in
+    ``rel_flash_attention``, without its padding. No kernel takes it; the
+    tests hold the D-wide legacy band against it, a second, independent
+    derivation of the same function: the legacy ``rel_shift``
     (``legacy_band``) is one band product of q_v2 = [q_v[i], q_v[i+1]] (B,
     H, T, 2D) with a (H, 2T-1, 2D) table in the new style's row order (row
     p <-> distance T-1-p): columns [0, D) hold pos[0 .. T-1] in rows 0 ..
@@ -562,7 +576,8 @@ def legacy_dpos(dtable):
     """The adjoint of ``legacy_rel_inputs``' table assembly: the (H, 2T-1,
     2D) gradient of the doubled table mapped back to the (H, T, D) legacy
     table, in dtable's dtype (float32 arithmetic: pos[p] gets rows p of the
-    first half and, for p < T-2, row T+1+p of the second)."""
+    first half and, for p < T-2, row T+1+p of the second). For the tests'
+    doubled-width derivation, as ``legacy_rel_inputs``."""
     H, n, D2 = dtable.shape
     T, D = (n + 1) // 2, D2 // 2
     n_hi = max(0, T - 2)
@@ -588,9 +603,8 @@ def rel_flash_attention(
         dropout_seed: a host int in [0, 2^31); required when dropout_rate > 0.
             The forward and the backward draw the same mask from it.
         legacy: the legacy relative-position form (the reference's
-            ``LegacyRelPositionMultiHeadedAttention``, ``legacy_band``): the
-            forward and dq kernels on q_v and the table as given, the dk/dv
-            and dpos kernels on ``legacy_rel_inputs``.
+            ``LegacyRelPositionMultiHeadedAttention``, ``legacy_band``),
+            every kernel on q_v and the table as given.
     Returns:
         (B, H, T, D) context in the input dtype. Rows of a batch item whose
         kv_len is 0 are zeros.

@@ -24,8 +24,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("rel_scores", "rel_scores_bwd", "rel_scores_bwd_pair", "rel_flash", "rel_flash_bwd",
-           "rel_flash_bwd_dq", "flash", "flash_bwd")
+KERNELS = ("rel_scores", "rel_scores_bwd", "rel_scores_bwd_pair", "rel_flash", "rel_flash_bwd_dq",
+           "rel_flash_bwd_dkv", "rel_flash_bwd_dpos", "flash", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

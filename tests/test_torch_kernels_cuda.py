@@ -24,9 +24,9 @@ dropout masks are the same bits on both sides, so the rate does not change
 a tolerance. The standard flash kernels (forward, lse, dq, dk/dv) as the
 rel-pos ones. The legacy form and kernels 4 and 5 (the ``bwd="pallas"`` pair)
 as the kernels they share their arithmetic with: the rel-pos flash kernels
-and kernel 3. Kernels 2 and 6 in bf16 feed the weights P and dS to the
-tensor cores rounded to bf16 (2^-9 relative each, in sums of many terms of
-either sign), well inside the bf16 tolerances above.
+and kernel 3. Kernels 2 and 6-8 in bf16 feed the weights P, Pd and dS to
+the tensor cores rounded to bf16 (2^-9 relative each, in sums of many terms
+of either sign), well inside the bf16 tolerances above.
 """
 
 import numpy as np
@@ -321,15 +321,14 @@ def test_flash_wrapper_refuses_head_dims_past_256(cuda_device):
         flash_attention(q, q, q)
 
 
-# ------------------------------ the legacy form: D wide in kernels 2 and 6
+# ------------------------------ the legacy form: D wide in kernels 2 and 6-8
 def _legacy_inputs(device, dtype, B, H, T, D, seed):
     """(q_u, q_v, k, v, pos) of the legacy form, D wide with the (H, T, D)
-    table, and the doubled (q_v2, table) of ``legacy_rel_inputs`` that
-    kernels 7 and 8 take (QW = 2D)."""
+    table, as every kernel takes them."""
     qu, qv, k, v, _ = _inputs(device, dtype, B, H, T, D, seed)
     pos = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((H, T, D))
                            .astype(np.float32)).to(device, dtype)
-    return [qu, qv, k, v, pos], fa.legacy_rel_inputs(qv, pos)
+    return [qu, qv, k, v, pos]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -337,8 +336,7 @@ def _legacy_inputs(device, dtype, B, H, T, D, seed):
 @pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
 def test_legacy_rel_flash_kernels_match_plain(cuda_device, zero_counts, rate, dtype, T, D):
     dt = getattr(torch, dtype)
-    ins, (qv2, table) = _legacy_inputs(cuda_device, dt, 3, 2, T, D, 14)
-    assert qv2.shape[-1] == table.shape[-1] == 2 * D
+    ins = _legacy_inputs(cuda_device, dt, 3, 2, T, D, 14)
     lens = torch.tensor([T, T // 3, 0], dtype=torch.int32, device=cuda_device)
     out, lse = fa._fwd(*ins, lens, rate, 99, need_lse=True, legacy=True)
     want, want_lse = rel_flash_attention_plain(*ins, lens, rate, 99, return_lse=True, legacy=True)
@@ -349,18 +347,17 @@ def test_legacy_rel_flash_kernels_match_plain(cuda_device, zero_counts, rate, dt
     d_out = torch.randn(out.shape, device=cuda_device,
                         generator=torch.Generator(device=cuda_device).manual_seed(2)).to(dt)
     delta = fa._delta(want, d_out)
-    wide = (ins[0], qv2, *ins[2:4], table)
-    for kernel, plain, names, args, kw in (
-        (rel_flash_bwd_dq, fa.rel_flash_bwd_dq_plain, ("dq_u", "dq_v"), ins, dict(legacy=True)),
-        (rel_flash_bwd_dkv, fa.rel_flash_bwd_dkv_plain, ("dk", "dv"), wide, {}),
-        (rel_flash_bwd_dpos, fa.rel_flash_bwd_dpos_plain, ("dpos",), wide, {}),
+    for kernel, plain, names, shapes in (
+        (rel_flash_bwd_dq, fa.rel_flash_bwd_dq_plain, ("dq_u", "dq_v"), ins[:2]),
+        (rel_flash_bwd_dkv, fa.rel_flash_bwd_dkv_plain, ("dk", "dv"), ins[2:4]),
+        (rel_flash_bwd_dpos, fa.rel_flash_bwd_dpos_plain, ("dpos",), ins[4:]),
     ):
-        got = kernel(*args, lens, want_lse, delta, d_out, rate, 5, **kw)
-        want_g = plain(*args, lens, want_lse, delta, d_out, rate, 5, **kw)
+        got = kernel(*ins, lens, want_lse, delta, d_out, rate, 5, legacy=True)
+        want_g = plain(*ins, lens, want_lse, delta, d_out, rate, 5, legacy=True)
         torch.cuda.synchronize()
         got, want_g = (x if isinstance(x, tuple) else (x,) for x in (got, want_g))
-        for name, a, b in zip(names, got, want_g):
-            assert a.dtype == dt and a.shape == b.shape, name
+        for name, a, b, x in zip(names, got, want_g, shapes):
+            assert a.dtype == dt and a.shape == b.shape == x.shape, name
             np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
                                        err_msg=name, **BWD_TOL[dtype])
     # every launch counted as the legacy form's
@@ -378,7 +375,7 @@ def test_legacy_rel_flash_kernels_match_plain(cuda_device, zero_counts, rate, dt
 @pytest.mark.parametrize("D", [192, 768])
 def test_tensor_core_fwd_and_dq_match_plain(cuda_device, zero_counts, legacy, rate, dtype, D):
     dt, T = getattr(torch, dtype), 200
-    ins = (_legacy_inputs(cuda_device, dt, 3, 2, T, D, 18)[0] if legacy
+    ins = (_legacy_inputs(cuda_device, dt, 3, 2, T, D, 18) if legacy
            else _inputs(cuda_device, dt, 3, 2, T, D, 18))
     lens = torch.tensor([T, 77, 0], dtype=torch.int32, device=cuda_device)
     out, lse = fa._fwd(*ins, lens, rate, 41, need_lse=True, legacy=legacy)
@@ -408,8 +405,62 @@ def test_tensor_core_fwd_and_dq_match_plain(cuda_device, zero_counts, legacy, ra
     assert [getattr(fn, counter) for fn in (rel_flash_attention, rel_flash_bwd_dq)] == [2, 1]
 
 
+# kernels 7 and 8 on the tensor cores (bf16) and in FMA (float32), as
+# kernels 2 and 6 above: T 200 spans four 64-query tiles and thirteen
+# 16-key (or 16-row) blocks
+@pytest.mark.parametrize("legacy", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [192, 768])
+def test_tensor_core_dkv_and_dpos_match_plain(cuda_device, zero_counts, legacy, rate, dtype, D):
+    _check_dkv_and_dpos(cuda_device, legacy, rate, getattr(torch, dtype), 200, D, [200, 77, 0],
+                        seed=19)
+
+
+# the edges: T 1-3 (a legacy hi window of one row or none), T 70 (a multiple
+# of neither tile), a key length of 0, dropout on and off
+@pytest.mark.parametrize("legacy", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 2, 3, 70])
+def test_dkv_and_dpos_at_edge_lengths(cuda_device, zero_counts, legacy, dtype, T):
+    for rate in (0.0, 0.2):
+        _check_dkv_and_dpos(cuda_device, legacy, rate, getattr(torch, dtype), T, 48,
+                            [T, max(1, T // 3), 0], seed=T)
+
+
+def _check_dkv_and_dpos(device, legacy, rate, dt, T, D, lens, seed):
+    """Kernels 7 and 8 against their plain versions on the same inputs; a
+    batch row with no live key gets dk = dv = 0."""
+    ins = (_legacy_inputs(device, dt, 3, 2, T, D, seed) if legacy
+           else _inputs(device, dt, 3, 2, T, D, seed))
+    lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    want, lse = rel_flash_attention_plain(*ins, lens, rate, 43, return_lse=True, legacy=legacy)
+    d_out = torch.randn(want.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed)).to(dt)
+    args = (*ins, lens, lse, fa._delta(want, d_out), d_out, rate, 43)
+    counter = "legacy_launches" if legacy else "launches"
+    before = [getattr(fn, counter) for fn in (rel_flash_bwd_dkv, rel_flash_bwd_dpos)]
+    got = (*rel_flash_bwd_dkv(*args, legacy=legacy), rel_flash_bwd_dpos(*args, legacy=legacy))
+    want_g = (*fa.rel_flash_bwd_dkv_plain(*args, legacy=legacy),
+              fa.rel_flash_bwd_dpos_plain(*args, legacy=legacy))
+    torch.cuda.synchronize()
+    for name, a, b, x in zip(("dk", "dv", "dpos"), got, want_g, ins[2:]):
+        assert a.dtype == dt and a.shape == b.shape == x.shape, name
+        np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                   err_msg=f"{name} T {T} rate {rate}", **BWD_TOL[str(dt)[6:]])
+    assert not got[0][2].any() and not got[1][2].any()  # no live key, no gradient
+    after = [getattr(fn, counter) for fn in (rel_flash_bwd_dkv, rel_flash_bwd_dpos)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+
+
 def test_legacy_flash_autograd_on_the_card_goes_through_the_legacy_kernels(cuda_device,
-                                                                           zero_counts):
+                                                                           zero_counts,
+                                                                           monkeypatch):
+    def refuse(*_):
+        raise AssertionError("the legacy backward assembled a doubled input")
+
+    monkeypatch.setattr(fa, "legacy_rel_inputs", refuse)
+    monkeypatch.setattr(fa, "legacy_dpos", refuse)
     qu, qv, k, v, _ = _inputs(cuda_device, torch.float32, 3, 2, 70, 48, 15)
     pos = torch.randn(2, 70, 48, device=cuda_device)
     ts = [t.requires_grad_() for t in (qu, qv, k, v, pos)]
@@ -420,18 +471,13 @@ def test_legacy_flash_autograd_on_the_card_goes_through_the_legacy_kernels(cuda_
     torch.cuda.synchronize()
     assert [fn.legacy_launches for fn in LEGACY_COUNTED] == [1, 1, 1, 1]
     assert [fn.launches for fn in COUNTED + PAIR_COUNTED] == [0] * 8
-    # the same function through the plain versions, autograd on the assembly
-    leaves = [t.detach().clone().requires_grad_() for t in ts]
-    qv2, table = fa.legacy_rel_inputs(leaves[1], leaves[4])
-    want_out, lse = rel_flash_attention_plain(leaves[0], qv2, *leaves[2:4], table, lens, 0.2, 17,
-                                              return_lse=True)
-    np.testing.assert_allclose(out.detach().cpu().numpy(), want_out.detach().cpu().numpy(),
+    # the same function through the D-wide plain versions
+    leaves = [t.detach() for t in ts]
+    want_out, lse = rel_flash_attention_plain(*leaves, lens, 0.2, 17, return_lse=True,
+                                              legacy=True)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want_out.cpu().numpy(),
                                atol=1e-5, rtol=1e-5)
-    with torch.no_grad():
-        grads = rel_flash_attention_bwd_plain(leaves[0], qv2, *leaves[2:4], table, lens,
-                                              want_out, lse, g, 0.2, 17)
-    torch.autograd.backward([qv2, table], [grads[1], grads[4]])
-    want = (grads[0], leaves[1].grad, grads[2], grads[3], leaves[4].grad)
+    want = rel_flash_attention_bwd_plain(*leaves, lens, want_out, lse, g, 0.2, 17, legacy=True)
     for name, t, w in zip(("q_u", "q_v", "k", "v", "pos"), ts, want):
         np.testing.assert_allclose(t.grad.cpu().numpy(), w.cpu().numpy(), err_msg=name,
                                    **BWD_TOL["float32"])

@@ -8,10 +8,11 @@ table row by the sign of j - i. Their plain versions
 ``legacy=True``) compute the legacy ``rel_shift``'s three cases directly;
 here they are held against the JAX kernels at ``legacy=True`` (interpret
 mode, block 32, as tests/test_torch_legacy_rel.py runs them) and against
-the doubled-width plain path of ``legacy_rel_inputs`` that kernels 7 and 8
-still take. Also the two assembly helpers of the legacy backward: the
+the doubled-width plain path of ``legacy_rel_inputs``, the tests' second
+derivation of the legacy band. Also the two assembly helpers: the
 one-row-shifted dq_v (``shift_legacy_dqv``) and the adjoint that maps the
 doubled table's gradient back (``legacy_dpos``), and the whole legacy VJP.
+(Kernels 7 and 8: tests/test_torch_rel_flash_bwd_tc.py.)
 
 Inputs come from a numpy seed with key-length padding and a fully masked
 batch row; the dropout case takes T = 100, where the JAX and the port pads
@@ -122,7 +123,7 @@ def test_legacy_dpos_is_the_assembly_adjoint(T):
 @pytest.mark.parametrize("T,rate", FLASH_CASES)
 def test_d_wide_legacy_vjp_matches_jax(T, rate):
     """The whole legacy VJP through the wrappers' CPU paths: the D-wide
-    forward and dq, dk/dv and dpos on the doubled inputs, ``legacy_dpos``."""
+    forward and backward (dq, dk/dv and dpos)."""
     (qu, qv, k, v, pos), lens, g = _torch_inputs(T)
     ts = [t.clone().requires_grad_() for t in (qu, qv, k, v, pos)]
     out = port_flash.rel_flash_attention(*ts, kv_lens=lens, dropout_rate=rate,
