@@ -14,9 +14,10 @@ Phases, each printed on lines of its own:
 1. the card (``nvidia-smi`` name and power limit), the TF32 switches (both
    off), and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
-   registers and spills, and the HMMA instructions of every variant of the
-   tensor-core kernels (2 and 6-8) in ``cuobjdump -sass``: each bfloat16
-   variant must issue them;
+   registers and spills (no variant of kernels 10-11 may spill), and the
+   HMMA instructions of every variant of the tensor-core kernels (2, 6-8
+   and 10-11) in ``cuobjdump -sass``: each bfloat16 variant must issue
+   them, no float32 one may;
 2. warm-up: a full-width ``Wav2WavConverter`` (the AAS-VC flagship of
    ``egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml`` and the HiFi-GAN that
    ``bench.py`` serves) with seeded random weights serves a 3.8 s clip, a
@@ -101,7 +102,9 @@ Phases, each printed on lines of its own:
    so that every encoder layer's key length lies in FLASH_MIN_LEN ..
    FLASH_MIN_LEN + 256 after the subsampling; kernels 9-11 against their
    plain versions at the steps' shape (SDPA forward + backward with the
-   key-padding mask as the yardstick); 3 timed steps with 6 launches of each
+   key-padding mask as the yardstick, and for 10-11 SDPA's backward alone
+   too), 10 and 11 also at rate 0 (the dropout hash's cost), the pair 10 +
+   11 beside SDPA's backward alone; 3 timed steps with 6 launches of each
    of kernels 9, 10 and 11 per step, ms/step, peak memory, finite loss and
    gradients, and a profile of one step;
 16. a VTN reference training step through the flash route: float32,
@@ -133,7 +136,9 @@ Phases, each printed on lines of its own:
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path), the card line again, and last the result line. Any failed check
+path; kernels 10-11 with SDPA's backward alone as ``library_bwd_ms`` and
+their rate-0 time as ``ms_rate_0``), the card line again, and last the
+result line. Any failed check
 makes the script exit with 1 without the result line; with no CUDA device
 it exits at once.
 """
@@ -143,6 +148,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -256,8 +262,10 @@ LIBRARY = {"fused_rel_scores": "no single PyTorch call",
            **{n: "SDPA forward + backward with the dense legacy band as a bias"
               for n in LEGACY[1:]},
            "flash_attention": "SDPA with the key-padding mask",
-           "flash_bwd_dq": "SDPA forward + backward with the key-padding mask",
-           "flash_bwd_dkv": "SDPA forward + backward with the key-padding mask"}
+           "flash_bwd_dq": "SDPA forward + backward with the key-padding mask "
+                           "(library_bwd_ms: SDPA backward alone)",
+           "flash_bwd_dkv": "SDPA forward + backward with the key-padding mask "
+                            "(library_bwd_ms: SDPA backward alone)"}
 # the kernels each main path runs (serving runs no backward; training at
 # key lengths from the flash gate runs only the flash kernels; the legacy
 # form never takes the fused kernel, so its serving and its training under
@@ -623,11 +631,13 @@ def _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_
         f"library_ms={'none' if library_ms is None else f'{library_ms:.4f}'} ({LIBRARY[name]}) "
         f"bound_ms={bound_ms:.4f} ({bound_by})"
         + ("" if fwd_bwd_ms is None
-           else f"; the {n_kernels} kernels' forward + backward {fwd_bwd_ms:.4f} ms"))
+           else f"; the {n_kernels} kernels' forward + backward {fwd_bwd_ms:.4f} ms")
+        + ("" if extra.get("library_bwd_ms") is None
+           else f"; SDPA backward alone {extra['library_bwd_ms']:.4f} ms"))
     return row
 
 
-_STD_FWD_BWD = {}  # (shapes, lens, causal, rate) -> (port fwd+bwd ms, SDPA fwd+bwd ms)
+_STD_FWD_BWD = {}  # (shapes, lens, causal, rate) -> (port fwd+bwd, SDPA fwd+bwd, SDPA bwd) ms
 
 
 def std_valid(lens, Tq: int, Tk: int, causal: bool):
@@ -639,8 +649,11 @@ def std_valid(lens, Tq: int, Tk: int, causal: bool):
 
 def std_fwd_bwd_ms(q, k, v, lens, d_out, causal, rate):
     """The three standard flash kernels' forward + backward time, and beside
-    it the yardstick: SDPA's forward + backward with the key-padding mask
-    (the port never calls SDPA). Cached per shape."""
+    it the yardsticks: SDPA's forward + backward with the key-padding mask,
+    and SDPA's backward alone (``torch.autograd.grad`` on one retained
+    forward with the same mask and dropout), the one call that computes
+    what kernels 10 and 11 compute together (the port never calls SDPA).
+    Cached per shape."""
     from seq2seq_vc_torch.ops.flash_attention import flash_attention
 
     key = (tuple(q.shape), tuple(k.shape), str(q.dtype), tuple(lens.tolist()), causal, rate)
@@ -650,8 +663,11 @@ def std_fwd_bwd_ms(q, k, v, lens, d_out, causal, rate):
         valid = std_valid(lens, q.shape[2], k.shape[2], causal)
         sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             *leaves, attn_mask=valid, dropout_p=rate).backward(d_out))
-        del leaves
-        _STD_FWD_BWD[key] = (port_ms, sdpa_ms)
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=valid,
+                                                               dropout_p=rate)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+        del leaves, out
+        _STD_FWD_BWD[key] = (port_ms, sdpa_ms, bwd_ms)
     return _STD_FWD_BWD[key]
 
 
@@ -672,7 +688,7 @@ def check_std_kernel(name, B, H, Tq, Tk, D, dtype, seed, label, lens=None, rate=
     lens = torch.tensor([Tk] + [max(1, 2 * Tk // 3)] * (B - 1) if lens is None else lens,
                         dtype=torch.int32, device="cuda")
     drop = (rate, seed) if rate else (0.0, None)
-    fwd_bwd_ms = None
+    fwd_bwd_ms = library_bwd_ms = None
     if name == "flash_attention":
         if rate is None:
             def kernel():
@@ -705,13 +721,14 @@ def check_std_kernel(name, B, H, Tq, Tk, D, dtype, seed, label, lens=None, rate=
         def plain():
             return plain_fn(*args)
 
-        fwd_bwd_ms, library_ms = std_fwd_bwd_ms(q, k, v, lens, d_out, causal, rate or 0.0)
+        fwd_bwd_ms, library_ms, library_bwd_ms = std_fwd_bwd_ms(q, k, v, lens, d_out, causal,
+                                                                rate or 0.0)
     return _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_ms,
                     shape=(B, H, Tq, D), work=B * Tq * Tk * D,
                     bound=bound(name, B, H, Tq, D, dtype, lens, lse=rate is not None, Tk=Tk,
                                 causal=causal),
                     what=f"B,H,Tq,Tk,D={B},{H},{Tq},{Tk},{D}{' causal' if causal else ''}",
-                    n_kernels="three", tk=Tk, causal=causal)
+                    n_kernels="three", tk=Tk, causal=causal, library_bwd_ms=library_bwd_ms)
 
 
 def _short(lens):
@@ -1375,6 +1392,25 @@ def std_head_dim_checks(rows, names):
                                              rate=0.2, causal=causal))
 
 
+def std_pair_report(rows, calls):
+    """Kernels 10 and 11 at the long step's largest shape at rate 0 too
+    (beside the main path's rate: the cost of the dropout hash), and at
+    each rate the pair 10 + 11 beside SDPA's backward alone, the one call
+    that computes what the pair computes."""
+    _, B, H, T, D, kv_lens, r = max((c for c in calls if c[0] == STD[1]),
+                                    key=lambda c: (c[1] * c[3] ** 2 * c[4], sum(c[5])))
+    for name in STD[1:]:
+        rows.append(check_std_kernel(name, B, H, T, T, D, torch.bfloat16, seed=T,
+                                     label="rate-0", lens=list(kv_lens), rate=0.0))
+    for label, rate in (("main-path", r), ("rate-0", 0.0)):
+        dq, dkv = (next(x for x in rows if x["name"] == n and x["label"] == label
+                        and x["shape"] == (B, H, T, D) and x["rate"] == rate) for n in STD[1:])
+        log(f"pair 10 + 11 at B,H,T,D={B},{H},{T},{D} bf16 rate {rate}: "
+            f"{dq['ms'] + dkv['ms']:.4f} ms (dq {dq['ms']:.4f}, dk/dv {dkv['ms']:.4f}); "
+            f"SDPA backward alone {dq['library_bwd_ms']:.4f} ms, SDPA forward + backward "
+            f"{dq['library_ms']:.4f} ms; bound {dq['bound_ms'] + dkv['bound_ms']:.4f} ms")
+
+
 class _KeepOutput:
     """Calls the wrapped AR decoder and keeps its last output."""
 
@@ -1531,6 +1567,8 @@ def vtn_train_path(rows, path: str):
         for name, B, H, T, D, kv_lens, r in sorted(set(calls)):
             rows.append(check_std_kernel(name, B, H, T, T, D, torch.bfloat16, seed=T,
                                          label="main-path", lens=list(kv_lens), rate=r))
+        if path == "vtn_train_long":
+            std_pair_report(rows, calls)
 
         log(f"{path} main path: 3 steps at {label}")
         notes, handle, n_att = watch_grads(state)
@@ -1881,21 +1919,27 @@ def ptxas_report(text: str):
     return rows
 
 
-# the tensor-core kernels: their bfloat16 instantiations must issue HMMA
-TENSOR_CORE = {"rel_flash": "rel_flash_fwd_kernel", "rel_flash_bwd_dq": "rel_flash_bwd_dq_kernel",
-               "rel_flash_bwd_dkv": "rel_flash_bwd_dkv_kernel",
-               "rel_flash_bwd_dpos": "rel_flash_bwd_dpos_kernel"}
+# the tensor-core kernels (by library): their bfloat16 instantiations must
+# issue HMMA, their float32 ones (FMA, the card's reference path) none
+TENSOR_CORE = {"rel_flash": ("rel_flash_fwd_kernel",),
+               "rel_flash_bwd_dq": ("rel_flash_bwd_dq_kernel",),
+               "rel_flash_bwd_dkv": ("rel_flash_bwd_dkv_kernel",),
+               "rel_flash_bwd_dpos": ("rel_flash_bwd_dpos_kernel",),
+               "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+# sources whose variants must not spill (ptxas -v)
+NO_SPILL = ("flash_bwd",)
 
 
 def sass_hmma():
     """(rows, failures): for each kernel variant of the tensor-core sources,
     its HMMA instructions in ``cuobjdump -sass`` of the built library (names
-    demangled by ``c++filt``); a bfloat16 variant without one fails."""
+    demangled by ``c++filt``); a bfloat16 variant without one fails, and so
+    does a float32 variant with one."""
     from seq2seq_vc_torch.ops import native
 
     tool = shutil.which("cuobjdump") or str(Path(native._nvcc()).with_name("cuobjdump"))
     rows, failures = [], []
-    for lib, kernel in TENSOR_CORE.items():
+    for lib, kernels in TENSOR_CORE.items():
         sass = subprocess.run([tool, "-sass", str(native._library_path(lib))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         counts, fn = {}, None
@@ -1913,10 +1957,14 @@ def sass_hmma():
         for name, n in zip(names, counts.values()):
             name = name[:name.rfind(">") + 1] or name  # the variant, without its parameters
             rows.append((lib, name, n))
-            if kernel in name and "bfloat16" in name and n == 0:
-                failures.append(f"sass {lib}: {name} issues no HMMA")
-        if not any(kernel in name and "bfloat16" in name for name in names):
-            failures.append(f"sass {lib}: no bfloat16 variant of {kernel} found")
+            if any(k in name for k in kernels):
+                if "bfloat16" in name and n == 0:
+                    failures.append(f"sass {lib}: {name} issues no HMMA")
+                if "bfloat16" not in name and n > 0:
+                    failures.append(f"sass {lib}: float32 variant {name} issues HMMA")
+        for kernel in kernels:
+            if not any(kernel in name and "bfloat16" in name for name in names):
+                failures.append(f"sass {lib}: no bfloat16 variant of {kernel} found")
     return rows, failures
 
 
@@ -1946,10 +1994,14 @@ def main() -> int:
     built = native.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)} "
         f"(per kernel: { {k: round(v['seconds'], 1) for k, v in built.items()} })")
+    spills = []
     for name, res in built.items():
         for fn, regs, spill in ptxas_report(res["log"]):
             log(f"  ptxas {name}: {fn}: {regs}; {spill}")
+            if name in NO_SPILL and any(int(n) for n in re.findall(r"(\d+) bytes spill", spill)):
+                spills.append(f"ptxas {name}: {fn} spills: {spill}")
     sass_rows, failures = sass_hmma()
+    failures += spills
     for lib, fn, n in sass_rows:
         log(f"  sass {lib}: {fn}: {n} HMMA")
 
@@ -2021,12 +2073,15 @@ def main() -> int:
         mine = [r for r in rows if r["name"] == name]
         main_rows = [r for r in mine if r["label"] == "main-path"]
         top = max(main_rows, key=lambda r: r["shape"][0] * r["shape"][2] ** 2 * r["shape"][3])
+        rate0 = [r for r in mine if r["label"] == "rate-0" and r["shape"] == top["shape"]]
         by_path = {path: counts[name] for path, counts in launches.items()}
         table.append(dict(
             name=name, **meta, launches=sum(by_path.values()),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
+            library_bwd_ms=top.get("library_bwd_ms"),
+            ms_rate_0=rate0[0]["ms"] if rate0 else None, rate=top["rate"],
             library=LIBRARY[name], launches_by_path=by_path,
             shape_bhtd=list(top["shape"]), kv_lens=top["kv_lens"], dtype=top["dtype"],
         ))

@@ -1,6 +1,7 @@
-// Tensor-core tile helpers shared by the rel-pos flash kernels: the forward
-// (csrc/rel_flash.cu) and the backward's dq, dk/dv and dpos
-// (csrc/rel_flash_bwd_dq.cu, rel_flash_bwd_dkv.cu, rel_flash_bwd_dpos.cu).
+// Tensor-core tile helpers shared by the rel-pos flash kernels (the forward
+// csrc/rel_flash.cu and the backward's dq, dk/dv and dpos:
+// csrc/rel_flash_bwd_dq.cu, rel_flash_bwd_dkv.cu, rel_flash_bwd_dpos.cu)
+// and the standard flash backward (csrc/flash_bwd.cu: dq, dk/dv).
 //
 // One warp multiplies a 16 x 16 tile A by a 16 x 8 tile B into an m16n8
 // fragment of float32 accumulators: lane l holds the cells (l/4, 2*(l%4)),
@@ -16,12 +17,17 @@
 //   reference path).
 //
 // So a kernel writes its tiling, staging, masks and epilogues once, for
-// both storage types. Rows of a staged tile are padded by 16 bytes (8
+// both storage types. A warp's own float32 results (a 16 x 16 tile of
+// weights, say) become the A operand of its next product through `acc_to_a`
+// and `AFrag2`: in bf16 packed in registers as a hi and a lo part, in
+// float32 through a scratch tile of the warp's own. Rows of a staged tile are padded by 16 bytes (8
 // bf16, 4 floats), so the eight 16-byte rows one `ldmatrix` phase reads fall
 // on distinct banks.
 #pragma once
 
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -193,6 +199,96 @@ __device__ __forceinline__ void mma_cols(float acc[NTW][4], const AFrag<T>& a, c
     if (col0 + 8 * n < D) mma2<true>(acc[n], acc[n + 1], a, b + col0 + 8 * n, ldb);
   if constexpr (NTW % 2 == 1)
     if (col0 + 8 * (NTW - 1) < D) mma<true>(acc[NTW - 1], a, b + col0 + 8 * (NTW - 1), ldb);
+}
+
+// The A operand of a warp's next product from its own float32 results: c0
+// and c1 are the m16n8 fragments of columns 0-7 and 8-15 of a 16 x 16 tile
+// (of attention weights, say), which becomes the m16k16 A operand.
+// bfloat16: lane l's accumulator cells (l/4, 2(l%4) + {0, 1}) and (l/4 + 8,
+// ...) are the A fragment's k-pairs of the same lane, so the tile is packed
+// into registers and never reaches shared memory; `s` is not used. It goes
+// in as two bf16 fragments, hi = bf16(x) and lo = bf16(x - hi), whose two
+// products sum to x . B within ~2^-16 of x: one bf16 rounding of a weight
+// (2^-9 relative) can, in a sum that cancels, move a result past the bf16
+// tolerance of a float32 reference. float32: the tile goes to the warp's own
+// scratch `s` (16 rows of kLdScratch floats) and the fragment points at it.
+constexpr int kLdScratch = 16 + 4;
+
+template <typename T>
+struct AFrag2;
+template <>
+struct AFrag2<__nv_bfloat16> {
+  AFrag<__nv_bfloat16> hi, lo;
+};
+template <>
+struct AFrag2<float> {
+  AFrag<float> hi;
+};
+
+// bf16(lo_x) | bf16(hi_x) << 16, and what rounding left of each
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1, float& r0, float& r1) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  r0 = x0 - __bfloat162float(h.x);
+  r1 = x1 - __bfloat162float(h.y);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ void acc_to_a(AFrag2<__nv_bfloat16>& f, const float c0[4],
+                                         const float c1[4], float*) {
+  float r[8], unused[2];
+  f.hi.r[0] = pack_bf16(c0[0], c0[1], r[0], r[1]);  // row l/4,     k 2(l%4) + {0, 1}
+  f.hi.r[1] = pack_bf16(c0[2], c0[3], r[2], r[3]);  // row l/4 + 8, the same k
+  f.hi.r[2] = pack_bf16(c1[0], c1[1], r[4], r[5]);  // row l/4,     k 8 + 2(l%4) + {0, 1}
+  f.hi.r[3] = pack_bf16(c1[2], c1[3], r[6], r[7]);  // row l/4 + 8, the same k
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f.lo.r[e] = pack_bf16(r[2 * e], r[2 * e + 1], unused[0], unused[1]);
+}
+__device__ __forceinline__ void acc_to_a(AFrag2<float>& f, const float c0[4], const float c1[4],
+                                         float* s) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = 2 * (lane % 4);
+  __syncwarp();  // the warp's reads of the last tile in `s` are done
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float* row = s + (g + 8 * (e / 2)) * kLdScratch + t + e % 2;
+    row[0] = c0[e];
+    row[8] = c1[e];
+  }
+  __syncwarp();
+  f.hi.p = s;
+  f.hi.ld = kLdScratch;
+}
+
+// mma_cols for an AFrag2: bf16 multiplies each B pair (one ldmatrix.x4)
+// by hi and by lo into the same accumulators
+template <int NTW>
+__device__ __forceinline__ void mma_cols(float acc[NTW][4], const AFrag2<__nv_bfloat16>& a,
+                                         const __nv_bfloat16* b, int ldb, int col0, int D) {
+  static_assert(NTW % 2 == 0, "n-tile pairs");
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < NTW; n += 2) {
+    if (col0 + 8 * n >= D) continue;
+    uint32_t r[4];
+    ldsm_x4<true>(b + col0 + 8 * n + (lane % 16) * ldb + (lane / 16) * 8, r);
+    mma_bf16(acc[n], a.hi.r, r[0], r[1]);
+    mma_bf16(acc[n + 1], a.hi.r, r[2], r[3]);
+    mma_bf16(acc[n], a.lo.r, r[0], r[1]);
+    mma_bf16(acc[n + 1], a.lo.r, r[2], r[3]);
+  }
+}
+template <int NTW>
+__device__ __forceinline__ void mma_cols(float acc[NTW][4], const AFrag2<float>& a,
+                                         const float* b, int ldb, int col0, int D) {
+  mma_cols<NTW>(acc, a.hi, b, ldb, col0, D);
+}
+
+// true where every row of the (rows, D) inputs starts on 16 bytes (the
+// condition of `stage`'s cp.async path)
+template <typename T>
+inline bool rows_aligned(int D, std::initializer_list<const void*> ptrs) {
+  if ((D * (int)sizeof(T)) % 16 != 0) return false;
+  for (const void* p : ptrs)
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
 }
 
 // the fragment's cells: (row, column) of c[e] within the 16 x 8 tile

@@ -18,8 +18,6 @@
 
 #include <stdint.h>
 
-#include <initializer_list>
-
 #include "mma_tiles.cuh"
 
 namespace s2s {
@@ -122,14 +120,7 @@ __device__ __forceinline__ void cell_grads(const A& a, float x, float dp, float 
 template <int NTW>
 constexpr int kCols = 8 * NWARP * NTW;  // columns staged for the full-width products
 
-// true where every row of the (rows, D) inputs starts on 16 bytes
-template <typename T>
-inline bool rows_aligned(int D, std::initializer_list<const void*> ptrs) {
-  if ((D * (int)sizeof(T)) % 16 != 0) return false;
-  for (const void* p : ptrs)
-    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
-}
+using tc::rows_aligned;
 
 }  // namespace rel
 }  // namespace s2s

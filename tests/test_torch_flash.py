@@ -6,9 +6,11 @@ The JAX side runs as its own tests run it on the CPU: the Pallas kernels
 in interpret mode with the default blocks of 128, so the dropout index runs
 over the same padded lengths round_up(Tq, 128) and round_up(Tk, 128).
 Inputs come from a numpy seed: self-attention (Tq = Tk = 37) and cross
-shapes (Tq 45, Tk 130 and Tq 130, Tk 45), head dims 96 (the VTN's) and 64,
-key-length padding with a batch row of no key, the causal mask on and off,
-rate 0 and 0.2.
+shapes (Tq 45, Tk 130 and Tq 130, Tk 45; Tq 200, Tk 333 and Tq 333, Tk 200,
+which cross several 64-row tiles of the card's backward kernels with
+partial last tiles, at the VTN's attention dropout 0.1), head dims 96 (the
+VTN's) and 64, key-length padding with a batch row of no key, the causal
+mask on and off, rate 0, 0.1 and 0.2.
 
 Tolerances (float32): the keep mask bit for bit; outputs, logsumexps and
 the three input gradients atol 2e-5, rtol 1e-5 (softmax-weighted sums of at
@@ -31,7 +33,7 @@ TOL = dict(atol=2e-5, rtol=1e-5)
 SEED = 4321
 # (Tq, Tk, D, causal, rate): self-attention and cross shapes
 CASES = [(37, 37, 96, False, 0.0), (37, 37, 64, True, 0.2), (45, 130, 96, False, 0.2),
-         (130, 45, 64, True, 0.0)]
+         (130, 45, 64, True, 0.0), (200, 333, 96, True, 0.1), (333, 200, 96, False, 0.1)]
 
 
 def _inputs(Tq, Tk, D, B=3, H=2, seed=0):

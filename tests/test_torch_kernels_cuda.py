@@ -26,7 +26,10 @@ rel-pos ones. The legacy form and kernels 4 and 5 (the ``bwd="pallas"`` pair)
 as the kernels they share their arithmetic with: the rel-pos flash kernels
 and kernel 3. Kernels 2 and 6-8 in bf16 feed the weights P, Pd and dS to
 the tensor cores rounded to bf16 (2^-9 relative each, in sums of many terms
-of either sign), well inside the bf16 tolerances above.
+of either sign), well inside the bf16 tolerances above. Kernels 10 and 11
+in bf16 feed Pd and dS as a hi and a lo bf16 part (~2^-16 relative): one
+rounding can, under the causal mask, where rows near the diagonal weigh
+few keys heavily and the sum cancels, exceed the bf16 tolerance.
 """
 
 import numpy as np
@@ -239,8 +242,11 @@ def test_flash_autograd_on_the_card_goes_through_the_four_kernels(cuda_device, z
 
 
 # (Tq, Tk, D): self-attention at the VTN's head dim 96 and at 64, cross
-# shapes both ways, and the largest head dim the kernels take
-STD_SHAPES = [(37, 37, 64), (130, 130, 96), (45, 130, 96), (130, 45, 96), (70, 70, 256)]
+# shapes both ways, and the largest head dim the kernels take; then shapes
+# that cross several 64-row tiles of kernels 10 and 11 with partial last
+# tiles, both ways, and a head dim of 128
+STD_SHAPES = [(37, 37, 64), (130, 130, 96), (45, 130, 96), (130, 45, 96), (70, 70, 256),
+              (200, 333, 96), (333, 200, 96), (130, 130, 128)]
 
 
 def _std_inputs(device, dtype, Tq, Tk, D, seed, B=3, H=2):
@@ -292,6 +298,25 @@ def test_flash_bwd_kernels_match_plain(cuda_device, causal, rate, dtype, Tq, Tk,
             assert a.dtype == dt and a.shape == b.shape, name
             np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
                                        err_msg=name, **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Tq,Tk,D,causal", [(333, 200, 96, False), (200, 333, 256, True)])
+def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype, Tq, Tk, D, causal):
+    # no atomics: every output element has one owner, so two launches on
+    # the same inputs give the same bits
+    dt = getattr(torch, dtype)
+    q, k, v, lens = _std_inputs(cuda_device, dt, Tq, Tk, D, 14)
+    d_out = torch.randn(q.shape, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(2)).to(dt)
+    out, lse = flash_attention_plain(q, k, v, lens, causal, 0.1, 6, return_lse=True)
+    args = (q, k, v, lens, lse, fa._delta(out, d_out), d_out, causal, 0.1, 6)
+    for kernel in (flash_bwd_dq, flash_bwd_dkv):
+        first, second = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_flash_autograd_on_the_card_goes_through_the_three_kernels(cuda_device, zero_counts):
