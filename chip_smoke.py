@@ -14,9 +14,9 @@ Phases, each printed on lines of its own:
 1. the card (``nvidia-smi`` name and power limit), the TF32 switches (both
    off), and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
-   registers and spills (no variant of kernels 10-11 may spill), and the
-   HMMA instructions of every variant of the tensor-core kernels (2, 6-8
-   and 10-11) in ``cuobjdump -sass``: each bfloat16 variant must issue
+   registers and spills (no variant of kernels 1 and 9-11 may spill), and
+   the HMMA instructions of every variant of the tensor-core kernels (1,
+   2 and 6-11) in ``cuobjdump -sass``: each bfloat16 variant must issue
    them, no float32 one may;
 2. warm-up: a full-width ``Wav2WavConverter`` (the AAS-VC flagship of
    ``egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml`` and the HiFi-GAN that
@@ -29,7 +29,8 @@ Phases, each printed on lines of its own:
    length that the main path gave it in phase 2: max abs error against the
    stated tolerance, the kernel's time, the plain version's, the library
    yardstick's and the bound (bytes over 3.35 TB/s or operations over the
-   type's peak);
+   type's peak); for kernel 1 also ``half_work_ms``, q_u.k^T alone in
+   cuBLAS (half its products; no single PyTorch call computes all of it);
 4. the main path: the same requests again, timed. The kernels' launch
    counts are set to 0 just before and read just after; each must equal
    what the routing predicts, and be above 0;
@@ -52,7 +53,8 @@ Phases, each printed on lines of its own:
    above 0, the flash kernels 0 below the gate),
    ms/step, peak memory, a finite loss, and before each update every
    gradient finite and every attention projection's gradient non-zero; the
-   MAS loop timed alone; a profile of one step (busy share, top kernels);
+   MAS loop timed alone; a profile of one step at each length (busy share,
+   top kernels);
 9. a reference training step: the same float32 weights and batch, dropout
    off, on the card (through both rel-scores kernels) and on the CPU
    (through their plain versions); loss and gradients must agree;
@@ -103,7 +105,7 @@ Phases, each printed on lines of its own:
    FLASH_MIN_LEN + 256 after the subsampling; kernels 9-11 against their
    plain versions at the steps' shape (SDPA forward + backward with the
    key-padding mask as the yardstick, and for 10-11 SDPA's backward alone
-   too), 10 and 11 also at rate 0 (the dropout hash's cost), the pair 10 +
+   too), 9, 10 and 11 also at rate 0 (the dropout hash's cost), the pair 10 +
    11 beside SDPA's backward alone; 3 timed steps with 6 launches of each
    of kernels 9, 10 and 11 per step, ms/step, peak memory, finite loss and
    gradients, and a profile of one step;
@@ -136,9 +138,10 @@ Phases, each printed on lines of its own:
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path; kernels 10-11 with SDPA's backward alone as ``library_bwd_ms`` and
-their rate-0 time as ``ms_rate_0``), the card line again, and last the
-result line. Any failed check
+path; kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``,
+kernels 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
+``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its
+library column), the card line again, and last the result line. Any failed check
 makes the script exit with 1 without the result line; with no CUDA device
 it exits at once.
 """
@@ -537,12 +540,17 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     qu, qv, k, v, pos, lens = kernel_inputs(B, H, T, D, dtype, seed, lens, legacy)
     library_ms = fwd_bwd_ms = None
     drop = (rate, seed) if rate else (0.0, None)
+    extra = {}
     if base == "fused_rel_scores":
         def kernel():
             return rs.fused_rel_scores(qu, qv, k, pos)
 
         def plain():
             return rs.fused_rel_scores_plain(qu, qv, k, pos)
+
+        # a reference only, not the library column: q_u . k^T alone into
+        # float32, half of the kernel's products, in cuBLAS
+        extra["half_work_ms"] = cuda_ms(lambda: torch.matmul(qu, k.transpose(-1, -2)).float())
     elif base in ("rel_band_bwd", *PAIR):
         g = torch.randn(B, H, T, T, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
@@ -601,7 +609,7 @@ def check_kernel(name, B, H, T, D, dtype, seed, label, lens=None, rate=None):
     return _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_ms,
                     shape=(B, H, T, D), work=B * T * T * D,
                     bound=bound(name, B, H, T, D, dtype, lens, lse=rate is not None),
-                    what=f"B,H,T,D={B},{H},{T},{D}", n_kernels="four")
+                    what=f"B,H,T,D={B},{H},{T},{D}", n_kernels="four", **extra)
 
 
 def _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_ms, shape,
@@ -633,7 +641,10 @@ def _measure(name, label, kernel, plain, dtype, rate, lens, library_ms, fwd_bwd_
         + ("" if fwd_bwd_ms is None
            else f"; the {n_kernels} kernels' forward + backward {fwd_bwd_ms:.4f} ms")
         + ("" if extra.get("library_bwd_ms") is None
-           else f"; SDPA backward alone {extra['library_bwd_ms']:.4f} ms"))
+           else f"; SDPA backward alone {extra['library_bwd_ms']:.4f} ms")
+        + ("" if extra.get("half_work_ms") is None
+           else f"; half_work_ms={extra['half_work_ms']:.4f} (q_u.k^T alone, torch.matmul "
+                f"into float32: half the products in cuBLAS)"))
     return row
 
 
@@ -1251,6 +1262,7 @@ def train_path(rows):
         time_mas(batches[512], "T512")
         time_mas(batches[960], "T960")
         profile_step(state, loaders[512], step_ms[512], f"B{BATCH}, T 512")
+        profile_step(state, loaders[960], step_ms[960], f"B{BATCH}, T 960")
     failures += reference_step(seed=4)
     return failures, launches
 
@@ -1393,15 +1405,22 @@ def std_head_dim_checks(rows, names):
 
 
 def std_pair_report(rows, calls):
-    """Kernels 10 and 11 at the long step's largest shape at rate 0 too
+    """Kernels 9, 10 and 11 at the long step's largest shape at rate 0 too
     (beside the main path's rate: the cost of the dropout hash), and at
     each rate the pair 10 + 11 beside SDPA's backward alone, the one call
     that computes what the pair computes."""
     _, B, H, T, D, kv_lens, r = max((c for c in calls if c[0] == STD[1]),
                                     key=lambda c: (c[1] * c[3] ** 2 * c[4], sum(c[5])))
-    for name in STD[1:]:
+    for name in STD:
         rows.append(check_std_kernel(name, B, H, T, T, D, torch.bfloat16, seed=T,
                                      label="rate-0", lens=list(kv_lens), rate=0.0))
+    fwd = {label: next(x for x in rows if x["name"] == STD[0] and x["label"] == label
+                       and x["shape"] == (B, H, T, D) and x["rate"] == rate)
+           for label, rate in (("main-path", r), ("rate-0", 0.0))}
+    log(f"kernel 9 at B,H,T,D={B},{H},{T},{D} bf16 +lse: rate {r} {fwd['main-path']['ms']:.4f} "
+        f"ms, rate 0 {fwd['rate-0']['ms']:.4f} ms (the dropout hash "
+        f"{fwd['main-path']['ms'] - fwd['rate-0']['ms']:.4f} ms); SDPA with the mask "
+        f"{fwd['main-path']['library_ms']:.4f} ms")
     for label, rate in (("main-path", r), ("rate-0", 0.0)):
         dq, dkv = (next(x for x in rows if x["name"] == n and x["label"] == label
                         and x["shape"] == (B, H, T, D) and x["rate"] == rate) for n in STD[1:])
@@ -1921,13 +1940,15 @@ def ptxas_report(text: str):
 
 # the tensor-core kernels (by library): their bfloat16 instantiations must
 # issue HMMA, their float32 ones (FMA, the card's reference path) none
-TENSOR_CORE = {"rel_flash": ("rel_flash_fwd_kernel",),
+TENSOR_CORE = {"rel_scores": ("rel_scores_fwd_kernel",),
+               "rel_flash": ("rel_flash_fwd_kernel",),
                "rel_flash_bwd_dq": ("rel_flash_bwd_dq_kernel",),
                "rel_flash_bwd_dkv": ("rel_flash_bwd_dkv_kernel",),
                "rel_flash_bwd_dpos": ("rel_flash_bwd_dpos_kernel",),
+               "flash": ("flash_fwd_kernel",),
                "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
 # sources whose variants must not spill (ptxas -v)
-NO_SPILL = ("flash_bwd",)
+NO_SPILL = ("rel_scores", "flash", "flash_bwd")
 
 
 def sass_hmma():
@@ -2080,7 +2101,7 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
-            library_bwd_ms=top.get("library_bwd_ms"),
+            library_bwd_ms=top.get("library_bwd_ms"), half_work_ms=top.get("half_work_ms"),
             ms_rate_0=rate0[0]["ms"] if rate0 else None, rate=top["rate"],
             library=LIBRARY[name], launches_by_path=by_path,
             shape_bhtd=list(top["shape"]), kv_lens=top["kv_lens"], dtype=top["dtype"],

@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Device time of one training step of the PyTorch port, by kernel, on one
+NVIDIA GPU: the tool for comparing two checkouts on the same card.
+
+    python3 scripts/torch_step_profile.py [--root DIR] vtn_long aas_960
+
+For each named step it imports ``chip_smoke`` (and through it
+``seq2seq_vc_torch``) from ``--root`` (default: this checkout), builds that
+checkout's kernels, and drives the step as ``chip_smoke.py``'s phases do,
+with their seeds, batch and settings:
+
+- ``vtn_long``: phase 15, ``ARVCTrainer`` on the full-width VTN in bf16, B
+  16 at 8200-9200 frames (every encoder layer on kernels 9-11);
+- ``aas_960``: phase 8's longer batch, ``AASVCTrainer`` on the full-width
+  AAS-VC flagship in bf16, B 16 at 480-960 frames (the fused route:
+  kernels 1 and 3).
+
+One warm-up step, 3 timed steps, then one profiled step: the device busy
+time (kernel time under ``torch.profiler``), the busy share of the
+untraced step and the top kernels (``chip_smoke.profile_step``). To compare
+two commits, unpack one into a git-ignored directory and run the script
+against both roots in one call, in turns (parent, change, change, parent).
+It needs a card and exits at once without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PORT_KERNELS = {
+    "vtn_long": ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+    "aas_960": ("rel_scores_fwd_kernel", "rel_scores_bwd_kernel"),
+}
+
+
+def run(cs, step: str) -> None:
+    with tempfile.TemporaryDirectory(dir=cs.REPO / "build", prefix=f"step_profile_{step}_") as tmp:
+        if step == "vtn_long":
+            from seq2seq_vc_torch.train.data import ARVCCollater
+
+            collater = ARVCCollater(cs.PAD_MULTIPLE, cs.VTN_CONFIG["decoder_reduction_factor"])
+            loader = cs.corpus_loader(Path(tmp), cs.vtn_long_lens(seed=31), seed=32,
+                                      collater=collater)
+            model = cs.vtn_model(seed=33, compute_dtype="bfloat16").train()
+            make = cs.make_vtn_trainer
+        else:
+            loader = cs.corpus_loader(Path(tmp), cs.corpus_lens(480, 960, seed=960), seed=960)
+            model = cs.flagship(seed=3)
+            make = cs.make_trainer
+        state = cs.train_state(model.to(cs.DEVICE))
+        cs.train_steps(state, loader, 1, f"{step} warm-up", make=make)
+        trainer = cs.train_steps(state, loader, 3, step, make=make)
+        step_ms = float(np.mean([h["train/step_time_sec"] for h in trainer.history])) * 1e3
+        cs.profile_step(state, loader, step_ms, f"{step}, root {cs.REPO}",
+                        port_kernels=PORT_KERNELS[step], make=make)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
+                        help="checkout whose chip_smoke.py and port to drive")
+    parser.add_argument("steps", nargs="+", choices=sorted(PORT_KERNELS))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_step_profile: no CUDA device")
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    os.chdir(root)
+    import chip_smoke as cs
+    from seq2seq_vc_torch.ops import native
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (root / "build").mkdir(exist_ok=True)
+    native.build()
+    cs.log(f"card: {cs.card_line()}; root {root}")
+    for step in args.steps:
+        run(cs, step)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

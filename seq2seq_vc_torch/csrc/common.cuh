@@ -1,8 +1,7 @@
-// Shared helpers for the port's hand-written Hopper kernels.
-//
-// Every kernel stages its tiles in shared memory as float and accumulates in
-// float, whatever the storage type (float or bfloat16), so one template
-// serves both the bf16 main path and the fp32 checks.
+// Shared helpers for the port's hand-written Hopper kernels: the storage
+// types (float or bfloat16; every kernel accumulates in float, so one
+// template serves both the bf16 main path and the fp32 checks), their
+// conversions, and the attention dropout hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,26 +25,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Rows [row0, row0 + n) of a row-major (rows, D) matrix into shared memory
-// as float, ld floats a row, by the NT threads of a block; rows at or past
-// `rows_valid` are zeros. Neighbouring threads read neighbouring columns.
-template <int NT, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, int row0, int n,
-                                           int rows_valid, int D) {
-  int r = threadIdx.x / D, c = threadIdx.x % D;
-  const int dr = NT / D, dc = NT % D;
-  while (r < n) {
-    const int row = row0 + r;
-    dst[r * ld + c] = row < rows_valid ? to_f(src[(size_t)row * D + c]) : 0.f;
-    r += dr;
-    c += dc;
-    if (c >= D) {
-      c -= D;
-      ++r;
-    }
-  }
-}
-
 // Attention dropout's keep test, shared by the flash forward kernels and
 // their backward kernels so that all draw the same mask. A counter-based
 // hash (the murmur3 finaliser) of the score element's index
@@ -54,14 +33,17 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, int
 // JAX package's padded query and key lengths (equal for self-attention over
 // one sequence), not tile sizes of these kernels: the bits equal those of
 // `_mix_bits` and `_keep_from_bits` in seq2seq_vc_tpu/ops/flash_attention.py.
-__device__ __forceinline__ unsigned mix_bits(unsigned idx, unsigned seed) {
-  unsigned x = idx * 0x9E3779B1u + seed;
+constexpr unsigned kMixMul = 0x9E3779B1u;
+__device__ __forceinline__ unsigned fmix32(unsigned x) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
+}
+__device__ __forceinline__ unsigned mix_bits(unsigned idx, unsigned seed) {
+  return fmix32(idx * kMixMul + seed);
 }
 
 // Whether element (bh, i, j) survives dropout at `rate`: the top 24 bits as
@@ -71,6 +53,17 @@ __device__ __forceinline__ bool dropout_keep(unsigned seed, int bh, int i, int j
   const unsigned idx = ((unsigned)bh * (unsigned)tq_pad + (unsigned)i) * (unsigned)tk_pad +
                        (unsigned)j;
   return (float)(mix_bits(idx, seed) >> 8) * (1.0f / 16777216.0f) >= rate;
+}
+
+// The same test in integers, for a kernel that draws many bits: the top 24
+// bits u pass where u * 2^-24 >= rate, exactly where u >= ceil(rate * 2^24)
+// (both sides exact in float32), that is where the bits are at least
+//   dropout_threshold(rate) = ceil(rate * 2^24) << 8   (rate < 1: no overflow)
+// and mix_bits(idx, seed) = fmix32(idx * kMixMul + seed), whose argument a
+// kernel may build from a per-row and a per-column part (wrapping 32-bit
+// arithmetic distributes).
+__device__ __forceinline__ unsigned dropout_threshold(float rate) {
+  return (unsigned)ceilf(rate * 16777216.0f) << 8;
 }
 
 }  // namespace s2s

@@ -1,7 +1,10 @@
-// Tensor-core tile helpers shared by the rel-pos flash kernels (the forward
+// Tensor-core tile helpers (mma.sync m16n8k16 from cp.async-staged shared
+// memory) shared by the port's tensor-core kernels: the fused rel-pos scores
+// (csrc/rel_scores.cu, kernel 1), the rel-pos flash kernels (the forward
 // csrc/rel_flash.cu and the backward's dq, dk/dv and dpos:
-// csrc/rel_flash_bwd_dq.cu, rel_flash_bwd_dkv.cu, rel_flash_bwd_dpos.cu)
-// and the standard flash backward (csrc/flash_bwd.cu: dq, dk/dv).
+// csrc/rel_flash_bwd_dq.cu, rel_flash_bwd_dkv.cu, rel_flash_bwd_dpos.cu;
+// kernels 2 and 6-8) and the standard flash kernels (the forward
+// csrc/flash.cu and the backward csrc/flash_bwd.cu: kernels 9-11).
 //
 // One warp multiplies a 16 x 16 tile A by a 16 x 8 tile B into an m16n8
 // fragment of float32 accumulators: lane l holds the cells (l/4, 2*(l%4)),

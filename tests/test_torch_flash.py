@@ -99,8 +99,9 @@ def test_plain_dropout_draws_the_cross_shape_mask():
     np.testing.assert_array_equal(got.reshape(6, 45, 130).numpy(), mask[:, :45, :130])
 
 
-# (b) the forward with dropout and its logsumexp
-@pytest.mark.parametrize("Tq,Tk,D,causal,rate", CASES[1:3])
+# (b) the forward with dropout and its logsumexp; CASES[4:6] cross several
+# 64-row tiles of the card's forward kernel, one of them causal
+@pytest.mark.parametrize("Tq,Tk,D,causal,rate", CASES[1:3] + CASES[4:6])
 def test_plain_forward_and_lse_match_the_jax_kernel(Tq, Tk, D, causal, rate):
     arrays, lens, _ = _inputs(Tq, Tk, D)
     out, lse = port_flash.flash_attention_plain(

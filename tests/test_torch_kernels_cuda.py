@@ -104,8 +104,15 @@ def _inputs(device, dtype, B, H, T, D, seed):
     return [torch.from_numpy(a).to(device, dtype) for a in (qu, qv, k, v, pos)]
 
 
+# (T, D) for kernel 1's 64 x 64 tiles besides SHAPES: one row (the table
+# window wholly past its edges but one row), one whole tile, several tiles
+# with a partial last one at the encoder's D 192 and the decoder's D 768,
+# and D 20, whose bf16 rows are not 16-byte aligned (staged by element loads)
+REL_SCORES_SHAPES = [(1, 16), (64, 64), (200, 192), (333, 768), (130, 20)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,D", SHAPES)
+@pytest.mark.parametrize("T,D", SHAPES + REL_SCORES_SHAPES)
 def test_rel_scores_kernel_matches_plain(cuda_device, dtype, T, D):
     qu, qv, k, _, pos = _inputs(cuda_device, getattr(torch, dtype), 2, 2, T, D, 3)
     got = fused_rel_scores(qu, qv, k, pos)
@@ -243,10 +250,11 @@ def test_flash_autograd_on_the_card_goes_through_the_four_kernels(cuda_device, z
 
 # (Tq, Tk, D): self-attention at the VTN's head dim 96 and at 64, cross
 # shapes both ways, and the largest head dim the kernels take; then shapes
-# that cross several 64-row tiles of kernels 10 and 11 with partial last
-# tiles, both ways, and a head dim of 128
+# that cross several 64-row tiles of kernels 9-11 with partial last tiles,
+# both ways, a head dim of 128, D 20 (bf16 rows not 16-byte aligned) and a
+# single query row against several key tiles
 STD_SHAPES = [(37, 37, 64), (130, 130, 96), (45, 130, 96), (130, 45, 96), (70, 70, 256),
-              (200, 333, 96), (333, 200, 96), (130, 130, 128)]
+              (200, 333, 96), (333, 200, 96), (130, 130, 128), (130, 130, 20), (1, 333, 96)]
 
 
 def _std_inputs(device, dtype, Tq, Tk, D, seed, B=3, H=2):
@@ -317,6 +325,24 @@ def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype, Tq, Tk, D, caus
         first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
         for a, b in zip(first, second):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_fwd_and_rel_scores_kernels_are_deterministic(cuda_device, dtype):
+    # kernels 9 and 1: no atomics, every output element has one owner, so
+    # two launches on the same inputs give the same bits
+    dt = getattr(torch, dtype)
+    q, k, v, lens = _std_inputs(cuda_device, dt, 333, 200, 96, 15)
+    for causal in (False, True):
+        first = fa._std_fwd(q, k, v, lens, causal, 0.1, 7, need_lse=True)
+        second = fa._std_fwd(q, k, v, lens, causal, 0.1, 7, need_lse=True)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+    qu, qv, kk, _, pos = _inputs(cuda_device, dt, 2, 2, 200, 192, 16)
+    first, second = fused_rel_scores(qu, qv, kk, pos), fused_rel_scores(qu, qv, kk, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_autograd_on_the_card_goes_through_the_three_kernels(cuda_device, zero_counts):

@@ -27,7 +27,7 @@ def _inputs(B, H, T, D, seed=0):
     return qu, qv, k, pos
 
 
-@pytest.mark.parametrize("T", [37, 130])
+@pytest.mark.parametrize("T", [37, 130, 200])  # 200: several 64 x 64 tiles of the card's kernel
 @pytest.mark.parametrize("D", [16, 48])
 def test_plain_matches_jax_pallas_kernel(T, D):
     qu, qv, k, pos = _inputs(2, 2, T, D)
