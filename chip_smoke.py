@@ -14,10 +14,10 @@ Phases, each printed on lines of its own:
 1. the card (``nvidia-smi`` name and power limit), the TF32 switches (both
    off), and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
-   registers and spills (no variant of kernels 1 and 9-11 may spill), and
-   the HMMA instructions of every variant of the tensor-core kernels (1,
-   2 and 6-11) in ``cuobjdump -sass``: each bfloat16 variant must issue
-   them, no float32 one may;
+   registers and spills (no variant of kernels 1, 3-5 and 9-11 may
+   spill), and the HMMA instructions of every variant of the tensor-core
+   kernels (1-3 and 5-11) in ``cuobjdump -sass``: each bfloat16 variant
+   must issue them, no float32 one may;
 2. warm-up: a full-width ``Wav2WavConverter`` (the AAS-VC flagship of
    ``egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml`` and the HiFi-GAN that
    ``bench.py`` serves) with seeded random weights serves a 3.8 s clip, a
@@ -1941,6 +1941,8 @@ def ptxas_report(text: str):
 # the tensor-core kernels (by library): their bfloat16 instantiations must
 # issue HMMA, their float32 ones (FMA, the card's reference path) none
 TENSOR_CORE = {"rel_scores": ("rel_scores_fwd_kernel",),
+               "rel_scores_bwd": ("rel_scores_bwd_kernel",),
+               "rel_scores_bwd_pair": ("rel_scores_bwd_dpos_kernel",),  # kernel 4 is FMA
                "rel_flash": ("rel_flash_fwd_kernel",),
                "rel_flash_bwd_dq": ("rel_flash_bwd_dq_kernel",),
                "rel_flash_bwd_dkv": ("rel_flash_bwd_dkv_kernel",),
@@ -1948,7 +1950,7 @@ TENSOR_CORE = {"rel_scores": ("rel_scores_fwd_kernel",),
                "flash": ("flash_fwd_kernel",),
                "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
 # sources whose variants must not spill (ptxas -v)
-NO_SPILL = ("rel_scores", "flash", "flash_bwd")
+NO_SPILL = ("rel_scores", "rel_scores_bwd", "rel_scores_bwd_pair", "flash", "flash_bwd")
 
 
 def sass_hmma():

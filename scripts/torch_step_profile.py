@@ -11,9 +11,11 @@ with their seeds, batch and settings:
 
 - ``vtn_long``: phase 15, ``ARVCTrainer`` on the full-width VTN in bf16, B
   16 at 8200-9200 frames (every encoder layer on kernels 9-11);
-- ``aas_960``: phase 8's longer batch, ``AASVCTrainer`` on the full-width
-  AAS-VC flagship in bf16, B 16 at 480-960 frames (the fused route:
-  kernels 1 and 3).
+- ``aas_512``, ``aas_960``: phase 8's two batches, ``AASVCTrainer`` on the
+  full-width AAS-VC flagship in bf16, B 16 at 160-512 and at 480-960
+  frames (the fused route: kernels 1 and 3);
+- ``aas_pallas``: phase 21, the same flagship with ``rel_scores_bwd:
+  pallas`` at 480-960 frames (kernels 1, 4 and 5).
 
 One warm-up step, 3 timed steps, then one profiled step: the device busy
 time (kernel time under ``torch.profiler``), the busy share of the
@@ -36,8 +38,16 @@ import torch
 
 PORT_KERNELS = {
     "vtn_long": ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+    "aas_512": ("rel_scores_fwd_kernel", "rel_scores_bwd_kernel"),
     "aas_960": ("rel_scores_fwd_kernel", "rel_scores_bwd_kernel"),
+    "aas_pallas": ("rel_scores_fwd_kernel", "rel_scores_bwd_dqv_kernel",
+                   "rel_scores_bwd_dpos_kernel"),
 }
+# (lo, hi) target frames of each AAS-VC batch, its corpus seed, the
+# flagship's seed and settings (as chip_smoke.py's phases 8 and 21)
+AAS = {"aas_512": ((160, 512), 512, 3, {}),
+       "aas_960": ((480, 960), 960, 3, {}),
+       "aas_pallas": ((480, 960), 960, 47, {"rel_scores_bwd": "pallas"})}
 
 
 def run(cs, step: str) -> None:
@@ -51,8 +61,9 @@ def run(cs, step: str) -> None:
             model = cs.vtn_model(seed=33, compute_dtype="bfloat16").train()
             make = cs.make_vtn_trainer
         else:
-            loader = cs.corpus_loader(Path(tmp), cs.corpus_lens(480, 960, seed=960), seed=960)
-            model = cs.flagship(seed=3)
+            (lo, hi), seed, model_seed, over = AAS[step]
+            loader = cs.corpus_loader(Path(tmp), cs.corpus_lens(lo, hi, seed=seed), seed=seed)
+            model = cs.flagship(seed=model_seed, **over)
             make = cs.make_trainer
         state = cs.train_state(model.to(cs.DEVICE))
         cs.train_steps(state, loader, 1, f"{step} warm-up", make=make)

@@ -1,7 +1,9 @@
 // Tensor-core tile helpers (mma.sync m16n8k16 from cp.async-staged shared
 // memory) shared by the port's tensor-core kernels: the fused rel-pos scores
-// (csrc/rel_scores.cu, kernel 1), the rel-pos flash kernels (the forward
-// csrc/rel_flash.cu and the backward's dq, dk/dv and dpos:
+// (csrc/rel_scores.cu, kernel 1) and their backward (csrc/rel_scores_bwd.cu
+// and the table gradient of csrc/rel_scores_bwd_pair.cu, through
+// csrc/rel_band_tiles.cuh: kernels 3 and 5), the rel-pos flash kernels (the
+// forward csrc/rel_flash.cu and the backward's dq, dk/dv and dpos:
 // csrc/rel_flash_bwd_dq.cu, rel_flash_bwd_dkv.cu, rel_flash_bwd_dpos.cu;
 // kernels 2 and 6-8) and the standard flash kernels (the forward
 // csrc/flash.cu and the backward csrc/flash_bwd.cu: kernels 9-11).
@@ -9,7 +11,8 @@
 // One warp multiplies a 16 x 16 tile A by a 16 x 8 tile B into an m16n8
 // fragment of float32 accumulators: lane l holds the cells (l/4, 2*(l%4)),
 // (l/4, 2*(l%4)+1), (l/4+8, 2*(l%4)) and (l/4+8, 2*(l%4)+1). Both tiles lie
-// in shared memory, A row-major, B either as [n][k] rows (`KN` false: a key
+// in shared memory, A row-major (or, through `load_a_t`, stored [k][m] and
+// read transposed), B either as [n][k] rows (`KN` false: a key
 // tile against which queries are scored) or as [k][n] rows (`KN` true: a
 // value or table tile that a weight tile multiplies).
 //
@@ -139,6 +142,15 @@ __device__ __forceinline__ void load_a(AFrag<__nv_bfloat16>& f, const __nv_bfloa
 __device__ __forceinline__ void load_a(AFrag<float>& f, const float* a, int lda) {
   f.p = a;
   f.ld = lda;
+}
+// A read transposed: the 16 x 16 tile whose element (m, k) is a[k * lda + m]
+// (a [k][m] tile), by ldmatrix.trans: matrix q of the x4 (lanes 8q..8q+7)
+// is rows k 8(q/2).., columns m 8(q%2).., which `.trans` delivers as the A
+// fragment's register q (m 8(q%2).., k 8(q/2)..)
+__device__ __forceinline__ void load_a_t(AFrag<__nv_bfloat16>& f, const __nv_bfloat16* a,
+                                         int lda) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4<true>(a + (lane % 8 + 8 * (lane / 16)) * lda + 8 * ((lane / 8) % 2), f.r);
 }
 
 // c += A . B, B the 16 x 8 tile at `b`: b[k * ldb + n] if KN, else b[n * ldb + k]

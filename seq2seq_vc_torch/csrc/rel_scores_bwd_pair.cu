@@ -12,16 +12,19 @@
 //   dq_v[b,h,i] = scale * sum_j g[b,h,i,j] * pos[h, T-1-i+j]
 //   dpos[h,r]   = scale * sum_b sum_i g[b,h,i, i+r-(T-1)] * q_v[b,h,i]
 //
-// - dq_v: a block owns BM = 64 query rows and one BC = 64 chunk of D, and
-//   walks the key tiles of BN = 32 keys. For each tile it stages the g tile
-//   (BM, BN) and the BM+BN-1 table rows the tile touches (row T-1-i+j of
-//   cell (i, j) is window row BM-1-(i-i0)+(j-j0)), and each cell reads its
-//   own window row by index arithmetic: acc(i, :) += g(i, j) pos(window row).
-// - dpos: a block owns BM table rows of one head and one BC chunk of D, and
-//   walks, for every batch item in order, the query rows whose diagonal
-//   reaches them (`band::dpos_block`, the same tiles as kernel 3's dpos
-//   half). Each table row's sum is one block's, in a fixed order:
-//   deterministic, no atomics.
+// - dq_v (CUDA-core FMA): a block owns BM = 64 query rows and one BC = 64
+//   chunk of D, and walks the key tiles of BN = 32 keys. For each tile it
+//   stages the g tile (BM, BN) and the BM+BN-1 table rows the tile touches
+//   (row T-1-i+j of cell (i, j) is window row BM-1-(i-i0)+(j-j0)), and each
+//   cell reads its own window row by index arithmetic: acc(i, :) += g(i, j)
+//   pos(window row).
+// - dpos (tensor cores): kernel 3's table-gradient half, `band::dpos_block`
+//   of csrc/rel_band_tiles.cuh: a block owns 64 table rows of one head and a
+//   D chunk of up to 192 columns, and walks, for the batch items of its
+//   group in order, the query rows whose diagonal reaches them, acc += G^T .
+//   q_v in mma.sync m16n8k16 (G as bf16 hi + lo planes); the groups of one
+//   tile form a cluster that adds their float32 sums in rank order.
+//   Deterministic, no atomics.
 //
 // The TPU kernels' reversed table, `_block_rel_unshift_flipped` and the
 // (H, n_tab, B, n_q) grid with a resident accumulator were Mosaic
@@ -29,22 +32,25 @@
 //
 // Bound: g (B*H*T*T float32) dominates the bytes of each launch (both read
 // all of it); the work is B*H*T*T*D multiply-adds for each output. At the
-// training step's shapes the tensor-core rate would leave both bound by the
-// bytes of g; this first version multiplies on the CUDA cores in float FMA
-// (4 x 4 register tiles), so it is bound by FMA issue and shared-memory
-// reads. Tensor cores are later work.
+// training step's shapes the tensor-core rate would leave both near the
+// bytes of g. dq_v still multiplies on the CUDA cores in float FMA (4 x 4
+// register tiles), bound by FMA issue and shared-memory reads; its tensor-
+// core form is `band::dqv_block`'s, later work.
 #include <stdint.h>
 
-#include "common.cuh"
 #include "rel_band_tiles.cuh"
 
 namespace {
 
-using namespace s2s::band;
+namespace band = s2s::band;
 using s2s::from_f;
 using s2s::to_f;
 
-constexpr int BN = 32;            // keys per tile of the dq_v kernel
+// the dq_v kernel's tiles
+constexpr int BM = 64;            // query rows per block
+constexpr int BC = 64;            // output columns per block: one chunk of D
+constexpr int NT = 256;           // threads: a 16 x 16 grid, 4 x 4 outputs each
+constexpr int BN = 32;            // keys per tile
 constexpr int WIN = BM + BN - 1;  // table rows a (BM, BN) tile touches
 // row stride of the staged table window: neighbouring rows of one warp
 // (ty, ty + 1 read window rows w, w - 1) fall 16 banks apart
@@ -113,15 +119,11 @@ __global__ void __launch_bounds__(NT) rel_scores_bwd_dqv_kernel(const float* __r
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) rel_scores_bwd_dpos_kernel(const float* __restrict__ g,
-                                                                 const T* __restrict__ qv,
-                                                                 T* __restrict__ dpos, int B,
-                                                                 int H, int L, int D,
-                                                                 float scale) {
-  __shared__ float s_a[BK][LDA];
-  __shared__ float s_b[BK][BC];
-  dpos_block(g, qv, dpos, B, H, L, D, scale, (int)blockIdx.x, s_a, s_b);
+template <typename T, int NTW>
+__global__ void __launch_bounds__(band::NT, 1)
+    rel_scores_bwd_dpos_kernel(band::Args<T> a, int n_groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  band::dpos_block<T, NTW>(a, (int)blockIdx.x, n_groups, smem);
 }
 
 bool bad_shape(int B, int H, int L, int D) {
@@ -137,14 +139,24 @@ cudaError_t launch_dqv(const float* g, const void* pos, void* dqv, int B, int H,
   return cudaGetLastError();
 }
 
+template <typename T, int NTW>
+cudaError_t launch_dpos_ntw(const band::Args<T>& a, cudaStream_t stream) {
+  int n_sm = 0;
+  const cudaError_t err = band::device_sms(&n_sm);
+  if (err != cudaSuccess) return err;
+  const long tiles = band::dpos_tiles<NTW>(a.H, a.L, a.D);
+  const int n_groups = band::dpos_groups(a.B, tiles, n_sm);
+  return band::launch_clusters(rel_scores_bwd_dpos_kernel<T, NTW>, n_groups * tiles, n_groups,
+                               band::Tiles<T, NTW>::BYTES, stream, a, n_groups);
+}
+
 template <typename T>
 cudaError_t launch_dpos(const float* g, const void* qv, void* dpos, int B, int H, int L, int D,
                         float scale, cudaStream_t stream) {
-  const long n = dpos_blocks(H, L, D);
-  if (n > 0x7fffffffL) return cudaErrorInvalidValue;
-  rel_scores_bwd_dpos_kernel<T><<<(unsigned)n, NT, 0, stream>>>(
-      g, static_cast<const T*>(qv), static_cast<T*>(dpos), B, H, L, D, scale);
-  return cudaGetLastError();
+  const band::Args<T> a{g, static_cast<const T*>(qv), nullptr, nullptr, static_cast<T*>(dpos),
+                        B, H, L, D, scale, s2s::tc::rows_aligned<T>(D, {qv})};
+  return band::with_chunk(
+      D, [&](auto ntw) { return launch_dpos_ntw<T, decltype(ntw)::value>(a, stream); });
 }
 
 }  // namespace

@@ -29,7 +29,9 @@ the tensor cores rounded to bf16 (2^-9 relative each, in sums of many terms
 of either sign), well inside the bf16 tolerances above. Kernels 10 and 11
 in bf16 feed Pd and dS as a hi and a lo bf16 part (~2^-16 relative): one
 rounding can, under the causal mask, where rows near the diagonal weigh
-few keys heavily and the sum cancels, exceed the bf16 tolerance.
+few keys heavily and the sum cancels, exceed the bf16 tolerance. Kernels 3
+and 5 feed the float32 cotangent g the same way: one rounding of g puts the
+table gradient's sums of B*T products past the bf16 tolerance.
 """
 
 import numpy as np
@@ -138,7 +140,7 @@ def test_rel_flash_kernel_matches_plain(cuda_device, dtype, T, D):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
+@pytest.mark.parametrize("T,D", SHAPES + REL_SCORES_SHAPES + [(130, 768)])
 def test_rel_scores_bwd_kernel_matches_plain(cuda_device, dtype, T, D):
     dt = getattr(torch, dtype)
     qu, qv, k, _, pos = _inputs(cuda_device, dt, 3, 2, T, D, 5)
@@ -345,6 +347,23 @@ def test_flash_fwd_and_rel_scores_kernels_are_deterministic(cuda_device, dtype):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,D", [(3, 200, 192), (5, 130, 768)])
+def test_rel_scores_bwd_kernels_3_and_5_are_deterministic(cuda_device, dtype, B, T, D):
+    # kernels 3 and 5 split the table gradient's batch walk into groups
+    # (here B of them, one batch item each) whose float32 sums one cluster
+    # adds in rank order: no atomics, so two launches give the same bits
+    _, qv, _, _, pos = _inputs(cuda_device, getattr(torch, dtype), B, 2, T, D, 19)
+    g = torch.randn(B, 2, T, T, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(20))
+    for kernel in (rel_band_bwd, rel_band_bwd_dpos):
+        first, second = kernel(g, qv, pos), kernel(g, qv, pos)
+        torch.cuda.synchronize()
+        first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
 def test_flash_autograd_on_the_card_goes_through_the_three_kernels(cuda_device, zero_counts):
     q, k, v, lens = _std_inputs(cuda_device, torch.float32, 45, 130, 96, 13)
     ts = [t.requires_grad_() for t in (q, k, v)]
@@ -542,7 +561,7 @@ def test_legacy_wrapper_refuses_widths_past_the_kernels(cuda_device):
 
 # ------------------------------------ kernels 4 and 5: bwd="pallas"
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,D", SHAPES + [(130, 768)])
+@pytest.mark.parametrize("T,D", SHAPES + REL_SCORES_SHAPES + [(130, 768)])
 def test_rel_scores_pair_kernels_match_plain(cuda_device, zero_counts, dtype, T, D):
     dt = getattr(torch, dtype)
     _, qv, _, _, pos = _inputs(cuda_device, dt, 3, 2, T, D, 16)

@@ -3,10 +3,11 @@
 The plain backward (what a CPU tensor takes for ``bwd="banded"``) and the
 autograd Function's gradients, against ``jax.vjp`` of the JAX package's
 ``fused_rel_scores`` with ``bwd="banded"`` (its Pallas kernel in interpret
-mode) and ``bwd="xla"``, on ragged T (37, 130) and D 16 and 48, with the
-same numpy cotangent. Tolerance: float32, atol 2e-5 and rtol 1e-5 (sums of
-at most B*T = 260 products of unit-variance numbers, taken in another
-order). bf16 inputs: the float32 result is rounded once to bf16, so rtol
+mode) and ``bwd="xla"``, on ragged T (37, 130; the plain backward also at
+200, several 64-row tiles of the card's kernels with a partial last one)
+and D 16 and 48, with the same numpy cotangent. Tolerance: float32, atol
+2e-5 and rtol 1e-5 (sums of at most B*T = 400 products of unit-variance
+numbers, taken in another order). bf16 inputs: the float32 result is rounded once to bf16, so rtol
 2^-7 (one bf16 ulp) and atol 1e-5.
 """
 
@@ -61,7 +62,7 @@ def _assert_grads(got, want, tol=TOL):
 
 
 @pytest.mark.parametrize("jax_bwd", ["banded", "xla"])
-@pytest.mark.parametrize("T", [37, 130])
+@pytest.mark.parametrize("T", [37, 130, 200])
 @pytest.mark.parametrize("D", [16, 48])
 def test_plain_backward_matches_jax(jax_bwd, T, D):
     arrays, g = _inputs(T, D)
