@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``seq2seq_vc_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the repository root; needs one card
-    python3 chip_smoke.py --bwd-sweep  # only: the rel-scores backward's two
+    python3 chip_smoke.py --bwd-sweep  # only: the rel-scores backward's three
                                        # variants timed over T (the bwd="auto" gate)
     python3 chip_smoke.py --flash-sweep  # only: one attention layer's forward +
                                          # backward, fused (rel-pos) or dense
@@ -16,7 +16,7 @@ Phases, each printed on lines of its own:
    (one ``nvcc`` per source, started together), with each kernel's
    registers and spills (no variant of kernels 1, 3-5 and 9-11 may
    spill), and the HMMA instructions of every variant of the tensor-core
-   kernels (1-3 and 5-11) in ``cuobjdump -sass``: each bfloat16 variant
+   kernels (1-11) in ``cuobjdump -sass``: each bfloat16 variant
    must issue them, no float32 one may;
 2. warm-up: a full-width ``Wav2WavConverter`` (the AAS-VC flagship of
    ``egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml`` and the HiFi-GAN that
@@ -1811,20 +1811,30 @@ def train_pallas_path(rows):
 
 
 def bwd_sweep() -> int:
-    """The rel-scores backward's two variants, timed at the training step's
-    batch (B 16, H 2) in bf16 over key lengths T at the encoder's and the
-    decoder's head dims: the data for ``AUTO_BANDED_MIN_LEN``."""
-    from seq2seq_vc_torch.ops.rel_scores import rel_band_bwd, rel_band_bwd_xla
+    """The rel-scores backward's three variants (dq_v and dpos), timed at
+    the training step's batch (B 16, H 2) in bf16 over key lengths T at the
+    encoder's and the decoder's head dims: ``banded`` (kernel 3), ``pallas``
+    (kernels 4 + 5) and ``xla``. The data for ``AUTO_BANDED_MIN_LEN``. Each
+    D's first length is timed twice and its first reading dropped (it
+    carries the shape's warm-up); below T 128 the launches are short
+    enough that the times are mostly the host's launch path."""
+    from seq2seq_vc_torch.ops.rel_scores import (rel_band_bwd, rel_band_bwd_dpos,
+                                                 rel_band_bwd_dqv, rel_band_bwd_xla)
 
     log(f"card: {card_line()}")
+    lengths = (1, 2, 4, 8, 16, 32, 64, 96, 128, 256, 384, 512, 640, 768, 896, 960, 1280,
+               1664, 2048)
     for D in (192, 768):
-        for T in (128, 256, 384, 512, 640, 768, 896, 960, 1280, 1664, 2048):
+        for n, T in enumerate((lengths[0],) + lengths):
             qu, qv, _, _, pos, _ = kernel_inputs(16, 2, T, D, torch.bfloat16, seed=T)
             g = torch.randn(16, 2, T, T, device="cuda")
-            xla_ms = cuda_ms(lambda: rel_band_bwd_xla(g, qv, pos))
-            banded_ms = cuda_ms(lambda: rel_band_bwd(g, qv, pos))
-            log(f"bwd sweep B16 H2 T{T} D{D} bf16: banded {banded_ms:.4f} ms, xla {xla_ms:.4f} ms, "
-                f"{'banded' if banded_ms < xla_ms else 'xla'} faster")
+            ms = {"banded": cuda_ms(lambda: rel_band_bwd(g, qv, pos)),
+                  "pallas": cuda_ms(lambda: (rel_band_bwd_dqv(g, qv, pos),
+                                             rel_band_bwd_dpos(g, qv, pos))),
+                  "xla": cuda_ms(lambda: rel_band_bwd_xla(g, qv, pos))}
+            log(f"bwd sweep B16 H2 T{T} D{D} bf16{' (warm-up)' if n == 0 else ''}: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                + f"; {min(ms, key=ms.get)} fastest")
             del qu, qv, pos, g
     return 0
 
@@ -1942,7 +1952,7 @@ def ptxas_report(text: str):
 # issue HMMA, their float32 ones (FMA, the card's reference path) none
 TENSOR_CORE = {"rel_scores": ("rel_scores_fwd_kernel",),
                "rel_scores_bwd": ("rel_scores_bwd_kernel",),
-               "rel_scores_bwd_pair": ("rel_scores_bwd_dpos_kernel",),  # kernel 4 is FMA
+               "rel_scores_bwd_pair": ("rel_scores_bwd_dqv_kernel", "rel_scores_bwd_dpos_kernel"),
                "rel_flash": ("rel_flash_fwd_kernel",),
                "rel_flash_bwd_dq": ("rel_flash_bwd_dq_kernel",),
                "rel_flash_bwd_dkv": ("rel_flash_bwd_dkv_kernel",),

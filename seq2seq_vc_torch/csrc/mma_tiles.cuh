@@ -1,8 +1,8 @@
 // Tensor-core tile helpers (mma.sync m16n8k16 from cp.async-staged shared
 // memory) shared by the port's tensor-core kernels: the fused rel-pos scores
 // (csrc/rel_scores.cu, kernel 1) and their backward (csrc/rel_scores_bwd.cu
-// and the table gradient of csrc/rel_scores_bwd_pair.cu, through
-// csrc/rel_band_tiles.cuh: kernels 3 and 5), the rel-pos flash kernels (the
+// and csrc/rel_scores_bwd_pair.cu, through csrc/rel_band_tiles.cuh:
+// kernels 3-5), the rel-pos flash kernels (the
 // forward csrc/rel_flash.cu and the backward's dq, dk/dv and dpos:
 // csrc/rel_flash_bwd_dq.cu, rel_flash_bwd_dkv.cu, rel_flash_bwd_dpos.cu;
 // kernels 2 and 6-8) and the standard flash kernels (the forward

@@ -1,6 +1,7 @@
 // Tensor-core tiles of the band cotangent, shared by csrc/rel_scores_bwd.cu
 // (kernel 3: dq_v and the table gradient in one launch) and
-// csrc/rel_scores_bwd_pair.cu (kernel 5: the table gradient alone).
+// csrc/rel_scores_bwd_pair.cu (the bwd="pallas" pair, each half a launch of
+// its own: kernel 4 dq_v, kernel 5 the table gradient).
 //
 // With g the float32 cotangent of the (B, H, T, T) scores, the band
 // cotangent is G[b,h,i,r] = g[b,h,i, i+r-(T-1)] (zero where that key leaves
@@ -19,17 +20,18 @@
 //   columns, by cp.async (tc::stage: element loads where rows are not 16-byte
 //   aligned), read as the [k][n] operand (ldmatrix.trans, tc::mma_cols);
 // in two buffers, one barrier a step. Two products read the same tile:
-// - dq_v (`dqv_block`, kernel 3): acc(64 queries, DC) += G . pos over the
-//   T+63 table rows its queries touch; A is the tile as staged;
+// - dq_v (`dqv_block`, kernels 3 and 4): acc(64 queries, DC) += G . pos
+//   over the T+63 table rows its queries touch; A is the tile as staged;
 // - dpos (`dpos_block`, kernels 3 and 5): acc(64 table rows, DC) += G^T . q_v
 //   over every (b, i) whose g row reaches those rows; A is the tile read
 //   transposed (tc::load_a_t, ldmatrix.trans).
 // bfloat16: g is float32, and one bf16 rounding of it put the table
-// gradient's sums of B*T products past the bf16 tolerance in an emulation,
-// so the tile is staged as two bf16 planes, hi = bf16(x) and lo = bf16(x -
-// hi), both multiplied into the same accumulators (twice the products,
-// ~2^-16 relative). float32 (the card's reference path, no TF32): one float
-// plane, the same fragments in FMA.
+// gradient's sums of B*T products (and some dq_v outputs at D 192) past
+// the bf16 tolerance in an emulation, so the tile is staged as two bf16
+// planes, hi = bf16(x) and lo = bf16(x - hi), both multiplied into the
+// same accumulators (twice the products, ~2^-16 relative). float32 (the
+// card's reference path, no TF32): one float plane, the same fragments in
+// FMA.
 //
 // The table gradient sums over the batch. Its blocks are split over the
 // grid into groups of batch items (`dpos_groups`), one block a group, and
@@ -78,7 +80,8 @@ struct Tiles {
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-// The arguments of both kernels. dq_v may be null (kernel 5).
+// The arguments of kernels 3-5. Kernel 4 passes no q_v and no dpos,
+// kernel 5 no table and no dq_v.
 template <typename T>
 struct Args {
   const float* g;
@@ -352,7 +355,7 @@ inline cudaError_t device_sms(int* n) {
 }
 
 // f(std::integral_constant<int, NTW>) for the D chunk of 8 * NTW columns
-// that both kernels take at width D
+// that kernels 3 and 5 take at width D (kernel 4 up to D 192)
 template <typename F>
 cudaError_t with_chunk(int D, F&& f) {
   if (D <= 64) return f(std::integral_constant<int, 8>());

@@ -18,12 +18,13 @@
 // columns a block):
 //
 // - dq_v: a block owns 64 query rows and a D chunk, and walks the T+63
-//   table rows its queries touch: acc(64, DC) += G . pos;
+//   table rows its queries touch: acc(64, DC) += G . pos (`band::dqv_block`,
+//   which kernel 4, csrc/rel_scores_bwd_pair.cu, runs alone);
 // - dpos: a block owns 64 table rows and a D chunk, and walks every (b, i)
 //   of its group of batch items whose g row reaches them: acc(64, DC) +=
-//   G^T . q_v (`band::dpos_block`, which kernel 5, csrc/rel_scores_bwd_pair.cu,
-//   runs alone). The groups of one tile form a cluster, which adds their
-//   float32 sums in rank order through distributed shared memory.
+//   G^T . q_v (`band::dpos_block`, which kernel 5 runs alone). The groups
+//   of one tile form a cluster, which adds their float32 sums in rank order
+//   through distributed shared memory.
 //
 // One launch runs both, in clusters of the group count: the grid's first
 // blocks are the dpos tiles (each walks its group's rows of g), the rest

@@ -18,14 +18,14 @@ chosen by ``bwd``:
   ``csrc/rel_scores_bwd.cu`` (the band cotangent never reaches device
   memory), on a CPU tensor ``rel_band_bwd_plain``;
 - ``"pallas"``: the diagonal-reduction pair, two launches: ``dq_v`` from
-  ``rel_band_bwd_dqv`` (a block owns query rows and walks the key tiles)
-  and ``dpos`` from ``rel_band_bwd_dpos`` (a block owns table rows and
-  walks the band diagonals), the Hopper kernels in
-  ``csrc/rel_scores_bwd_pair.cu`` on a CUDA tensor, their plain versions
-  on a CPU one. The name is the JAX package's (``S2S_REL_SCORES_BWD=pallas``
+  ``rel_band_bwd_dqv`` (a block owns query rows and walks the table rows
+  they touch) and ``dpos`` from ``rel_band_bwd_dpos`` (a block owns table
+  rows and walks the band diagonals), kernel 3's two halves, the Hopper
+  kernels in ``csrc/rel_scores_bwd_pair.cu`` on a CUDA tensor, their plain
+  versions on a CPU one. The name is the JAX package's (``S2S_REL_SCORES_BWD=pallas``
   there), so a run that names it carries over; ``"auto"`` never picks it;
-- ``"auto"``: ``"banded"`` from ``AUTO_BANDED_MIN_LEN`` key frames up,
-  ``"xla"`` below.
+- ``"auto"``: ``"banded"`` from ``AUTO_BANDED_MIN_LEN`` key frames up
+  (one: every length), ``"xla"`` below.
 """
 
 from __future__ import annotations
@@ -41,12 +41,15 @@ from . import native
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # bwd="auto" gate: from this many key frames up the banded kernel takes the
-# backward. PROVISIONAL: ``python3 chip_smoke.py --bwd-sweep`` timed both
-# variants on an H100 at the training step's batch (B 16, H 2, bf16) for T
-# from 128 to 2048 at D 192 and 768, and the kernel was the faster at every
-# one (PERF.md), so the gate sits at the shortest length timed; below it
-# nothing was measured. Not the TPU's AUTO_BANDED_MIN_LEN (768).
-AUTO_BANDED_MIN_LEN = 128
+# backward. ``python3 chip_smoke.py --bwd-sweep`` timed the variants on an
+# H100 80GB HBM3 at 700 W at the training step's batch (B 16, H 2, bf16)
+# for T from 1 to 2048 at D 192 and 768 (each D's first length read twice,
+# the first reading dropped), and kernel 3 beat ``xla`` at all 38 points,
+# 3.8-10.0x (T 32: 0.039 against 0.262 ms at D 192, 0.026 against 0.166 at
+# D 768; PERF.md); below T 128 those times are mostly the host's launch
+# path. So the gate sits at one frame: ``auto`` takes the kernel at every
+# length. Not the TPU's AUTO_BANDED_MIN_LEN (768).
+AUTO_BANDED_MIN_LEN = 1
 BWD_VARIANTS = ("auto", "xla", "banded", "pallas")
 
 _c = ctypes.c_void_p

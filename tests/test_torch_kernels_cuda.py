@@ -29,9 +29,10 @@ the tensor cores rounded to bf16 (2^-9 relative each, in sums of many terms
 of either sign), well inside the bf16 tolerances above. Kernels 10 and 11
 in bf16 feed Pd and dS as a hi and a lo bf16 part (~2^-16 relative): one
 rounding can, under the causal mask, where rows near the diagonal weigh
-few keys heavily and the sum cancels, exceed the bf16 tolerance. Kernels 3
-and 5 feed the float32 cotangent g the same way: one rounding of g puts the
-table gradient's sums of B*T products past the bf16 tolerance.
+few keys heavily and the sum cancels, exceed the bf16 tolerance. Kernels
+3-5 feed the float32 cotangent g the same way: one rounding of g puts the
+table gradient's sums of B*T products, and some dq_v outputs, past the bf16
+tolerance.
 """
 
 import numpy as np
@@ -560,8 +561,14 @@ def test_legacy_wrapper_refuses_widths_past_the_kernels(cuda_device):
 
 
 # ------------------------------------ kernels 4 and 5: bwd="pallas"
+# past the kernel 3 shapes: each D chunk (64, 128, 192 columns) and two past
+# 192 (196: rows not 16-byte aligned in bf16), T 1 and 63 under one 64-row
+# tile, and a T past 960 that is not a multiple of 64
+PAIR_SHAPES = [(130, 768), (63, 128), (1, 200), (200, 64), (65, 196), (1000, 192)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,D", SHAPES + REL_SCORES_SHAPES + [(130, 768)])
+@pytest.mark.parametrize("T,D", SHAPES + REL_SCORES_SHAPES + PAIR_SHAPES)
 def test_rel_scores_pair_kernels_match_plain(cuda_device, zero_counts, dtype, T, D):
     dt = getattr(torch, dtype)
     _, qv, _, _, pos = _inputs(cuda_device, dt, 3, 2, T, D, 16)

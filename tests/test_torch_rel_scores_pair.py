@@ -5,11 +5,12 @@ diagonal-reduction pair (kernels 4 and 5: ``rel_band_bwd_dqv``,
 Their plain versions (what a CPU tensor takes) and the autograd Function's
 gradients with ``bwd="pallas"``, against ``jax.vjp`` of the JAX package's
 ``fused_rel_scores`` with ``bwd="pallas"`` (its ``_dqv_kernel`` and
-``_dtab_kernel`` in interpret mode, block 128) on a ragged T of 130 (two
-blocks there), with the same numpy cotangent. Tolerance: float32, atol
-2e-5 and rtol 1e-5, as tests/test_torch_rel_scores_bwd.py holds kernel 3
-(sums of at most B*T = 260 products of unit-variance numbers, taken in
-another order).
+``_dtab_kernel`` in interpret mode, block 128) with the same numpy
+cotangent, at two shapes: a ragged T of 130 (two blocks there) and T 37 at
+D 20 (one padded block; a width whose bf16 rows are not 16-byte aligned on
+the card). Tolerance: float32, atol 2e-5 and rtol 1e-5, as
+tests/test_torch_rel_scores_bwd.py holds kernel 3 (sums of at most B*T =
+260 products of unit-variance numbers, taken in another order).
 """
 
 import functools
@@ -34,11 +35,13 @@ from seq2seq_vc_torch.ops.rel_scores import (
 )
 
 TOL = dict(atol=2e-5, rtol=1e-5)
-B, H, T, D = 2, 2, 130, 48
+SHAPE = (2, 2, 130, 48)  # (B, H, T, D)
+SHAPES = [SHAPE, (1, 2, 37, 20)]
 NAMES = ("q_u", "q_v", "k", "pos")
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, shape=SHAPE):
+    B, H, T, D = shape
     rng = np.random.default_rng(seed)
     qu, qv, k = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in range(3))
     pos = rng.standard_normal((H, 2 * T - 1, D)).astype(np.float32)
@@ -47,32 +50,34 @@ def _inputs(seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_grads():
+def _jax_grads(shape=SHAPE):
     """(q_u, q_v, k, pos) cotangents of the JAX function, bwd="pallas"."""
-    arrays, g = _inputs()
+    arrays, g = _inputs(shape=shape)
     _, vjp = jax.vjp(lambda *a: jax_fused_rel_scores(*a, bwd="pallas"), *map(jnp.asarray, arrays))
     return [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}_H{}_T{}_D{}".format(*s))
 @pytest.mark.parametrize("which", ["dq_v", "dpos"])
-def test_pair_plain_versions_match_jax_pallas(which):
-    (_, qv, _, pos), g = _inputs()
+def test_pair_plain_versions_match_jax_pallas(which, shape):
+    (_, qv, _, pos), g = _inputs(shape=shape)
     args = (torch.from_numpy(g), torch.from_numpy(qv), torch.from_numpy(pos))
     if which == "dq_v":
-        got, want = rel_band_bwd_dqv_plain(*args), _jax_grads()[1]
+        got, want = rel_band_bwd_dqv_plain(*args), _jax_grads(shape)[1]
     else:
-        got, want = rel_band_bwd_dpos_plain(*args), _jax_grads()[3]
+        got, want = rel_band_bwd_dpos_plain(*args), _jax_grads(shape)[3]
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-def test_pallas_function_gradients_match_jax_vjp():
-    arrays, g = _inputs()
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}_H{}_T{}_D{}".format(*s))
+def test_pallas_function_gradients_match_jax_vjp(shape):
+    arrays, g = _inputs(shape=shape)
     ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
     scores = fused_rel_scores(*ts, bwd="pallas")
     assert scores.grad_fn is not None
     scores.backward(torch.from_numpy(g))
-    for name, t, want in zip(NAMES, ts, _jax_grads()):
+    for name, t, want in zip(NAMES, ts, _jax_grads(shape)):
         np.testing.assert_allclose(t.grad.numpy(), want, err_msg=name, **TOL)
 
 
