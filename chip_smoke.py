@@ -12,7 +12,8 @@
 Phases, each printed on lines of its own:
 
 1. the card (``nvidia-smi`` name and power limit), the TF32 switches (both
-   off), and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
+   off), which of ``yaml``, ``h5py``, ``matplotlib`` and ``tqdm`` import,
+   and the build of every CUDA kernel from ``seq2seq_vc_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
    registers and spills (no variant of kernels 1, 3-5 and 9-11 may
    spill), and the HMMA instructions of every variant of the tensor-core
@@ -134,7 +135,22 @@ Phases, each printed on lines of its own:
    frames (8 launches of each of kernels 4 and 5 a step, none of kernel 3);
    kernels 4 and 5 against their plain versions at T 512 and 960, D 192 and
    768, float32 and bfloat16, and at the steps' shapes (the ``xla``
-   variant's time as their yardstick).
+   variant's time as their yardstick);
+22. the CLIs, driven in-process through their ``main(argv)`` on a corpus
+   the phase builds with the port's own wav, log-mel and stats modules
+   (``.npy`` features, ``feats.scp``, ``.npz`` stats): ``vc_train`` on the
+   shipped flagship conf at full width (B 16) for 3 steps, evaluating (with
+   ``generate_intermediate``) and saving at step 2, then ``--resume`` to
+   step 4 (kernels 1 and 3 must launch); ``vc_decode`` of the dev set
+   through a seeded HiFi-GAN the phase saved (batch size 1, again, on
+   lengths and buckets it has not met, on new lengths in buckets it has,
+   and batch size 4: ms an utterance and mel-frames/s), one utterance's features held against
+   ``AASVC.inference`` on the same weights and generator; ``vc_serve`` over
+   stdio with three requests, the last long enough that the encoder's keys
+   reach the flash gate (kernels 1 and 2 must launch; wall ms and RTF of
+   each); ``vc_train`` (2 steps) and ``vc_decode`` (2 utterances,
+   Griffin-Lim) on the VTN's shipped conf; each kernel checked at the
+   shapes the CLIs gave it.
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
@@ -281,7 +297,14 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 "vtn_train_long": STD,
                 "legacy_serve": LEGACY[:1],
                 "train_long_legacy": LEGACY,
-                "train_pallas": ("fused_rel_scores", *PAIR)}
+                "train_pallas": ("fused_rel_scores", *PAIR),
+                # phase 22, the CLIs: vc_train and vc_decode of the dev set
+                # under the gate, vc_serve with a request past it; the VTN's
+                # conf leaves its attention backend at xla (dense)
+                "cli_train": ("fused_rel_scores", "rel_band_bwd"),
+                "cli_decode": ("fused_rel_scores",),
+                "cli_serve": ("fused_rel_scores", "rel_flash_attention"),
+                "cli_vtn": ()}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -796,10 +819,26 @@ def stats(seed: int):
             "scale": (1 + 0.5 * rng.random(80)).astype(np.float32)}
 
 
+def inference_calls(m, T_enc, enc_lens, T_dec, dec_lens):
+    """The attention calls one ``AASVC.inference`` batch makes: (kernel
+    name, B, H, T, D, key lengths) for each conformer layer, from its
+    routing, with the encoder at ``T_enc`` frames and the decoder at
+    ``T_dec`` (both after frame stacking)."""
+    calls = []
+    for stack, T, lens in ((m.encoder, T_enc, enc_lens), (m.decoder, T_dec, dec_lens)):
+        for layer in stack.encoders:
+            att = layer.self_attn
+            path = att.route(T, T, T if att.legacy else 2 * T - 1, KEY_PADDING)
+            name = {"fused": "fused_rel_scores", "flash": "rel_flash_attention"}.get(path)
+            if name:
+                name += LEGACY_TAG if att.legacy else ""
+                calls.append((name, len(lens), att.n_head, T, att.d_k, tuple(lens)))
+    return calls
+
+
 def planned_calls(conv, requests, out_frames):
-    """For each request, the attention calls its conformer layers make:
-    (kernel name, B, H, T, D, key lengths), from the converter's frame
-    geometry, each layer's routing, the input lengths and the output
+    """For each request, the attention calls its conformer layers make,
+    from the converter's frame geometry, the input lengths and the output
     lengths ``out_frames`` that a run of the same requests gave."""
     from seq2seq_vc_torch.dsp.stft import num_frames
 
@@ -808,18 +847,33 @@ def planned_calls(conv, requests, out_frames):
     for (_, clips), outs in zip(requests, out_frames):
         padded = [len(c) + 2 * (conv.fft_size // 2) for c in clips]
         n_padded, _, max_out = conv._frame_geometry(padded)
-        enc_lens = tuple(num_frames(len(c), conv.hop_size) // m.encoder_reduction_factor
-                         for c in clips)
-        dec_lens = tuple(n // m.decoder_reduction_factor for n in outs)
-        for stack, T, lens in ((m.encoder, n_padded // m.encoder_reduction_factor, enc_lens),
-                               (m.decoder, max_out, dec_lens)):
-            for layer in stack.encoders:
-                att = layer.self_attn
-                path = att.route(T, T, T if att.legacy else 2 * T - 1, KEY_PADDING)
-                name = {"fused": "fused_rel_scores", "flash": "rel_flash_attention"}.get(path)
-                if name:
-                    name += LEGACY_TAG if att.legacy else ""
-                    calls.append((name, len(clips), att.n_head, T, att.d_k, lens))
+        calls += inference_calls(
+            m, n_padded // m.encoder_reduction_factor,
+            [num_frames(len(c), conv.hop_size) // m.encoder_reduction_factor for c in clips],
+            max_out, [n // m.decoder_reduction_factor for n in outs])
+    return calls
+
+
+def decode_calls(model, scp, batch_size, outdir):
+    """The attention calls of a ``vc_decode`` run of ``scp`` at
+    ``batch_size`` (NAR, no teacher forcing): its batches as the driver
+    forms them, each padded to the driver's frame multiple, the decoder at
+    twice the padded source frames (the driver's ``max_output_frames``),
+    and the output lengths the run wrote to ``outdir``."""
+    from seq2seq_vc_torch.bin.vc_decode import decode_batches, frame_multiple
+    from seq2seq_vc_torch.train.data import SourceVCMelDataset
+
+    data = SourceVCMelDataset(scp)
+    multiple = frame_multiple(model)
+    erf, drf = model.encoder_reduction_factor, model.decoder_reduction_factor
+    calls = []
+    for group in decode_batches(data, batch_size):
+        src = [data.length(i) for i in group]
+        T_in = -(-max(src) // multiple) * multiple
+        outs = [np.load(Path(outdir) / f"{data.utt_ids[i]}.npy", mmap_mode="r").shape[0]
+                for i in group]
+        calls += inference_calls(model, T_in // erf, [n // erf for n in src], 2 * T_in,
+                                 [n // drf for n in outs])
     return calls
 
 
@@ -1440,6 +1494,9 @@ class _KeepOutput:
         self.out = self.decode(*args, **kwargs)
         return self.out
 
+    def __getattr__(self, name):  # the decoder's other members (expected_steps)
+        return getattr(self.decode, name)
+
 
 def vtn_reference_check(model, vocoder, src, trg):
     """Phase 13: float32 copies of the VTN's weights (prenet dropout 0, the
@@ -1926,6 +1983,275 @@ def flash_sweep() -> int:
     return 0
 
 
+# --------------------------------------------------------------- the CLIs
+CLI_CONF = REPO / "egs/arctic/vc2/conf/aas_vc.melmelmel.v1.yaml"
+CLI_VTN_CONF = REPO / "egs/arctic/vc1/conf/vtn.v1.yaml"
+CLI_SECONDS = (2.0, 5.0)  # the corpus's source utterances spread over this range
+CLI_DEV = 4  # dev utterances (what vc_decode decodes); the train set is one batch
+# vc_decode's features of one utterance against AASVC.inference called
+# directly on the same card, weights, padded input and generator: the same
+# computation, so any difference beyond rounding noise is a fault
+CLI_DECODE_ATOL = 1e-4
+
+
+def cli_corpus(root: Path):
+    """A parallel corpus as a recipe's stages 0-2 leave it, built with the
+    port's own modules: synthetic wavs (the target speaker 10% slower)
+    written and read back by ``utils/audio.py``, log-mels from
+    ``dsp/features.logmelfilterbank`` on the card, each speaker's stats from
+    its train set (``.npz``), features normalised and written as ``.npy`` with
+    a ``feats.scp`` per speaker and subset. Returns the paths by name."""
+    from seq2seq_vc_torch.dsp.features import logmelfilterbank
+    from seq2seq_vc_torch.dsp.stats import normalize
+    from seq2seq_vc_torch.utils.audio import read_wav, write_wav
+    from seq2seq_vc_torch.utils.io import write_stats
+
+    sr = FEATS["sampling_rate"]
+    mel_kw = {k: v for k, v in FEATS.items() if k != "sampling_rate"}
+    secs = np.linspace(*CLI_SECONDS, BATCH + CLI_DEV)
+    paths = {}
+    for spk, stretch, seed in (("src", 1.0, 100), ("trg", 1.1, 200)):
+        feats = {}
+        for i, s in enumerate(secs):
+            utt = f"{'train' if i < BATCH else 'dev'}{i:02d}"
+            wav = root / f"{spk}_{utt}.wav"
+            write_wav(str(wav), clip(s * stretch, seed + i), sr)
+            feats[utt] = logmelfilterbank(read_wav(str(wav))[0], sr, device="cuda", **mel_kw)
+        train = np.concatenate([f for u, f in feats.items() if u.startswith("train")])
+        mean, scale = train.mean(0), train.std(0)
+        paths[f"{spk}_stats"] = str(root / f"{spk}_stats.npz")
+        write_stats(paths[f"{spk}_stats"], mean, scale, "mel")
+        for subset in ("train", "dev"):
+            lines = []
+            for utt, f in feats.items():
+                if utt.startswith(subset):
+                    np.save(root / f"{spk}_{utt}.npy", normalize(f, mean, scale).astype(np.float32))
+                    lines.append(f"{utt} {root / f'{spk}_{utt}.npy'}")
+            paths[f"{spk}_{subset}"] = str(root / f"{spk}_{subset}.scp")
+            Path(paths[f"{spk}_{subset}"]).write_text("\n".join(lines) + "\n")
+    return paths
+
+
+def cli_launches(path, failures):
+    """The launch counts since the last reset; a kernel of ``path`` that did
+    not launch, or another kernel that did, is a failure."""
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name, n in counts.items():
+        if (n == 0) == (name in PATH_KERNELS[path]):
+            failures.append(f"{path} {name}: {n} launches")
+    log(f"{path} launches {counts}")
+    return counts
+
+
+def cli_path(rows):
+    """Phase 22: the command-line entry points, driven in-process through
+    their ``main(argv)``: ``vc_train`` on the flagship's shipped conf at full
+    width (B 16) for 3 steps with an evaluation (and ``generate_intermediate``)
+    and a checkpoint at step 2, then ``--resume`` to step 4; ``vc_decode`` of
+    the dev set with a ``vocoder:`` block naming a seeded HiFi-GAN the phase
+    saved (batch size 1 twice, then 4), one utterance held against
+    ``AASVC.inference``; ``vc_serve`` over stdio with 3 requests, the last
+    long enough that the encoder's keys reach the flash gate; ``vc_train``
+    (2 steps) and ``vc_decode`` (2 utterances, Griffin-Lim) on the VTN's
+    shipped conf. Kernels 1 and 3 must launch in ``vc_train``, 1 and 2 in
+    ``vc_serve``; each kernel is checked at the shapes each CLI gave it
+    (``vc_decode``'s from its batches and the output lengths it wrote)."""
+    import argparse
+    import contextlib
+    import io
+
+    import yaml
+
+    from seq2seq_vc_torch.bin import vc_decode, vc_serve, vc_train
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.nn.attention import FLASH_MIN_LEN
+    from seq2seq_vc_torch.train.data import (DataLoader, ParallelVCMelDataset,
+                                             SourceVCMelDataset, pad_batch)
+    from seq2seq_vc_torch.utils.audio import write_wav
+
+    failures, launches = [], {}
+    card = card_line()
+    sr, hop = FEATS["sampling_rate"], FEATS["hop_size"]
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_cli_") as tmp:
+        root = Path(tmp)
+        c = cli_corpus(root)
+        torch.save(build_vocoder(seed=41).state_dict(), root / "hifigan.pt")
+        gen = {k: [list(x) if isinstance(x, tuple) else x for x in v] if isinstance(v, tuple)
+               else v for k, v in HIFIGAN.items()}
+        (root / "hifigan.yaml").write_text(yaml.safe_dump(
+            {"generator_type": "HifiganGenerator", "generator_params": gen}))
+        vocoder = {"checkpoint": str(root / "hifigan.pt"), "config": str(root / "hifigan.yaml")}
+
+        def overlay(name, **keys):
+            (root / name).write_text(yaml.safe_dump(keys))
+            return ["--additional-config", str(root / name)]
+
+        data = ["--src-train-dumpdir", c["src_train"], "--src-dev-dumpdir", c["src_dev"],
+                "--trg-train-dumpdir", c["trg_train"], "--trg-dev-dumpdir", c["trg_dev"],
+                "--trg-stats", c["trg_stats"]]
+        every = dict(eval_interval_steps=2, save_interval_steps=2, log_interval_steps=1)
+        exp = root / "exp"
+        aas = data + ["--train-dp-input-dir", c["src_train"], "--dev-dp-input-dir", c["src_dev"],
+                      "--config", str(CLI_CONF), "--outdir", str(exp)]
+        log(f"cli: vc_train on {CLI_CONF.relative_to(REPO)}, {BATCH} train and {CLI_DEV} dev "
+            f"utterances of {CLI_SECONDS[0]}-{CLI_SECONDS[1]} s; 3 steps, then --resume to 4")
+        reset_launch_counts()
+        first = vc_train.main(aas + overlay("steps3.yaml", train_max_steps=3, **every))
+        resumed = vc_train.main(aas + overlay("steps4.yaml", train_max_steps=4, **every)
+                                + ["--resume", str(exp / "checkpoint-3steps.pt")])
+        launches["cli_train"] = cli_launches("cli_train", failures)
+        history = [h for t in (first, resumed) for h in t.history if "train/loss" in h]
+        for h in history:
+            log(f"cli vc_train step {h['steps']}: {h['train/step_time_sec'] * 1e3:.1f} ms, "
+                f"loss {h['train/loss']:.4f}")
+        # step 1's interval holds the warm-up, step 3's step 2's evaluation,
+        # generate_intermediate and checkpoint, step 4's the resumed
+        # process's first step: step 2 is the one plain step
+        log(f"cli vc_train: {history[1]['train/step_time_sec'] * 1e3:.1f} ms a step (step 2, "
+            f"B {BATCH}); card {card}")
+        made = [exp / n for n in ("config.yml", "checkpoint-2steps.pt", "checkpoint-3steps.pt",
+                                  "checkpoint-4steps.pt")]
+        preds = [len(list((exp / "predictions" / f"{n}steps").glob("*.npy"))) for n in (2, 4)]
+        cfg = load_config(str(exp / "config.yml"))
+        n_preds = min(cfg["num_save_intermediate_results"], CLI_DEV)
+        if ([h["steps"] for h in history] != [1, 2, 3, 4] or resumed.steps != 4
+                or not all(math.isfinite(h["train/loss"]) for h in history)
+                or not all(p.exists() for p in made) or preds != [n_preds, n_preds]):
+            failures.append(f"cli vc_train: steps {[h['steps'] for h in history]}, files "
+                            f"{[p.exists() for p in made]}, predictions {preds}")
+        train_set = ParallelVCMelDataset(c["src_train"], c["trg_train"], dp_feats=c["src_train"])
+        batch = next(iter(DataLoader(train_set, vc_train.build_collater(cfg), BATCH, prefetch=0)))
+        for name, B, H, T, D, lens in sorted(set(train_calls(resumed.model, batch))):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="cli",
+                                     lens=list(lens)))
+        del first, resumed
+
+        ckpt = str(exp / "checkpoint-4steps.pt")
+        (root / "decode.yml").write_text(yaml.safe_dump(dict(cfg, vocoder=vocoder)))
+        # what a length the process has not decoded costs: train utterances
+        # 0, 4, 8, 12 (lengths and buckets new to vc_decode), then 1, 5, 9,
+        # 13 (new lengths in the buckets just met)
+        train_lines = Path(c["src_train"]).read_text().splitlines()
+        fresh = [root / "src_new_buckets.scp", root / "src_seen_buckets.scp"]
+        for k, path in enumerate(fresh):
+            path.write_text("\n".join(train_lines[k::4]) + "\n")
+        decodes = (("first pass", c["src_dev"], 1, "dec1"),
+                   ("same lengths again", c["src_dev"], 1, "dec1b"),
+                   ("new lengths, new buckets", str(fresh[0]), 1, "dec_new"),
+                   ("new lengths, seen buckets", str(fresh[1]), 1, "dec_seen"),
+                   ("batched", c["src_dev"], 4, "dec4"))
+        reset_launch_counts()
+        for label, scp, bs, out in decodes:
+            r = vc_decode.main(["--dumpdir", scp, "--dp-input-dir", scp, "--checkpoint", ckpt,
+                                "--config", str(root / "decode.yml"), "--outdir", str(root / out),
+                                "--batch-size", str(bs)])
+            n_utts = len(Path(scp).read_text().splitlines())
+            log(f"cli vc_decode {label} (batch size {bs}): {n_utts} utterances, {r['frames']} mel "
+                f"frames in {r['seconds'] * 1e3:.1f} ms ({r['seconds'] * 1e3 / n_utts:.1f} ms an "
+                f"utterance), {r['frames_per_sec']:.1f} mel-frames/s; card {card}")
+            wavs = list((root / out / "wav").glob("*.wav"))
+            if len(wavs) != n_utts or r["frames"] <= 0:
+                failures.append(f"cli vc_decode {label}: {len(wavs)} wavs, {r['frames']} frames")
+        launches["cli_decode"] = cli_launches("cli_decode", failures)
+        model = vc_decode.load_model(cfg, ckpt, "cuda")
+        for name, B, H, T, D, lens in sorted({call for _, scp, bs, out in decodes
+                                              for call in decode_calls(model, scp, bs,
+                                                                       root / out)}):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="cli",
+                                     lens=list(lens)))
+        item = SourceVCMelDataset(c["src_dev"], dp_feats=c["src_dev"])[0]
+        xs, dp = (torch.as_tensor(pad_batch([item[k]], vc_decode.frame_multiple(model)),
+                                  device="cuda") for k in ("src_feat", "dp_input"))
+        out = model.inference(xs, torch.tensor([len(item["src_feat"])], device="cuda"), dp,
+                              max_output_frames=2 * xs.shape[1],
+                              generator=vc_decode.utterance_generator(cfg.get("seed", 0), 0))
+        want = out["outs"][0, : int(out["out_lens"][0])].float().cpu().numpy()
+        got = np.load(root / "dec1" / f"{item['utt_id']}.npy")
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        ok = err <= CLI_DECODE_ATOL
+        log(f"cli vc_decode {item['utt_id']} vs AASVC.inference on the same weights, input and "
+            f"generator: shapes {got.shape} {want.shape}, max abs diff {err:.3e} "
+            f"(atol {CLI_DECODE_ATOL}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"cli vc_decode vs AASVC.inference: diff {err}")
+        del model
+
+        # the long request: at least FLASH_MIN_LEN encoder frames (hop, and
+        # the encoder's frame stacking, from the conf)
+        long_s = FLASH_MIN_LEN * hop * cfg["model_params"]["encoder_reduction_factor"] / sr + 0.5
+        clips = [(f"{s:.1f} s", clip(s, 60 + i)) for i, s in enumerate((3.8, 2.2, long_s))]
+        lines = []
+        for i, (_, audio) in enumerate(clips):
+            write_wav(str(root / f"req{i}.wav"), audio, sr)
+            lines.append(f"{root / f'req{i}.wav'} {root / f'res{i}.wav'}")
+        serve = dict(checkpoint=ckpt, config=None, src_stats=c["src_stats"],
+                     trg_stats=c["trg_stats"], vocoder_checkpoint=vocoder["checkpoint"],
+                     vocoder_config=vocoder["config"], vocoder_stats=None, feat_type="mel",
+                     bucket_frames=128, device=None)
+        argv = [a for k, v in serve.items() if v is not None
+                for a in (f"--{k.replace('_', '-')}", str(v))]
+        reset_launch_counts()
+        stdin, sys.stdin = sys.stdin, io.StringIO("\n".join(lines) + "\n")
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                vc_serve.main(argv)
+        finally:
+            sys.stdin = stdin
+        launches["cli_serve"] = cli_launches("cli_serve", failures)
+        results = [json.loads(x) for x in buf.getvalue().splitlines()]
+        if results[:1] != [{"ready": True}] or len(results) != 1 + len(clips) \
+                or not all(r.get("ok") for r in results[1:]):
+            failures.append(f"cli vc_serve: {results}")
+        for (label, _), r in zip(clips, results[1:]):
+            log(f"cli vc_serve request {label}: wall {r.get('wall_ms')} ms, RTF {r.get('rtf')}, "
+                f"output {r.get('output_seconds')} s; card {card}")
+        conv = vc_serve.build_converter(argparse.Namespace(**serve))
+        out_frames = [[round(r["output_seconds"] * sr / hop)] for r in results[1:]]
+        for name, B, H, T, D, lens in sorted(set(planned_calls(
+                conv, [(label, [a]) for label, a in clips], out_frames))):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="cli",
+                                     lens=list(lens)))
+        del conv
+
+        exp_vtn = root / "exp_vtn"
+        log(f"cli: vc_train on {CLI_VTN_CONF.relative_to(REPO)} for 2 steps, then vc_decode of 2 "
+            f"utterances (no vocoder block: Griffin-Lim)")
+        reset_launch_counts()
+        vtn = vc_train.main(data + ["--config", str(CLI_VTN_CONF), "--outdir", str(exp_vtn)]
+                            + overlay("vtn.yaml", train_max_steps=2, **every))
+        two = root / "src_two.scp"
+        two.write_text("\n".join(Path(c["src_dev"]).read_text().splitlines()[:2]) + "\n")
+        r = vc_decode.main(["--dumpdir", str(two), "--checkpoint",
+                            str(exp_vtn / "checkpoint-2steps.pt"), "--outdir",
+                            str(root / "dec_vtn"), "--batch-size", "2"])
+        launches["cli_vtn"] = cli_launches("cli_vtn", failures)
+        vtn_ms = [h["train/step_time_sec"] * 1e3 for h in vtn.history if "train/loss" in h]
+        log(f"cli VTN: vc_train ms a step {[round(x, 1) for x in vtn_ms]}, vc_decode "
+            f"{r['frames']} mel frames at {r['frames_per_sec']:.1f} mel-frames/s; card {card}")
+        wavs = list((root / "dec_vtn" / "wav").glob("*.wav"))
+        if vtn.steps != 2 or len(wavs) != 2 or not (exp_vtn / "predictions" / "2steps").is_dir():
+            failures.append(f"cli VTN: steps {vtn.steps}, wavs {len(wavs)}")
+    return failures, launches
+
+
+def optional_packages() -> str:
+    """Which of the packages the JAX package's CLIs lean on import here
+    (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
+    import importlib
+
+    found = []
+    for name in ("yaml", "h5py", "matplotlib", "tqdm"):
+        try:
+            found.append(f"{name} {importlib.import_module(name).__version__}")
+        except ImportError:
+            found.append(f"{name} missing")
+    return ", ".join(found)
+
+
 def ptxas_report(text: str):
     """(entry function, its registers line, its spill line) for each kernel
     variant in ``nvcc -Xptxas -v`` output; names demangled by ``c++filt``
@@ -2022,6 +2348,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"tf32: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    log(f"packages: {optional_packages()}")
 
     t0 = time.perf_counter()
     built = native.build(verbose=True)
@@ -2098,6 +2425,12 @@ def main() -> int:
         fails, launches[path] = run()
         failures += fails
         log(f"phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fails, cli = cli_path(rows)
+    failures += fails
+    launches.update(cli)
+    log(f"phase cli: {time.perf_counter() - t_phase:.1f} s")
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]
 

@@ -1,0 +1,26 @@
+"""Command-line entry points of the PyTorch port (mirror seq2seq_vc_tpu/bin):
+``vc_train``, ``vc_decode`` and ``vc_serve``. Each has ``main(argv=None)``,
+so a script can drive it in-process, and a ``--device`` flag (default:
+the card; without one it raises)."""
+
+from __future__ import annotations
+
+import logging
+import sys
+
+import torch
+
+
+def setup(verbose: int) -> None:
+    """Logging to stderr, and float32 matmuls and convolutions in full
+    float32: TF32 off for cuBLAS and cuDNN (PyTorch's default leaves it on
+    for cuDNN), the mode in which the port's card checks run."""
+    logging.basicConfig(
+        level=logging.INFO if verbose else logging.WARNING, stream=sys.stderr,
+        format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.info("tf32 off: torch.backends.cuda.matmul.allow_tf32=%s, "
+                 "torch.backends.cudnn.allow_tf32=%s", torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)

@@ -16,6 +16,7 @@ speculative reads of the stop flags.
 
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 
@@ -79,7 +80,7 @@ class ChunkedARDecoder:
 
     def __init__(self, model, threshold: float = 0.5, minlenratio: float = 0.0,
                  maxlenratio: float = 6.0, base_chunk: int = 32, max_chunk: int = 256,
-                 speculate: bool = True):
+                 speculate: bool = True, est_len_ratio: float = 1.2):
         self.model = model
         self.thr = float(threshold)
         self.minr = float(minlenratio)
@@ -87,6 +88,27 @@ class ChunkedARDecoder:
         self.base = int(base_chunk)
         self.max_chunk = max(int(max_chunk), self.base)
         self.speculate = speculate
+        self.est_len_ratio = float(est_len_ratio)
+
+    @classmethod
+    def from_config(cls, model, inference: Optional[Dict[str, Any]] = None) -> "ChunkedARDecoder":
+        """The decoder of a config's ``inference`` block: ``threshold``,
+        ``minlenratio``, ``maxlenratio``, ``decode_chunk_steps``,
+        ``decode_max_chunk_steps`` and ``decode_est_len_ratio`` (the JAX
+        package's keys and defaults)."""
+        inf = inference or {}
+        return cls(model, threshold=inf.get("threshold", 0.5),
+                   minlenratio=inf.get("minlenratio", 0.0),
+                   maxlenratio=inf.get("maxlenratio", 6.0),
+                   base_chunk=int(inf.get("decode_chunk_steps", 32)),
+                   max_chunk=int(inf.get("decode_max_chunk_steps", 256)),
+                   est_len_ratio=float(inf.get("decode_est_len_ratio", 1.2)))
+
+    def expected_steps(self, max_ilen: int) -> int:
+        """The first chunk's expected step count for sources of at most
+        ``max_ilen`` frames: ``est_len_ratio`` times the source length in
+        decoder steps (0: the geometric schedule alone)."""
+        return int(np.ceil(self.est_len_ratio * max_ilen / self.model.decoder_reduction_factor))
 
     @torch.no_grad()
     def __call__(self, xs, ilens, generator: Optional[torch.Generator] = None,

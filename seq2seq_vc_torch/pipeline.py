@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .dsp.features import _logmel
 from .dsp.mel import mel_filterbank
 from .dsp.stft import hann_window, num_frames
@@ -44,18 +45,6 @@ def _synth_ladder(cap: int, base: int) -> List[int]:
         b *= 2
     out.append(cap)
     return out
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device rule: the card unless the caller asks for
-    another device; no silent fallback to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU explicitly"
-            )
-        device = "cuda"
-    return torch.device(device)
 
 
 class Wav2WavConverter:
@@ -202,15 +191,8 @@ class Wav2WavARConverter(Wav2WavConverter):
                  bucket_frames: int = 64, device=None):
         super().__init__(model, vocoder, src_stats, trg_stats, config, vocoder_stats,
                          bucket_frames, device)
-        inf = config.get("inference", {}) or {}
-        self._est_ratio = float(inf.get("decode_est_len_ratio", 1.2))
         self._r = int(model.decoder_reduction_factor)
-        self.ar_decode = ChunkedARDecoder(
-            self.model, threshold=inf.get("threshold", 0.5),
-            minlenratio=inf.get("minlenratio", 0.0), maxlenratio=inf.get("maxlenratio", 6.0),
-            base_chunk=int(inf.get("decode_chunk_steps", 32)),
-            max_chunk=int(inf.get("decode_max_chunk_steps", 256)),
-        )
+        self.ar_decode = ChunkedARDecoder.from_config(self.model, config.get("inference"))
         self.last_decode_steps = 0  # AR steps the last request's decode ran
 
     def _prepare(self, audios):
@@ -245,9 +227,9 @@ class Wav2WavARConverter(Wav2WavConverter):
         x = torch.as_tensor(batch, device=self.device)
         mel = _logmel(x, self._window, self._mel_t, self.fft_size, self.hop_size, 10.0)
         mel = (mel - self._src_mean) / self._src_scale
-        est = int(np.ceil(self._est_ratio * max(n_trues) / self._r))
         lens = torch.as_tensor(np.asarray(n_trues, np.int64), device=self.device)
-        out = self.ar_decode(mel, lens, self._generator(generator), est_steps=est)
+        out = self.ar_decode(mel, lens, self._generator(generator),
+                             est_steps=self.ar_decode.expected_steps(max(n_trues)))
         self.last_decode_steps = int(out["outs"].shape[1]) // self._r
         feats = out["outs"] * self._trg_scale + self._trg_mean
         feats = (feats - self._voc_mean) / self._voc_scale

@@ -4,8 +4,9 @@ gated by ``dp_train_start_steps``.
 
 The forward-sum prior depends only on the lengths, so it is built on the
 host from the numpy batch (cached per length pair) and goes to the device
-with the batch; the CTC takes the same host lengths. Dev-sample generation
-(``generate_intermediate``) is not ported yet.
+with the batch; the CTC takes the same host lengths. At each evaluation,
+``generate_intermediate`` runs ``AASVC.inference`` on the first dev batch
+(the duration noise from a CPU generator seeded 0).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.forward_sum import beta_binomial_prior, forward_sum_loss
-from .trainer import Trainer
+from .trainer import Trainer, save_intermediate
 
 
 class AASVCTrainer(Trainer):
@@ -68,3 +69,14 @@ class AASVCTrainer(Trainer):
             loss = loss + out["dur_nll"]
             metrics["duration_loss"] = out["dur_nll"]
         return loss, metrics
+
+    def generate_intermediate(self, batch: Dict[str, Any], outdir: str):
+        n = self._intermediate_items(batch)
+        xs = torch.from_numpy(batch["xs"][:n]).to(self.device)
+        ilens = torch.from_numpy(batch["ilens"][:n]).long().to(self.device)
+        dp = batch.get("dp_inputs")
+        dp = None if dp is None else torch.from_numpy(dp[:n]).to(self.device)
+        out = self.model.inference(xs, ilens, dp, max_output_frames=2 * xs.shape[1] + 8,
+                                   generator=torch.Generator().manual_seed(0))
+        save_intermediate(outdir, batch, out["outs"].float().cpu().numpy(),
+                          out["out_lens"].tolist())

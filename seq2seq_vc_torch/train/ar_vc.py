@@ -1,13 +1,18 @@
 """AR VC trainer (mirrors seq2seq_vc_tpu/train/ar_vc.py): the VTN's
-teacher-forced step with Seq2SeqLoss (L1 + stop BCE). The guided-attention
-term and dev-sample generation (``generate_intermediate``) are not ported
-yet and refuse loudly."""
+teacher-forced step with Seq2SeqLoss (L1 + stop BCE), and at each
+evaluation ``generate_intermediate``: the chunked AR decode of the first
+dev batch with the config's ``inference`` block (the prenet's dropout from a
+CPU generator seeded 0). The guided-attention term is not ported yet and
+refuses loudly."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from .trainer import Trainer
+import torch
+
+from ..models.ar_driver import ChunkedARDecoder
+from .trainer import Trainer, save_intermediate
 
 
 class ARVCTrainer(Trainer):
@@ -24,3 +29,13 @@ class ARVCTrainer(Trainer):
             out["olens"],
         )
         return l1_loss + bce_loss, {"l1_loss": l1_loss, "bce_loss": bce_loss}
+
+    def generate_intermediate(self, batch: Dict[str, Any], outdir: str):
+        n = self._intermediate_items(batch)
+        xs = torch.from_numpy(batch["xs"][:n]).to(self.device)
+        ilens = torch.from_numpy(batch["ilens"][:n]).long().to(self.device)
+        drv = ChunkedARDecoder.from_config(self.model, self.config.get("inference"))
+        out = drv(xs, ilens, torch.Generator().manual_seed(0),
+                  est_steps=drv.expected_steps(int(batch["ilens"][:n].max())))
+        save_intermediate(outdir, batch, out["outs"].float().cpu().numpy(),
+                          out["out_lens"].tolist(), out["probs"].float().cpu().numpy())

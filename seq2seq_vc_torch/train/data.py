@@ -1,6 +1,7 @@
-"""Training data: scp loaders, the parallel mel dataset, the NAR and AR
-collaters and the batching loader (mirrors seq2seq_vc_tpu/train/data.py and the scp
-loaders of seq2seq_vc_tpu/utils/io.py).
+"""Training and decoding data: scp loaders, the parallel and source-only
+mel datasets, the NAR and AR collaters and the batching loader (mirrors
+seq2seq_vc_tpu/train/data.py and the scp loaders of
+seq2seq_vc_tpu/utils/io.py).
 
 Feature storage: an scp of ``.npy`` paths, an scp of HDF5 entries
 (``<utt> <file.h5>[:dset[,dset2]]``) or a dump directory of per-utterance
@@ -9,7 +10,8 @@ its absence raises then. Kaldi ark storage is not ported yet.
 
 Batches are numpy, padded along time to a bucket multiple, built
 length-sorted with the batch order shuffled per epoch; the trainer moves
-them to the device.
+them to the device. ``DataLoader.seek`` puts a resumed run where an
+uninterrupted one would be.
 """
 
 from __future__ import annotations
@@ -23,20 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("reading HDF5 features needs h5py, which is not installed") from e
-    return h5py
-
-
-def read_hdf5(path: str, dset: str) -> np.ndarray:
-    with _h5py().File(path, "r") as f:
-        if dset not in f:
-            raise KeyError(f"no dataset {dset!r} in {path}")
-        return f[dset][()]
+from ..utils.io import import_h5py, read_hdf5
 
 
 def read_scp(scp_path: str) -> Dict[str, str]:
@@ -90,7 +79,7 @@ class HDF5ScpLoader(NpyScpLoader):
 
     def length(self, key: str) -> int:
         path, dsets = self._split(self.data[key])
-        with _h5py().File(path, "r") as f:
+        with import_h5py().File(path, "r") as f:
             return int(f[dsets[0]].shape[0])
 
 
@@ -111,7 +100,7 @@ class _DirLoader:
         return read_hdf5(self.mapping[utt], self.dset)
 
     def length(self, utt: str) -> int:
-        with _h5py().File(self.mapping[utt], "r") as f:
+        with import_h5py().File(self.mapping[utt], "r") as f:
             return int(f[self.dset].shape[0])
 
 
@@ -172,6 +161,30 @@ class ParallelVCMelDataset:
             item["dp_input"] = np.asarray(self.dp[utt], np.float32)
         if self._cache is not None:
             self._cache[idx] = item
+        return item
+
+
+class SourceVCMelDataset:
+    """Source features alone, for decoding, with an optional
+    duration-predictor input (mirrors the JAX package's
+    ``SourceVCMelDataset``)."""
+
+    def __init__(self, src_feats: str, dp_feats: Optional[str] = None, feat_key: str = "feats"):
+        self.src = make_loader(src_feats, feat_key)
+        self.dp = make_loader(dp_feats, feat_key) if dp_feats else None
+        self.utt_ids = sorted(self.src.keys())
+
+    def length(self, idx: int, key: str = "src_feat") -> int:
+        return self.src.length(self.utt_ids[idx])
+
+    def __len__(self):
+        return len(self.utt_ids)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        utt = self.utt_ids[idx]
+        item = {"utt_id": utt, "src_feat": np.asarray(self.src[utt], np.float32)}
+        if self.dp is not None:
+            item["dp_input"] = np.asarray(self.dp[utt], np.float32)
         return item
 
 
@@ -266,6 +279,7 @@ class DataLoader:
         self.epoch = 0
         self._rng = np.random.default_rng(seed)
         self._order: Optional[np.ndarray] = None
+        self._skip = 0  # batches of the next epoch to leave out (``seek``)
 
     def _batches(self) -> List[List[int]]:
         if self._order is None:
@@ -282,6 +296,16 @@ class DataLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def seek(self, epoch: int, batch: int = 0) -> None:
+        """Make the next iteration the one of epoch ``epoch`` (counted from
+        0), starting at its batch ``batch``: the shuffle draws of the
+        epochs before it are made and dropped."""
+        while self.epoch < epoch:
+            if self.shuffle:
+                self._rng.permutation(len(self))
+            self.epoch += 1
+        self._skip = batch
+
     def _collate(self, idxs):
         return self.collater([self.dataset[int(i)] for i in idxs])
 
@@ -289,6 +313,7 @@ class DataLoader:
         batches = self._batches()
         if self.shuffle:
             batches = [batches[int(i)] for i in self._rng.permutation(len(batches))]
+        batches, self._skip = batches[self._skip:], 0
         self.epoch += 1
         if self.prefetch <= 0:
             for b in batches:

@@ -12,6 +12,12 @@ predictor's ``e_q``, the VTN prenet's always-on dropout) comes from
 ``self.generator``, a CPU generator that the trainer owns, so that a step on
 the card and one on the CPU draw the same numbers, and each evaluation from
 a fresh one seeded 1, so that the dev loss of the same weights is the same.
+A checkpoint keeps the generators' states and the update count, and
+``load_checkpoint`` puts the loader where an uninterrupted run's would be,
+so a resumed run takes the steps that an uninterrupted one takes.
+
+At each evaluation, ``generate_intermediate`` decodes the first dev batch
+into ``<outdir>/predictions/<steps>steps``.
 
 Metrics stay on the device until the log interval, where one sync fetches
 them all. Each log appends the interval's averages to ``history``.
@@ -23,19 +29,49 @@ import logging
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..pipeline import resolve_device
+from ..device import resolve_device
 from .state import TrainState
+
+
+def save_intermediate(outdir: str, batch: Dict[str, Any], outs: np.ndarray, out_lens,
+                      probs: Optional[np.ndarray] = None) -> None:
+    """Write each generated item as ``<utt>.npy`` (its valid frames) and,
+    where matplotlib imports, a plot of it under its ground truth (and its
+    stop probabilities, for an AR model) as ``<utt>.png``."""
+    os.makedirs(outdir, exist_ok=True)
+    for i, n in enumerate(out_lens):
+        np.save(os.path.join(outdir, f"{batch['utt_ids'][i]}.npy"), outs[i, :n])
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    rows = 2 if probs is None else 3
+    for i, n in enumerate(out_lens):
+        fig, axes = plt.subplots(rows, 1, figsize=(8, 3 * rows))
+        axes[0].imshow(batch["ys"][i, : batch["olens"][i]].T, aspect="auto", origin="lower")
+        axes[0].set_title("groundtruth")
+        axes[1].imshow(outs[i, :n].T, aspect="auto", origin="lower")
+        axes[1].set_title("generated")
+        if probs is not None:
+            axes[2].plot(probs[i, :n])
+            axes[2].set_title("stop probs")
+        fig.tight_layout()
+        fig.savefig(os.path.join(outdir, f"{batch['utt_ids'][i]}.png"))
+        plt.close(fig)
 
 
 class Trainer:
     """Base trainer. Subclasses implement ``loss_fn(batch, flags,
-    generator) -> (loss, metrics)``. Dev-sample generation at eval
-    (``generate_intermediate`` in the JAX package) is not ported yet."""
+    generator) -> (loss, metrics)`` and ``generate_intermediate(batch,
+    outdir)``."""
 
     def __init__(
         self,
@@ -167,12 +203,18 @@ class Trainer:
     def evaluate(self) -> Dict[str, float]:
         """Mean loss terms over the dev set, dropout off and no autograd
         (a fixed generator draws the duration predictor's noise)."""
+        return self._dev_pass()[0]
+
+    def _dev_pass(self) -> Tuple[Dict[str, float], Optional[Dict[str, Any]]]:
+        """``evaluate``'s metrics and the first dev batch (None for an
+        empty dev set)."""
         total: Dict[str, float] = defaultdict(float)
-        n = 0
+        n, first = 0, None
         self.model.eval()
         try:
             with torch.no_grad():
                 for batch in self.dev_loader:
+                    first = batch if first is None else first
                     gen = torch.Generator().manual_seed(1)
                     loss, metrics = self.loss_fn(self._array_batch(batch), self._flags(), gen)
                     total["loss"] += float(loss)
@@ -181,22 +223,55 @@ class Trainer:
                     n += 1
         finally:
             self.model.train()
-        return {k: v / max(n, 1) for k, v in total.items()}
+        return {k: v / max(n, 1) for k, v in total.items()}, first
 
     def _eval_epoch(self):
-        result = self.evaluate()
+        result, first = self._dev_pass()
         for k, v in result.items():
             logging.info("(steps: %d) dev/%s = %.4f.", self.steps, k, v)
         self.history.append(dict(steps=self.steps, **{f"dev/{k}": v for k, v in result.items()}))
+        if first is not None:
+            outdir = os.path.join(self.outdir, "predictions", f"{self.steps}steps")
+            self.model.eval()
+            try:
+                self.generate_intermediate(first, outdir)
+            finally:
+                self.model.train()
+
+    def generate_intermediate(self, batch: Dict[str, Any], outdir: str):
+        """Decode the first ``num_save_intermediate_results`` items of a dev
+        batch into ``outdir``."""
+        raise NotImplementedError
+
+    def _intermediate_items(self, batch: Dict[str, Any]) -> int:
+        return min(self.config.get("num_save_intermediate_results", 4), len(batch["xs"]))
 
     # ----------------------------------------------------------- checkpoint
+    def _rng_state(self) -> Dict[str, torch.Tensor]:
+        state = {"generator": self.generator.get_state(), "cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            state["cuda"] = torch.cuda.get_rng_state(self.device)
+        return state
+
+    def _set_rng_state(self, state: Dict[str, torch.Tensor]) -> None:
+        self.generator.set_state(state["generator"].cpu())
+        torch.set_rng_state(state["cpu"].cpu())
+        if "cuda" in state and self.device.type == "cuda":
+            torch.cuda.set_rng_state(state["cuda"].cpu(), self.device)
+
     def save_checkpoint(self, path: str):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        torch.save(dict(self.state.state_dict(), steps=self.steps, epochs=self.epochs), path)
+        torch.save(dict(self.state.state_dict(), steps=self.steps, epochs=self.epochs,
+                        rng=self._rng_state()), path)
 
     def load_checkpoint(self, path: str, load_only_params: bool = False):
+        """Restore a checkpoint. Unless ``load_only_params``, also the
+        optimizer, the generators and the loader's position: the epochs and
+        batches that ``steps`` updates consumed."""
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
         self.state.load_state_dict(ckpt, load_only_params)
         if not load_only_params:
-            self.epochs = int(ckpt["epochs"])
             self._micro_total = self.steps * self.grad_accum
+            self.epochs, batch = divmod(self._micro_total, len(self.train_loader))
+            self.train_loader.seek(self.epochs, batch)
+            self._set_rng_state(ckpt["rng"])

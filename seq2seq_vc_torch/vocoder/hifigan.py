@@ -7,15 +7,19 @@ at load time. ``ups.i`` is ``torch.nn.ConvTranspose1d(padding=(k-u)//2)``,
 whose output equals the JAX package's full-VALID-then-crop
 ``ConvTranspose1dTorch``. Convolutions compute in ``compute_dtype``
 (bfloat16 by default, as the JAX generator); the waveform is float32.
+``load_hifigan_model`` reads the port's checkpoint format.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..core.config import load_config
+from ..device import resolve_device
 
 LRELU_SLOPE = 0.1
 
@@ -118,3 +122,19 @@ def chunked_generate(vocoder: HifiganGenerator, mel: torch.Tensor,
     wavs = vocoder(chunks)  # (n_chunks, window * hop)
     core = wavs[:, halo_frames * hop: (halo_frames + chunk_frames) * hop]
     return core.reshape(-1)[: t * hop]
+
+
+def load_hifigan_model(checkpoint: str, config_path: Optional[str] = None,
+                       device=None) -> HifiganGenerator:
+    """A ``HifiganGenerator`` from the port's checkpoint format: a
+    ``torch.save`` state dict under the names above (weight norm folded),
+    with the generator's arguments from the ``generator_params`` block of a
+    YAML config (the defaults without one), on ``device`` (default: the
+    card)."""
+    device = resolve_device(device)
+    params: Dict[str, Any] = {}
+    if config_path:
+        params = load_config(config_path).get("generator_params", {}) or {}
+    model = HifiganGenerator(**params, device=device)
+    model.load_state_dict(torch.load(checkpoint, map_location=device, weights_only=True))
+    return model.eval()

@@ -3,7 +3,8 @@
 - The package and ``chip_smoke.py`` import neither JAX nor the JAX package
   (checked in a fresh interpreter: this test process has both loaded).
 - Entry points run on the card unless the caller names another device;
-  without a card, one built without ``device=`` raises.
+  without a card, one built without ``device=`` (a CLI without
+  ``--device``) raises.
 - A wrapper takes its kernel's plain version only for a CPU tensor, and
   only a kernel launch counts: CPU calls, forward and backward, leave every
   counter at 0.
@@ -21,6 +22,8 @@ import pytest
 import torch
 
 from _torch_port import aasvc_pair, vtn_pair
+from seq2seq_vc_torch.bin import vc_decode, vc_serve, vc_train
+from seq2seq_vc_torch.dsp.features import logmelfilterbank
 from seq2seq_vc_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -44,7 +47,9 @@ from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
 from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
 from seq2seq_vc_torch.train.optim import build_optimizer
 from seq2seq_vc_torch.train.state import TrainState
+from seq2seq_vc_torch.vocoder.griffin_lim import Spectrogram2Waveform, griffin_lim
 from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
+from seq2seq_vc_torch.vocoder.vocoder import get_vocoder
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -103,7 +108,10 @@ def test_port_imports_no_jax():
     assert {"seq2seq_vc_torch.train.trainer", "seq2seq_vc_torch.train.data",
             "seq2seq_vc_torch.losses.forward_sum", "seq2seq_vc_torch.models.vtn",
             "seq2seq_vc_torch.models.ar_driver", "seq2seq_vc_torch.train.ar_vc",
-            "seq2seq_vc_torch.losses.seq2seq"} <= set(got["modules"])
+            "seq2seq_vc_torch.losses.seq2seq", "seq2seq_vc_torch.bin.vc_train",
+            "seq2seq_vc_torch.bin.vc_decode", "seq2seq_vc_torch.bin.vc_serve",
+            "seq2seq_vc_torch.core.config", "seq2seq_vc_torch.utils.io",
+            "seq2seq_vc_torch.vocoder.vocoder"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -130,6 +138,24 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ARVCTrainer(state, {}, {"train_max_steps": 1}, [])
     assert ARVCTrainer(state, {}, {"train_max_steps": 1}, [], device="cpu").device.type == "cpu"
+    # the command-line entry points: no --device, no card -> they raise first
+    for main, argv in ((vc_train.main, ["--src-train-dumpdir", "x", "--src-dev-dumpdir", "x",
+                                        "--trg-train-dumpdir", "x", "--trg-dev-dumpdir", "x",
+                                        "--outdir", "x", "--config", "x"]),
+                       (vc_decode.main, ["--dumpdir", "x", "--checkpoint", "x", "--outdir", "x"]),
+                       (vc_serve.main, ["--checkpoint", "x", "--src-stats", "x", "--trg-stats",
+                                        "x", "--vocoder-checkpoint", "x"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    # the helpers under them: log-mels, the vocoders
+    spc = np.ones((4, 513), np.float32)
+    for helper in (lambda: logmelfilterbank(np.zeros(1024, np.float32), 16000),
+                   lambda: get_vocoder({}),
+                   lambda: Spectrogram2Waveform(16000, 1024, 256),
+                   lambda: griffin_lim(spc, 1024, 256, n_iter=0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            helper()
+    assert griffin_lim(spc, 1024, 256, n_iter=0, device="cpu").shape == (4 * 256,)
 
 
 def test_cpu_tensors_take_the_plain_versions(zero_counts):
