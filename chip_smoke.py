@@ -150,11 +150,30 @@ Phases, each printed on lines of its own:
    reach the flash gate (kernels 1 and 2 must launch; wall ms and RTF of
    each); ``vc_train`` (2 steps) and ``vc_decode`` (2 utterances,
    Griffin-Lim) on the VTN's shipped conf; each kernel checked at the
-   shapes the CLIs gave it.
+   shapes the CLIs gave it;
+23. FastSpeech-VC (``egs/arctic/vc2/conf/fs2_vc.melmelmel.v1.yaml`` at
+   full width, bf16, seeded random weights): a ``Wav2WavConverter`` with
+   phase 2's HiFi-GAN serves phase 2's three requests (the 30 s request's
+   decoder, at twice the padded source frames, past the flash gate),
+   printing each request's latency, RTF and predicted output frames, with
+   the launch counts of kernels 1 and 2 held to the routing, and a float32
+   conversion card against CPU; a ``NARVCTrainer`` at B 16 on a corpus with
+   teacher durations (``<utt>.txt``, one integer per encoder frame summing
+   to the target length), dropout 0.2: 3 steps at 160-512 target frames
+   (kernels 1 and 3) and 2 at 2048-2304 (the decoder on kernels 2 and 6-8
+   at D 192, the encoder's 511-575 frames on 1 and 3), ms a step, peak
+   memory, busy share, finite loss and gradients, launches as the routing
+   predicts, and a float32 step card against CPU with the decoder on the
+   flash route; ``vc_train`` with ``--train-duration-dir`` (3 steps, then
+   ``--resume`` to 4), ``vc_decode`` of the dev set (its features and
+   durations held against ``FastSpeechVC.inference``) and ``vc_serve``
+   over stdio, its last request long enough for the decoder's flash gate;
+   every kernel checked at every shape the phase gave it (``check ...
+   fs2`` rows).
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path; kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``,
+path, phase 23's ``fs2_*`` paths included; kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``,
 kernels 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
 ``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its
 library column), the card line again, and last the result line. Any failed check
@@ -205,6 +224,37 @@ FLAGSHIP = dict(
     transformer_enc_attn_dropout_rate=0.2, transformer_dec_dropout_rate=0.2,
     transformer_dec_positional_dropout_rate=0.2, transformer_dec_attn_dropout_rate=0.2,
 )
+# model_params of egs/arctic/vc2/conf/fs2_vc.melmelmel.v1.yaml (phase 23), in
+# bf16 as the flagship runs; the duration predictor's and the postnet's
+# dropouts at the model's defaults (0.1, 0.5), which the YAML leaves
+FS2_CONF = REPO / "egs/arctic/vc2/conf/fs2_vc.melmelmel.v1.yaml"
+FS2 = dict(
+    idim=80, odim=80, adim=384, aheads=2, elayers=4, eunits=1536, dlayers=4, dunits=1536,
+    positionwise_layer_type="linear", positionwise_conv_kernel_size=1,
+    duration_predictor_use_encoder_outputs=False, duration_predictor_input_dim=80,
+    duration_predictor_layers=2, duration_predictor_chans=256,
+    duration_predictor_kernel_size=3, postnet_layers=5, postnet_filts=5, postnet_chans=256,
+    use_masking=True, encoder_normalize_before=True, decoder_normalize_before=True,
+    encoder_reduction_factor=1, decoder_reduction_factor=1, encoder_type="conformer",
+    decoder_type="conformer", encoder_input_layer="conv2d",
+    conformer_pos_enc_layer_type="rel_pos", conformer_self_attn_layer_type="rel_selfattn",
+    use_macaron_style_in_conformer=True, use_cnn_in_conformer=True,
+    conformer_enc_kernel_size=15, conformer_dec_kernel_size=15, init_type="xavier_uniform",
+    attention_backend="flash", compute_dtype="bfloat16",
+    transformer_enc_dropout_rate=0.2, transformer_enc_positional_dropout_rate=0.2,
+    transformer_enc_attn_dropout_rate=0.2, transformer_dec_dropout_rate=0.2,
+    transformer_dec_positional_dropout_rate=0.2, transformer_dec_attn_dropout_rate=0.2,
+    teacher_model_decoder_reduction_factor=1,
+)
+FS2_CRITERIONS = ("L1Loss", "DurationPredictorLoss")
+FS2_NO_DROPOUT = dict({k: 0.0 for k in FS2 if k.endswith("dropout_rate")},
+                      duration_predictor_dropout_rate=0.0, postnet_dropout_rate=0.0)
+# the modules whose outputs feed a ReLU: the conv2d subsamplings' convs and
+# the duration predictor's convs (the conformer's feed-forwards use swish);
+# phase 23's reference step holds a module's own gradients to FLIP_RTOL
+# where one of its outputs lies on the other side of 0 on the other device
+FS2_RELU_INPUTS = ("embed.conv.0", "embed.conv.2", "projection.conv.0", "projection.conv.2",
+                   "duration_predictor.conv.0.0", "duration_predictor.conv.1.0")
 # the feature settings of the same file
 FEATS = {"sampling_rate": 16000, "fft_size": 1024, "hop_size": 256, "win_length": None,
          "num_mels": 80, "fmin": 80, "fmax": 7600}
@@ -304,7 +354,17 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 "cli_train": ("fused_rel_scores", "rel_band_bwd"),
                 "cli_decode": ("fused_rel_scores",),
                 "cli_serve": ("fused_rel_scores", "rel_flash_attention"),
-                "cli_vtn": ()}
+                "cli_vtn": (),
+                # phase 23, FastSpeech-VC: the encoder (x4 subsampled) under
+                # the gate everywhere; the decoder past it in the 30 s
+                # request, in the long steps and in vc_serve's long request
+                "fs2_serve": ("fused_rel_scores", "rel_flash_attention"),
+                "fs2_train": ("fused_rel_scores", "rel_band_bwd"),
+                "fs2_train_long": ("fused_rel_scores", "rel_band_bwd", "rel_flash_attention",
+                                   *FLASH_BWD),
+                "fs2_cli_train": ("fused_rel_scores", "rel_band_bwd"),
+                "fs2_cli_decode": ("fused_rel_scores",),
+                "fs2_cli_serve": ("fused_rel_scores", "rel_flash_attention")}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -820,10 +880,17 @@ def stats(seed: int):
 
 
 def inference_calls(m, T_enc, enc_lens, T_dec, dec_lens):
-    """The attention calls one ``AASVC.inference`` batch makes: (kernel
-    name, B, H, T, D, key lengths) for each conformer layer, from its
-    routing, with the encoder at ``T_enc`` frames and the decoder at
-    ``T_dec`` (both after frame stacking)."""
+    """The attention calls one ``AASVC.inference`` or
+    ``FastSpeechVC.inference`` batch makes: (kernel name, B, H, T, D, key
+    lengths) for each conformer layer, from its routing, with the encoder
+    input at ``T_enc`` frames (after frame stacking; a conv2d input layer
+    subsamples it) and the decoder at ``T_dec``, its key lengths at most
+    that (FastSpeech-VC's output lengths are not clamped)."""
+    from seq2seq_vc_torch.models.common import conv2d_subsampled_lengths as subsampled
+
+    if getattr(m, "encoder_input_layer", None) == "conv2d":
+        T_enc, enc_lens = subsampled(T_enc), [subsampled(n) for n in enc_lens]
+    dec_lens = [min(n, T_dec) for n in dec_lens]
     calls = []
     for stack, T, lens in ((m.encoder, T_enc, enc_lens), (m.decoder, T_dec, dec_lens)):
         for layer in stack.encoders:
@@ -1089,10 +1156,12 @@ def train_calls(model, batch):
     forward and its three backward kernels (in the legacy form for a legacy
     layer), from each layer's routing and its ``bwd`` variant at the padded
     lengths (the fused kernels take no key lengths: all T there)."""
+    from seq2seq_vc_torch.models.common import conv2d_subsampled_lengths as subsampled
     from seq2seq_vc_torch.ops.rel_scores import resolve_bwd
 
     B = len(batch["ilens"])
     m = model
+    conv2d = getattr(m, "encoder_input_layer", None) == "conv2d"  # x4 subsampling
     calls = []
     for stack, T, lens in (
         (m.encoder, batch["xs"].shape[1] // m.encoder_reduction_factor,
@@ -1100,6 +1169,8 @@ def train_calls(model, batch):
         (m.decoder, batch["ys"].shape[1] // m.decoder_reduction_factor,
          batch["olens"] // m.decoder_reduction_factor),
     ):
+        if conv2d and stack is m.encoder:
+            T, lens = subsampled(T), [subsampled(int(n)) for n in lens]
         lens = tuple(int(n) for n in lens)
         for layer in stack.encoders:
             att = layer.self_attn
@@ -2238,6 +2309,454 @@ def cli_path(rows):
     return failures, launches
 
 
+# ----------------------------------------------------------- FastSpeech-VC
+def fs2_model(seed: int, **over):
+    """FastSpeech-VC at the full width of FS2_CONF on the CPU, seeded as
+    ``flagship`` seeds the AAS-VC; ``over`` replaces config fields."""
+    from seq2seq_vc_torch.models.fastspeech_vc import FastSpeechVC
+
+    torch.manual_seed(seed)
+    model = FastSpeechVC(**dict(FS2, **over))
+    perturb_(model, seed)
+    return model
+
+
+def teacher_durations(n_src: int, n_trg: int, rng) -> np.ndarray:
+    """Integer durations, one per encoder frame of an ``n_src``-frame source
+    (after the x4 subsampling), that sum to ``n_trg``, as a teacher gives."""
+    from seq2seq_vc_torch.models.common import conv2d_subsampled_lengths
+
+    t_enc = conv2d_subsampled_lengths(n_src)
+    return rng.multinomial(n_trg, np.ones(t_enc) / t_enc)
+
+
+def write_durations(root: Path, lens, seed: int, utt_ids) -> str:
+    """Each utterance's teacher durations as ``<utt>.txt``, written as
+    ``vc_decode`` writes them; returns the directory."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for utt, (n_src, n_trg) in zip(utt_ids, lens):
+        np.savetxt(root / f"{utt}.txt", teacher_durations(n_src, n_trg, rng)[None], fmt="%d")
+    return str(root)
+
+
+def fs2_loader(root: Path, lens, seed: int):
+    """``corpus_loader``'s corpus plus teacher durations, read back through
+    the port's dataset (with ``durations_dir``), NAR collater and loader."""
+    from seq2seq_vc_torch.train.data import DataLoader, NARVCCollater, ParallelVCMelDataset
+
+    corpus_loader(root, lens, seed)
+    dur = write_durations(root / "durations", lens, seed, [f"utt{i:03d}" for i in range(len(lens))])
+    src, trg = str(root / "src_feat.scp"), str(root / "trg_feat.scp")
+    data = ParallelVCMelDataset(src, trg, dp_feats=src, durations_dir=dur)
+    return DataLoader(data, NARVCCollater(PAD_MULTIPLE), BATCH, seed=seed)
+
+
+def make_fs2_trainer(state, loader, steps: int, device=None):
+    """A ``NARVCTrainer`` with the YAML's criteria that takes ``steps`` more
+    optimizer steps on ``state``."""
+    from seq2seq_vc_torch.losses import get_criterion
+    from seq2seq_vc_torch.train.nar_vc import NARVCTrainer
+
+    config = dict(TRAIN_CONFIG, train_max_steps=state.steps + steps)
+    return NARVCTrainer(state, {n: get_criterion(n) for n in FS2_CRITERIONS}, config, loader,
+                        device=device or DEVICE)
+
+
+def fs2_serve_path(rows, src, trg):
+    """Phase 23, serving: FastSpeech-VC with phase 2's HiFi-GAN serves phase
+    2's three requests (a warm-up pass, then the timed one with the launch
+    counts set to 0 just before and read just after), kernels 1 and 2
+    checked at every shape it gave them, then a float32 conversion of one
+    clip on the card and on the CPU. Returns (failures, launches)."""
+    from seq2seq_vc_torch.pipeline import Wav2WavConverter
+
+    failures = []
+    with torch.no_grad():
+        model = fs2_model(seed=70).eval()
+        vocoder = build_vocoder(seed=71)
+        conv = Wav2WavConverter(model, vocoder, src, trg, FEATS)
+        requests = serving_requests()
+        log("fs2 serving: FastSpeech-VC at full width (bf16), warm-up: each request once")
+        fails, warm = serve(conv, requests)
+        failures += fails
+        calls = planned_calls(conv, requests, [r["out_frames"] for r in warm])
+        expected = {n: sum(c[0] == n for c in calls) for n in KERNELS}
+        for name, B, H, T, D, lens in sorted(set(calls)):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="fs2",
+                                     lens=list(lens)))
+        log("fs2 serving main path: the same requests again")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        fails, timed = serve(conv, requests)
+        launches = launch_counts()
+        failures += fails
+        for (label, clips), r in zip(requests, timed):
+            _, _, max_out = conv._frame_geometry([len(c) + conv.fft_size for c in clips])
+            log(f"fs2 request {label}: predicted output frames {r['out_frames']} (input "
+                f"{[len(c) // conv.hop_size + 1 for c in clips]} frames, decoder length "
+                f"{max_out}); latency {r['ms']:.1f} ms")
+        log(f"fs2 serving launches {launches}, expected from the routing {expected}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for name in KERNELS:
+            got = launches[name]
+            if got != expected[name] or (got == 0 and name in PATH_KERNELS["fs2_serve"]):
+                failures.append(f"fs2_serve {name}: {got} launches, expected {expected[name]}")
+        if warm[-1]["out_frames"] != timed[-1]["out_frames"]:
+            failures.append(f"fs2_serve: output lengths changed: {warm} {timed}")
+
+        m32 = fs2_model(seed=70, compute_dtype="float32", flash_min_len=256).eval()
+        v32 = copy.deepcopy(vocoder)
+        v32.compute_dtype = torch.float32
+        audio = clip(1.0, seed=7)
+        wavs, counts = {}, {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            c = Wav2WavConverter(copy.deepcopy(m32), copy.deepcopy(v32), src, trg, FEATS,
+                                 device=dev)
+            before = launch_counts()
+            wavs[side] = c(audio)
+            counts[side] = {k: v - before[k] for k, v in launch_counts().items()}
+        a, b = wavs["card"], wavs["cpu"]
+        err = float(np.abs(a - b).max()) if len(a) == len(b) else float("inf")
+        others = set(KERNELS) - set(PATH_KERNELS["fs2_serve"])
+        ok = err <= REFERENCE_ATOL and all(counts["card"][n] for n in PATH_KERNELS["fs2_serve"]) \
+            and not any(counts["card"][n] for n in others) and not any(counts["cpu"].values())
+        log(f"fs2 reference float32 1.0 s clip: card {len(a)} samples, cpu {len(b)} samples, max "
+            f"abs diff {err:.3e} (atol {REFERENCE_ATOL}); launches card {counts['card']}, cpu "
+            f"{counts['cpu']}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fs2 reference check: card vs cpu diff {err}, lengths {len(a)} {len(b)}")
+        del conv, model, vocoder
+    return failures, launches
+
+
+def fs2_train_steps(state, loader, batch, path, rows, warm: int, steps: int):
+    """A warm-up, the kernel checks at the batch's shapes, ``steps`` timed
+    steps (launch counts set to 0 just before, read just after, held to the
+    routing's prediction), finite loss and gradients, a profile of one
+    step. Returns (failures, launches)."""
+    failures = []
+    label = f"FS2 T{batch['xs'].shape[1]}/{batch['ys'].shape[1]}"
+    train_steps(state, loader, warm, f"{label} warm-up", make=make_fs2_trainer)
+    calls = train_calls(state.model, batch)
+    for name, B, H, T, D, lens in sorted(set(calls)):
+        rate = 0.2 if name in ("rel_flash_attention", *FLASH_BWD) else None
+        rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="fs2",
+                                 lens=list(lens), rate=rate))
+    log(f"{path} main path: {steps} steps at {label}")
+    notes, handle, n_att = watch_grads(state)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer = train_steps(state, loader, steps, label, make=make_fs2_trainer)
+    launches = launch_counts()
+    handle.remove()
+    expected = {n: steps * sum(c[0] == n for c in calls) for n in KERNELS}
+    step_ms = [h["train/step_time_sec"] * 1e3 for h in trainer.history]
+    log(f"{path}: ms/step {[round(x, 1) for x in step_ms]} (mean {np.mean(step_ms):.1f}); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}, expected from the routing {expected}")
+    for name in KERNELS:
+        want = expected[name]
+        if launches[name] != want or (launches[name] == 0 and name in PATH_KERNELS[path]):
+            failures.append(f"{path} {name}: {launches[name]} launches, expected {want}")
+    losses = [h["train/loss"] for h in trainer.history]
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"{path}: loss not finite: {losses}")
+    finite = [bool(f) for f, _ in notes]
+    att_min = [float(m) for _, m in notes]
+    log(f"{path} gradients per step: all finite {finite}; smallest norm among the {n_att} "
+        f"attention projections' weight gradients {att_min}")
+    if len(notes) != steps or not all(finite) or not all(m > 0 for m in att_min):
+        failures.append(f"{path}: gradients finite {finite}, attention grad norms {att_min}")
+    profile_step(state, loader, float(np.mean(step_ms)), f"B{BATCH}, {label}",
+                 port_kernels=("rel_scores_fwd_kernel", "rel_scores_bwd_kernel",
+                               "rel_flash_fwd_kernel", "rel_flash_bwd_dq_kernel",
+                               "rel_flash_bwd_dkv_kernel", "rel_flash_bwd_dpos_kernel"),
+                 make=make_fs2_trainer)
+    return failures, launches
+
+
+def fs2_reference_step(seed: int):
+    """One float32 ``NARVCTrainer`` step's loss and gradients, from the same
+    weights and batch (B 2, 100-128 frames, teacher durations), dropout
+    off and the flash gate at 64, so that the decoder takes the flash route
+    (kernels 2, 6, 7, 8) and the encoder (31 frames) the fused one (1, 3),
+    on the card and on the CPU (their plain versions), to phase 9's
+    tolerances; a ReLU input that flipped sign between the devices holds its
+    module's gradients to FLIP_RTOL."""
+    from seq2seq_vc_torch.train.data import NARVCCollater
+
+    model = fs2_model(seed, compute_dtype="float32", flash_min_len=64, **FS2_NO_DROPOUT).train()
+    lens = [(128, 128), (100, 112)]
+    items = feature_items(lens, seed)
+    rng = np.random.default_rng(seed)
+    for item, (n_src, n_trg) in zip(items, lens):
+        item["duration"] = teacher_durations(n_src, n_trg, rng)
+    batch = NARVCCollater(PAD_MULTIPLE)(items)
+    runs = {}
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        trainer = make_fs2_trainer(train_state(copy.deepcopy(model)), [], 1, device=dev)
+        pre = {}  # the ReLUs' inputs
+        for name, mod in trainer.model.named_modules():
+            if name.endswith(FS2_RELU_INPUTS):
+                mod.register_forward_hook(
+                    lambda mod, args, out, name=name: pre.__setitem__(name, out.detach().cpu()))
+        before = launch_counts()
+        loss, metrics = trainer.loss_fn(trainer._array_batch(batch), trainer._flags(),
+                                        trainer.generator)
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        runs[side] = (loss.item(), {k: v.item() for k, v in metrics.items()}, grads, counts, pre)
+    (la, ma, ga, ca, pa), (lb, mb, gb, cb, pb) = runs["card"], runs["cpu"]
+    flips = {n: [float(x) for x in pb[n][(pa[n] > 0) != (pb[n] > 0)]] for n in pb}
+    flips = {n: xs for n, xs in flips.items() if xs}
+    failures = [f"fs2 reference step {name}: card {a} cpu {b}"
+                for name, a, b in [("loss", la, lb)] + [(k, ma[k], mb[k]) for k in mb]
+                if not (math.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b))]
+    if set(ga) != set(gb):
+        failures.append(f"fs2 reference step: gradients of {sorted(set(ga) ^ set(gb))} on one side")
+    top = max(float(g.abs().max()) for g in gb.values())
+    worst = (0.0, "")
+    for name in sorted(set(ga) & set(gb)):
+        a, b = ga[name], gb[name]
+        if name.endswith("linear_k.bias"):  # rounding noise on both devices
+            if max(float(a.abs().max()), float(b.abs().max())) > NOISE_RTOL * top:
+                failures.append(f"fs2 reference step {name}: not rounding noise")
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        flipped = name.rpartition(".")[0] in flips
+        worst = max(worst, (rel, name)) if not flipped else worst
+        if not (torch.isfinite(a).all() and rel <= (FLIP_RTOL if flipped else GRAD_RTOL)):
+            failures.append(f"fs2 reference step {name}: gradient error {rel:.3e} of its largest")
+    want = set(PATH_KERNELS["fs2_train_long"])
+    if {n for n, v in ca.items() if v} != want or any(cb.values()):
+        failures.append(f"fs2 reference step launches: card {ca}, cpu {cb}")
+    log(f"fs2 reference float32 train step, flash route in the decoder (B 2, 100-128 frames, "
+        f"dropout off): loss card {la:.6f} cpu {lb:.6f}; terms card {ma} cpu {mb}; {len(gb)} "
+        f"gradient tensors, worst error of a tensor's largest {worst[0]:.3e} ({worst[1]}; rtol "
+        f"{GRAD_RTOL}); ReLU inputs on opposite sides of 0 (cpu values) {flips} (their modules "
+        f"rtol {FLIP_RTOL}); launches card {ca}, cpu {cb}: {'ok' if not failures else 'FAIL'}")
+    return failures
+
+
+def fs2_train_path(rows):
+    """Phase 23, training: a ``NARVCTrainer`` on FastSpeech-VC at full width
+    (bf16, dropout 0.2, the YAML's Adam, warmuplr and clipping), B 16 on a
+    synthetic corpus with teacher durations: 3 steps at 160-512 target
+    frames (kernels 1 and 3), 2 at 2048-2304 (the decoder on kernels 2 and
+    6-8 at D 192, the encoder's 511-575 frames on 1 and 3), then the float32
+    reference step. Returns (failures, launches by path)."""
+    failures, launches = [], {}
+    tmp = REPO / "build"
+    tmp.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp, prefix="chip_smoke_fs2_") as root:
+        state = train_state(fs2_model(seed=72).train().to(DEVICE))
+        log(f"fs2 training: NARVCTrainer, FastSpeech-VC at full width (bf16, dropout 0.2), "
+            f"B{BATCH}")
+        for path, lens, warm, steps in (("fs2_train", corpus_lens(160, 512, seed=73), 1, 3),
+                                        ("fs2_train_long", long_lens(seed=74), 1, 2)):
+            loader = fs2_loader(Path(root) / path, lens, seed=75)
+            batch = next(iter(loader))
+            log(f"{path}: sources {sorted(batch['ilens'].tolist())}, targets "
+                f"{sorted(batch['olens'].tolist())} frames, padded (xs, ys, durations) "
+                f"{batch['xs'].shape}, {batch['ys'].shape}, {batch['durations'].shape}")
+            fails, launches[path] = fs2_train_steps(state, loader, batch, path, rows, warm, steps)
+            failures += fails
+            torch.cuda.empty_cache()
+        del state
+    failures += fs2_reference_step(seed=76)
+    return failures, launches
+
+
+def fs2_cli_path(rows):
+    """Phase 23, the CLIs on FS2_CONF: ``vc_train`` with teacher durations
+    (``--train-duration-dir``) for 3 steps with an evaluation and a
+    checkpoint at step 2, then ``--resume`` to step 4; ``vc_decode`` of the
+    dev set through a seeded HiFi-GAN (batch size 1, then 4), one
+    utterance held against ``FastSpeechVC.inference``; ``vc_serve`` over
+    stdio with 3 requests, the last long enough that the decoder's keys
+    reach the flash gate. Each kernel is checked at the shapes each CLI
+    gave it. Returns (failures, launches by path)."""
+    import argparse
+    import contextlib
+    import io
+
+    import yaml
+
+    from seq2seq_vc_torch.bin import vc_decode, vc_serve, vc_train
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.nn.attention import FLASH_MIN_LEN
+    from seq2seq_vc_torch.train.data import (DataLoader, ParallelVCMelDataset,
+                                             SourceVCMelDataset, pad_batch)
+    from seq2seq_vc_torch.utils.audio import write_wav
+
+    failures, launches = [], {}
+    card = card_line()
+    sr, hop = FEATS["sampling_rate"], FEATS["hop_size"]
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_fs2_cli_") as tmp:
+        root = Path(tmp)
+        c = cli_corpus(root)
+        for subset in ("train", "dev"):
+            lines = [ln.split() for ln in Path(c[f"src_{subset}"]).read_text().splitlines()]
+            trg = dict(ln.split() for ln in Path(c[f"trg_{subset}"]).read_text().splitlines())
+            lens = [(np.load(p, mmap_mode="r").shape[0], np.load(trg[u], mmap_mode="r").shape[0])
+                    for u, p in lines]
+            c[f"dur_{subset}"] = write_durations(root / "durations", lens, seed=77,
+                                                 utt_ids=[u for u, _ in lines])
+        torch.save(build_vocoder(seed=78).state_dict(), root / "hifigan.pt")
+        gen = {k: [list(x) if isinstance(x, tuple) else x for x in v] if isinstance(v, tuple)
+               else v for k, v in HIFIGAN.items()}
+        (root / "hifigan.yaml").write_text(yaml.safe_dump(
+            {"generator_type": "HifiganGenerator", "generator_params": gen}))
+        vocoder = {"checkpoint": str(root / "hifigan.pt"), "config": str(root / "hifigan.yaml")}
+
+        def overlay(name, **keys):
+            (root / name).write_text(yaml.safe_dump(keys))
+            return ["--additional-config", str(root / name)]
+
+        exp = root / "exp"
+        args = ["--src-train-dumpdir", c["src_train"], "--src-dev-dumpdir", c["src_dev"],
+                "--trg-train-dumpdir", c["trg_train"], "--trg-dev-dumpdir", c["trg_dev"],
+                "--trg-stats", c["trg_stats"], "--train-dp-input-dir", c["src_train"],
+                "--dev-dp-input-dir", c["src_dev"], "--train-duration-dir", c["dur_train"],
+                "--dev-duration-dir", c["dur_dev"], "--config", str(FS2_CONF),
+                "--outdir", str(exp)]
+        every = dict(eval_interval_steps=2, save_interval_steps=2, log_interval_steps=1)
+        log(f"fs2 cli: vc_train on {FS2_CONF.relative_to(REPO)} with teacher durations, "
+            f"{BATCH} train and {CLI_DEV} dev utterances; 3 steps, then --resume to 4")
+        reset_launch_counts()
+        first = vc_train.main(args + overlay("fs2_steps3.yaml", train_max_steps=3, **every))
+        resumed = vc_train.main(args + overlay("fs2_steps4.yaml", train_max_steps=4, **every)
+                                + ["--resume", str(exp / "checkpoint-3steps.pt")])
+        launches["fs2_cli_train"] = cli_launches("fs2_cli_train", failures)
+        history = [h for t in (first, resumed) for h in t.history if "train/loss" in h]
+        dev = [h for h in first.history if "dev/loss" in h]
+        for h in history:
+            log(f"fs2 cli vc_train step {h['steps']}: {h['train/step_time_sec'] * 1e3:.1f} ms, "
+                f"loss {h['train/loss']:.4f} (l1 {h['train/l1_loss']:.4f}, duration "
+                f"{h['train/duration_loss']:.4f})")
+        log(f"fs2 cli vc_train: {history[1]['train/step_time_sec'] * 1e3:.1f} ms a step (step 2, "
+            f"B {BATCH}); dev at step 2 {dev}; card {card}")
+        made = [exp / n for n in ("config.yml", "checkpoint-2steps.pt", "checkpoint-3steps.pt",
+                                  "checkpoint-4steps.pt")]
+        if ([h["steps"] for h in history] != [1, 2, 3, 4] or resumed.steps != 4 or len(dev) != 1
+                or not all(math.isfinite(h["train/loss"]) for h in history)
+                or not all(p.exists() for p in made) or (exp / "predictions").exists()):
+            failures.append(f"fs2 cli vc_train: steps {[h['steps'] for h in history]}, files "
+                            f"{[p.exists() for p in made]}, dev {dev}")
+        cfg = load_config(str(exp / "config.yml"))
+        dtype = torch.bfloat16 if cfg["model_params"].get("compute_dtype") == "bfloat16" \
+            else torch.float32
+        train_set = ParallelVCMelDataset(c["src_train"], c["trg_train"], dp_feats=c["src_train"],
+                                         durations_dir=c["dur_train"])
+        batch = next(iter(DataLoader(train_set, vc_train.build_collater(cfg), BATCH, prefetch=0)))
+        for name, B, H, T, D, lens in sorted(set(train_calls(resumed.model, batch))):
+            rows.append(check_kernel(name, B, H, T, D, dtype, seed=T + D, label="fs2",
+                                     lens=list(lens)))
+        del first, resumed
+
+        ckpt = str(exp / "checkpoint-4steps.pt")
+        (root / "decode.yml").write_text(yaml.safe_dump(dict(cfg, vocoder=vocoder)))
+        reset_launch_counts()
+        decodes = (("batch size 1", 1, "dec1"), ("batched", 4, "dec4"))
+        for label, bs, out in decodes:
+            r = vc_decode.main(["--dumpdir", c["src_dev"], "--dp-input-dir", c["src_dev"],
+                                "--checkpoint", ckpt, "--config", str(root / "decode.yml"),
+                                "--outdir", str(root / out), "--batch-size", str(bs)])
+            log(f"fs2 cli vc_decode {label}: {CLI_DEV} utterances, {r['frames']} mel frames in "
+                f"{r['seconds'] * 1e3:.1f} ms, {r['frames_per_sec']:.1f} mel-frames/s; card {card}")
+            wavs = list((root / out / "wav").glob("*.wav"))
+            durs = list((root / out / "durations").glob("*.txt"))
+            if len(wavs) != CLI_DEV or len(durs) != CLI_DEV or r["frames"] <= 0:
+                failures.append(f"fs2 cli vc_decode {label}: {len(wavs)} wavs, {len(durs)} "
+                                f"durations, {r['frames']} frames")
+        launches["fs2_cli_decode"] = cli_launches("fs2_cli_decode", failures)
+        model = vc_decode.load_model(cfg, ckpt, "cuda")
+        for name, B, H, T, D, lens in sorted({call for _, bs, out in decodes
+                                              for call in decode_calls(model, c["src_dev"], bs,
+                                                                       root / out)}):
+            rows.append(check_kernel(name, B, H, T, D, dtype, seed=T + D, label="fs2",
+                                     lens=list(lens)))
+        item = SourceVCMelDataset(c["src_dev"], dp_feats=c["src_dev"])[0]
+        xs, dp = (torch.as_tensor(pad_batch([item[k]], vc_decode.frame_multiple(model)),
+                                  device="cuda") for k in ("src_feat", "dp_input"))
+        out = model.inference(xs, torch.tensor([len(item["src_feat"])], device="cuda"), dp,
+                              max_output_frames=2 * xs.shape[1])
+        n = min(int(out["out_lens"][0]), out["outs"].shape[1])
+        want = out["outs"][0, :n].float().cpu().numpy()
+        got = np.load(root / "dec1" / f"{item['utt_id']}.npy")
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        dur = np.loadtxt(root / "dec1" / "durations" / f"{item['utt_id']}.txt", ndmin=1)
+        same_dur = np.array_equal(dur, out["d_outs"][0, : int(out["d_lens"][0])].cpu().numpy())
+        ok = err <= CLI_DECODE_ATOL and same_dur
+        log(f"fs2 cli vc_decode {item['utt_id']} vs FastSpeechVC.inference on the same weights "
+            f"and input: shapes {got.shape} {want.shape}, max abs diff {err:.3e} (atol "
+            f"{CLI_DECODE_ATOL}), durations equal {same_dur}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fs2 cli vc_decode vs FastSpeechVC.inference: diff {err}, "
+                            f"durations equal {same_dur}")
+        del model
+
+        # the long request: the decoder's keys (twice the padded source
+        # frames, plus 8) reach the flash gate
+        long_s = FLASH_MIN_LEN * hop / (2 * sr) + 0.5
+        clips = [(f"{s:.1f} s", clip(s, 80 + i)) for i, s in enumerate((3.8, 2.2, long_s))]
+        lines = []
+        for i, (_, audio) in enumerate(clips):
+            write_wav(str(root / f"req{i}.wav"), audio, sr)
+            lines.append(f"{root / f'req{i}.wav'} {root / f'res{i}.wav'}")
+        serve = dict(checkpoint=ckpt, config=None, src_stats=c["src_stats"],
+                     trg_stats=c["trg_stats"], vocoder_checkpoint=vocoder["checkpoint"],
+                     vocoder_config=vocoder["config"], vocoder_stats=None, feat_type="mel",
+                     bucket_frames=128, device=None)
+        argv = [a for k, v in serve.items() if v is not None
+                for a in (f"--{k.replace('_', '-')}", str(v))]
+        reset_launch_counts()
+        stdin, sys.stdin = sys.stdin, io.StringIO("\n".join(lines) + "\n")
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                vc_serve.main(argv)
+        finally:
+            sys.stdin = stdin
+        launches["fs2_cli_serve"] = cli_launches("fs2_cli_serve", failures)
+        results = [json.loads(x) for x in buf.getvalue().splitlines()]
+        if results[:1] != [{"ready": True}] or len(results) != 1 + len(clips) \
+                or not all(r.get("ok") for r in results[1:]):
+            failures.append(f"fs2 cli vc_serve: {results}")
+        for (label, _), r in zip(clips, results[1:]):
+            log(f"fs2 cli vc_serve request {label}: wall {r.get('wall_ms')} ms, RTF "
+                f"{r.get('rtf')}, output {r.get('output_seconds')} s; card {card}")
+        conv = vc_serve.build_converter(argparse.Namespace(**serve))
+        out_frames = [[round(r["output_seconds"] * sr / hop)] for r in results[1:]]
+        for name, B, H, T, D, lens in sorted(set(planned_calls(
+                conv, [(label, [a]) for label, a in clips], out_frames))):
+            rows.append(check_kernel(name, B, H, T, D, dtype, seed=T + D, label="fs2",
+                                     lens=list(lens)))
+        del conv
+    return failures, launches
+
+
+def fs2_path(rows, src, trg):
+    """Phase 23: FastSpeech-VC serving, training and CLIs. Returns
+    (failures, launches by path)."""
+    failures, launches = fs2_serve_path(rows, src, trg)
+    launches = {"fs2_serve": launches}
+    torch.cuda.empty_cache()
+    fails, train = fs2_train_path(rows)
+    failures += fails
+    launches.update(train)
+    torch.cuda.empty_cache()
+    fails, cli = fs2_cli_path(rows)
+    failures += fails
+    launches.update(cli)
+    return failures, launches
+
+
 def optional_packages() -> str:
     """Which of the packages the JAX package's CLIs lean on import here
     (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
@@ -2431,6 +2950,12 @@ def main() -> int:
     failures += fails
     launches.update(cli)
     log(f"phase cli: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fails, fs2 = fs2_path(rows, src, trg)
+    failures += fails
+    launches.update(fs2)
+    log(f"phase fs2: {time.perf_counter() - t_phase:.1f} s")
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]
 

@@ -5,8 +5,9 @@
 
 Reads the training config beside the checkpoint (or ``--config``) and the
 target stats, and runs the model per batch of utterances: the NAR path
-(AAS-VC) through ``AASVC.inference``, the AR path (VTN) through
-``ChunkedARDecoder`` with the config's ``inference`` block, or, with
+through ``AASVC.inference`` or ``FastSpeechVC.inference``, the AR path
+(VTN) through ``ChunkedARDecoder`` with the config's ``inference`` block,
+or, with
 ``--use-teacher-forcing``, the VTN's teacher-forced pass, whose
 cross-attention gives each source frame's duration
 (``utils/duration_calculator.py``). Writes each utterance's features as
@@ -36,6 +37,7 @@ import torch
 
 from ..core.config import load_config
 from ..models import AR_VC_MODELS, get_model_class
+from ..models.aas_vc import AASVC
 from ..models.ar_driver import ChunkedARDecoder
 from ..device import resolve_device
 from ..train.data import ParallelVCMelDataset, SourceVCMelDataset, pad_batch
@@ -166,8 +168,9 @@ def main(argv=None) -> Dict[str, float]:
             if "dp_input" in items[0]:
                 dp = torch.as_tensor(pad_batch([it["dp_input"] for it in items], multiple),
                                      device=device)
-            out = model.inference(xs, ilens, dp, max_output_frames=2 * xs.shape[1],
-                                  generator=generator)
+            # only AAS-VC draws (its duration noise); FastSpeech-VC takes no generator
+            noise = {"generator": generator} if isinstance(model, AASVC) else {}
+            out = model.inference(xs, ilens, dp, max_output_frames=2 * xs.shape[1], **noise)
             outs, out_lens = out["outs"].float().cpu().numpy(), out["out_lens"].tolist()
             d_outs, d_lens = out["d_outs"].cpu().numpy(), out["d_lens"].tolist()
             durations = [d_outs[b, :n].astype(np.int64) for b, n in enumerate(d_lens)]

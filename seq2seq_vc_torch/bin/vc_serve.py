@@ -5,10 +5,10 @@ seq2seq_vc_tpu/bin/vc_serve.py:46-449).
         --src-stats src.npz --trg-stats trg.npz --vocoder-checkpoint hifigan.pt \
         [--vocoder-config hifigan.yaml] [--port N --max-batch B]
 
-AAS-VC checkpoints ride ``pipeline.Wav2WavConverter`` (log-mel ->
-normalisation -> conversion -> stat chain -> chunked HiFi-GAN on the
-card); VTN checkpoints ride ``pipeline.Wav2WavARConverter`` (the chunked AR
-decode). The model loads once; every request after the warm-up finds its
+AAS-VC and FastSpeech-VC checkpoints ride ``pipeline.Wav2WavConverter``
+(log-mel -> normalisation -> conversion -> stat chain -> chunked HiFi-GAN
+on the card); VTN checkpoints ride ``pipeline.Wav2WavARConverter`` (the
+chunked AR decode). The model loads once; every request after the warm-up finds its
 weights and kernels on the card.
 
 Protocols (one ``<in_wav> <out_wav>`` request per line, one JSON result
@@ -57,9 +57,9 @@ def build_converter(args) -> Wav2WavConverter:
     config = load_config(args.config or os.path.join(os.path.dirname(args.checkpoint),
                                                      "config.yml"))
     model_type = config["model_type"]
-    if model_type not in ("AASVC", "VTN"):
-        raise NotImplementedError(f"vc_serve hosts AASVC (NAR pipeline) and VTN (chunked AR "
-                                  f"pipeline) in the port; got {model_type!r}")
+    if model_type not in ("AASVC", "FastSpeechVC", "VTN"):
+        raise NotImplementedError(f"vc_serve hosts AASVC and FastSpeechVC (NAR pipeline) and "
+                                  f"VTN (chunked AR pipeline) in the port; got {model_type!r}")
     model = load_model(config, args.checkpoint, "cpu")
     logging.info("restored model from %s", args.checkpoint)
     vocoder = load_hifigan_model(args.vocoder_checkpoint, args.vocoder_config, "cpu")

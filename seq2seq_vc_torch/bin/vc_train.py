@@ -2,7 +2,8 @@
 
     python -m seq2seq_vc_torch.bin.vc_train --config conf.yaml --outdir exp \
         --src-train-dumpdir ... --src-dev-dumpdir ... \
-        --trg-train-dumpdir ... --trg-dev-dumpdir ... [--resume ckpt.pt]
+        --trg-train-dumpdir ... --trg-dev-dumpdir ... [--resume ckpt.pt] \
+        [--train-duration-dir DIR --dev-duration-dir DIR]  # FastSpeech-VC
 
 The YAML config, the CLI arguments merged over it and the
 ``--additional-config`` overlay give the effective config, dumped to
@@ -10,12 +11,14 @@ The YAML config, the CLI arguments merged over it and the
 trainer are picked by their config names; ``--resume`` restores a
 checkpoint and the run continues where it stopped; a final
 ``checkpoint-<N>steps.pt`` is written in ``finally``. The model's weights
-come from torch's generator seeded with the config's ``seed``.
+come from torch's generator seeded with the config's ``seed``. The
+duration directories hold FastSpeech-VC's teacher durations, one
+``<utt>.txt`` each, as ``vc_decode --use-teacher-forcing`` writes them.
 
 Refused, each with the ROADMAP.md item (queue 1) that lifts the refusal:
 ``--init-checkpoint`` and ``init-mods``, ``freeze-mods`` (item 3),
 ``tensor_parallel``, ``sequence_parallel``, ``pipeline_parallel`` above 1 and
-``prng_impl`` (item 5), the duration directories of FastSpeech-VC (item 2).
+``prng_impl`` (item 5).
 """
 
 from __future__ import annotations
@@ -61,9 +64,6 @@ def refuse_unported(args: argparse.Namespace, config: Dict[str, Any]) -> None:
         "--init-checkpoint": (args.init_checkpoint, item3),
         "init-mods": (config.get("init-mods") or config.get("init_mods"), item3),
         "freeze-mods": (config.get("freeze-mods") or config.get("freeze_mods"), item3),
-        "--train-duration-dir / --dev-duration-dir":
-            (args.train_duration_dir or args.dev_duration_dir,
-             "ROADMAP.md queue 1 item 2 (FastSpeech-VC)"),
         "prng_impl": (config.get("prng_impl"), item5),
     }
     for key in ("tensor_parallel", "sequence_parallel", "pipeline_parallel"):
@@ -105,10 +105,11 @@ def main(argv=None):
     collater = build_collater(config)
     datasets = [
         ParallelVCMelDataset(src, trg, dp_feats=dp, feat_key=args.src_feat_type,
-                             allow_cache=config.get("allow_cache", False))
-        for src, trg, dp in ((args.src_train_dumpdir, args.trg_train_dumpdir,
-                              args.train_dp_input_dir),
-                             (args.src_dev_dumpdir, args.trg_dev_dumpdir, args.dev_dp_input_dir))
+                             allow_cache=config.get("allow_cache", False), durations_dir=dur)
+        for src, trg, dp, dur in ((args.src_train_dumpdir, args.trg_train_dumpdir,
+                                   args.train_dp_input_dir, args.train_duration_dir),
+                                  (args.src_dev_dumpdir, args.trg_dev_dumpdir,
+                                   args.dev_dp_input_dir, args.dev_duration_dir))
     ]
     seed = config.get("seed", 0)
     train_loader = DataLoader(datasets[0], collater, config["batch_size"], shuffle=True, seed=seed)

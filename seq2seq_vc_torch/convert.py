@@ -1,7 +1,7 @@
 """JAX parameter trees -> state_dicts of the port's modules.
 
-The inverse of ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc`` and
-``convert_vtn`` and of
+The inverse of ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``,
+``convert_vtn`` and ``convert_fastspeech_vc`` and of
 ``seq2seq_vc_tpu/vocoder/convert_torch.py:torch_hifigan_to_flax``, written
 here so the port needs nothing of the JAX package. A tree is nested dicts
 of numpy arrays (``{"params": ...}`` or the inner dict). Every tensor of
@@ -72,8 +72,16 @@ def _flow_name(m: re.Match) -> str:
     return f"duration_predictor.{branch}_{(int(m.group(2)) + 1) // 2}"
 
 
+# the conv2d input layer of a conformer or transformer encoder
+_SUBSAMPLE_RENAMES = [
+    (r"(^|\.)embed\.conv\.0$", r"\1subsample.Conv_0"),
+    (r"(^|\.)embed\.conv\.2$", r"\1subsample.Conv_1"),
+    (r"(^|\.)embed\.out\.0$", r"\1subsample.Dense_0"),
+    (r"(^|\.)embed\.out\.1$", r"\1pos_enc"),
+]
+
 # torch module path -> flax module path, applied in order
-_AASVC_RENAMES = [
+_AASVC_RENAMES = _SUBSAMPLE_RENAMES + [
     (r"(^|\.)embed\.0$", r"\1pre"),
     (r"(^|\.)embed\.1$", r"\1pre_norm"),
     (r"(^|\.)encoders\.(\d+)\.", r"\1layers_\2."),
@@ -85,6 +93,10 @@ _AASVC_RENAMES = [
     (r"\.conv_module\.norm$", ".conv_module.MaskedGroupNorm_0"),
     (r"(dds|dds_conv)\.convs\.(\d+)\.(\d)$", _dds_name),
     (r"^duration_predictor\.(post_)?flows\.(\d+)", _flow_name),
+    # the deterministic duration predictor
+    (r"^duration_predictor\.conv\.(\d+)\.0$", r"duration_predictor.Conv_\1"),
+    (r"^duration_predictor\.conv\.(\d+)\.2$", r"duration_predictor.LayerNorm_\1"),
+    (r"^duration_predictor\.linear$", "duration_predictor.Dense_0"),
     (r"^duration_predictor_projection\.conv\.0$", "duration_predictor_projection.Conv_0"),
     (r"^duration_predictor_projection\.conv\.2$", "duration_predictor_projection.Conv_1"),
     (r"^duration_predictor_projection\.out$", "duration_predictor_projection.Dense_0"),
@@ -92,11 +104,7 @@ _AASVC_RENAMES = [
     (r"^postnet\.postnet\.(\d+)\.1$", r"postnet.GroupNorm_\1"),
 ]
 
-_VTN_RENAMES = [
-    (r"(^|\.)embed\.conv\.0$", r"\1subsample.Conv_0"),
-    (r"(^|\.)embed\.conv\.2$", r"\1subsample.Conv_1"),
-    (r"(^|\.)embed\.out\.0$", r"\1subsample.Dense_0"),
-    (r"(^|\.)embed\.out\.1$", r"\1pos_enc"),
+_VTN_RENAMES = _SUBSAMPLE_RENAMES + [
     (r"^decoder\.embed\.0\.0\.prenet\.(\d+)\.0$", r"dprenet.Dense_\1"),
     (r"^decoder\.embed\.0\.1$", "dprenet_proj"),
     (r"^decoder\.embed\.1$", "decoder.pos_enc"),
@@ -106,6 +114,15 @@ _VTN_RENAMES = [
     (r"^postnet\.postnet\.(\d+)\.0$", r"postnet.Conv_\1"),
     (r"^postnet\.postnet\.(\d+)\.1$", r"postnet.GroupNorm_\1"),
 ]
+
+# FastSpeech-VC: a transformer decoder's scaled encoding is ``embed.0``,
+# then the conformer's and the transformer's names as AAS-VC's
+_FASTSPEECH_VC_RENAMES = [(r"^decoder\.embed\.0$", "decoder.pos_enc")] + _AASVC_RENAMES
+
+# each Conv2dSubsampling output Linear of AAS-VC and FastSpeech-VC, and the
+# conv whose channels order its input rows
+_SUBSAMPLE_OUTS = {"encoder.embed.out.0": "encoder.embed.conv.2",
+                   "duration_predictor_projection.out": "duration_predictor_projection.conv.2"}
 
 # the SDP's 1x1 convs are Dense layers in flax
 _SDP_DENSE = re.compile(r"^duration_predictor\.(pre|proj|post_pre|post_proj)$")
@@ -166,8 +183,7 @@ def aasvc_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, 
     ``model`` may also be one of its parts on its own (a ``ConformerEncoder``
     or a ``RelPositionMultiHeadedAttention``) with the matching flax tree.
     """
-    return _state_dict(tree, model, _AASVC_RENAMES, {
-        "duration_predictor_projection.out": "duration_predictor_projection.conv.2"})
+    return _state_dict(tree, model, _AASVC_RENAMES, _SUBSAMPLE_OUTS)
 
 
 def vtn_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -178,6 +194,14 @@ def vtn_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, to
     """
     return _state_dict(tree, model, _VTN_RENAMES, {
         f"{p}embed.out.0": f"{p}embed.conv.2" for p in ("encoder.", "")})
+
+
+def fastspeech_vc_state_dict(tree: Dict[str, Any],
+                             model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax FastSpeechVC params -> a state_dict for the port's
+    ``FastSpeechVC`` ``model`` (transformer or conformer encoder and
+    decoder)."""
+    return _state_dict(tree, model, _FASTSPEECH_VC_RENAMES, _SUBSAMPLE_OUTS)
 
 
 def _wn_weight(src: _Tree, mod: Path_, wn: Path_, conv: str) -> np.ndarray:

@@ -1,7 +1,8 @@
-"""Losses of the AAS-VC and VTN training steps, resolved by name from the YAML
-``criterions`` block (mirrors seq2seq_vc_tpu/losses/__init__.py)."""
+"""Losses of the AAS-VC, VTN and FastSpeech-VC training steps, resolved by
+name from the YAML ``criterions`` block (mirrors
+seq2seq_vc_tpu/losses/__init__.py)."""
 
-from .duration import StochasticDurationPredictorLoss
+from .duration import DurationPredictorLoss, StochasticDurationPredictorLoss
 from .forward_sum import ForwardSumLoss
 from .l1 import L1Loss
 from .seq2seq import Seq2SeqLoss
@@ -10,6 +11,7 @@ _CRITERIONS = {
     "L1Loss": L1Loss,
     "Seq2SeqLoss": Seq2SeqLoss,
     "ForwardSumLoss": ForwardSumLoss,
+    "DurationPredictorLoss": DurationPredictorLoss,
     "StochasticDurationPredictorLoss": StochasticDurationPredictorLoss,
 }
 

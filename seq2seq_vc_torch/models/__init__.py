@@ -3,16 +3,16 @@ registry: the decode entry point picks the AR or the NAR path by
 membership of ``AR_VC_MODELS`` or ``NAR_VC_MODELS``."""
 
 from .aas_vc import AASVC
+from .fastspeech_vc import FastSpeechVC
 from .vtn import VTN
 
 AR_VC_MODELS = ["VTN"]
 NAR_VC_MODELS = ["FastSpeechVC", "AASVC"]
 
-_MODELS = {"VTN": VTN, "AASVC": AASVC}
+_MODELS = {"VTN": VTN, "AASVC": AASVC, "FastSpeechVC": FastSpeechVC}
 # model types of the JAX package that the port does not have yet, and the
 # ROADMAP.md item (queue 1) that ports each
-_NOT_PORTED = {"FastSpeechVC": "queue 1 item 2 (FastSpeech-VC)",
-               "TransformerTTS": "queue 1 item 3 (TransformerTTS)"}
+_NOT_PORTED = {"TransformerTTS": "queue 1 item 3 (TransformerTTS)"}
 
 
 def get_model_class(name: str):

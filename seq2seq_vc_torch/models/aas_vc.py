@@ -2,13 +2,14 @@
 ``__call__`` and ``inference``).
 
 Conformer encoder (with post-encoder frame stacking) -> alignment module
-and MAS durations (training) or the stochastic duration predictor run
-inverse (inference) -> Gaussian upsampling -> conformer decoder ->
-``feat_out`` -> postnet. ``forward`` is the training pass and also returns
-the predictor's NLL of the MAS durations. The constructor takes the JAX
-model's config fields by the same names and defaults, dropout rates
-included; options the port does not have yet raise ``NotImplementedError``
-(the flagship sets every ported one). Submodule names are the reference
+and MAS durations (training) or the duration predictor, stochastic (run
+inverse) or deterministic (inference) -> Gaussian upsampling -> conformer
+decoder -> ``feat_out`` -> postnet. ``forward`` is the training pass and
+also returns the stochastic predictor's NLL of the MAS durations, or the
+deterministic one's log-durations. The constructor takes the JAX model's
+config fields by the same names and defaults, dropout rates included;
+options the port does not have yet raise ``NotImplementedError`` (the
+flagship sets every ported one). Submodule names are the reference
 torch names, so a ``state_dict`` converts with
 ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``.
 """
@@ -22,6 +23,7 @@ import torch
 from ..nn.alignment import AlignmentModule
 from ..nn.attention import FLASH_MIN_LEN
 from ..nn.conformer import ConformerEncoder
+from ..nn.duration_predictor import DurationPredictor
 from ..nn.flows import StochasticDurationPredictor
 from ..nn.layers import Linear
 from ..nn.pre_postnets import Postnet
@@ -29,7 +31,7 @@ from ..nn.transformer import Conv2dSubsampling
 from ..ops.mas import viterbi_decode
 from ..ops.masks import make_non_pad_mask
 from ..ops.upsampling import gaussian_upsampling
-from .common import nearest_interpolate, reduce_frames
+from .common import conv2d_subsampled_lengths, nearest_interpolate, reduce_frames
 
 MAX_DP_OUTPUT = 10  # duration clamp (reference ``aas_vc.py:35``)
 
@@ -76,6 +78,10 @@ class AASVC(torch.nn.Module):
         duration_predictor_type: str = "deterministic",
         duration_predictor_use_encoder_outputs: bool = True,
         duration_predictor_input_dim: Optional[int] = None,
+        duration_predictor_layers: int = 2,
+        duration_predictor_chans: int = 384,
+        duration_predictor_kernel_size: int = 3,
+        duration_predictor_dropout_rate: float = 0.1,
         postnet_layers: int = 5,
         postnet_chans: int = 512,
         postnet_filts: int = 5,
@@ -108,16 +114,15 @@ class AASVC(torch.nn.Module):
         device=None,
         **unread: Any,
     ):
-        """Config fields that the model does not read (loss, init and
-        deterministic-predictor options, ``alignment_dist_form``: the port
-        has the ``direct`` form only) are accepted in ``unread`` and
-        ignored. ``rel_scores_bwd`` picks the fused attention's backward
-        variant (``ops/rel_scores.py``)."""
+        """Config fields that the model does not read (loss and init
+        options, ``alignment_dist_form``: the port has the ``direct`` form
+        only) are accepted in ``unread`` and ignored. ``rel_scores_bwd``
+        picks the fused attention's backward variant
+        (``ops/rel_scores.py``)."""
         super().__init__()
         unsupported = {
             "encoder_type": (encoder_type, "conformer"),
             "decoder_type": (decoder_type, "conformer"),
-            "duration_predictor_type": (duration_predictor_type, "stochastic"),
             "positionwise_layer_type": (positionwise_layer_type, "linear"),
             "postnet_norm_type": (postnet_norm_type, "group_norm"),
             "spk_embed_dim": (spk_embed_dim, None),
@@ -125,6 +130,9 @@ class AASVC(torch.nn.Module):
         for key, (got, want) in unsupported.items():
             if got != want:
                 raise NotImplementedError(f"AASVC {key}={got!r} is not ported yet")
+        if duration_predictor_type not in ("deterministic", "stochastic"):
+            raise ValueError(f"unknown duration_predictor_type: {duration_predictor_type}")
+        self.duration_predictor_type = duration_predictor_type
         self.idim, self.odim, self.adim = idim, odim, adim
         self.encoder_reduction_factor = encoder_reduction_factor
         self.post_encoder_reduction_factor = post_encoder_reduction_factor
@@ -158,20 +166,25 @@ class AASVC(torch.nn.Module):
             concat_after=encoder_concat_after, cnn_module_kernel=conformer_enc_kernel_size,
             **common,
         )
-        # the predictor works at adim; its input is the stacked encoder
-        # states or the separate conv2d projection of the source features
-        self.duration_predictor = StochasticDurationPredictor(
-            in_channels=(
-                adim * post_encoder_reduction_factor
-                if duration_predictor_use_encoder_outputs else adim
-            ),
-            channels=adim,
-            kernel_size=stochastic_duration_predictor_kernel_size,
-            flows=stochastic_duration_predictor_flows,
-            dds_conv_layers=stochastic_duration_predictor_dds_conv_layers,
-            dropout_rate=stochastic_duration_predictor_dropout_rate,
-            device=device,
-        )
+        # the predictor's input is the stacked encoder states or the
+        # separate conv2d projection of the source features
+        dp_idim = (adim * post_encoder_reduction_factor
+                   if duration_predictor_use_encoder_outputs else adim)
+        if duration_predictor_type == "deterministic":
+            self.duration_predictor = DurationPredictor(
+                dp_idim, duration_predictor_layers, duration_predictor_chans,
+                duration_predictor_kernel_size, duration_predictor_dropout_rate, device=device,
+            )
+        else:  # works at adim
+            self.duration_predictor = StochasticDurationPredictor(
+                in_channels=dp_idim,
+                channels=adim,
+                kernel_size=stochastic_duration_predictor_kernel_size,
+                flows=stochastic_duration_predictor_flows,
+                dds_conv_layers=stochastic_duration_predictor_dds_conv_layers,
+                dropout_rate=stochastic_duration_predictor_dropout_rate,
+                device=device,
+            )
         if not duration_predictor_use_encoder_outputs:
             self.duration_predictor_projection = Conv2dSubsampling(
                 duration_predictor_input_dim or idim, adim, device=device,
@@ -203,6 +216,8 @@ class AASVC(torch.nn.Module):
     def _encode(self, xs, ilens):
         xs, ilens = reduce_frames(xs, ilens, self.encoder_reduction_factor)
         hs, _ = self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
+        if self.encoder_input_layer == "conv2d":
+            ilens = conv2d_subsampled_lengths(ilens)
         return reduce_frames(hs, ilens, self.post_encoder_reduction_factor)
 
     def _dp_features(self, hs, dp_inputs):
@@ -228,9 +243,11 @@ class AASVC(torch.nn.Module):
 
         MAS durations ``ds`` (no gradient) from the alignment log-probs
         drive the Gaussian upsampling; ``bin_loss`` and ``log_p_attn`` keep
-        their gradient. ``dur_nll`` is the predictor's NLL of ``ds`` summed
-        over tokens and divided by the valid-token count; ``noise`` (B,
-        T_text, 2) is its e_q draw (else drawn from ``generator``).
+        their gradient. The stochastic predictor gives ``dur_nll``, its NLL
+        of ``ds`` summed over tokens and divided by the valid-token count;
+        ``noise`` (B, T_text, 2) is its e_q draw (else drawn from
+        ``generator``). The deterministic one gives ``d_outs``, its
+        log-durations clamped at ``MAX_DP_OUTPUT``.
         ``dp_lengths`` is accepted for the JAX signature and not read.
         """
         xs, ys = src_speech, tgt_speech
@@ -243,8 +260,12 @@ class AASVC(torch.nn.Module):
         log_p_attn = self.alignment_module(hs, ys_red, ~h_nonpad)
         ds, bin_loss = viterbi_decode(log_p_attn, ilens_red, olens_red)
 
-        dur_nll = self.duration_predictor.nll(dp_in, h_nonpad, ds, noise, generator)
-        dur_nll = dur_nll.sum() / torch.clamp(h_nonpad.sum(), min=1)
+        if self.duration_predictor_type == "deterministic":
+            d_outs = self.duration_predictor(dp_in, ~h_nonpad)
+            dur = {"d_outs": torch.clamp(d_outs, max=MAX_DP_OUTPUT)}
+        else:
+            dur_nll = self.duration_predictor.nll(dp_in, h_nonpad, ds, noise, generator)
+            dur = {"dur_nll": dur_nll.sum() / torch.clamp(h_nonpad.sum(), min=1)}
 
         hs_up = gaussian_upsampling(
             hs, ds, make_non_pad_mask(olens_red, ys_red.shape[1]), h_nonpad
@@ -257,7 +278,7 @@ class AASVC(torch.nn.Module):
         return {
             "before_outs": before_outs,
             "after_outs": after_outs,
-            "dur_nll": dur_nll,
+            **dur,
             "ds": ds,
             "ilens": ilens_red,
             "bin_loss": bin_loss,
@@ -283,9 +304,9 @@ class AASVC(torch.nn.Module):
 
         Returns outs (B, T_out_max * r_d, odim), d_outs (B, T_text), d_lens
         and out_lens (B,) valid output frame counts. ``noise`` (B, T_text,
-        2) is the duration predictor's standard-normal draw (else drawn from
-        ``generator``). With a ground-truth target (debug use), the MAS
-        durations ``ds`` and ``log_p_attn`` are returned as well.
+        2) is the stochastic duration predictor's standard-normal draw (else
+        drawn from ``generator``). With a ground-truth target (debug use),
+        the MAS durations ``ds`` and ``log_p_attn`` are returned as well.
         """
         hs, ilens_red = self._encode(src_speech, src_speech_lengths)
         debug: Dict[str, torch.Tensor] = {}
@@ -300,10 +321,13 @@ class AASVC(torch.nn.Module):
         dp_in = self._dp_features(hs, dp_inputs)
         h_nonpad = make_non_pad_mask(ilens_red, hs.shape[1])
 
-        d_outs = self.duration_predictor(
-            dp_in, h_nonpad, noise_scale=self.stochastic_duration_predictor_noise_scale,
-            noise=noise, generator=generator,
-        )
+        if self.duration_predictor_type == "deterministic":
+            d_outs = self.duration_predictor(dp_in, ~h_nonpad, is_inference=True)
+        else:
+            d_outs = self.duration_predictor(
+                dp_in, h_nonpad, noise_scale=self.stochastic_duration_predictor_noise_scale,
+                noise=noise, generator=generator,
+            )
         d_outs = torch.clamp(d_outs, max=MAX_DP_OUTPUT)
         d_outs = torch.where(h_nonpad, d_outs, 0.0)
 

@@ -248,6 +248,8 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
 class LegacyRelPositionMultiHeadedAttention(RelPositionMultiHeadedAttention):
     """Legacy variant: pos_emb of shape (1, T, n_feat) from
     LegacyRelPositionalEncoding, the legacy ``rel_shift``; on the flash
-    route the same kernels at twice the q_v/table width."""
+    route the same kernels in their legacy form, D wide (q_v and the (H, T,
+    D) table as the module holds them; each band cell reads q_v row i or
+    i + 1 by the sign of j - i)."""
 
     legacy = True

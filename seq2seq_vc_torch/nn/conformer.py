@@ -26,7 +26,7 @@ from .attention import (
     RelPositionMultiHeadedAttention,
 )
 from .layers import Conv1d, LayerNorm, Linear
-from .transformer import LN_EPS, _make_pos_enc, _positionwise
+from .transformer import LN_EPS, Conv2dSubsampling, _make_pos_enc, _positionwise
 
 
 class MaskedGroupNorm(torch.nn.Module):
@@ -164,7 +164,8 @@ class ConformerEncoderLayer(torch.nn.Module):
 
 
 class ConformerEncoder(torch.nn.Module):
-    """Conformer encoder with a ``linear`` or no (``None``) input layer."""
+    """Conformer encoder with a ``linear``, a ``conv2d`` (x4 subsampling) or
+    no (``None``) input layer."""
 
     def __init__(self, idim: int, attention_dim: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6,
@@ -195,6 +196,11 @@ class ConformerEncoder(torch.nn.Module):
             self.embed = torch.nn.Sequential(
                 Linear(idim, attention_dim, **kw), LayerNorm(attention_dim, 1e-5, **kw)
             )
+        elif input_layer == "conv2d":
+            # the reference names (embed.conv.0, embed.conv.2, embed.out.0);
+            # the relative encoding returns (xs, pos_emb), so it runs after
+            # the subsampling as self.pos_enc, not inside ``out``
+            self.embed = Conv2dSubsampling(idim, attention_dim, torch.nn.Identity(), **kw)
         elif input_layer is not None:
             raise NotImplementedError(f"input_layer {input_layer!r} is not ported yet")
         self.pos_enc = _make_pos_enc(pos_enc_layer_type, attention_dim, positional_dropout_rate)
@@ -214,9 +220,12 @@ class ConformerEncoder(torch.nn.Module):
             self.after_norm = LayerNorm(attention_dim, LN_EPS, compute_dtype, **kw)
 
     def forward(self, xs, masks: Optional[torch.Tensor]):
-        """xs: (B, T, idim); masks: (B, T) non-pad. Returns (float32 xs, masks)."""
+        """xs: (B, T, idim); masks: (B, T) non-pad. Returns (float32 xs, masks),
+        both subsampled by a ``conv2d`` input layer."""
         if self.input_layer == "linear":
             xs = F.dropout(self.embed(xs), self.dropout_rate, self.training)
+        elif self.input_layer == "conv2d":
+            xs, masks = self.embed(xs, masks)
         xs, pos_emb = self.pos_enc(xs)
         if self.compute_dtype is not None:
             xs = xs.to(self.compute_dtype)

@@ -75,7 +75,9 @@ class Conv2dSubsampling(torch.nn.Module):
     channel-major flattening). Without ``pos_enc`` the Linear is a bare
     ``out``, as the reference builds it with use_pos_enc=False for AAS-VC's
     duration-predictor projection; with one, ``out`` is the Sequential
-    (``out.0`` Linear, ``out.1`` the encoding) of an encoder input layer.
+    (``out.0`` Linear, ``out.1`` the encoding) of an encoder input layer
+    (``torch.nn.Identity`` where the encoding runs after the layer, as the
+    conformer's relative one does).
     """
 
     def __init__(self, idim: int, odim: int, pos_enc: Optional[torch.nn.Module] = None,
@@ -153,7 +155,9 @@ class EncoderLayer(torch.nn.Module):
 
 class Encoder(torch.nn.Module):
     """Transformer encoder with the ``conv2d-scaled-pos-enc`` input layer
-    (the VTN's): conv2d subsampling, then x + alpha * PE and dropout."""
+    (the VTN's and FastSpeech-VC's encoder: conv2d subsampling, then x +
+    alpha * PE and dropout) or none (``None``, FastSpeech-VC's decoder: x +
+    alpha * PE and dropout alone, as ``embed.0``)."""
 
     def __init__(self, idim: int, attention_dim: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6, dropout_rate: float = 0.1,
@@ -164,14 +168,16 @@ class Encoder(torch.nn.Module):
                  attention_backend: str = "xla", flash_min_len: int = FLASH_MIN_LEN,
                  compute_dtype=None, device=None, dtype=None):
         super().__init__()
-        _refuse("input_layer", input_layer, "conv2d-scaled-pos-enc")
+        if input_layer not in ("conv2d-scaled-pos-enc", None):
+            raise NotImplementedError(f"input_layer={input_layer!r} is not ported yet")
         _refuse("selfattention_layer_type", selfattention_layer_type, "selfattn")
         kw = dict(device=device, dtype=dtype)
         self.compute_dtype = compute_dtype
-        self.embed = Conv2dSubsampling(
-            idim, attention_dim,
-            ScaledPositionalEncoding(attention_dim, positional_dropout_rate, init_enc_alpha,
-                                     device=device), **kw)
+        self.input_layer = input_layer
+        pos_enc = ScaledPositionalEncoding(attention_dim, positional_dropout_rate,
+                                           init_enc_alpha, device=device)
+        self.embed = (torch.nn.Sequential(pos_enc) if input_layer is None
+                      else Conv2dSubsampling(idim, attention_dim, pos_enc, **kw))
         self.encoders = torch.nn.ModuleList(
             EncoderLayer(attention_dim, attention_heads, linear_units, dropout_rate,
                          attention_dropout_rate, normalize_before, concat_after,
@@ -185,8 +191,11 @@ class Encoder(torch.nn.Module):
 
     def forward(self, xs, masks: Optional[torch.Tensor]):
         """xs: (B, T, idim); masks: (B, T) non-pad. Returns the float32 (B,
-        T', adim) states and the subsampled (B, T') mask."""
-        xs, masks = self.embed(xs, masks)
+        T', adim) states and the (subsampled) (B, T') mask."""
+        if self.input_layer is None:
+            xs = self.embed(xs)
+        else:
+            xs, masks = self.embed(xs, masks)
         if self.compute_dtype is not None:
             xs = xs.to(self.compute_dtype)
         attn_mask = None if masks is None else masks[:, None, :]

@@ -2,9 +2,9 @@
 seq2seq_vc_tpu/pipeline.py: ``Wav2WavConverter``, :26-302, and
 ``Wav2WavARConverter``, :305-560).
 
-A NAR request (AAS-VC) runs log-mel analysis -> normalisation ->
-``AASVC.inference`` -> de-normalisation and vocoder re-normalisation ->
-chunked HiFi-GAN, all on one device, with one host fetch of the predicted
+A NAR request (AAS-VC or FastSpeech-VC) runs log-mel analysis ->
+normalisation -> the model's ``inference`` -> de-normalisation and vocoder
+re-normalisation -> chunked HiFi-GAN, all on one device, with one host fetch of the predicted
 length between the model and the synthesis stage. An AR request (VTN)
 replaces the model stage with the chunked AR decode of
 ``models/ar_driver.ChunkedARDecoder``, whose host reads one stop flag per
@@ -50,13 +50,14 @@ def _synth_ladder(cap: int, base: int) -> List[int]:
 class Wav2WavConverter:
     """End-to-end NAR VC + HiFi-GAN converter on one device.
 
-    ``model`` and ``vocoder`` carry their weights; they are moved to
-    ``device`` (default: the card) and put in eval mode.
+    ``model`` (an ``AASVC`` or a ``FastSpeechVC``) and ``vocoder`` carry
+    their weights; they are moved to ``device`` (default: the card) and put
+    in eval mode.
     """
 
     def __init__(
         self,
-        model: AASVC,
+        model: torch.nn.Module,
         vocoder: HifiganGenerator,
         src_stats: Dict[str, np.ndarray],
         trg_stats: Dict[str, np.ndarray],
@@ -92,8 +93,8 @@ class Wav2WavConverter:
     def _frame_geometry(self, padded_lens):
         """Shared bucket geometry for a set of reflect-padded lengths."""
         m = self.model
-        pr, er, dr = (m.post_encoder_reduction_factor, m.encoder_reduction_factor,
-                      m.decoder_reduction_factor)
+        pr, er, dr = (getattr(m, f"{k}_reduction_factor", 1)
+                      for k in ("post_encoder", "encoder", "decoder"))
         q = int(np.lcm(np.lcm(self.bucket_frames, max(pr, 1) * max(er, 1)), max(dr, 1)))
         n_raw = max(1 + (L - self.fft_size) // self.hop_size for L in padded_lens)
         n_padded = ((n_raw + q - 1) // q) * q
@@ -113,9 +114,12 @@ class Wav2WavConverter:
         mel = _logmel(x, self._window, self._mel_t, self.fft_size, self.hop_size, 10.0)
         mel = (mel - self._src_mean) / self._src_scale
         lens = torch.as_tensor(np.asarray(n_trues, np.int64), device=self.device)
+        # only AAS-VC draws (its duration noise); FastSpeech-VC takes no generator
+        noise = ({"generator": self._generator(generator)} if isinstance(self.model, AASVC)
+                 else {})
         out = self.model.inference(
             mel, lens, mel,  # dp_input = source mel (melmelmel config)
-            max_output_frames=max_out, generator=self._generator(generator),
+            max_output_frames=max_out, **noise,
         )
         feats = out["outs"] * self._trg_scale + self._trg_mean
         feats = (feats - self._voc_mean) / self._voc_scale

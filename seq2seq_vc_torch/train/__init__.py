@@ -1,15 +1,16 @@
-"""Training (mirrors seq2seq_vc_tpu/train): the AAS-VC and VTN trainers,
-their optimizer, schedule, state and data pipeline, and the trainer
-registry."""
+"""Training (mirrors seq2seq_vc_tpu/train): the AAS-VC, VTN and
+FastSpeech-VC trainers, their optimizer, schedule, state and data
+pipeline, and the trainer registry."""
 
 from .aas_vc import AASVCTrainer
 from .ar_vc import ARVCTrainer
+from .nar_vc import NARVCTrainer
 
-TRAINERS = {"ARVCTrainer": ARVCTrainer, "AASVCTrainer": AASVCTrainer}
+TRAINERS = {"ARVCTrainer": ARVCTrainer, "AASVCTrainer": AASVCTrainer,
+            "NARVCTrainer": NARVCTrainer}
 # trainer types of the JAX package that the port does not have yet, and the
 # ROADMAP.md item (queue 1) that ports each
-_NOT_PORTED = {"NARVCTrainer": "queue 1 item 2 (FastSpeech-VC)",
-               "ARTTSTrainer": "queue 1 item 3 (TransformerTTS)"}
+_NOT_PORTED = {"ARTTSTrainer": "queue 1 item 3 (TransformerTTS)"}
 
 
 def get_trainer_class(name: str):

@@ -1,6 +1,8 @@
 """AAS-VC trainer (mirrors seq2seq_vc_tpu/train/aas_vc.py): L1 +
-lambda_align * (forward-sum + binarisation) + the duration predictor's NLL,
-gated by ``dp_train_start_steps``.
+lambda_align * (forward-sum + binarisation) + the duration loss, gated by
+``dp_train_start_steps``: ``DurationPredictorLoss`` of the deterministic
+predictor against the MAS durations where the criteria name it, else the
+stochastic predictor's NLL.
 
 The forward-sum prior depends only on the lengths, so it is built on the
 host from the numpy batch (cached per length pair) and goes to the device
@@ -16,6 +18,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..models.common import conv2d_subsampled_lengths
 from ..ops.forward_sum import beta_binomial_prior, forward_sum_loss
 from .trainer import Trainer, save_intermediate
 
@@ -27,15 +30,18 @@ class AASVCTrainer(Trainer):
 
     def _reduced_lengths(self, batch):
         """Host-side replica of the model's length reductions (the prior
-        and the CTC lengths are built outside the model). The port's
-        encoder input layer is linear, which keeps the length."""
+        and the CTC lengths are built outside the model): frame stacking,
+        and a ``conv2d`` input layer's x4 subsampling."""
         m = self.model
-        text_factor = m.encoder_reduction_factor * m.post_encoder_reduction_factor
         dr = m.decoder_reduction_factor
         ilens = batch["ilens"].astype(np.int64) // m.encoder_reduction_factor
+        t_text = batch["xs"].shape[1] // m.encoder_reduction_factor
+        if m.encoder_input_layer == "conv2d":
+            ilens, t_text = conv2d_subsampled_lengths(ilens), conv2d_subsampled_lengths(t_text)
         ilens = ilens // m.post_encoder_reduction_factor
+        t_text = t_text // m.post_encoder_reduction_factor
         olens = batch["olens"].astype(np.int64) // dr
-        return ilens, olens, batch["xs"].shape[1] // text_factor, batch["ys"].shape[1] // dr
+        return ilens, olens, t_text, batch["ys"].shape[1] // dr
 
     def _array_batch(self, batch):
         ilens_r, olens_r, t_text, t_feats = self._reduced_lengths(batch)
@@ -66,8 +72,13 @@ class AASVCTrainer(Trainer):
         metrics["forward_sum_loss"] = fsum
         metrics["binary_loss"] = bin_loss
         if dp_active:
-            loss = loss + out["dur_nll"]
-            metrics["duration_loss"] = out["dur_nll"]
+            if "DurationPredictorLoss" in self.criterion:
+                dur = self.criterion["DurationPredictorLoss"](
+                    out["d_outs"], out["ds"], out["ilens"])
+            else:  # stochastic: the NLL comes from the forward pass
+                dur = out["dur_nll"]
+            loss = loss + dur
+            metrics["duration_loss"] = dur
         return loss, metrics
 
     def generate_intermediate(self, batch: Dict[str, Any], outdir: str):

@@ -123,13 +123,17 @@ def make_loader(path: str, feat_key: str = "feats"):
 
 class ParallelVCMelDataset:
     """Paired (source, target) features matched by utterance id, with an
-    optional duration-predictor input."""
+    optional duration-predictor input and optional teacher durations
+    (``<durations_dir>/<utt>.txt``: integers, as ``vc_decode`` writes
+    them)."""
 
     def __init__(self, src_feats: str, trg_feats: str, dp_feats: Optional[str] = None,
-                 feat_key: str = "feats", allow_cache: bool = False):
+                 feat_key: str = "feats", allow_cache: bool = False,
+                 durations_dir: Optional[str] = None):
         self.src = make_loader(src_feats, feat_key)
         self.trg = make_loader(trg_feats, feat_key)
         self.dp = make_loader(dp_feats, feat_key) if dp_feats else None
+        self.durations_dir = durations_dir
         src_ids, trg_ids = set(self.src.keys()), set(self.trg.keys())
         common = sorted(src_ids & trg_ids)
         if not common:
@@ -159,6 +163,9 @@ class ParallelVCMelDataset:
         }
         if self.dp is not None:
             item["dp_input"] = np.asarray(self.dp[utt], np.float32)
+        if self.durations_dir is not None:
+            path = os.path.join(self.durations_dir, f"{utt}.txt")
+            item["duration"] = np.loadtxt(path, dtype=np.int64).reshape(-1)
         if self._cache is not None:
             self._cache[idx] = item
         return item
@@ -204,9 +211,10 @@ def pad_batch(arrays: Sequence[np.ndarray], multiple: int,
 
 class NARVCCollater:
     """NAR VC batch: xs, ilens, ys, olens, utt_ids and, where the dataset
-    has them, dp_inputs and dplens. The source pads to a multiple of the
-    bucket and of both encoder reduction factors, the target to one of the
-    bucket and the decoder reduction factor."""
+    has them, dp_inputs and dplens, durations and duration_lens. The source
+    (and the durations) pad to a multiple of the bucket and of both encoder
+    reduction factors, the target to one of the bucket and the decoder
+    reduction factor."""
 
     def __init__(self, pad_multiple: int = 32, encoder_reduction_factor: int = 1,
                  post_encoder_reduction_factor: int = 1, decoder_reduction_factor: int = 1):
@@ -231,6 +239,10 @@ class NARVCCollater:
             dps = [b["dp_input"] for b in batch]
             items["dp_inputs"] = pad_batch(dps, self.src_multiple, pad_to.get("src"))
             items["dplens"] = np.array([d.shape[0] for d in dps], np.int32)
+        if "duration" in batch[0]:
+            ds = [b["duration"] for b in batch]
+            items["durations"] = pad_batch(ds, self.src_multiple, pad_to.get("src"))
+            items["duration_lens"] = np.array([d.shape[0] for d in ds], np.int32)
         return items
 
 

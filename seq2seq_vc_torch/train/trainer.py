@@ -17,7 +17,8 @@ A checkpoint keeps the generators' states and the update count, and
 so a resumed run takes the steps that an uninterrupted one takes.
 
 At each evaluation, ``generate_intermediate`` decodes the first dev batch
-into ``<outdir>/predictions/<steps>steps``.
+into ``<outdir>/predictions/<steps>steps``; a trainer that does not define
+it (the FastSpeech-VC one, as in the JAX package) writes none.
 
 Metrics stay on the device until the log interval, where one sync fetches
 them all. Each log appends the interval's averages to ``history``.
@@ -70,8 +71,8 @@ def save_intermediate(outdir: str, batch: Dict[str, Any], outs: np.ndarray, out_
 
 class Trainer:
     """Base trainer. Subclasses implement ``loss_fn(batch, flags,
-    generator) -> (loss, metrics)`` and ``generate_intermediate(batch,
-    outdir)``."""
+    generator) -> (loss, metrics)`` and may implement
+    ``generate_intermediate(batch, outdir)``."""
 
     def __init__(
         self,
@@ -230,7 +231,7 @@ class Trainer:
         for k, v in result.items():
             logging.info("(steps: %d) dev/%s = %.4f.", self.steps, k, v)
         self.history.append(dict(steps=self.steps, **{f"dev/{k}": v for k, v in result.items()}))
-        if first is not None:
+        if first is not None and self.has_intermediate():
             outdir = os.path.join(self.outdir, "predictions", f"{self.steps}steps")
             self.model.eval()
             try:
@@ -242,6 +243,10 @@ class Trainer:
         """Decode the first ``num_save_intermediate_results`` items of a dev
         batch into ``outdir``."""
         raise NotImplementedError
+
+    def has_intermediate(self) -> bool:
+        """Whether this trainer's class defines ``generate_intermediate``."""
+        return type(self).generate_intermediate is not Trainer.generate_intermediate
 
     def _intermediate_items(self, batch: Dict[str, Any]) -> int:
         return min(self.config.get("num_save_intermediate_results", 4), len(batch["xs"]))

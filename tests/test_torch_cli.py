@@ -203,14 +203,13 @@ def test_audio_io_resample_and_logmel_match_jax(tmp_path):
 
 def test_registries_name_the_roadmap_item_of_what_is_not_ported():
     assert get_model_class("AASVC") is AASVC and get_model_class("VTN") is VTN
-    assert get_trainer_class("AASVCTrainer").__name__ == "AASVCTrainer"
-    assert get_trainer_class("ARVCTrainer").__name__ == "ARVCTrainer"
-    for name, item in (("FastSpeechVC", "item 2"), ("TransformerTTS", "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_model_class(name)
-    for name, item in (("NARVCTrainer", "item 2"), ("ARTTSTrainer", "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_trainer_class(name)
+    assert get_model_class("FastSpeechVC").__name__ == "FastSpeechVC"
+    for name in ("AASVCTrainer", "ARVCTrainer", "NARVCTrainer"):
+        assert get_trainer_class(name).__name__ == name
+    with pytest.raises(NotImplementedError, match="item 3"):
+        get_model_class("TransformerTTS")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        get_trainer_class("ARTTSTrainer")
     with pytest.raises(ValueError):
         get_model_class("Nope")
     with pytest.raises(NotImplementedError, match="item 5"):

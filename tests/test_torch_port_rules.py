@@ -24,6 +24,7 @@ import torch
 from _torch_port import aasvc_pair, vtn_pair
 from seq2seq_vc_torch.bin import vc_decode, vc_serve, vc_train
 from seq2seq_vc_torch.dsp.features import logmelfilterbank
+from seq2seq_vc_torch.models.fastspeech_vc import FastSpeechVC
 from seq2seq_vc_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -45,6 +46,7 @@ from seq2seq_vc_torch.ops.rel_scores import (
 from seq2seq_vc_torch.pipeline import Wav2WavARConverter, Wav2WavConverter, resolve_device
 from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
 from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
+from seq2seq_vc_torch.train.nar_vc import NARVCTrainer
 from seq2seq_vc_torch.train.optim import build_optimizer
 from seq2seq_vc_torch.train.state import TrainState
 from seq2seq_vc_torch.vocoder.griffin_lim import Spectrogram2Waveform, griffin_lim
@@ -80,6 +82,18 @@ COUNTED = (fused_rel_scores, rel_band_bwd, rel_flash_attention, rel_flash_bwd_dq
 LEGACY_COUNTED = (rel_flash_attention, rel_flash_bwd_dq, rel_flash_bwd_dkv, rel_flash_bwd_dpos)
 
 
+def _tiny_fastspeech_vc(**over):
+    """FastSpeech-VC in the arctic conf's layout at toy widths, its
+    attention on the flash backend."""
+    torch.manual_seed(0)
+    return FastSpeechVC(**dict(
+        idim=80, odim=80, adim=32, aheads=2, elayers=1, eunits=64, dlayers=1, dunits=64,
+        positionwise_layer_type="linear", encoder_type="conformer", decoder_type="conformer",
+        encoder_input_layer="conv2d", duration_predictor_use_encoder_outputs=False,
+        duration_predictor_chans=16, postnet_layers=2, postnet_chans=16,
+        teacher_model_decoder_reduction_factor=1, attention_backend="flash", **over)).eval()
+
+
 def _counts():
     return ([fn.launches for fn in COUNTED], [fn.legacy_launches for fn in LEGACY_COUNTED])
 
@@ -111,7 +125,10 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.losses.seq2seq", "seq2seq_vc_torch.bin.vc_train",
             "seq2seq_vc_torch.bin.vc_decode", "seq2seq_vc_torch.bin.vc_serve",
             "seq2seq_vc_torch.core.config", "seq2seq_vc_torch.utils.io",
-            "seq2seq_vc_torch.vocoder.vocoder"} <= set(got["modules"])
+            "seq2seq_vc_torch.vocoder.vocoder", "seq2seq_vc_torch.models.fastspeech_vc",
+            "seq2seq_vc_torch.nn.duration_predictor", "seq2seq_vc_torch.losses.duration",
+            "seq2seq_vc_torch.ops.upsampling",
+            "seq2seq_vc_torch.train.nar_vc"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -138,6 +155,14 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ARVCTrainer(state, {}, {"train_max_steps": 1}, [])
     assert ARVCTrainer(state, {}, {"train_max_steps": 1}, [], device="cpu").device.type == "cpu"
+    fs2 = _tiny_fastspeech_vc()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Wav2WavConverter(fs2, voc, stats, stats, {})
+    assert Wav2WavConverter(fs2, voc, stats, stats, {}, device="cpu").device.type == "cpu"
+    state = TrainState(fs2, build_optimizer(fs2.parameters()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NARVCTrainer(state, {}, {"train_max_steps": 1}, [])
+    assert NARVCTrainer(state, {}, {"train_max_steps": 1}, [], device="cpu").device.type == "cpu"
     # the command-line entry points: no --device, no card -> they raise first
     for main, argv in ((vc_train.main, ["--src-train-dumpdir", "x", "--src-dev-dumpdir", "x",
                                         "--trg-train-dumpdir", "x", "--trg-dev-dumpdir", "x",
@@ -195,6 +220,10 @@ def test_cpu_tensors_take_the_plain_versions(zero_counts):
     legacy, _, _ = aasvc_pair(seed=0, port_kw=dict(attention_backend="flash", flash_min_len=40),
                               conformer_rel_pos_type="legacy")
     legacy.inference(x, torch.tensor([48]), x, max_output_frames=64)
+    # FastSpeech-VC's conformer: the encoder (11 frames after the conv2d
+    # subsampling) on the fused route, the decoder on the flash route
+    _tiny_fastspeech_vc(flash_min_len=40).inference(x, torch.tensor([48]), x,
+                                                    max_output_frames=64)
     # the bwd="pallas" pair, alone and under autograd
     g = torch.randn(2, 2, 20, 20)
     assert rel_band_bwd_dqv(g, qv, pos).shape == qv.shape
