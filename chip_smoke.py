@@ -83,7 +83,9 @@ Phases, each printed on lines of its own:
    threshold 1.1 and maxlenratio 4.0, as bench.py times the AR decode, so
    that every decode runs its whole budget; requests: a 3.8 s clip, a batch
    of 4 and a 135 s clip, whose encoder key length (~2100 after the x4
-   subsampling) crosses the flash gate. Warm-up, then the standard flash
+   subsampling) crosses the flash gate. Warm-up (the 135 s clip at a
+   quarter of its step budget: the same kernels and shapes), then the
+   standard flash
    forward (kernel 9) against its plain version (float32 and bfloat16, D 96
    at T 640, at the long request's length and at a cross shape, rate 0 and
    0.2, causal off and on, key padding and a fully masked row; and at the
@@ -169,14 +171,39 @@ Phases, each printed on lines of its own:
    durations held against ``FastSpeechVC.inference``) and ``vc_serve``
    over stdio, its last request long enough for the decoder's flash gate;
    every kernel checked at every shape the phase gave it (``check ...
-   fs2`` rows).
+   fs2`` rows);
+24. Transformer-TTS and the VTN's TTS pretraining
+   (``egs/ljspeech/tts1/run.sh`` stages 1, 3, 4 and 6, then
+   ``egs/arctic/vc1/conf/vtn.tts_pt.v1.yaml``), through the CLIs on a
+   synthetic corpus of 16 train and 4 dev sentences (40-180 characters,
+   150-600 ``.npy`` mel frames) tokenised by ``tokenize_text`` (``phn``,
+   the native English G2P): (a) ``tts_train`` at the full width of
+   ``transformer_tts.v1.yaml`` (float32, B 16, guided attention on 2
+   layers x 2 heads) for 3 steps: ms a step, peak memory, a finite loss,
+   the guided term finite and above 0, every gradient finite before each
+   update; (b) ``tts_decode`` of three short sentences through
+   Griffin-Lim: frames and ms an utterance (untrained weights run the
+   ``maxlenratio`` budget); (c) the AEPT stage, ``vc_train`` with the TTS
+   conf, ``tts_aept.v1.yaml`` (steps cut to 3) and the TTS checkpoint:
+   each ``init-mods`` module equal to the TTS checkpoint's bit for bit
+   after steps 1 and 3 (transferred, then frozen), the prenet and the
+   encoder moving, the guided term in the loss; (f) the fine-tune
+   overlay from the AEPT checkpoint (2 steps, its ``init-mods``
+   transferred, nothing frozen); (d) one AEPT step at 8200-9200 frames
+   with ``attention_backend: flash`` at the largest batch whose reckoned
+   memory fits (``aept_long_batch``): 6 launches of each of kernels 9, 10
+   and 11, which are then held against their plain versions at the step's
+   shape (float32, ``check ... tts`` rows); (e) a float32 AEPT step card
+   against CPU (freeze-mods, guided attention, dense): loss, terms and
+   every trainable gradient.
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path, phase 23's ``fs2_*`` paths included; kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``,
-kernels 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
-``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its
-library column), the card line again, and last the result line. Any failed check
+path, phase 23's ``fs2_*`` and phase 24's ``tts_*`` paths included;
+kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``, kernels
+9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
+``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its library
+column), the card line again, and last the result line. Any failed check
 makes the script exit with 1 without the result line; with no CUDA device
 it exits at once.
 """
@@ -364,7 +391,11 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                                    *FLASH_BWD),
                 "fs2_cli_train": ("fused_rel_scores", "rel_band_bwd"),
                 "fs2_cli_decode": ("fused_rel_scores",),
-                "fs2_cli_serve": ("fused_rel_scores", "rel_flash_attention")}
+                "fs2_cli_serve": ("fused_rel_scores", "rel_flash_attention"),
+                # phase 24, Transformer-TTS and the AEPT stage: dense
+                # attention everywhere but the long AEPT step's encoder
+                "tts_train": (), "tts_decode": (), "tts_aept": (), "tts_finetune": (),
+                "tts_aept_long": STD}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -441,6 +472,11 @@ VTN_CONFIG = dict(
 # bench.py's AR decode: threshold 1.1 never stops, so every decode runs its
 # whole budget of maxlenratio 4.0 (output about as long as the input)
 VTN_INFERENCE = {"threshold": 1.1, "maxlenratio": 4.0, "minlenratio": 0.0}
+# the 135 s request's warm-up decodes this share of its budget: every
+# kernel shape but the decode steps past it, whose self-attention reads a
+# longer cache prefix in the same kernels (the synthesis ladder is warmed
+# on its own)
+VTN_WARM_MAXLENRATIO = 0.25
 VTN_NO_DROPOUT = {k: 0.0 for k in (
     "dprenet_dropout_rate", "transformer_enc_dropout_rate",
     "transformer_enc_positional_dropout_rate", "transformer_enc_attn_dropout_rate",
@@ -1621,10 +1657,14 @@ def vtn_serve_path(rows, src, trg):
             ("VTN single 135 s", [clip(135.0, 16)]),
         ]
         log(f"VTN serving: Wav2WavARConverter, the VTN at full width (float32, attention "
-            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once, then the "
-            f"synthesis ladder")
-        fails, _ = serve(conv, requests)
+            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once (the 135 s "
+            f"one at maxlenratio {VTN_WARM_MAXLENRATIO}), then the synthesis ladder")
+        fails, _ = serve(conv, requests[:-1])
         failures += fails
+        conv.ar_decode.maxr = VTN_WARM_MAXLENRATIO
+        fails, _ = serve(conv, requests[-1:])
+        failures += fails
+        conv.ar_decode.maxr = VTN_INFERENCE["maxlenratio"]
         log(f"VTN warm-up synthesis buckets: {conv.warmup_synth()}")
         calls = [vtn_request_calls(conv, clips) for _, clips in requests]
         log(f"VTN encoder flash calls per request (B, H, T, D, key lengths): "
@@ -1756,15 +1796,28 @@ def vtn_reference_step(seed: int):
     the same weights and batch (B 2, 100-128 frames), dropout off and the
     flash gate below the encoder's key length, on the card (kernels 9, 10
     and 11) and on the CPU (their plain versions), to phase 9's tolerances."""
-    from seq2seq_vc_torch.train.data import ARVCCollater
-
     model = vtn_model(seed, flash_min_len=16, **VTN_NO_DROPOUT).train()
     model.postnet.dropout_rate = 0.0
-    collater = ARVCCollater(PAD_MULTIPLE, VTN_CONFIG["decoder_reduction_factor"])
+    want = {n: VTN_CONFIG["elayers"] if n in STD else 0 for n in KERNELS}
+    return ar_reference_step(
+        model, lambda m, dev: make_vtn_trainer(train_state(m), [], 1, device=dev), seed, want,
+        "VTN reference step", "flash route")
+
+
+def ar_reference_step(model, make, seed: int, want, label: str, route: str):
+    """One float32 training step of an AR model (the trainer ``make(model,
+    device)`` builds) from the same weights and batch (B 2, 100-128
+    frames), on the card and on the CPU: the loss, its terms and every
+    gradient must agree to phase 9's tolerances (a parameter without a
+    gradient, frozen, must have none on both sides); the card's launches
+    must be ``want``, the CPU's none."""
+    from seq2seq_vc_torch.train.data import ARVCCollater
+
+    collater = ARVCCollater(PAD_MULTIPLE, model.decoder_reduction_factor)
     batch = collater(feature_items([(128, 128), (100, 112)], seed))
     runs = {}
     for side, dev in (("card", DEVICE), ("cpu", "cpu")):
-        trainer = make_vtn_trainer(train_state(copy.deepcopy(model)), [], 1, device=dev)
+        trainer = make(copy.deepcopy(model), dev)
         pre = {}  # the ReLUs' inputs
         for name, mod in trainer.model.named_modules():
             if name.endswith(VTN_RELU_INPUTS):
@@ -1776,41 +1829,46 @@ def vtn_reference_step(seed: int):
         loss.backward()
         grads = {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()
                  if p.grad is not None}
+        trainable = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
         counts = {k: v - before[k] for k, v in launch_counts().items()}
-        runs[side] = (loss.item(), {k: v.item() for k, v in metrics.items()}, grads, counts, pre)
-    (la, ma, ga, ca, pa), (lb, mb, gb, cb, pb) = runs["card"], runs["cpu"]
+        runs[side] = (loss.item(), {k: v.item() for k, v in metrics.items()}, grads, counts, pre,
+                      trainable)
+    (la, ma, ga, ca, pa, ta), (lb, mb, gb, cb, pb, tb) = runs["card"], runs["cpu"]
     flips = {n: [float(x) for x in pb[n][(pa[n] > 0) != (pb[n] > 0)]] for n in pb}
     flips = {n: xs for n, xs in flips.items() if xs}
-    failures = [f"VTN reference step {name}: card {a} cpu {b}"
+    failures = [f"{label} {name}: card {a} cpu {b}"
                 for name, a, b in [("loss", la, lb)] + [(k, ma[k], mb[k]) for k in mb]
                 if not (math.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b))]
+    if set(ga) != ta or set(gb) != tb:
+        failures.append(f"{label}: gradients of {sorted(set(ga) ^ ta)} (card), "
+                        f"{sorted(set(gb) ^ tb)} (cpu) against the trainable parameters")
     if set(ga) != set(gb):
-        failures.append(f"VTN reference step: gradients of {sorted(set(ga) ^ set(gb))} on one side")
+        failures.append(f"{label}: gradients of {sorted(set(ga) ^ set(gb))} on one side")
     top = max(float(g.abs().max()) for g in gb.values())
     worst = (0.0, "")
     for name in sorted(set(ga) & set(gb)):
         a, b = ga[name], gb[name]
         if name.endswith("linear_k.bias"):  # rounding noise on both devices
             if max(float(a.abs().max()), float(b.abs().max())) > NOISE_RTOL * top:
-                failures.append(f"VTN reference step {name}: not rounding noise")
+                failures.append(f"{label} {name}: not rounding noise")
             continue
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         # a tensor whose own output fed a ReLU input that flipped: FLIP_RTOL
         flipped = name.rpartition(".")[0] in flips
         worst = max(worst, (rel, name)) if not flipped else worst
         if not (torch.isfinite(a).all() and rel <= (FLIP_RTOL if flipped else GRAD_RTOL)):
-            failures.append(f"VTN reference step {name}: gradient error {rel:.3e} of its largest")
-    want = {n: VTN_CONFIG["elayers"] if n in STD else 0 for n in KERNELS}
+            failures.append(f"{label} {name}: gradient error {rel:.3e} of its largest")
     if ca != want or any(cb.values()):
-        failures.append(f"VTN reference step launches: card {ca}, cpu {cb}")
+        failures.append(f"{label} launches: card {ca}, cpu {cb}")
     flip_errs = {n: float((ga[n + ".weight"] - gb[n + ".weight"]).abs().max()
-                          / gb[n + ".weight"].abs().max()) for n in flips}
-    log(f"VTN reference float32 train step, flash route (B 2, 100-128 frames, dropout off): "
+                          / gb[n + ".weight"].abs().max()) for n in flips if n + ".weight" in gb}
+    n_params = sum(1 for _ in model.parameters())
+    log(f"{label}: float32 train step, {route} (B 2, 100-128 frames, dropout off): "
         f"loss card {la:.6f} cpu {lb:.6f}; terms card {ma} cpu {mb}; {len(gb)} gradient "
-        f"tensors, worst error of a tensor's largest {worst[0]:.3e} ({worst[1]}; rtol "
-        f"{GRAD_RTOL}); ReLU inputs on opposite sides of 0 (cpu values) {flips}, their "
-        f"modules' weight gradient errors {flip_errs} (rtol {FLIP_RTOL}); launches card {ca}, "
-        f"cpu {cb}: {'ok' if not failures else 'FAIL'}")
+        f"tensors, one for each of the {len(tb)} trainable of {n_params} parameters, worst error of a tensor's largest {worst[0]:.3e} "
+        f"({worst[1]}; rtol {GRAD_RTOL}); ReLU inputs on opposite sides of 0 (cpu values) "
+        f"{flips}, their modules' weight gradient errors {flip_errs} (rtol {FLIP_RTOL}); "
+        f"launches card {ca}, cpu {cb}: {'ok' if not failures else 'FAIL'}")
     return failures
 
 
@@ -2757,6 +2815,361 @@ def fs2_path(rows, src, trg):
     return failures, launches
 
 
+# ------------------------------------------------ Transformer-TTS, TTS-AEPT
+TTS_CONF = REPO / "egs/ljspeech/tts1/conf/transformer_tts.v1.yaml"
+AEPT_CONF = REPO / "egs/ljspeech/tts1/conf/tts_aept.v1.yaml"
+FINETUNE_CONF = REPO / "egs/arctic/vc1/conf/vtn.tts_pt.v1.yaml"
+TTS_TRAIN, TTS_DEV = 16, 4  # sentences of the synthetic corpus (one batch of the conf's 16)
+TTS_CHARS = (40, 180)  # characters a sentence, spread over the corpus (LJSpeech-like)
+TTS_FRAMES = (150, 600)  # mel frames a sentence, rising with its characters
+TTS_DECODE = ("The quick brown fox.", "A lazy dog.", "Printing, in short.")
+TTS_STEPS = 3  # tts_train and the AEPT stage
+# the long AEPT step: a batch's memory, reckoned before it is chosen. Each
+# decoder layer keeps for the backward, per item and head, its self-attention
+# softmax (float32), dropout mask (bool) and dropped weights (float32) over
+# T x T, the same over T x T_mem for its cross-attention, and the guided
+# loss's float32 stack of the cross maps; one layer at a time adds up to
+# five float32 T x T tensors in flight (scores, masked scores, softmax,
+# masked weights, dropped weights, or their gradients in the backward)
+AEPT_LONG_BUDGET = 0.85  # of the card's memory
+TTS_WORDS = ("the", "of", "and", "to", "a", "in", "was", "he", "that", "his", "which", "it",
+             "by", "prisoner", "printing", "commission", "president", "oswald", "letter",
+             "evidence", "seventeen", "hundred", "mister", "jury", "street", "morning",
+             "house", "police", "building", "nineteen", "sixty", "three", "window")
+
+
+def tts_sentences(n: int, seed: int):
+    """``n`` sentences whose lengths spread over TTS_CHARS, from TTS_WORDS
+    and a number now and then."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for target in np.linspace(*TTS_CHARS, n).round().astype(int):
+        words = []
+        while len(" ".join(words)) < target - 8:
+            words.append(str(rng.integers(2, 1900)) if rng.random() < 0.05
+                         else str(rng.choice(TTS_WORDS)))
+        out.append((" ".join(words).capitalize() + ".")[: int(target)])
+    return out
+
+
+def tts_corpus(root: Path, seed: int):
+    """Texts (a 2-column file), normalised log-mel-like features (``.npy``
+    and a ``feats.scp``, frames rising with the characters) and their
+    ``.npz`` stats for TTS_TRAIN + TTS_DEV sentences; the train and the dev
+    lists; then the token list from ``tokenize_text`` (``phn`` with
+    ``g2p_en``, which falls back to the native English G2P). Returns the
+    paths by name."""
+    from seq2seq_vc_torch.bin import tokenize_text
+    from seq2seq_vc_torch.utils.io import write_stats
+
+    rng = np.random.default_rng(seed)
+    sents = tts_sentences(TTS_TRAIN + TTS_DEV, seed)
+    lo, hi = TTS_CHARS
+    paths = {}
+    for subset, idx in (("train", range(TTS_TRAIN)), ("dev", range(TTS_TRAIN, len(sents)))):
+        text, scp = [], []
+        for i in idx:
+            utt = f"LJ{i:03d}"
+            frac = (len(sents[i]) - lo) / (hi - lo)
+            n = int(TTS_FRAMES[0] + frac * (TTS_FRAMES[1] - TTS_FRAMES[0]))
+            np.save(root / f"{utt}.npy", rng.standard_normal((n, 80)).astype(np.float32))
+            text.append(f"{utt} {sents[i]}")
+            scp.append(f"{utt} {root / f'{utt}.npy'}")
+        for name, lines in ((f"{subset}_text", text), (f"{subset}_scp", scp)):
+            paths[name] = str(root / f"{name}.txt")
+            Path(paths[name]).write_text("\n".join(lines) + "\n")
+    paths["all_text"] = str(root / "all_text.txt")
+    Path(paths["all_text"]).write_text(Path(paths["train_text"]).read_text()
+                                       + Path(paths["dev_text"]).read_text())
+    paths["tokens"] = str(root / "tokens.txt")
+    tokenize_text.main(["--input", paths["all_text"], "--output", paths["tokens"],
+                        "--token_type", "phn", "--g2p", "g2p_en", "--cleaner", "tacotron"])
+    paths["stats"] = str(root / "stats.npz")
+    st = stats(5)
+    write_stats(paths["stats"], st["mean"], st["scale"], "mel")
+    return paths
+
+
+class _GradWatch:
+    """Notes, before every optimizer update in the process (a global
+    ``torch.optim`` step pre-hook), whether each gradient is finite."""
+
+    def __enter__(self):
+        from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+        self.notes = []
+
+        def hook(opt, args, kwargs):
+            grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
+            self.notes.append(bool(torch.isfinite(torch.stack(torch._foreach_norm(grads))).all()))
+
+        self.handle = register_optimizer_step_pre_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def aept_long_batch(t_out: int, t_mem: int, cfg) -> int:
+    """The largest batch (1-4) of the long AEPT step whose reckoned memory
+    (see AEPT_LONG_BUDGET) fits the card's budget, logged with the
+    reckoning."""
+    mp = cfg["model_params"]
+    L, H = mp["dlayers"], mp["aheads"]
+    per_item = L * H * (9 * t_out ** 2 + 13 * t_out * t_mem) + 20 * H * t_out ** 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = [b for b in range(1, 5) if b * per_item < AEPT_LONG_BUDGET * total]
+    log(f"tts_aept_long: reckoned {per_item / 2**30:.2f} GiB an item at T_out {t_out}, T_mem "
+        f"{t_mem} ({L} layers x {H} heads: self maps 9 bytes a cell, cross maps 13 with the "
+        f"guided stack, 20 bytes a cell of one layer in flight); B 1-4: "
+        f"{[round(b * per_item / 2**30, 1) for b in range(1, 5)]} GiB against "
+        f"{AEPT_LONG_BUDGET} x {total / 2**30:.1f} GiB: B {max(fits, default=1)}")
+    return max(fits, default=1)
+
+
+def tts_path(rows):
+    """Phase 24: Transformer-TTS and the VTN's TTS pretraining through the
+    CLIs (``egs/ljspeech/tts1/run.sh`` stages 1, 3, 4 and 6). Appends the
+    kernel checks to ``rows``; returns (failures, launches by path)."""
+    import yaml
+
+    from seq2seq_vc_torch.bin import tts_decode, tts_train, vc_train
+    from seq2seq_vc_torch.core.checkpoint import init_from_checkpoint, module_keys
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.train.data import ARVCCollater
+
+    failures, launches = [], {}
+    card = card_line()
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_tts_") as tmp:
+        root = Path(tmp)
+        c = tts_corpus(root, seed=70)
+
+        def overlay(name, base=None, **keys):
+            (root / name).write_text(yaml.safe_dump(dict(base or {}, **keys)))
+            return ["--additional-config", str(root / name)]
+
+        # (a) tts_train at the conf's full width, B 16
+        exp = root / "exp_tts"
+        tts = ["--train-dumpdir", c["train_scp"], "--dev-dumpdir", c["dev_scp"],
+               "--train-text", c["train_text"], "--dev-text", c["dev_text"],
+               "--token-list", c["tokens"], "--token-type", "phn", "--g2p", "g2p_en",
+               "--cleaner", "tacotron", "--config", str(TTS_CONF), "--outdir", str(exp)]
+        quiet = dict(eval_interval_steps=0, save_interval_steps=0, log_interval_steps=1)
+        log(f"tts_train on {TTS_CONF.relative_to(REPO)}: {TTS_TRAIN} train and {TTS_DEV} dev "
+            f"sentences of {TTS_CHARS[0]}-{TTS_CHARS[1]} characters, {TTS_FRAMES[0]}-"
+            f"{TTS_FRAMES[1]} mel frames; {TTS_STEPS} steps")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with _GradWatch() as watch:
+            trainer = tts_train.main(tts + overlay("tts_steps.yaml", train_max_steps=TTS_STEPS,
+                                                   **quiet))
+        launches["tts_train"] = cli_launches("tts_train", failures)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = [h for h in trainer.history if "train/loss" in h]
+        for h in hist:
+            log(f"tts_train step {h['steps']}: {h['train/step_time_sec'] * 1e3:.1f} ms, loss "
+                f"{h['train/loss']:.4f} (l1 {h['train/l1_loss']:.4f}, bce "
+                f"{h['train/bce_loss']:.4f}, guided attention {h['train/guided_attn_loss']:.5f})"
+                f", grad norm {h['train/grad_norm']:.4f}")
+        batch = next(iter(trainer.train_loader))
+        log(f"tts_train: B {len(batch['ilens'])}, tokens {sorted(batch['ilens'].tolist())} "
+            f"(padded {batch['xs'].shape[1]}), frames {sorted(batch['olens'].tolist())} "
+            f"(padded {batch['ys'].shape[1]}); {len(trainer.model.state_dict())} tensors; "
+            f"ms a step {[round(h['train/step_time_sec'] * 1e3, 1) for h in hist]}; peak "
+            f"device memory {peak:.2f} GiB; gradients finite before each update {watch.notes}; "
+            f"card {card}")
+        ga = [h["train/guided_attn_loss"] for h in hist]
+        if (len(hist) != TTS_STEPS or not all(math.isfinite(h["train/loss"]) for h in hist)
+                or not all(math.isfinite(g) and g > 0 for g in ga)
+                or watch.notes != [True] * TTS_STEPS):
+            failures.append(f"tts_train: steps {len(hist)}, losses "
+                            f"{[h['train/loss'] for h in hist]}, guided {ga}, finite grads "
+                            f"{watch.notes}")
+        tts_ckpt = exp / f"checkpoint-{TTS_STEPS}steps.pt"
+        del trainer
+
+        # (b) tts_decode of a few short sentences, Griffin-Lim
+        (root / "decode_text.txt").write_text(
+            "".join(f"dec{i} {t}\n" for i, t in enumerate(TTS_DECODE)))
+        reset_launch_counts()
+        r = tts_decode.main(["--text", str(root / "decode_text.txt"), "--checkpoint",
+                             str(tts_ckpt), "--token-list", c["tokens"], "--token-type", "phn",
+                             "--g2p", "g2p_en", "--stats", c["stats"], "--outdir",
+                             str(root / "tts_dec")])
+        launches["tts_decode"] = cli_launches("tts_decode", failures)
+        wavs = sorted((root / "tts_dec" / "wav").glob("*.wav"))
+        frames = [np.load(root / "tts_dec" / f"dec{i}.npy").shape[0] for i in range(len(TTS_DECODE))]
+        log(f"tts_decode: {len(TTS_DECODE)} sentences of {[len(t) for t in TTS_DECODE]} "
+            f"characters -> {frames} frames (maxlenratio "
+            f"{load_config(str(exp / 'config.yml'))['inference']['maxlenratio']} of the tokens "
+            f"with eos), {r['ms_per_utt']:.1f} ms an utterance, {r['frames_per_sec']:.1f} "
+            f"mel-frames/s; card {card}")
+        if len(wavs) != len(TTS_DECODE) or min(frames) <= 0:
+            failures.append(f"tts_decode: {len(wavs)} wavs, frames {frames}")
+
+        # (c) the AEPT stage: vc_train with the recipe's arguments (the TTS
+        # conf, tts_aept.v1.yaml, the TTS checkpoint), the steps cut
+        aept_cfg = yaml.safe_load(AEPT_CONF.read_text())
+        exp_a = root / "exp_aept"
+        aept = ["--src-train-dumpdir", c["train_scp"], "--src-dev-dumpdir", c["dev_scp"],
+                "--trg-train-dumpdir", c["train_scp"], "--trg-dev-dumpdir", c["dev_scp"],
+                "--init-checkpoint", str(tts_ckpt), "--config", str(TTS_CONF)]
+        log(f"tts_aept: vc_train --config {TTS_CONF.relative_to(REPO)} --additional-config "
+            f"{AEPT_CONF.relative_to(REPO)} (steps cut to {TTS_STEPS}) --init-checkpoint "
+            f"{tts_ckpt.name}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with _GradWatch() as watch:
+            trainer = vc_train.main(aept + ["--outdir", str(exp_a)] + overlay(
+                "aept_steps.yaml", aept_cfg, train_max_steps=TTS_STEPS,
+                **dict(quiet, save_interval_steps=1)))
+        launches["tts_aept"] = cli_launches("tts_aept", failures)
+        hist = [h for h in trainer.history if "train/loss" in h]
+        cfg = load_config(str(exp_a / "config.yml"))
+        src = torch.load(tts_ckpt, map_location="cpu", weights_only=True)["model"]
+        steps = [torch.load(exp_a / f"checkpoint-{n}steps.pt", map_location="cpu",
+                            weights_only=True)["model"] for n in (1, TTS_STEPS)]
+        groups = module_keys(trainer.model)
+        same = {m: [all(torch.equal(sd[k].cpu(), src[k]) for k in groups[m]) for sd in steps]
+                for m in cfg["init-mods"]}
+        prenet = [k for m in ("dprenet", "dprenet_proj") for k in groups[m]]
+        prenet_moved = any(not torch.equal(steps[0][k], steps[1][k]) for k in prenet)
+        enc_moved = any(not torch.equal(steps[0][k], steps[1][k]) for k in groups["encoder"])
+        n_frozen = sum(not p.requires_grad for p in trainer.model.parameters())
+        for h in hist:
+            terms = h["train/l1_loss"] + h["train/bce_loss"] + h["train/guided_attn_loss"]
+            log(f"tts_aept step {h['steps']}: {h['train/step_time_sec'] * 1e3:.1f} ms, loss "
+                f"{h['train/loss']:.4f} = l1 {h['train/l1_loss']:.4f} + bce "
+                f"{h['train/bce_loss']:.4f} + guided attention "
+                f"{h['train/guided_attn_loss']:.5f} ({terms:.4f})")
+        log(f"tts_aept: config use_guided_attn_loss {cfg.get('use_guided_attn_loss')}, "
+            f"init-mods {cfg['init-mods']}, freeze-mods {cfg['freeze-mods']}; {n_frozen} frozen "
+            f"parameter tensors; each init-mod equal to the TTS checkpoint's bit for bit at steps "
+            f"1 and {TTS_STEPS} {same}; the prenet (dprenet, dprenet_proj: not a freeze-mod) "
+            f"moved between them {prenet_moved}, the encoder {enc_moved}; gradients finite "
+            f"{watch.notes}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}")
+        if (len(hist) != TTS_STEPS or not all(all(v) for v in same.values()) or not prenet_moved
+                or not enc_moved or n_frozen == 0 or watch.notes != [True] * TTS_STEPS
+                or not all(math.isfinite(h["train/guided_attn_loss"])
+                           and h["train/guided_attn_loss"] > 0 for h in hist)):
+            failures.append(f"tts_aept: steps {len(hist)}, transferred and frozen {same}, "
+                            f"prenet moved {prenet_moved}, encoder moved {enc_moved}, frozen "
+                            f"{n_frozen}, finite grads {watch.notes}")
+        aept_ckpt = exp_a / f"checkpoint-{TTS_STEPS}steps.pt"
+        del trainer
+
+        # (f) the fine-tune of egs/arctic/vc1/conf/vtn.tts_pt.v1.yaml from
+        # the AEPT checkpoint (its init-mods, no freeze-mods), steps cut
+        tune_cfg = yaml.safe_load(FINETUNE_CONF.read_text())
+        exp_f = root / "exp_finetune"
+        reset_launch_counts()
+        trainer = vc_train.main(aept[:-4] + [
+            "--init-checkpoint", str(aept_ckpt), "--config", str(exp_a / "config.yml"),
+            "--outdir", str(exp_f)] + overlay("tune_steps.yaml", tune_cfg, train_max_steps=2,
+                                              **quiet))
+        launches["tts_finetune"] = cli_launches("tts_finetune", failures)
+        hist = [h for h in trainer.history if "train/loss" in h]
+        fresh = vtn_aept_model(load_config(str(exp_f / "config.yml")), None)
+        done = init_from_checkpoint(fresh, str(aept_ckpt), tune_cfg["init-mods"])
+        n_frozen = sum(not p.requires_grad for p in trainer.model.parameters())
+        log(f"tts_finetune: vc_train --config exp_aept/config.yml --additional-config "
+            f"{FINETUNE_CONF.relative_to(REPO)} (steps cut to 2) --init-checkpoint "
+            f"{aept_ckpt.name}: ms a step {[round(h['train/step_time_sec'] * 1e3, 1) for h in hist]}"
+            f", loss {[round(h['train/loss'], 4) for h in hist]}, {n_frozen} frozen tensors; "
+            f"the modules its init-mods transfer {done}; card {card}")
+        if (len(hist) != 2 or not all(math.isfinite(h["train/loss"]) for h in hist)
+                or n_frozen or done != tune_cfg["init-mods"]):
+            failures.append(f"tts_finetune: steps {len(hist)}, frozen {n_frozen}, "
+                            f"transferred {done}")
+        del trainer, fresh
+
+        # (d) one long AEPT step, the encoder on the flash kernels
+        n_pad = -(-VTN_LONG[1] // PAD_MULTIPLE) * PAD_MULTIPLE
+        B = aept_long_batch(n_pad, ((n_pad - 1) // 2 - 1) // 2, cfg)
+        lens = np.linspace(*VTN_LONG, B).round().astype(int).tolist()
+        rng = np.random.default_rng(71)
+        scp = []
+        for i, n in enumerate(lens):
+            np.save(root / f"long{i}.npy", rng.standard_normal((n, 80)).astype(np.float32))
+            scp.append(f"long{i} {root / f'long{i}.npy'}")
+        (root / "long.scp").write_text("\n".join(scp) + "\n")
+        long_data = [a for k in ("src-train", "src-dev", "trg-train", "trg-dev")
+                     for a in (f"--{k}-dumpdir", str(root / "long.scp"))]
+        mp = dict(aept_cfg["model_params"], attention_backend="flash")
+        log(f"tts_aept_long: one step at B {B}, sources = targets of {lens} frames, "
+            f"attention_backend flash")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with _GradWatch() as watch:
+            trainer = vc_train.main(long_data + [
+                "--init-checkpoint", str(tts_ckpt), "--config", str(TTS_CONF), "--outdir",
+                str(root / "exp_long")] + overlay(
+                "aept_long.yaml", aept_cfg, model_params=mp, batch_size=B, train_max_steps=1,
+                **dict(quiet, save_interval_steps=0)))
+        launches["tts_aept_long"] = counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        h = [h for h in trainer.history if "train/loss" in h][-1]
+        want = {n: mp["elayers"] if n in STD else 0 for n in KERNELS}
+        log(f"tts_aept_long: {h['train/step_time_sec'] * 1e3:.1f} ms for the step (the process's "
+            f"first at this shape), loss {h['train/loss']:.4f} (guided attention "
+            f"{h['train/guided_attn_loss']:.5f}), peak device memory {peak:.2f} GiB, gradients "
+            f"finite {watch.notes}; launches {counts}, expected {want}; card {card}")
+        if counts != want or not math.isfinite(h["train/loss"]) or watch.notes != [True]:
+            failures.append(f"tts_aept_long: launches {counts}, loss {h['train/loss']}, "
+                            f"finite grads {watch.notes}")
+        batch = ARVCCollater(PAD_MULTIPLE, 1)([trainer.train_loader.dataset[i]
+                                              for i in range(B)])
+        att = trainer.model.encoder.encoders[0].self_attn
+        calls = vtn_encoder_calls(trainer.model, batch["xs"].shape[1], batch["ilens"].tolist())
+        log(f"tts_aept_long: encoder self-attention calls (B, H, T, D, key lengths) "
+            f"{sorted(set(calls))}")
+        del trainer
+        torch.cuda.empty_cache()
+        for name in STD:
+            for b, H, T, D, kv_lens in sorted(set(calls)):
+                rows.append(check_std_kernel(name, b, H, T, T, D, torch.float32, seed=T + 1,
+                                             label="tts", lens=list(kv_lens),
+                                             rate=att.dropout_rate))
+
+        # (e) a float32 AEPT step card vs CPU: freeze-mods and guided attention
+        model = vtn_aept_model(cfg, aept_ckpt)
+        failures += ar_reference_step(
+            model, lambda m, dev: aept_trainer(m, cfg, dev), seed=72,
+            want={n: 0 for n in KERNELS}, label="AEPT reference step",
+            route="dense, freeze-mods and guided attention")
+    return failures, launches
+
+
+def vtn_aept_model(cfg, checkpoint=None):
+    """The AEPT stage's VTN, dropout off, with an AEPT checkpoint's weights
+    (without one: seeded as ``vc_train`` seeds it)."""
+    from seq2seq_vc_torch.models.vtn import VTN
+
+    torch.manual_seed(cfg.get("seed", 0))
+    model = VTN(**dict(cfg["model_params"], **VTN_NO_DROPOUT))
+    if checkpoint is not None:
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)["model"]
+        model.load_state_dict(state)
+    model.postnet.dropout_rate = 0.0
+    return model.train()
+
+
+def aept_trainer(model, cfg, device):
+    """The AEPT stage's ``ARVCTrainer`` as ``vc_train`` builds it from ``cfg``
+    (its criteria with guided attention, its optimizer with freeze-mods)."""
+    from seq2seq_vc_torch.bin.vc_train import build_criterion, prepare_model
+    from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
+    from seq2seq_vc_torch.train.state import TrainState
+
+    config = dict(cfg, train_max_steps=1)
+    return ARVCTrainer(TrainState(model, prepare_model(model, config, "")),
+                       build_criterion(config), config, [], device=device)
+
+
 def optional_packages() -> str:
     """Which of the packages the JAX package's CLIs lean on import here
     (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
@@ -2956,6 +3369,12 @@ def main() -> int:
     failures += fails
     launches.update(fs2)
     log(f"phase fs2: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fails, tts = tts_path(rows)
+    failures += fails
+    launches.update(tts)
+    log(f"phase tts: {time.perf_counter() - t_phase:.1f} s")
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]
 

@@ -15,8 +15,17 @@ come from torch's generator seeded with the config's ``seed``. The
 duration directories hold FastSpeech-VC's teacher durations, one
 ``<utt>.txt`` each, as ``vc_decode --use-teacher-forcing`` writes them.
 
-Refused, each with the ROADMAP.md item (queue 1) that lifts the refusal:
-``--init-checkpoint`` and ``init-mods``, ``freeze-mods`` (item 3),
+``--init-checkpoint`` starts the model from a port checkpoint's weights:
+with ``init-mods`` only those modules (``core/checkpoint.py``: JAX module
+names, so ``decoder`` leaves the prenet, which is ``dprenet``), else all.
+``freeze-mods`` freezes modules by the same names (``train/optim.py``).
+With ``use_guided_attn_loss`` the criteria gain ``guided_attn``, a
+``GuidedMultiHeadAttentionLoss`` of ``guided_attn_loss_params``. This is
+the VTN's TTS pretraining (``egs/ljspeech/tts1/run.sh`` stage 6: the
+Transformer-TTS conf, ``--additional-config tts_aept.v1.yaml`` and the TTS
+checkpoint).
+
+Refused, with the ROADMAP.md item (queue 1) that lifts the refusal:
 ``tensor_parallel``, ``sequence_parallel``, ``pipeline_parallel`` above 1 and
 ``prng_impl`` (item 5).
 """
@@ -32,8 +41,9 @@ import torch
 
 import seq2seq_vc_torch
 
+from ..core.checkpoint import init_from_checkpoint
 from ..core.config import dump_config, load_config, merge_args
-from ..losses import get_criterion
+from ..losses import GuidedMultiHeadAttentionLoss, get_criterion
 from ..models import get_model_class
 from ..device import resolve_device
 from ..train import get_trainer_class
@@ -56,21 +66,56 @@ def build_collater(config: Dict[str, Any]):
     raise ValueError(f"unknown collater_type: {name}")
 
 
-def refuse_unported(args: argparse.Namespace, config: Dict[str, Any]) -> None:
+def refuse_unported(config: Dict[str, Any]) -> None:
     """Raise for an option of the JAX driver that the port does not have."""
-    item3 = "ROADMAP.md queue 1 item 3 (init-mods partial transfer and freeze-mods)"
     item5 = "ROADMAP.md queue 1 item 5 (the rest: parallel/)"
-    refused = {
-        "--init-checkpoint": (args.init_checkpoint, item3),
-        "init-mods": (config.get("init-mods") or config.get("init_mods"), item3),
-        "freeze-mods": (config.get("freeze-mods") or config.get("freeze_mods"), item3),
-        "prng_impl": (config.get("prng_impl"), item5),
-    }
+    refused = {"prng_impl": config.get("prng_impl")}
     for key in ("tensor_parallel", "sequence_parallel", "pipeline_parallel"):
-        refused[key] = (int(config.get(key) or 1) > 1, item5)
-    for name, (given, item) in refused.items():
+        refused[key] = int(config.get(key) or 1) > 1
+    for name, given in refused.items():
         if given:
-            raise NotImplementedError(f"{name} is not ported yet: {item}")
+            raise NotImplementedError(f"{name} is not ported yet: {item5}")
+
+
+def build_criterion(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The config's ``criterions``, and ``guided_attn`` with
+    ``use_guided_attn_loss``."""
+    criterion = {name: get_criterion(name, **(params or {}))
+                 for name, params in config["criterions"].items()}
+    if config.get("use_guided_attn_loss", False):
+        criterion["guided_attn"] = GuidedMultiHeadAttentionLoss(
+            **config.get("guided_attn_loss_params", {}))
+    return criterion
+
+
+def prepare_model(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint: str):
+    """``--init-checkpoint`` with the config's ``init-mods``, then the
+    optimizer of the config (with its ``freeze-mods``) around ``model``."""
+    if init_checkpoint:
+        mods = config.get("init-mods") or config.get("init_mods") or []
+        done = init_from_checkpoint(model, init_checkpoint, mods)
+        logging.info("initialized from %s: %s", init_checkpoint, done)
+    return build_optimizer(
+        model, optimizer_type=config.get("optimizer_type", "Adam"),
+        optimizer_params=config.get("optimizer_params", {}),
+        scheduler=config.get("scheduler", "warmuplr"),
+        scheduler_params=config.get("scheduler_params", {}), grad_norm=config.get("grad_norm"),
+        gradient_accumulate_steps=config.get("gradient_accumulate_steps", 1),
+        freeze_mods=config.get("freeze-mods") or config.get("freeze_mods"),
+    )
+
+
+def train(trainer, outdir: str, resume: str):
+    """``--resume``, the run, and the final checkpoint in ``finally``."""
+    if resume:
+        trainer.load_checkpoint(resume)
+        logging.info("resumed from %s (steps=%d)", resume, trainer.steps)
+    try:
+        trainer.run()
+    finally:
+        trainer.save_checkpoint(os.path.join(outdir, f"checkpoint-{trainer.steps}steps.pt"))
+        logging.info("saved final checkpoint @ %d steps", trainer.steps)
+    return trainer
 
 
 def main(argv=None):
@@ -98,7 +143,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     config = merge_args(load_config(args.config), args, args.additional_config)
-    refuse_unported(args, config)
+    refuse_unported(config)
     os.makedirs(args.outdir, exist_ok=True)
     dump_config(config, args.outdir, seq2seq_vc_torch.__version__)
 
@@ -119,27 +164,11 @@ def main(argv=None):
     torch.manual_seed(seed)
     model = get_model_class(config["model_type"])(**config["model_params"])
     logging.info("model parameters: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
-    criterion = {name: get_criterion(name, **(params or {}))
-                 for name, params in config["criterions"].items()}
-    optimizer = build_optimizer(
-        model.parameters(), optimizer_type=config.get("optimizer_type", "Adam"),
-        optimizer_params=config.get("optimizer_params", {}),
-        scheduler=config.get("scheduler", "warmuplr"),
-        scheduler_params=config.get("scheduler_params", {}), grad_norm=config.get("grad_norm"),
-        gradient_accumulate_steps=config.get("gradient_accumulate_steps", 1),
-    )
+    optimizer = prepare_model(model, config, args.init_checkpoint)
     trainer_class = get_trainer_class(config.get("trainer_type", "ARVCTrainer"))
-    trainer = trainer_class(TrainState(model, optimizer), criterion, config, train_loader,
-                            dev_loader, device=device)
-    if args.resume:
-        trainer.load_checkpoint(args.resume)
-        logging.info("resumed from %s (steps=%d)", args.resume, trainer.steps)
-    try:
-        trainer.run()
-    finally:
-        trainer.save_checkpoint(os.path.join(args.outdir, f"checkpoint-{trainer.steps}steps.pt"))
-        logging.info("saved final checkpoint @ %d steps", trainer.steps)
-    return trainer
+    trainer = trainer_class(TrainState(model, optimizer), build_criterion(config), config,
+                            train_loader, dev_loader, device=device)
+    return train(trainer, args.outdir, args.resume)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """JAX parameter trees -> state_dicts of the port's modules.
 
 The inverse of ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``,
-``convert_vtn`` and ``convert_fastspeech_vc`` and of
-``seq2seq_vc_tpu/vocoder/convert_torch.py:torch_hifigan_to_flax``, written
-here so the port needs nothing of the JAX package. A tree is nested dicts
-of numpy arrays (``{"params": ...}`` or the inner dict). Every tensor of
-the port module is looked up by name; a missing leaf raises ``KeyError``
-and leftover leaves raise ``ValueError``.
+``convert_vtn``, ``convert_fastspeech_vc`` and ``convert_transformer_tts``
+and of ``seq2seq_vc_tpu/vocoder/convert_torch.py:torch_hifigan_to_flax``,
+written here so the port needs nothing of the JAX package; ``flax_paths``
+names each port parameter by its flax path, which ``init-mods`` and
+``freeze-mods`` match (``core/checkpoint.py``, ``train/optim.py``). A
+tree is nested dicts of numpy arrays (``{"params": ...}`` or the inner
+dict). Every tensor of the port module is looked up by name; a missing
+leaf raises ``KeyError`` and leftover leaves raise ``ValueError``.
 
 Layout transforms (flax -> torch): Dense ``kernel (in, out)`` -> Linear
 ``weight (out, in)``; Conv ``kernel (k, in/groups, out)`` -> Conv1d
@@ -115,6 +117,11 @@ _VTN_RENAMES = _SUBSAMPLE_RENAMES + [
     (r"^postnet\.postnet\.(\d+)\.1$", r"postnet.GroupNorm_\1"),
 ]
 
+# Transformer-TTS: the token embedding and the scaled encoding of the
+# encoder's ``embed`` input layer, then the VTN's names
+_TTS_RENAMES = [(r"^encoder\.embed\.0$", "encoder.embed_tokens"),
+                (r"^encoder\.embed\.1$", "encoder.pos_enc")] + _VTN_RENAMES
+
 # FastSpeech-VC: a transformer decoder's scaled encoding is ``embed.0``,
 # then the conformer's and the transformer's names as AAS-VC's
 _FASTSPEECH_VC_RENAMES = [(r"^decoder\.embed\.0$", "decoder.pos_enc")] + _AASVC_RENAMES
@@ -126,6 +133,39 @@ _SUBSAMPLE_OUTS = {"encoder.embed.out.0": "encoder.embed.conv.2",
 
 # the SDP's 1x1 convs are Dense layers in flax
 _SDP_DENSE = re.compile(r"^duration_predictor\.(pre|proj|post_pre|post_proj)$")
+
+
+def _flax_module(mod_path: str, renames) -> str:
+    """The flax module path (dotted) of a torch module path."""
+    for pat, rep in renames:
+        mod_path = re.sub(pat, rep, mod_path)
+    return mod_path
+
+
+def _renames_of(model: torch.nn.Module):
+    return {"VTN": _VTN_RENAMES, "TransformerTTS": _TTS_RENAMES, "AASVC": _AASVC_RENAMES,
+            "FastSpeechVC": _FASTSPEECH_VC_RENAMES}[type(model).__name__]
+
+
+def flax_paths(model: torch.nn.Module, keys=None) -> Dict[str, str]:
+    """{torch state_dict key: its flax parameter path, '/'-joined} for a
+    VTN, TransformerTTS, AASVC or FastSpeechVC ``model`` (``keys``: other
+    keys of the same layout, e.g. a checkpoint's; default the model's own).
+    The leaf is named as in flax: ``kernel``, ``scale`` (norms),
+    ``embedding``, ``bias`` or the torch name (``alpha``, ...)."""
+    from .nn.conformer import MaskedGroupNorm
+
+    renames = _renames_of(model)
+    modules = dict(model.named_modules())
+    out = {}
+    for key in (model.state_dict() if keys is None else keys):
+        mod_path, _, leaf = key.rpartition(".")
+        mod = modules.get(mod_path)
+        if leaf == "weight":
+            leaf = ("scale" if isinstance(mod, (torch.nn.LayerNorm, MaskedGroupNorm))
+                    else "embedding" if isinstance(mod, torch.nn.Embedding) else "kernel")
+        out[key] = "/".join(_flax_module(mod_path, renames).split(".") + [leaf])
+    return out
 
 
 def _to_torch(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -146,9 +186,7 @@ def _state_dict(tree: Dict[str, Any], model: torch.nn.Module, renames,
     out: Dict[str, torch.Tensor] = {}
     for key, like in model.state_dict().items():
         mod_path, _, leaf = key.rpartition(".")
-        flax_mod = mod_path
-        for pat, rep in renames:
-            flax_mod = re.sub(pat, rep, flax_mod)
+        flax_mod = _flax_module(mod_path, renames)
         path = tuple(flax_mod.split(".")) if flax_mod else ()
         mod = model.get_submodule(mod_path)
         if leaf == "bias":
@@ -157,6 +195,8 @@ def _state_dict(tree: Dict[str, Any], model: torch.nn.Module, renames,
             arr = src.pop(path + (leaf,)).reshape(like.shape)
         elif isinstance(mod, (torch.nn.LayerNorm, MaskedGroupNorm)):
             arr = src.pop(path + ("scale",))
+        elif isinstance(mod, torch.nn.Embedding):
+            arr = src.pop(path + ("embedding",))
         elif isinstance(mod, torch.nn.Conv1d) and _SDP_DENSE.match(mod_path):
             arr = src.pop(path + ("kernel",)).T[:, :, None]
         elif isinstance(mod, torch.nn.Conv1d):
@@ -194,6 +234,14 @@ def vtn_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, to
     """
     return _state_dict(tree, model, _VTN_RENAMES, {
         f"{p}embed.out.0": f"{p}embed.conv.2" for p in ("encoder.", "")})
+
+
+def transformer_tts_state_dict(tree: Dict[str, Any],
+                               model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax TransformerTTS params -> a state_dict for the port's
+    ``TransformerTTS`` ``model`` (the embedding's table as it is: flax's
+    ``embedding`` is (idim, adim), as torch's ``weight``)."""
+    return _state_dict(tree, model, _TTS_RENAMES, {})
 
 
 def fastspeech_vc_state_dict(tree: Dict[str, Any],

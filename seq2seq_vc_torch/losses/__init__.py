@@ -1,9 +1,10 @@
-"""Losses of the AAS-VC, VTN and FastSpeech-VC training steps, resolved by
-name from the YAML ``criterions`` block (mirrors
+"""Losses of the AAS-VC, VTN, FastSpeech-VC and Transformer-TTS training
+steps, resolved by name from the YAML ``criterions`` block (mirrors
 seq2seq_vc_tpu/losses/__init__.py)."""
 
 from .duration import DurationPredictorLoss, StochasticDurationPredictorLoss
 from .forward_sum import ForwardSumLoss
+from .guided_attention import GuidedAttentionLoss, GuidedMultiHeadAttentionLoss
 from .l1 import L1Loss
 from .seq2seq import Seq2SeqLoss
 
@@ -13,6 +14,8 @@ _CRITERIONS = {
     "ForwardSumLoss": ForwardSumLoss,
     "DurationPredictorLoss": DurationPredictorLoss,
     "StochasticDurationPredictorLoss": StochasticDurationPredictorLoss,
+    "GuidedAttentionLoss": GuidedAttentionLoss,
+    "GuidedMultiHeadAttentionLoss": GuidedMultiHeadAttentionLoss,
 }
 
 

@@ -41,7 +41,98 @@ class _PrenetProjection(torch.nn.Sequential):
         return self[1](self[0](x, generator))
 
 
-class VTN(ChunkedARDecodeMixin, torch.nn.Module):
+def ar_decoder_modules(odim, adim, aheads, dprenet_layers, dprenet_units, dprenet_dropout_rate,
+                       dlayers, dunits, dropout_rate, positional_dropout_rate,
+                       attn_dropout_rate, normalize_before, concat_after, init_alpha, r,
+                       postnet_layers, postnet_chans, postnet_filts, use_batch_norm,
+                       compute_dtype=None, device=None):
+    """The decoder side that the VTN and Transformer-TTS share: (decoder
+    with its prenet and projection, ``feat_out``, ``prob_out``, postnet or
+    None without postnet layers)."""
+    prenet = _PrenetProjection(
+        Prenet(odim, dprenet_layers, dprenet_units, dprenet_dropout_rate, device=device),
+        Linear(dprenet_units, adim, device=device),
+    )
+    decoder = Decoder(
+        prenet, attention_dim=adim, attention_heads=aheads, linear_units=dunits,
+        num_blocks=dlayers, dropout_rate=dropout_rate,
+        positional_dropout_rate=positional_dropout_rate,
+        self_attention_dropout_rate=attn_dropout_rate,
+        src_attention_dropout_rate=attn_dropout_rate, normalize_before=normalize_before,
+        concat_after=concat_after, init_dec_alpha=init_alpha, compute_dtype=compute_dtype,
+        device=device,
+    )
+    postnet = (Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
+                       use_norm=use_batch_norm, device=device)
+               if postnet_layers > 0 else None)
+    return (decoder, Linear(adim, odim * r, device=device), Linear(adim, r, device=device),
+            postnet)
+
+
+class ARSeq2Seq(ChunkedARDecodeMixin, torch.nn.Module):
+    """What the VTN and Transformer-TTS share past their encoders: the
+    prenet accessors that the chunked decode reads, the teacher-forced
+    decoder pass and the one-loop ``inference``. A subclass builds
+    ``decoder``, ``feat_out``, ``prob_out`` and ``postnet``
+    (``ar_decoder_modules``) and defines ``encode(xs, ilens)``."""
+
+    @property
+    def dprenet(self) -> Prenet:
+        return self.decoder.embed[0][0]
+
+    @property
+    def dprenet_proj(self) -> Linear:
+        return self.decoder.embed[0][1]
+
+    def decode_teacher_forced(self, hs, h_masks, ys, labels, olens, need_att_ws: bool,
+                              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """The decoder side of the teacher-forced forward on encoder states
+        ``hs`` (B, Tmem, adim) and their mask. ys: (B, Lmax, odim) targets,
+        Lmax a multiple of r; labels: (B, Lmax) stop labels; olens: (B,).
+        With ``need_att_ws`` the per-layer (B, H, Lmax // r, Tmem)
+        cross-attention maps are returned as ``src_ws``."""
+        r = self.decoder_reduction_factor
+        B, Lmax, _ = ys.shape
+        if Lmax % r:
+            raise ValueError(f"target length {Lmax} is not a multiple of r = {r}")
+        # every r-th frame (the last of each group), shifted right
+        ys_in = ys[:, r - 1::r]
+        olens_in = torch.div(olens, r, rounding_mode="floor")
+        ys_in = torch.cat([torch.zeros_like(ys_in[:, :1]), ys_in[:, :-1]], dim=1)
+        y_masks = target_mask(olens_in, ys_in.shape[1])
+        zs = self.decoder(ys_in, y_masks, hs, h_masks, return_attns=need_att_ws,
+                          generator=generator)
+        zs, src_ws = zs if need_att_ws else (zs, None)
+        before_outs = self.feat_out(zs).reshape(B, -1, self.odim)
+        logits = self.prob_out(zs).reshape(B, -1)
+        after_outs = before_outs if self.postnet is None else before_outs + self.postnet(before_outs)
+        # targets and stop labels adjusted for the truncated tail (reference vtn.py:262-274)
+        olens_adj = olens - olens % r
+        pos = torch.arange(Lmax, device=ys.device)[None, :]
+        labels_adj = torch.where(pos == (olens_adj - 1)[:, None], 1.0, labels)
+        return {"after_outs": after_outs, "before_outs": before_outs, "logits": logits,
+                "ys": ys, "labels": labels_adj, "olens": olens_adj, "olens_in": olens_in,
+                "src_ws": src_ws}
+
+    @torch.no_grad()
+    def inference(self, xs, ilens, generator: Optional[torch.Generator] = None,
+                  threshold: float = 0.5, minlenratio: float = 0.0,
+                  maxlenratio: float = 10.0) -> Dict[str, Any]:
+        """Batched AR decode over the whole step budget in one loop, with
+        per-item stop thresholds and min/max length ratios.
+
+        Returns outs (B, MAXLEN*r, odim) postnet-refined features, probs (B,
+        MAXLEN*r) stop probabilities, out_lens (B,) valid output frames and
+        att_ws (L, B, H, MAXLEN, Tmem) cross-attention maps."""
+        st = self.decode_init(xs, ilens, maxlenratio)
+        st, outs, probs, att = self.decode_chunk(st, 0, st["maxlen"], threshold, minlenratio,
+                                                 maxlenratio, generator)
+        out_lens = self.decode_out_lens(st, maxlenratio)
+        return {"outs": self.decode_postnet(outs, out_lens), "probs": probs,
+                "out_lens": out_lens, "att_ws": att}
+
+
+class VTN(ARSeq2Seq):
     def __init__(
         self,
         idim: int,
@@ -113,34 +204,12 @@ class VTN(ChunkedARDecodeMixin, torch.nn.Module):
             init_enc_alpha=initial_encoder_alpha, attention_backend=attention_backend,
             flash_min_len=flash_min_len, compute_dtype=cdt, device=device,
         )
-        prenet = _PrenetProjection(
-            Prenet(odim, dprenet_layers, dprenet_units, dprenet_dropout_rate, device=device),
-            Linear(dprenet_units, adim, device=device),
-        )
-        self.decoder = Decoder(
-            prenet, attention_dim=adim, attention_heads=aheads, linear_units=dunits,
-            num_blocks=dlayers, dropout_rate=transformer_dec_dropout_rate,
-            positional_dropout_rate=transformer_dec_positional_dropout_rate,
-            self_attention_dropout_rate=transformer_dec_attn_dropout_rate,
-            src_attention_dropout_rate=transformer_dec_attn_dropout_rate,
-            normalize_before=decoder_normalize_before, concat_after=decoder_concat_after,
-            init_dec_alpha=initial_decoder_alpha, compute_dtype=cdt, device=device,
-        )
-        self.feat_out = Linear(adim, odim * r, device=device)
-        self.prob_out = Linear(adim, r, device=device)
-        self.postnet = (
-            Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
-                    use_norm=use_batch_norm, device=device)
-            if postnet_layers > 0 else None
-        )
-
-    @property
-    def dprenet(self) -> Prenet:
-        return self.decoder.embed[0][0]
-
-    @property
-    def dprenet_proj(self) -> Linear:
-        return self.decoder.embed[0][1]
+        self.decoder, self.feat_out, self.prob_out, self.postnet = ar_decoder_modules(
+            odim, adim, aheads, dprenet_layers, dprenet_units, dprenet_dropout_rate, dlayers,
+            dunits, transformer_dec_dropout_rate, transformer_dec_positional_dropout_rate,
+            transformer_dec_attn_dropout_rate, decoder_normalize_before, decoder_concat_after,
+            initial_decoder_alpha, r, postnet_layers, postnet_chans, postnet_filts,
+            use_batch_norm, cdt, device)
 
     def encode(self, xs, ilens):
         """(B, T', adim) float32 encoder states and their (B, T') mask."""
@@ -157,50 +226,11 @@ class VTN(ChunkedARDecodeMixin, torch.nn.Module):
         they are the largest tensors of the step. ``generator`` draws the
         prenet's dropout (default: torch's default generator).
         """
-        r = self.decoder_reduction_factor
-        B, Lmax, _ = ys.shape
-        if Lmax % r:
-            raise ValueError(f"target length {Lmax} is not a multiple of r = {r}")
         hs, h_masks = self.encode(xs, ilens)
-        # every r-th frame (the last of each group), shifted right
-        ys_in = ys[:, r - 1::r]
-        olens_in = torch.div(olens, r, rounding_mode="floor")
-        ys_in = torch.cat([torch.zeros_like(ys_in[:, :1]), ys_in[:, :-1]], dim=1)
-        y_masks = target_mask(olens_in, ys_in.shape[1])
-        zs = self.decoder(ys_in, y_masks, hs, h_masks, return_attns=need_att_ws,
-                          generator=generator)
-        zs, src_ws = zs if need_att_ws else (zs, None)
-        before_outs = self.feat_out(zs).reshape(B, -1, self.odim)
-        logits = self.prob_out(zs).reshape(B, -1)
-        after_outs = before_outs if self.postnet is None else before_outs + self.postnet(before_outs)
-        # targets and stop labels adjusted for the truncated tail (reference vtn.py:262-274)
-        olens_adj = olens - olens % r
-        pos = torch.arange(Lmax, device=ys.device)[None, :]
-        labels_adj = torch.where(pos == (olens_adj - 1)[:, None], 1.0, labels)
-        out = {
-            "after_outs": after_outs, "before_outs": before_outs, "logits": logits, "ys": ys,
-            "labels": labels_adj, "olens": olens_adj,
-            "ilens_ds_st": torch.div(torch.div(ilens - 1, 2, rounding_mode="floor") - 1, 2,
-                                     rounding_mode="floor"),
-            "olens_in": olens_in,
-        }
+        out = self.decode_teacher_forced(hs, h_masks, ys, labels, olens, need_att_ws, generator)
+        src_ws = out.pop("src_ws")
+        out["ilens_ds_st"] = torch.div(torch.div(ilens - 1, 2, rounding_mode="floor") - 1, 2,
+                                       rounding_mode="floor")
         if need_att_ws:
             out["att_ws"] = torch.stack(src_ws)
         return out
-
-    @torch.no_grad()
-    def inference(self, xs, ilens, generator: Optional[torch.Generator] = None,
-                  threshold: float = 0.5, minlenratio: float = 0.0,
-                  maxlenratio: float = 10.0) -> Dict[str, Any]:
-        """Batched AR decode over the whole step budget in one loop, with
-        per-item stop thresholds and min/max length ratios.
-
-        Returns outs (B, MAXLEN*r, odim) postnet-refined features, probs (B,
-        MAXLEN*r) stop probabilities, out_lens (B,) valid output frames and
-        att_ws (L, B, H, MAXLEN, Tmem) cross-attention maps."""
-        st = self.decode_init(xs, ilens, maxlenratio)
-        st, outs, probs, att = self.decode_chunk(st, 0, st["maxlen"], threshold, minlenratio,
-                                                 maxlenratio, generator)
-        out_lens = self.decode_out_lens(st, maxlenratio)
-        return {"outs": self.decode_postnet(outs, out_lens), "probs": probs,
-                "out_lens": out_lens, "att_ws": att}

@@ -156,8 +156,16 @@ class EncoderLayer(torch.nn.Module):
 class Encoder(torch.nn.Module):
     """Transformer encoder with the ``conv2d-scaled-pos-enc`` input layer
     (the VTN's and FastSpeech-VC's encoder: conv2d subsampling, then x +
-    alpha * PE and dropout) or none (``None``, FastSpeech-VC's decoder: x +
-    alpha * PE and dropout alone, as ``embed.0``)."""
+    alpha * PE and dropout), ``embed`` (Transformer-TTS: a token embedding
+    ``embed.0`` of ``idim`` rows, then the scaled encoding ``embed.1``) or
+    none (``None``, FastSpeech-VC's decoder: x + alpha * PE and dropout
+    alone, as ``embed.0``).
+
+    The embedding has no padding row, as the JAX package's ``nn.Embed``:
+    row ``padding_idx`` is initialised and trained as any other (the
+    reference's ``padding_idx`` zeroes it; the port follows the JAX
+    package, whose parameters it is held against). It is initialised
+    normal with standard deviation ``attention_dim ** -0.5``."""
 
     def __init__(self, idim: int, attention_dim: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6, dropout_rate: float = 0.1,
@@ -168,7 +176,7 @@ class Encoder(torch.nn.Module):
                  attention_backend: str = "xla", flash_min_len: int = FLASH_MIN_LEN,
                  compute_dtype=None, device=None, dtype=None):
         super().__init__()
-        if input_layer not in ("conv2d-scaled-pos-enc", None):
+        if input_layer not in ("conv2d-scaled-pos-enc", "embed", None):
             raise NotImplementedError(f"input_layer={input_layer!r} is not ported yet")
         _refuse("selfattention_layer_type", selfattention_layer_type, "selfattn")
         kw = dict(device=device, dtype=dtype)
@@ -176,8 +184,14 @@ class Encoder(torch.nn.Module):
         self.input_layer = input_layer
         pos_enc = ScaledPositionalEncoding(attention_dim, positional_dropout_rate,
                                            init_enc_alpha, device=device)
-        self.embed = (torch.nn.Sequential(pos_enc) if input_layer is None
-                      else Conv2dSubsampling(idim, attention_dim, pos_enc, **kw))
+        if input_layer == "conv2d-scaled-pos-enc":
+            self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc, **kw)
+        elif input_layer == "embed":
+            embedding = torch.nn.Embedding(idim, attention_dim, **kw)
+            torch.nn.init.normal_(embedding.weight, std=attention_dim ** -0.5)
+            self.embed = torch.nn.Sequential(embedding, pos_enc)
+        else:
+            self.embed = torch.nn.Sequential(pos_enc)
         self.encoders = torch.nn.ModuleList(
             EncoderLayer(attention_dim, attention_heads, linear_units, dropout_rate,
                          attention_dropout_rate, normalize_before, concat_after,
@@ -190,9 +204,10 @@ class Encoder(torch.nn.Module):
             self.after_norm = LayerNorm(attention_dim, LN_EPS, compute_dtype, **kw)
 
     def forward(self, xs, masks: Optional[torch.Tensor]):
-        """xs: (B, T, idim); masks: (B, T) non-pad. Returns the float32 (B,
-        T', adim) states and the (subsampled) (B, T') mask."""
-        if self.input_layer is None:
+        """xs: (B, T, idim), or (B, T) integer tokens for ``embed``; masks:
+        (B, T) non-pad. Returns the float32 (B, T', adim) states and the
+        (subsampled) (B, T') mask."""
+        if self.input_layer != "conv2d-scaled-pos-enc":
             xs = self.embed(xs)
         else:
             xs, masks = self.embed(xs, masks)

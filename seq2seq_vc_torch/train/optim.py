@@ -18,15 +18,37 @@ adam(schedule))`` under ``MultiSteps``:
 
 Adam's arithmetic is ``torch.optim.Adam``'s, the same formula as
 ``optax.adam`` (``b1``, ``b2``, ``eps`` under the optax names).
+
+``freeze_mods`` (JAX: ``optax.multi_transform`` routing the frozen subtrees
+to ``set_to_zero``): a parameter whose flax path (``convert.flax_paths``,
+``params/`` in front) starts with a listed prefix, or with ``params/`` and
+the prefix, as ``_freeze_mask_fn`` matches it, gets ``requires_grad`` off.
+It then gets no gradient, no update and no Adam state, and the clip's
+global norm reads only the trainable parameters, as the transform that
+``multi_transform`` gives the trainable ones sees only theirs. Gradients
+still flow through a frozen module to the modules before it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import torch
 
 from .schedulers import get_scheduler
+
+
+def frozen_names(model: torch.nn.Module, freeze_mods: Sequence[str]) -> List[str]:
+    """The parameters of ``model`` that ``freeze_mods`` freezes."""
+    from ..convert import flax_paths
+
+    paths = flax_paths(model)
+    out = []
+    for name, _ in model.named_parameters():
+        joined = "params/" + paths[name]
+        if any(joined.startswith(m) or joined.startswith(f"params/{m}") for m in freeze_mods):
+            out.append(name)
+    return out
 
 
 class Optimizer:
@@ -79,7 +101,7 @@ class Optimizer:
 
 
 def build_optimizer(
-    params: Iterable[torch.nn.Parameter],
+    params: Union[torch.nn.Module, Iterable[torch.nn.Parameter]],
     optimizer_type: str = "Adam",
     optimizer_params: Optional[Dict[str, Any]] = None,
     scheduler: str = "warmuplr",
@@ -89,9 +111,17 @@ def build_optimizer(
     freeze_mods: Optional[List[str]] = None,
 ) -> Optimizer:
     """The optimizer of a training config's ``optimizer_*``, ``scheduler*``,
-    ``grad_norm``, ``gradient_accumulate_steps`` and ``freeze_mods`` keys."""
+    ``grad_norm``, ``gradient_accumulate_steps`` and ``freeze_mods`` keys,
+    over ``params``: a model's parameters, or the model itself (needed for
+    ``freeze_mods``, which turns ``requires_grad`` off on the frozen
+    parameters)."""
     if freeze_mods:
-        raise NotImplementedError("freeze_mods is not ported yet")
+        if not isinstance(params, torch.nn.Module):
+            raise ValueError("freeze_mods needs the model, not its parameters")
+        for name in frozen_names(params, freeze_mods):
+            params.get_parameter(name).requires_grad_(False)
+    if isinstance(params, torch.nn.Module):
+        params = params.parameters()
     if optimizer_type.lower() != "adam":
         raise NotImplementedError(f"optimizer_type {optimizer_type!r} is not ported yet")
     optimizer_params = dict(optimizer_params or {})

@@ -34,6 +34,20 @@ def logmel2linear(lmspc: np.ndarray, fs: int, n_fft: int, n_mels: int,
     return np.maximum(EPS, (inv_mel_basis @ mspc.T).T).astype(np.float32)
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """numpy's (and the JAX package's) ``reflect`` padding of a 1-D signal
+    by ``pad`` on each side, which also reflects again where ``pad`` is not
+    shorter than the signal (torch's reflect padding raises there: a
+    decode of one or two frames)."""
+    n = x.shape[-1]
+    pos = torch.arange(-pad, n + pad, device=x.device)
+    if n == 1:
+        return x[..., torch.zeros_like(pos)]
+    period = 2 * (n - 1)
+    m = pos.remainder(period)
+    return x[..., torch.where(m < n, m, period - m)]
+
+
 def griffin_lim(spc: np.ndarray, n_fft: int, n_shift: int, win_length: Optional[int] = None,
                 window: str = "hann", n_iter: int = 32, angles: Optional[np.ndarray] = None,
                 generator: Optional[torch.Generator] = None, device=None) -> np.ndarray:
@@ -60,8 +74,8 @@ def griffin_lim(spc: np.ndarray, n_fft: int, n_shift: int, win_length: Optional[
         return torch.istft(s, n_fft, n_shift, window=w, center=True, length=length)
 
     for _ in range(n_iter):
-        s = torch.stft(istft(mag * phase), n_fft, n_shift, window=w, center=True,
-                       pad_mode="reflect", return_complex=True)[:, :n_frames]
+        s = torch.stft(reflect_pad(istft(mag * phase), n_fft // 2), n_fft, n_shift, window=w,
+                       center=False, return_complex=True)[:, :n_frames]
         phase = torch.polar(torch.ones_like(mag), torch.angle(s))
     return istft(mag * phase).cpu().numpy()
 

@@ -8,11 +8,13 @@ tests/test_torch_kernels_cuda.py, which imports no JAX.
 import numpy as np
 import torch
 
-from seq2seq_vc_tpu.convert.reference import convert_aasvc, convert_vtn
+from seq2seq_vc_tpu.convert.reference import convert_aasvc, convert_transformer_tts, convert_vtn
 from seq2seq_vc_tpu.models import AASVC as JaxAASVC
 from seq2seq_vc_tpu.models import VTN as JaxVTN
+from seq2seq_vc_tpu.models import TransformerTTS as JaxTransformerTTS
 from seq2seq_vc_torch.convert import aasvc_state_dict
 from seq2seq_vc_torch.models.aas_vc import AASVC
+from seq2seq_vc_torch.models.transformer_tts import TransformerTTS
 from seq2seq_vc_torch.models.vtn import VTN
 
 # the AAS-VC test configuration: the flagship's structure at toy widths
@@ -35,6 +37,24 @@ TINY_VTN = dict(
     dprenet_units=24, postnet_layers=2, postnet_chans=16, decoder_reduction_factor=4,
     encoder_normalize_before=True, decoder_normalize_before=False,
     dprenet_dropout_rate=0.0,
+)
+
+
+# the Transformer-TTS test configuration: transformer_tts.v1.yaml's structure
+# (pre-LN encoder, post-LN decoder, r 1, guided attention on 2 layers x 2
+# heads) at toy widths, a vocabulary of 20 tokens, prenet dropout off; its
+# decoder side has TINY_VTN's widths, so that modules carry over to a VTN
+TINY_TTS = dict(
+    idim=20, odim=80, adim=32, aheads=2, elayers=2, eunits=64, dlayers=2, dunits=64,
+    dprenet_units=24, postnet_layers=2, postnet_chans=16, decoder_reduction_factor=1,
+    encoder_normalize_before=True, decoder_normalize_before=False,
+    num_heads_applied_guided_attn=2, num_layers_applied_guided_attn=2,
+    dprenet_dropout_rate=0.0,
+)
+NO_DROPOUT = dict(
+    transformer_enc_dropout_rate=0.0, transformer_enc_positional_dropout_rate=0.0,
+    transformer_enc_attn_dropout_rate=0.0, transformer_dec_dropout_rate=0.0,
+    transformer_dec_positional_dropout_rate=0.0, transformer_dec_attn_dropout_rate=0.0,
 )
 
 
@@ -82,3 +102,13 @@ def vtn_pair(seed: int = 0, port_kw=None, **over):
     port = perturb_(VTN(**cfg, **(port_kw or {})).eval(), seed)
     jax_model = JaxVTN(**cfg)
     return port, jax_model, convert_vtn(port.state_dict(), jax_model)
+
+
+def tts_pair(seed: int = 0, **over):
+    """(port TransformerTTS, JAX TransformerTTS, flax params), weights from
+    the port's init carried to flax by the JAX package's converter."""
+    cfg = dict(TINY_TTS, **over)
+    torch.manual_seed(seed)
+    port = perturb_(TransformerTTS(**cfg).eval(), seed)
+    jax_model = JaxTransformerTTS(**cfg)
+    return port, jax_model, convert_transformer_tts(port.state_dict(), jax_model)

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from _torch_port import aasvc_pair, vtn_pair
-from seq2seq_vc_torch.bin import vc_decode, vc_serve, vc_train
+from seq2seq_vc_torch.bin import tts_decode, tts_train, vc_decode, vc_serve, vc_train
 from seq2seq_vc_torch.dsp.features import logmelfilterbank
 from seq2seq_vc_torch.models.fastspeech_vc import FastSpeechVC
 from seq2seq_vc_torch.ops.flash_attention import (
@@ -128,7 +128,12 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.vocoder.vocoder", "seq2seq_vc_torch.models.fastspeech_vc",
             "seq2seq_vc_torch.nn.duration_predictor", "seq2seq_vc_torch.losses.duration",
             "seq2seq_vc_torch.ops.upsampling",
-            "seq2seq_vc_torch.train.nar_vc"} <= set(got["modules"])
+            "seq2seq_vc_torch.train.nar_vc", "seq2seq_vc_torch.text.g2p_native",
+            "seq2seq_vc_torch.text.g2p_backends", "seq2seq_vc_torch.models.transformer_tts",
+            "seq2seq_vc_torch.train.ar_tts", "seq2seq_vc_torch.train.tts_data",
+            "seq2seq_vc_torch.losses.guided_attention", "seq2seq_vc_torch.core.checkpoint",
+            "seq2seq_vc_torch.bin.tokenize_text", "seq2seq_vc_torch.bin.tts_train",
+            "seq2seq_vc_torch.bin.tts_decode"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -169,7 +174,12 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                                         "--outdir", "x", "--config", "x"]),
                        (vc_decode.main, ["--dumpdir", "x", "--checkpoint", "x", "--outdir", "x"]),
                        (vc_serve.main, ["--checkpoint", "x", "--src-stats", "x", "--trg-stats",
-                                        "x", "--vocoder-checkpoint", "x"])):
+                                        "x", "--vocoder-checkpoint", "x"]),
+                       (tts_train.main, ["--train-dumpdir", "x", "--dev-dumpdir", "x",
+                                         "--train-text", "x", "--dev-text", "x",
+                                         "--token-list", "x", "--outdir", "x", "--config", "x"]),
+                       (tts_decode.main, ["--text", "x", "--checkpoint", "x", "--token-list",
+                                          "x", "--outdir", "x"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     # the helpers under them: log-mels, the vocoders

@@ -40,6 +40,23 @@ SHAPES = [SHAPE, (1, 2, 37, 20)]
 NAMES = ("q_u", "q_v", "k", "pos")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_persistent_compilation_cache():
+    """Keep JAX's persistent compilation cache off for this file's JAX
+    calls: a test in the same worker that ran one of the JAX package's CLIs
+    turned it on (``seq2seq_vc_tpu/core/cache.py``), and writes to the cache
+    that all workers share have crashed an eager ``jax.vjp`` here. The
+    setting and the cache's state are restored afterwards."""
+    from jax._src import compilation_cache
+
+    old = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_compilation_cache_dir", old)
+    compilation_cache.reset_cache()
+
+
 def _inputs(seed=0, shape=SHAPE):
     B, H, T, D = shape
     rng = np.random.default_rng(seed)

@@ -235,7 +235,7 @@ def test_optimizer_matches_optax(accumulate, grad_scale):
 
 def test_optimizer_refuses_what_is_not_ported():
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="freeze_mods"):
+    with pytest.raises(ValueError, match="freeze_mods needs the model"):
         build_optimizer(p, freeze_mods=["encoder"])
     with pytest.raises(NotImplementedError, match="SGD"):
         build_optimizer(p, optimizer_type="SGD")

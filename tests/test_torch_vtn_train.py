@@ -37,7 +37,7 @@ from seq2seq_vc_tpu.train.data import ARVCCollater as JaxCollater
 from seq2seq_vc_tpu.train.optim import build_optimizer as jax_build_optimizer
 from seq2seq_vc_tpu.train.state import TrainState as JaxTrainState
 from seq2seq_vc_torch.convert import vtn_state_dict
-from seq2seq_vc_torch.losses import get_criterion
+from seq2seq_vc_torch.losses import GuidedMultiHeadAttentionLoss, get_criterion
 from seq2seq_vc_torch.nn import attention
 from seq2seq_vc_torch.nn.attention import MultiHeadedAttention
 from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
@@ -236,9 +236,12 @@ def test_trainer_runs_on_a_corpus_read_through_the_loader(tmp_path):
     trainer.run()
     assert trainer.steps == 3 and len(trainer.history) == 3
     assert all(np.isfinite(h["train/loss"]) and h["train/bce_loss"] > 0 for h in trainer.history)
-    with pytest.raises(NotImplementedError, match="guided"):
-        ARVCTrainer(state, _criterion(), dict(CONFIG, use_guided_attn_loss=True), [],
-                    device="cpu")
+    # with use_guided_attn_loss and the criterion, one more step adds the term
+    guided = ARVCTrainer(state, dict(_criterion(), guided_attn=GuidedMultiHeadAttentionLoss()),
+                         dict(CONFIG, train_max_steps=4, use_guided_attn_loss=True), loader,
+                         device="cpu")
+    guided.run()
+    assert guided.steps == 4 and guided.history[-1]["train/guided_attn_loss"] > 0
 
 
 def test_evaluate_gives_the_same_dev_loss_twice():
