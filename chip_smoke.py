@@ -195,11 +195,27 @@ Phases, each printed on lines of its own:
    and 11, which are then held against their plain versions at the step's
    shape (float32, ``check ... tts`` rows); (e) a float32 AEPT step card
    against CPU (freeze-mods, guided attention, dense): loss, terms and
-   every trainable gradient.
+   every trainable gradient;
+25. the recipes' vocoders, written with seeded weights as
+   ``parallel_wavegan`` checkpoints (weight-normed) and an s3prl-vc
+   Taco2-AR checkpoint: ParallelWaveGAN at ``parallel_wavegan.v1``'s
+   widths, MelGAN at ``melgan.v1``'s, StyleMelGAN and Taco2-AR (over
+   144-wide PPG, a PWG as its inner vocoder) at the JAX classes'
+   defaults: (a) ``vc_decode`` of the AAS-VC flagship with a PWG
+   ``vocoder:`` block over a 3.8 s and a 30 s utterance (kernels 1 and 2
+   launch and are checked at the decode's shapes, ``check ... voc``
+   rows); (b) ``vc_decode`` of the full-width VTN of
+   ``egs/arctic/vc1/conf/vtn.v1.melppg.yaml`` (``--feat-type
+   ppg_sxliu``) through the s3prl-vc vocoder, its budget cut as phase
+   12's; (c) ``vocoder_anasyn_debug`` with MelGAN and with StyleMelGAN;
+   then each vocoder's time, RTF and peak memory at 3.8 and 30 s,
+   Taco2-AR's ms and device activities a step, bf16 against float32 on
+   the card and float32 card against CPU (``VOC_*_RTOL``).
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path, phase 23's ``fs2_*`` and phase 24's ``tts_*`` paths included;
+path, phase 23's ``fs2_*``, phase 24's ``tts_*`` and phase 25's ``voc_*``
+paths included;
 kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``, kernels
 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
 ``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its library
@@ -395,7 +411,12 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 # phase 24, Transformer-TTS and the AEPT stage: dense
                 # attention everywhere but the long AEPT step's encoder
                 "tts_train": (), "tts_decode": (), "tts_aept": (), "tts_finetune": (),
-                "tts_aept_long": STD}
+                "tts_aept_long": STD,
+                # phase 25, the vocoders: AAS-VC's vc_decode (the 30 s
+                # decoder past the gate); the VTN's conf is dense; the
+                # analysis-synthesis runs no attention
+                "voc_decode": ("fused_rel_scores", "rel_flash_attention"),
+                "voc_vtn": (), "voc_anasyn": ()}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -3170,6 +3191,360 @@ def aept_trainer(model, cfg, device):
                        build_criterion(config), config, [], device=device)
 
 
+# ------------------------------------------------------------ the vocoders
+# phase 25: the recipes' vocoders at their published generator widths, as
+# parallel_wavegan configs write them: parallel_wavegan.v1's PWG and
+# melgan.v1's MelGAN; StyleMelGAN at the JAX class's defaults
+# (seq2seq_vc_tpu/vocoder/melgan.py:210-219); the s3prl-vc Taco2-AR at the
+# JAX class's defaults (taco2ar.py:82-97) over vtn.v1.melppg.yaml's 144-wide
+# PPG, with the PWG as its inner vocoder
+VOC_GENERATORS = {
+    "pwg": ("ParallelWaveGANGenerator", dict(
+        layers=30, stacks=3, residual_channels=64, gate_channels=128, skip_channels=64,
+        aux_channels=80, aux_context_window=2, upsample_params={"upsample_scales": [4, 4, 4, 4]})),
+    "melgan": ("MelGANGenerator", dict(
+        in_channels=80, out_channels=1, kernel_size=7, channels=512, upsample_scales=[8, 8, 2, 2],
+        stack_kernel_size=3, stacks=3, use_final_nonlinear_activation=True)),
+    "style_melgan": ("StyleMelGANGenerator", dict(
+        in_channels=128, aux_channels=80, channels=64, out_channels=1, kernel_size=9, dilation=2,
+        noise_upsample_scales=[11, 2, 2, 2], upsample_scales=[2] * 8 + [1],
+        gated_function="softmax")),
+}
+MELPPG_CONF = REPO / "egs/arctic/vc1/conf/vtn.v1.melppg.yaml"
+PPG = "ppg_sxliu"
+# the s3prl-vc downstream config: 10 ms PPG frames to 16 ms mel frames
+TACO2_DS = {"model_type": "Taco2_AR", "sampling_rate": 16000, "hop_size": 256,
+            "upstream_rate": 160, "num_mels": 80, "model_params": {}}
+VOC_SECONDS = (3.8, 30.0)  # the inputs each vocoder is timed on
+VOC_SHORT_SECONDS = 1.0  # the float32 card-vs-CPU input
+# bf16 on the card against float32 on the card, max abs error over the
+# float32 waveform's largest magnitude: bf16 operands (2^-9 relative
+# rounding) through 30-40 conv layers; 0.8-1.0% measured on the CPU at 3.8 s
+VOC_BF16_RTOL = 5e-2
+# float32 card against CPU: sums in another order, through up to 40 layers
+# (the Taco2-AR's mel through its AR steps)
+VOC_F32_RTOL = 1e-4
+
+
+def parallel_wavegan_state(module: torch.nn.Module):
+    """``module``'s state dict as ``parallel_wavegan`` saves a weight-normed
+    generator: each conv weight as ``weight_v`` and its row norms
+    ``weight_g`` (axis 0), so that folding gives the weight back."""
+    out = {}
+    for key, w in module.state_dict().items():
+        if key.endswith(".weight") and w.ndim >= 3:
+            prefix = key[: -len(".weight")]
+            out[f"{prefix}.weight_v"] = w
+            out[f"{prefix}.weight_g"] = w.flatten(1).norm(dim=1).reshape(
+                (-1,) + (1,) * (w.ndim - 1))
+        else:
+            out[key] = w
+    return out
+
+
+def voc_checkpoints(root: Path, seed: int):
+    """Seeded generators written as ``parallel_wavegan`` checkpoints with
+    configs, and the Taco2-AR as an s3prl-vc checkpoint (BatchNorm, as
+    s3prl-vc trains it) with its mel stats and downstream config. Returns
+    each ``vocoder:`` block by name."""
+    import yaml
+
+    from seq2seq_vc_torch.utils.io import write_stats
+    from seq2seq_vc_torch.vocoder import melgan, pwg, taco2ar
+
+    classes = {"pwg": pwg.ParallelWaveGANGenerator, "melgan": melgan.MelGANGenerator,
+               "style_melgan": melgan.StyleMelGANGenerator}
+    blocks = {}
+    for i, (name, (gen_type, params)) in enumerate(VOC_GENERATORS.items()):
+        widths = dict(params)
+        if "upsample_params" in widths:  # parallel_wavegan nests PWG's scales
+            widths["upsample_scales"] = widths.pop("upsample_params")["upsample_scales"]
+        torch.manual_seed(seed + i)
+        module = classes[name](**widths)
+        perturb_(module, seed + i)
+        torch.save({"model": {"generator": parallel_wavegan_state(module)}, "steps": 0},
+                   root / f"{name}.pkl")
+        (root / f"{name}.yaml").write_text(yaml.safe_dump(
+            {"generator_type": gen_type, "generator_params": params, **FEATS}))
+        blocks[name] = {"checkpoint": str(root / f"{name}.pkl"),
+                        "config": str(root / f"{name}.yaml")}
+    torch.manual_seed(seed + 10)
+    model = taco2ar.Taco2AR(input_dim=144, norm_type="batch_norm", **TACO2_DS["model_params"])
+    perturb_(model, seed + 10)
+    torch.save({"model": model.state_dict(), "steps": 0}, root / "taco2ar.pkl")
+    s = stats(seed + 11)
+    write_stats(str(root / "taco2ar_stats.npz"), s["mean"], s["scale"])
+    (root / "taco2ar.yaml").write_text(yaml.safe_dump(dict(TACO2_DS, vocoder=blocks["pwg"])))
+    blocks["s3prl_vc"] = {"vocoder_type": "s3prl_vc", "checkpoint": str(root / "taco2ar.pkl"),
+                          "config": str(root / "taco2ar.yaml"),
+                          "stats": str(root / "taco2ar_stats.npz")}
+    return blocks
+
+
+def voc_timed(fn, seconds: float):
+    """(ms, RTF, peak GiB) of one call of ``fn``, ending in a host fetch."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, ms / 1e3 / seconds, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def voc_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over the reference's largest magnitude."""
+    if got.shape != want.shape:
+        return float("inf")
+    return float((got.float().cpu() - want.float().cpu()).abs().max() / want.abs().max())
+
+
+def voc_checks(name, block, mels, card):
+    """One generator: its time, RTF and peak memory through ``get_vocoder``
+    at 3.8 and 30 s (a second call at the length; the first is printed
+    too); bf16 on the card against float32 on the card at 3.8 s; float32
+    card against CPU at 1 s. Returns (failures, summary row)."""
+    from seq2seq_vc_torch.vocoder import melgan, pwg
+    from seq2seq_vc_torch.vocoder.vocoder import get_vocoder
+
+    failures, row = [], {"name": name}
+    voc = get_vocoder({"vocoder": block}, device="cuda")
+    voc.decode(mels[VOC_SHORT_SECONDS])  # warm-up
+    for s in VOC_SECONDS:  # the first call at a length, then the timed one
+        _, cold, _, _ = voc_timed(lambda: voc.decode(mels[s]), s)
+        y, ms, rtf, peak = voc_timed(lambda: voc.decode(mels[s]), s)
+        row[s] = dict(cold_ms=cold, ms=ms, rtf=rtf, peak_gib=peak)
+        if len(y) != len(mels[s]) * FEATS["hop_size"] or not np.isfinite(y).all():
+            failures.append(f"voc {name} {s} s: {len(y)} samples, finite {np.isfinite(y).all()}")
+    if name == "pwg":
+        model = pwg.load_pwg_model(block["checkpoint"], block["config"], "cuda")
+    else:
+        model = melgan.load_melgan_model(block["checkpoint"], block["config"], "cuda",
+                                         style=name == "style_melgan")
+    m32 = copy.deepcopy(model)
+    m32.compute_dtype = torch.float32
+
+    def run(m, s, device="cuda"):
+        c = torch.as_tensor(mels[s], device=device)[None]
+        with torch.no_grad():
+            return m(c, generator=torch.Generator().manual_seed(0))
+
+    row["bf16_vs_f32"] = voc_err(run(model, VOC_SECONDS[0]), run(m32, VOC_SECONDS[0]))
+    row["card_vs_cpu"] = voc_err(run(m32, VOC_SHORT_SECONDS),
+                                 run(copy.deepcopy(m32).cpu(), VOC_SHORT_SECONDS, "cpu"))
+    ok = row["bf16_vs_f32"] <= VOC_BF16_RTOL and row["card_vs_cpu"] <= VOC_F32_RTOL
+    log(f"voc {name}: " + "; ".join(
+        f"{s} s: {row[s]['ms']:.1f} ms (first call at the length {row[s]['cold_ms']:.1f}), RTF "
+        f"{row[s]['rtf']:.5f}, peak {row[s]['peak_gib']:.2f} GiB" for s in VOC_SECONDS)
+        + f"; bf16 vs float32 on the card (3.8 s): max abs err {row['bf16_vs_f32']:.3e} of the "
+        f"peak (tol {VOC_BF16_RTOL}); float32 card vs CPU ({VOC_SHORT_SECONDS} s): "
+        f"{row['card_vs_cpu']:.3e} (tol {VOC_F32_RTOL}): {'ok' if ok else 'FAIL'}; card {card}")
+    if not ok:
+        failures.append(f"voc {name}: bf16 {row['bf16_vs_f32']}, card vs cpu {row['card_vs_cpu']}")
+    return failures, row
+
+
+def taco2ar_checks(block, card):
+    """The s3prl-vc vocoder: Taco2-AR's ms a step and kernel launches a step
+    on 3.8 and 30 s of PPG frames (torch.profiler counts the launches of
+    the 3.8 s decode), the two stages' time, RTF and peak memory, and a
+    float32 Taco2-AR at prenet rate 0 on the card against the CPU (1 s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.utils.io import read_stats
+    from seq2seq_vc_torch.vocoder import taco2ar
+    from seq2seq_vc_torch.vocoder.common import read_generator_state
+    from seq2seq_vc_torch.vocoder.vocoder import get_vocoder
+
+    failures, row = [], {"name": "s3prl_vc"}
+    ds = load_config(block["config"])
+    s = read_stats(block["stats"])
+    downstream = taco2ar.build_downstream(block["checkpoint"], ds, s["mean"], s["scale"], "cuda")
+    voc = get_vocoder({"vocoder": block}, device="cuda")
+    rng = np.random.default_rng(90)
+    ppg = {sec: rng.random((int(sec * 100), 144)).astype(np.float32)
+           for sec in (VOC_SHORT_SECONDS, *VOC_SECONDS)}
+    downstream(ppg[VOC_SHORT_SECONDS])  # warm-up
+    for sec in VOC_SECONDS:
+        mel, ms, _, _ = voc_timed(lambda: downstream(ppg[sec]), sec)
+        y, all_ms, rtf, peak = voc_timed(lambda: voc.decode(ppg[sec]), sec)
+        row[sec] = dict(steps=len(mel), ms_a_step=ms / len(mel), ms=all_ms, rtf=rtf,
+                        peak_gib=peak)
+        if len(y) != len(mel) * FEATS["hop_size"] or not np.isfinite(y).all():
+            failures.append(f"voc s3prl_vc {sec} s: {len(y)} samples for {len(mel)} frames")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mel = downstream(ppg[VOC_SECONDS[0]])
+        torch.cuda.synchronize()
+    launches = sum(n for _, _, n in trace_kernels(prof))  # kernels and copies
+    row["launches_a_step"] = launches / len(mel)
+    state = read_generator_state(block["checkpoint"])
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = taco2ar.Taco2AR(input_dim=144, resample_ratio=1.6, norm_type="batch_norm",
+                            **dict(ds["model_params"], prenet_dropout_rate=0.0))
+        m.load_state_dict(state)
+        with torch.no_grad():
+            models[dev] = m.to(dev).eval()(torch.as_tensor(ppg[VOC_SHORT_SECONDS], device=dev)[None])
+    row["card_vs_cpu"] = voc_err(models["cuda"], models["cpu"])
+    ok = row["card_vs_cpu"] <= VOC_F32_RTOL
+    log("voc s3prl_vc (Taco2-AR + PWG): " + "; ".join(
+        f"{sec} s: Taco2-AR {row[sec]['steps']} steps at {row[sec]['ms_a_step']:.3f} ms a step, "
+        f"both stages {row[sec]['ms']:.1f} ms, RTF {row[sec]['rtf']:.5f}, peak "
+        f"{row[sec]['peak_gib']:.2f} GiB" for sec in VOC_SECONDS)
+        + f"; {launches} device activities (kernels and copies) in the 3.8 s Taco2-AR decode, "
+        f"{row['launches_a_step']:.1f} a step; float32 Taco2-AR card vs CPU "
+        f"({VOC_SHORT_SECONDS} s, prenet rate 0): {row['card_vs_cpu']:.3e} of the peak "
+        f"(tol {VOC_F32_RTOL}): {'ok' if ok else 'FAIL'}; card {card}")
+    if not ok:
+        failures.append(f"voc s3prl_vc: card vs cpu {row['card_vs_cpu']}")
+    return failures, row
+
+
+def vocoder_path(rows):
+    """Phase 25: the recipes' vocoders, through the entry points. (a)
+    ``vc_decode`` of the AAS-VC flagship (``CLI_CONF``, seeded weights) with
+    a ParallelWaveGAN ``vocoder:`` block over a 3.8 s and a 30 s utterance
+    (the 30 s decoder past the flash gate: kernels 1 and 2, each checked at
+    the shapes the decode gave it); (b) ``vc_decode`` of the full-width VTN
+    of ``vtn.v1.melppg.yaml`` (odim 144, ``--feat-type ppg_sxliu``) through
+    the s3prl-vc vocoder, its budget cut to ``VTN_INFERENCE``; (c)
+    ``vocoder_anasyn_debug`` with MelGAN and with StyleMelGAN. Then each
+    vocoder's time, RTF and peak memory at 3.8 and 30 s, bf16 against
+    float32 and float32 card against CPU. Returns (failures, launches by
+    path)."""
+    import yaml
+
+    from seq2seq_vc_torch.bin import vc_decode, vocoder_anasyn_debug
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.dsp.features import logmelfilterbank
+    from seq2seq_vc_torch.dsp.stats import normalize
+    from seq2seq_vc_torch.models.aas_vc import AASVC
+    from seq2seq_vc_torch.models.vtn import VTN
+    from seq2seq_vc_torch.utils.audio import read_wav, write_wav
+    from seq2seq_vc_torch.utils.io import write_stats
+
+    failures, launches = [], {}
+    card = card_line()
+    sr, hop = FEATS["sampling_rate"], FEATS["hop_size"]
+    mel_kw = {k: v for k, v in FEATS.items() if k != "sampling_rate"}
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_voc_") as tmp:
+        root = Path(tmp)
+        blocks = voc_checkpoints(root, seed=80)
+        clips = {s: clip(s, 81 + i) for i, s in enumerate((VOC_SHORT_SECONDS, *VOC_SECONDS))}
+        mels = {s: logmelfilterbank(a, sr, device="cuda", **mel_kw) for s, a in clips.items()}
+        src, trg = stats(1), stats(2)
+        write_stats(str(root / "src_stats.npz"), src["mean"], src["scale"], "mel")
+        write_stats(str(root / "trg_stats.npz"), trg["mean"], trg["scale"], "mel")
+        lines = []
+        for s in VOC_SECONDS:
+            np.save(root / f"src_{s}.npy", normalize(mels[s], src["mean"], src["scale"]))
+            lines.append(f"utt_{s}s {root / f'src_{s}.npy'}")
+        scp = root / "src.scp"
+        scp.write_text("\n".join(lines) + "\n")
+
+        # (a) the AAS-VC flagship's vc_decode through the PWG
+        cfg = dict(load_config(str(CLI_CONF)), vocoder=blocks["pwg"])
+        torch.manual_seed(82)
+        model = AASVC(**cfg["model_params"])
+        perturb_(model, 82)
+        exp = root / "exp_aas"
+        exp.mkdir()
+        (exp / "config.yml").write_text(yaml.safe_dump(cfg))
+        torch.save({"model": model.state_dict()}, exp / "checkpoint-0steps.pt")
+        log(f"voc (a): vc_decode of {CLI_CONF.relative_to(REPO)} (seeded weights) with a "
+            f"ParallelWaveGAN vocoder block, {VOC_SECONDS} s utterances, batch size 1")
+        reset_launch_counts()
+        r = vc_decode.main(["--dumpdir", str(scp), "--dp-input-dir", str(scp), "--checkpoint",
+                            str(exp / "checkpoint-0steps.pt"), "--outdir", str(root / "dec_aas"),
+                            "--trg-stats", str(root / "trg_stats.npz")])
+        launches["voc_decode"] = cli_launches("voc_decode", failures)
+        for line in lines:
+            utt = line.split()[0]
+            n = np.load(root / "dec_aas" / f"{utt}.npy").shape[0]
+            y, _ = read_wav(str(root / "dec_aas" / "wav" / f"{utt}.wav"))
+            log(f"voc (a) {utt}: {n} mel frames, {len(y)} samples")
+            if len(y) != n * hop:
+                failures.append(f"voc (a) {utt}: {len(y)} samples for {n} frames")
+        log(f"voc (a): {r['frames']} frames in {r['seconds'] * 1e3:.1f} ms of decode "
+            f"({r['frames_per_sec']:.1f} mel-frames/s); card {card}")
+        model = vc_decode.load_model(cfg, str(exp / "checkpoint-0steps.pt"), "cuda")
+        for name, B, H, T, D, lens in sorted(set(decode_calls(model, str(scp), 1,
+                                                              root / "dec_aas"))):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="voc",
+                                     lens=list(lens)))
+        del model
+
+        # (b) the VTN with a PPG target, vocoded by the s3prl-vc vocoder
+        cfg = load_config(str(MELPPG_CONF))
+        cfg.update(inference=VTN_INFERENCE, vocoder=blocks["s3prl_vc"])
+        torch.manual_seed(83)
+        vtn = VTN(**cfg["model_params"])
+        perturb_(vtn, 83)
+        exp = root / "exp_vtn"
+        exp.mkdir()
+        (exp / "config.yml").write_text(yaml.safe_dump(cfg))
+        torch.save({"model": vtn.state_dict()}, exp / "checkpoint-0steps.pt")
+        del vtn
+        ppg = stats(84)
+        ppg = {k: np.resize(v, 144) for k, v in ppg.items()}
+        write_stats(str(root / "ppg_stats.npz"), ppg["mean"], ppg["scale"], PPG)
+        one = root / "src_one.scp"
+        one.write_text(lines[0] + "\n")
+        log(f"voc (b): vc_decode of {MELPPG_CONF.relative_to(REPO)} (odim 144, seeded weights, "
+            f"inference {VTN_INFERENCE}) through the s3prl-vc vocoder, one {VOC_SECONDS[0]} s "
+            f"utterance")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        r = vc_decode.main(["--dumpdir", str(one), "--checkpoint",
+                            str(exp / "checkpoint-0steps.pt"), "--outdir", str(root / "dec_vtn"),
+                            "--trg-stats", str(root / "ppg_stats.npz"), "--feat-type", PPG])
+        wall = time.perf_counter() - t0
+        launches["voc_vtn"] = cli_launches("voc_vtn", failures)
+        utt = lines[0].split()[0]
+        feats = np.load(root / "dec_vtn" / f"{utt}.npy")
+        y, _ = read_wav(str(root / "dec_vtn" / "wav" / f"{utt}.wav"))
+        want = max(int(round(len(feats) / 1.6)), 1) * hop
+        log(f"voc (b) {utt}: {feats.shape} PPG frames, {len(y)} samples (expected {want}); "
+            f"decode {r['seconds'] * 1e3:.1f} ms, vc_decode wall {wall:.2f} s; card {card}")
+        if feats.shape[1] != 144 or len(y) != want:
+            failures.append(f"voc (b): features {feats.shape}, {len(y)} samples, want {want}")
+
+        # (c) analysis-synthesis through MelGAN and StyleMelGAN
+        wavs = root / "wavs"
+        wavs.mkdir()
+        for s in VOC_SECONDS:
+            write_wav(str(wavs / f"clip_{s}s.wav"), clips[s], sr)
+        reset_launch_counts()
+        for name in ("melgan", "style_melgan"):
+            (root / f"anasyn_{name}.yaml").write_text(yaml.safe_dump(
+                dict(FEATS, vocoder=blocks[name])))
+            out = root / f"anasyn_{name}"
+            r = vocoder_anasyn_debug.main(["--rootdir", str(wavs), "--config",
+                                           str(root / f"anasyn_{name}.yaml"), "--outdir",
+                                           str(out), "--stats", str(root / "trg_stats.npz")])
+            lens = {s: len(read_wav(str(out / f"clip_{s}s.wav"))[0]) for s in VOC_SECONDS}
+            log(f"voc (c) vocoder_anasyn_debug {name}: {r['utterances']} utterances, "
+                f"{r['audio_seconds']:.1f} s of audio, vocoder {r['seconds'] * 1e3:.1f} ms "
+                f"(RTF {r['rtf']:.5f}, the first call included); samples {lens}; card {card}")
+            if r["utterances"] != 2 or any(n != (1 + len(clips[s]) // hop) * hop
+                                           for s, n in lens.items()):
+                failures.append(f"voc (c) {name}: {r['utterances']} utterances, samples {lens}")
+        launches["voc_anasyn"] = cli_launches("voc_anasyn", failures)
+
+        # each vocoder alone
+        mels = {s: m.astype(np.float32) for s, m in mels.items()}
+        for name in VOC_GENERATORS:
+            fails, _ = voc_checks(name, blocks[name], mels, card)
+            failures += fails
+            torch.cuda.empty_cache()
+        fails, _ = taco2ar_checks(blocks["s3prl_vc"], card)
+        failures += fails
+    return failures, launches
+
+
 def optional_packages() -> str:
     """Which of the packages the JAX package's CLIs lean on import here
     (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
@@ -3375,6 +3750,12 @@ def main() -> int:
     failures += fails
     launches.update(tts)
     log(f"phase tts: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fails, voc = vocoder_path(rows)
+    failures += fails
+    launches.update(voc)
+    log(f"phase voc: {time.perf_counter() - t_phase:.1f} s")
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]
 

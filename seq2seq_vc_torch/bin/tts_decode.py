@@ -11,8 +11,8 @@ at the config's ``inference`` block (``maxlenratio`` 10 by default, as the
 JAX driver). The prenet's dropout of utterance ``i`` draws from
 ``vc_decode.utterance_generator(seed, i)``. Writes each utterance's
 features as ``<utt>.npy`` (listed in ``feats.scp``) and its waveform as
-``wav/<utt>.wav`` through the config's vocoder (Griffin-Lim or HiFi-GAN),
-de-normalised with ``--stats``. Returns the frames, the decode seconds,
+``wav/<utt>.wav`` through the config's vocoder (any that
+``vocoder/vocoder.py`` routes), de-normalised with ``--stats``. Returns the frames, the decode seconds,
 mel-frames/s and ms an utterance.
 """
 

@@ -13,7 +13,10 @@ cross-attention gives each source frame's duration
 (``utils/duration_calculator.py``). Writes each utterance's features as
 ``<utt>.npy`` (listed in ``feats.scp``), its durations (NAR, teacher
 forcing) as ``durations/<utt>.txt`` and its waveform as ``wav/<utt>.wav``
-through the config's vocoder; logs mel-frames/s.
+through the config's vocoder (``vocoder/vocoder.py``: Griffin-Lim,
+HiFi-GAN, ParallelWaveGAN, MelGAN, StyleMelGAN or the s3prl-vc two-stage
+vocoder, whose target stats are ``--trg-stats``' ``<feat-type>_mean`` and
+``_scale``, e.g. ``ppg_sxliu``); logs mel-frames/s.
 
 Batches: utterances sorted by source length, ``--batch-size`` at a time,
 each padded to its longest item rounded up to ``BUCKET_FRAMES`` (and to the

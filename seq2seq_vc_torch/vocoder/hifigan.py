@@ -20,13 +20,9 @@ import torch.nn.functional as F
 
 from ..core.config import load_config
 from ..device import resolve_device
+from .common import conv
 
 LRELU_SLOPE = 0.1
-
-
-def _conv1d(conv: torch.nn.Conv1d, x: torch.Tensor, dt) -> torch.Tensor:
-    return F.conv1d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt), conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
 
 
 class ResBlock(torch.nn.Module):
@@ -46,8 +42,8 @@ class ResBlock(torch.nn.Module):
 
     def forward(self, x, dt):
         for c1, c2 in zip(self.convs1, self.convs2):
-            y = _conv1d(c1, F.leaky_relu(x, LRELU_SLOPE), dt)
-            x = x + _conv1d(c2, F.leaky_relu(y, LRELU_SLOPE), dt)
+            y = conv(c1, F.leaky_relu(x, LRELU_SLOPE), dt)
+            x = x + conv(c2, F.leaky_relu(y, LRELU_SLOPE), dt)
         return x
 
 
@@ -88,17 +84,16 @@ class HifiganGenerator(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        h = _conv1d(self.conv_pre, x.transpose(1, 2), dt)
+        h = conv(self.conv_pre, x.transpose(1, 2), dt)
         for i, up in enumerate(self.ups):
             h = F.leaky_relu(h, LRELU_SLOPE)
-            h = F.conv_transpose1d(h.to(dt), up.weight.to(dt), up.bias.to(dt), up.stride,
-                                   up.padding)
+            h = conv(up, h, dt)
             z = None
             for j in range(self.num_kernels):
                 r = self.resblocks[i * self.num_kernels + j](h, dt)
                 z = r if z is None else z + r
             h = z / self.num_kernels
-        h = _conv1d(self.conv_post, F.leaky_relu(h), dt)
+        h = conv(self.conv_post, F.leaky_relu(h), dt)
         return torch.tanh(h.float())[:, 0, :]
 
 

@@ -4,10 +4,15 @@
 The VC model emits features normalised by the target speaker's stats; a
 vocoder trained with stats of its own gets them de-normalised by the
 target's and re-normalised by its own before synthesis. ``get_vocoder``
-reads a training config: its ``vocoder:`` block names a HiFi-GAN in the
-port's checkpoint format (``checkpoint``, optional ``config`` and
-``stats``); without the block, Griffin-Lim. The JAX package's other
-backends are not ported yet.
+reads a training config: its ``vocoder:`` block names a checkpoint,
+optional ``config`` and ``stats``, routed in the JAX package's order by
+the config's ``generator_type``: ParallelWaveGAN (``pwg.py``), StyleMelGAN
+and MelGAN (``melgan.py``) in ``parallel_wavegan``'s checkpoint layout,
+else HiFi-GAN in the port's format (``hifigan.py``); ``vocoder_type:
+s3prl_vc`` is the two-stage Taco2-AR vocoder (``s3prl_feat2wav.py``),
+whose downstream config's own ``vocoder:`` block builds the inner
+vocoder. Without the block, Griffin-Lim. ``vocoder_type: encodec`` is
+refused.
 """
 
 from __future__ import annotations
@@ -25,8 +30,12 @@ from ..dsp.stats import denormalize, normalize
 from ..utils.io import read_stats
 from .griffin_lim import Spectrogram2Waveform
 from .hifigan import chunked_generate, load_hifigan_model
+from .melgan import load_melgan_model
+from .pwg import load_pwg_model
+from .s3prl_feat2wav import S3PRLFeat2Wav
 
-_NOT_PORTED = "is not ported yet: ROADMAP.md queue 1 item 5 (the rest: vocoders)"
+BUCKET_FRAMES = 64  # the JAX backends' bucket: features edge-pad to a multiple of it
+NOISE_SEED = 0  # the generators' noise, seeded on every call as in the JAX backends
 
 
 class Vocoder:
@@ -66,6 +75,27 @@ def hifigan_backend(checkpoint: str, config_path: Optional[str] = None, device=N
     return backend
 
 
+def generator_backend(model: torch.nn.Module):
+    """(T, aux) features -> (T * hop,) waveform through a ``parallel_wavegan``
+    generator (PWG, MelGAN, StyleMelGAN) on its device: the frames
+    edge-padded to a multiple of ``BUCKET_FRAMES``, as the JAX backends pad
+    them (so the waveform's tail matches theirs), the waveform trimmed back,
+    the noise from a CPU generator seeded with ``NOISE_SEED`` on every call,
+    so a call repeats itself."""
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def backend(feats: np.ndarray) -> np.ndarray:
+        t = len(feats)
+        pad = -(-t // BUCKET_FRAMES) * BUCKET_FRAMES - t
+        c = np.pad(np.asarray(feats, np.float32), ((0, pad), (0, 0)), mode="edge")
+        y = model(torch.as_tensor(c, device=device)[None],
+                  generator=torch.Generator().manual_seed(NOISE_SEED))
+        return y[0, : t * model.hop].cpu().numpy()
+
+    return backend
+
+
 def get_vocoder(config: Dict[str, Any], trg_stats=None, device=None) -> Vocoder:
     """The vocoder of a training config (its ``vocoder:`` block, or
     Griffin-Lim), synthesising on ``device`` (default: the card)."""
@@ -73,16 +103,29 @@ def get_vocoder(config: Dict[str, Any], trg_stats=None, device=None) -> Vocoder:
     fs = config.get("sampling_rate", 16000)
     voc_cfg = config.get("vocoder") or {}
     voc_type = voc_cfg.get("vocoder_type", "")
-    if voc_type in ("encodec", "s3prl_vc"):
-        raise NotImplementedError(f"vocoder_type {voc_type!r} {_NOT_PORTED}")
+    if voc_type == "encodec":
+        raise NotImplementedError(
+            "vocoder_type 'encodec' is not ported yet: ROADMAP.md queue 1 item 6 (feature "
+            "extraction: the EnCodec encoder and its SEANet decoder)")
+    if voc_type == "s3prl_vc":
+        ds_cfg = load_config(voc_cfg["config"])
+        inner = get_vocoder(ds_cfg, None, device)
+        return S3PRLFeat2Wav.from_checkpoint(voc_cfg["checkpoint"], ds_cfg,
+                                             read_stats(voc_cfg["stats"]), trg_stats, inner,
+                                             device)
     if voc_cfg.get("checkpoint"):
-        if voc_cfg.get("config"):  # a parallel_wavegan config names its generator
-            gen_type = load_config(voc_cfg["config"]).get("generator_type",
-                                                          "ParallelWaveGANGenerator")
-            if gen_type != "HifiganGenerator":
-                raise NotImplementedError(f"generator_type {gen_type!r} {_NOT_PORTED}")
+        ckpt, gen_cfg = voc_cfg["checkpoint"], voc_cfg.get("config")
+        gen_type = "HifiganGenerator"
+        if gen_cfg:  # a parallel_wavegan config names its generator
+            gen_type = load_config(gen_cfg).get("generator_type", "ParallelWaveGANGenerator")
+        if "ParallelWaveGAN" in gen_type:
+            backend = generator_backend(load_pwg_model(ckpt, gen_cfg, device))
+        elif "MelGAN" in gen_type:  # StyleMelGAN or MelGAN
+            backend = generator_backend(load_melgan_model(ckpt, gen_cfg, device,
+                                                          style="StyleMelGAN" in gen_type))
+        else:
+            backend = hifigan_backend(ckpt, gen_cfg, device)
         vocoder_stats = read_stats(voc_cfg["stats"]) if voc_cfg.get("stats") else None
-        backend = hifigan_backend(voc_cfg["checkpoint"], voc_cfg.get("config"), device)
         return Vocoder(backend, fs, trg_stats, vocoder_stats)
     backend = Spectrogram2Waveform(
         fs=fs, n_fft=config.get("fft_size", 1024), n_shift=config.get("hop_size", 256),

@@ -3,9 +3,16 @@
 Builds the same tiny model in the JAX package and in the PyTorch port with
 the weights carried across. The tests that need an NVIDIA card are in
 tests/test_torch_kernels_cuda.py, which imports no JAX.
+
+Every other port test file imports ``release_jax_executables``, an autouse
+fixture that drops JAX's compiled executables before and after the file.
 """
 
+import gc
+
+import jax
 import numpy as np
+import pytest
 import torch
 
 from seq2seq_vc_tpu.convert.reference import convert_aasvc, convert_transformer_tts, convert_vtn
@@ -16,6 +23,23 @@ from seq2seq_vc_torch.convert import aasvc_state_dict
 from seq2seq_vc_torch.models.aas_vc import AASVC
 from seq2seq_vc_torch.models.transformer_tts import TransformerTTS
 from seq2seq_vc_torch.models.vtn import VTN
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_executables():
+    """Drop every executable JAX has compiled in this process, before the
+    file that imports this fixture and after it. Each executable the XLA
+    CPU compiler makes holds memory mappings of its own until it is freed:
+    an eager ``jax.vjp`` of a Pallas kernel in interpret mode adds
+    2,500-3,200, so a test worker that ran several such files reached the
+    kernel's limit of 65,530 mappings a process (``vm.max_map_count``), and
+    the next compile segfaulted. ``jax.clear_caches()`` and a collection
+    free them (back to ~1,100)."""
+    jax.clear_caches()
+    gc.collect()
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 # the AAS-VC test configuration: the flagship's structure at toy widths
 TINY_AASVC = dict(

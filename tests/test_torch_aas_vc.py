@@ -20,7 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import aasvc_pair, assert_state_dicts_equal, carried_back
+from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixture)
+    aasvc_pair,
+    assert_state_dicts_equal,
+    carried_back,
+    release_jax_executables,
+)
 from seq2seq_vc_tpu.models import AASVC as JaxAASVC
 from seq2seq_vc_tpu.models.common import conv2d_subsampled_lengths as jax_subsampled_lengths
 from seq2seq_vc_torch.convert import aasvc_state_dict

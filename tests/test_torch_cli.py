@@ -47,6 +47,7 @@ import pytest
 import torch
 import yaml
 
+from _torch_port import release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.bin.vc_train import init_model_params
 from seq2seq_vc_tpu.core import config as jax_config
 from seq2seq_vc_tpu.dsp.features import logmelfilterbank as jax_logmel
@@ -210,7 +211,7 @@ def test_registries_name_the_roadmap_item_of_what_is_not_ported():
     assert get_trainer_class("ARTTSTrainer").__name__ == "ARTTSTrainer"
     with pytest.raises(ValueError):
         get_model_class("Nope")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         get_vocoder({"vocoder": {"vocoder_type": "encodec"}}, device="cpu")
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.nn.attention import (
     RelPositionMultiHeadedAttention as JaxRelMHA,
 )

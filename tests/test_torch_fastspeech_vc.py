@@ -36,7 +36,7 @@ import pytest
 import torch
 import yaml
 
-from _torch_port import perturb_
+from _torch_port import perturb_, release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.convert.reference import convert_aasvc, convert_fastspeech_vc
 from seq2seq_vc_tpu.losses import get_criterion as jax_criterion
 from seq2seq_vc_tpu.models import AASVC as JaxAASVC

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.ops import flash_attention as jax_flash
 from seq2seq_vc_torch.ops import flash_attention as port_flash
 

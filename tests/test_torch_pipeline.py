@@ -19,7 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import aasvc_pair, assert_state_dicts_equal
+from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixture)
+    aasvc_pair,
+    assert_state_dicts_equal,
+    release_jax_executables,
+)
 from seq2seq_vc_tpu.dsp.features import _logmel as jax_logmel
 from seq2seq_vc_tpu.dsp.mel import mel_filterbank as jax_mel_filterbank
 from seq2seq_vc_tpu.dsp.stft import hann_window as jax_hann_window

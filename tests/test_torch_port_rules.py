@@ -21,8 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import aasvc_pair, vtn_pair
-from seq2seq_vc_torch.bin import tts_decode, tts_train, vc_decode, vc_serve, vc_train
+from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixture)
+    aasvc_pair,
+    release_jax_executables,
+    vtn_pair,
+)
+from seq2seq_vc_torch.bin import (tts_decode, tts_train, vc_decode, vc_serve, vc_train,
+                                  vocoder_anasyn_debug)
 from seq2seq_vc_torch.dsp.features import logmelfilterbank
 from seq2seq_vc_torch.models.fastspeech_vc import FastSpeechVC
 from seq2seq_vc_torch.ops.flash_attention import (
@@ -51,6 +56,9 @@ from seq2seq_vc_torch.train.optim import build_optimizer
 from seq2seq_vc_torch.train.state import TrainState
 from seq2seq_vc_torch.vocoder.griffin_lim import Spectrogram2Waveform, griffin_lim
 from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
+from seq2seq_vc_torch.vocoder.melgan import load_melgan_model
+from seq2seq_vc_torch.vocoder.pwg import load_pwg_model
+from seq2seq_vc_torch.vocoder.taco2ar import build_downstream
 from seq2seq_vc_torch.vocoder.vocoder import get_vocoder
 
 REPO = Path(__file__).resolve().parents[1]
@@ -133,7 +141,10 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.train.ar_tts", "seq2seq_vc_torch.train.tts_data",
             "seq2seq_vc_torch.losses.guided_attention", "seq2seq_vc_torch.core.checkpoint",
             "seq2seq_vc_torch.bin.tokenize_text", "seq2seq_vc_torch.bin.tts_train",
-            "seq2seq_vc_torch.bin.tts_decode"} <= set(got["modules"])
+            "seq2seq_vc_torch.bin.tts_decode", "seq2seq_vc_torch.bin.vocoder_anasyn_debug",
+            "seq2seq_vc_torch.vocoder.common", "seq2seq_vc_torch.vocoder.pwg",
+            "seq2seq_vc_torch.vocoder.melgan", "seq2seq_vc_torch.vocoder.taco2ar",
+            "seq2seq_vc_torch.vocoder.s3prl_feat2wav"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -179,13 +190,17 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                                          "--train-text", "x", "--dev-text", "x",
                                          "--token-list", "x", "--outdir", "x", "--config", "x"]),
                        (tts_decode.main, ["--text", "x", "--checkpoint", "x", "--token-list",
-                                          "x", "--outdir", "x"])):
+                                          "x", "--outdir", "x"]),
+                       (vocoder_anasyn_debug.main, ["--rootdir", "x", "--config", "x",
+                                                    "--outdir", "x"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     # the helpers under them: log-mels, the vocoders
     spc = np.ones((4, 513), np.float32)
     for helper in (lambda: logmelfilterbank(np.zeros(1024, np.float32), 16000),
                    lambda: get_vocoder({}),
+                   lambda: load_pwg_model("x"), lambda: load_melgan_model("x"),
+                   lambda: build_downstream("x", {}, np.zeros(80), np.ones(80)),
                    lambda: Spectrogram2Waveform(16000, 1024, 256),
                    lambda: griffin_lim(spc, 1024, 256, n_iter=0)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -28,7 +28,13 @@ import pytest
 import torch
 import yaml
 
-from _torch_port import NO_DROPOUT, assert_state_dicts_equal, tts_pair, vtn_pair
+from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixture)
+    NO_DROPOUT,
+    assert_state_dicts_equal,
+    release_jax_executables,
+    tts_pair,
+    vtn_pair,
+)
 from seq2seq_vc_tpu.convert.reference import convert_vtn
 from seq2seq_vc_tpu.core.checkpoint import partial_transfer as jax_partial_transfer
 from seq2seq_vc_tpu.core.config import load_config as jax_load_config

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.ops.flash_attention import rel_flash_attention as jax_rel_flash
 from seq2seq_vc_torch.ops.flash_attention import (
     rel_flash_attention,

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_torch.ops import flash_attention as port_flash
 from test_torch_legacy_rel import FLASH_CASES, NAMES, SEED, TOL, _inputs, _jax_vjp
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.ops.rel_scores import fused_rel_scores as jax_fused_rel_scores
 from seq2seq_vc_torch.nn.attention import rel_shift
 from seq2seq_vc_torch.ops.rel_scores import fused_rel_scores, fused_rel_scores_plain

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.ops.rel_scores import fused_rel_scores as jax_fused_rel_scores
 from seq2seq_vc_torch.ops.rel_scores import (
     AUTO_BANDED_MIN_LEN,

@@ -29,7 +29,7 @@ import optax
 import pytest
 import torch
 
-from _torch_port import aasvc_pair
+from _torch_port import aasvc_pair, release_jax_executables  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.losses import get_criterion as jax_criterion
 from seq2seq_vc_tpu.nn.flows import StochasticDurationPredictor as JaxSDP
 from seq2seq_vc_tpu.ops.forward_sum import beta_binomial_prior as jax_prior

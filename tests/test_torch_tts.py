@@ -31,7 +31,12 @@ import pytest
 import torch
 import yaml
 
-from _torch_port import NO_DROPOUT, assert_state_dicts_equal, tts_pair
+from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixture)
+    NO_DROPOUT,
+    assert_state_dicts_equal,
+    release_jax_executables,
+    tts_pair,
+)
 from seq2seq_vc_tpu.bin import tokenize_text as jax_tokenize_text
 from seq2seq_vc_tpu.losses import GuidedAttentionLoss as JaxGuidedAttentionLoss
 from seq2seq_vc_tpu.losses import GuidedMultiHeadAttentionLoss as JaxGuidedMHALoss

@@ -25,7 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import TINY_VTN, assert_state_dicts_equal, vtn_pair
+from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixture)
+    TINY_VTN,
+    assert_state_dicts_equal,
+    release_jax_executables,
+    vtn_pair,
+)
 from seq2seq_vc_tpu.models import VTN as JaxVTN
 from seq2seq_vc_tpu.models import ar_driver as jax_ar_driver
 from seq2seq_vc_tpu.nn.attention import MultiHeadedAttention as JaxMHA

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import vtn_pair
+from _torch_port import release_jax_executables, vtn_pair  # noqa: F401 (autouse fixture)
 from seq2seq_vc_tpu.losses import get_criterion as jax_criterion
 from seq2seq_vc_tpu.nn.attention import MultiHeadedAttention as JaxMHA
 from seq2seq_vc_tpu.train.ar_vc import ARVCTrainer as JaxARVCTrainer
