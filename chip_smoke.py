@@ -210,12 +210,31 @@ Phases, each printed on lines of its own:
    12's; (c) ``vocoder_anasyn_debug`` with MelGAN and with StyleMelGAN;
    then each vocoder's time, RTF and peak memory at 3.8 and 30 s,
    Taco2-AR's ms and device activities a step, bf16 against float32 on
-   the card and float32 card against CPU (``VOC_*_RTOL``).
+   the card and float32 card against CPU (``VOC_*_RTOL``);
+26. feature extraction, the recipe's stages 1-4 on the card
+   (``feature_path``): a corpus of 22.05 kHz wavs (per speaker 16 train
+   and 4 dev clips of 2.0-5.0 s; the source's dev clips with near-silent
+   edges under ``trim_silence``; an 8 s recording cut by a kaldi
+   ``segments`` file and a 30 s clip) through ``preprocess`` with an
+   overlay of ``egs/arctic/vc2/conf/aas_vc.ppgmelppg.v1.yaml`` (``format:
+   npy``; ``mel``, ``ppg_sxliu`` from a seeded espnet-named upstream at
+   adim 144, 4 heads, 576 units, 12 blocks and an s3prl-vc-style
+   featurizer, and ``encodec`` from a seeded HF-named EnCodec state dict),
+   ``compute_statistics`` and ``normalize``; ``vc_train`` of that conf at
+   full width (B 16, 3 steps: kernels 1 and 3, launches as the routing
+   predicts, each checked at the step's shapes, ``check ... feat`` rows)
+   and ``vc_decode`` of the dev set, the segments and the 30 s clip
+   (kernel 1, the same); ``get_vocoder``'s ``encodec`` block over the 3.8
+   and 30 s latents. Frame counts as JAX computes them, every array
+   finite, the statistics against float64 numpy, ``normalize`` against
+   its formula, float32 card against CPU for the log-mel, the PPG, the
+   EnCodec embeddings and waveform (``FEAT_*``); ms and RTF of each at 3.8
+   and 30 s, the PPG frames a second, peak memory.
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path, phase 23's ``fs2_*``, phase 24's ``tts_*`` and phase 25's ``voc_*``
-paths included;
+path, phase 23's ``fs2_*``, phase 24's ``tts_*``, phase 25's ``voc_*`` and
+phase 26's ``feat_*`` paths included;
 kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``, kernels
 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
 ``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its library
@@ -416,7 +435,11 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 # decoder past the gate); the VTN's conf is dense; the
                 # analysis-synthesis runs no attention
                 "voc_decode": ("fused_rel_scores", "rel_flash_attention"),
-                "voc_vtn": (), "voc_anasyn": ()}
+                "voc_vtn": (), "voc_anasyn": (),
+                # phase 26, feature extraction: AAS-VC on PPG sources, every
+                # length under the flash gate (the 30 s clip is 750 PPG frames)
+                "feat_train": ("fused_rel_scores", "rel_band_bwd"),
+                "feat_decode": ("fused_rel_scores",)}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -888,10 +911,9 @@ def _short(lens):
 
 
 # ------------------------------------------------------------- main path
-def clip(seconds: float, seed: int) -> np.ndarray:
-    """A voiced-speech-like test signal: a gliding harmonic series under a
-    syllable-rate envelope, plus a little noise."""
-    sr = FEATS["sampling_rate"]
+def clip(seconds: float, seed: int, sr: int = FEATS["sampling_rate"]) -> np.ndarray:
+    """A voiced-speech-like test signal at ``sr``: a gliding harmonic series
+    under a syllable-rate envelope, plus a little noise."""
     t = np.arange(int(sr * seconds)) / sr
     rng = np.random.default_rng(seed)
     f0 = 110 + 25 * rng.random() + 30 * np.sin(2 * np.pi * 0.5 * t)
@@ -3545,6 +3567,396 @@ def vocoder_path(rows):
     return failures, launches
 
 
+# phase 26: the recipe's front end, aas_vc.ppgmelppg.v1.yaml's stages 1-2
+# (preprocess, compute_statistics, normalize) on a corpus of 22.05 kHz wavs,
+# then its stage 3-4 (vc_train, vc_decode) on what they wrote
+FEAT_CONF = REPO / "egs/arctic/vc2/conf/aas_vc.ppgmelppg.v1.yaml"
+FEAT_SR = 22050  # the corpus's rate: preprocess resamples it to the conf's 16 kHz
+FEAT_SECONDS = (2.0, 5.0)  # 16 train and 4 dev clips a speaker spread over this range
+FEAT_EDGE = 0.4  # seconds of near-silence at each end of the trimmed (dev) clips
+# a recording cut by a kaldi segments file (seg2 is 3.8 s), and the 30 s clip
+# as one segment of its own recording
+FEAT_SEGMENTS = (("seg1", "rec", 0.3, 3.1), ("seg2", "rec", 3.6, 7.4),
+                 ("long30", "long", 0.0, 30.0))
+# the ppg_sxliu upstream: adim 144 and 4 heads, which the PPG confs' idim 144
+# fixes; 576 linear units, 12 blocks and a conv kernel of 15 as the public
+# ppg-vc conformer config is recalled (unverified: that file is not here)
+PPG_UPSTREAM = dict(input_dim=80, adim=144, aheads=4, eunits=576, elayers=12,
+                    cnn_module_kernel=15)
+FEAT_TYPES = ("mel", "ppg_sxliu", "encodec")
+FEAT_TIMED = (3.8, 30.0)  # the utterances each extractor is timed on (seg2, long30)
+# float32 on the card against the CPU: the log-mel absolutely (log10 of sums
+# in another order), the rest over their largest magnitude (float32 through
+# 12 conformer blocks, the SEANet stacks and their LSTMs)
+FEAT_MEL_ATOL = 1e-4
+FEAT_RTOL_OF_PEAK = 1e-4
+FEAT_STATS_RTOL = 1e-6  # of the largest: float64 sums in another order, rounded to float32
+FEAT_NORM_ATOL = 1e-5  # float32 subtract and divide against numpy's
+
+
+def feat_checkpoints(root: Path, seed: int):
+    """The seeded ``ppg_sxliu`` upstream (espnet names; batch-norm running
+    statistics away from 0 and 1), an s3prl-vc-style downstream holding
+    only its featurizer weights, and an EnCodec state dict in HF names at
+    the module's widths, every conv weight-normed. Returns the paths."""
+    from seq2seq_vc_torch.encoders import encodec, ppg
+
+    torch.manual_seed(seed)
+    up = ppg.PPGUpstream(**PPG_UPSTREAM, device="cpu")
+    perturb_(up, seed)
+    g = torch.Generator().manual_seed(seed)
+    for name, buf in up.named_buffers():
+        if name.endswith("running_mean"):
+            buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
+        elif name.endswith("running_var"):
+            buf.copy_(1 + 0.2 * torch.rand(buf.shape, generator=g))
+    torch.save(up.state_dict(), root / "ppg_upstream.pt")
+    weights = torch.randn(PPG_UPSTREAM["elayers"] + 1, generator=g)
+    torch.save({"featurizer": {"weights": weights}, "steps": 0}, root / "ppg_downstream.pkl")
+    state = {}
+    for part, module in (("encoder", encodec.EncodecEncoder()),
+                         ("decoder", encodec.EncodecDecoder())):
+        perturb_(module, seed + 1)
+        mods = dict(module.named_modules())
+        for key, w in module.state_dict().items():
+            mod, _, leaf = key.rpartition(".")
+            if leaf == "weight" and isinstance(mods[mod], (torch.nn.Conv1d,
+                                                           torch.nn.ConvTranspose1d)):
+                norm = w.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+                state[f"{part}.{mod}.parametrizations.weight.original0"] = norm
+                state[f"{part}.{mod}.parametrizations.weight.original1"] = w
+            else:
+                state[f"{part}.{key}"] = w
+    torch.save(state, root / "encodec.pt")
+    return (str(root / "ppg_upstream.pt"), str(root / "ppg_downstream.pkl"),
+            str(root / "encodec.pt"))
+
+
+def feat_corpus(root: Path):
+    """The wavs and scps at ``FEAT_SR``: per speaker 16 train and 4 dev
+    clips (the source's dev clips with near-silent edges, for the trimmed
+    run), and the source's two recordings with their ``segments``. Returns
+    {set: wav.scp path} and the original lengths by utterance."""
+    from seq2seq_vc_torch.utils.audio import write_wav
+
+    secs = np.linspace(*FEAT_SECONDS, BATCH + CLI_DEV)
+    scps, lengths = {}, {}
+    for spk, stretch, seed in (("src", 1.0, 300), ("trg", 1.1, 400)):
+        for subset in ("train", "dev"):
+            lines = []
+            for i, s in enumerate(secs):
+                if (i < BATCH) != (subset == "train"):
+                    continue
+                utt = f"{subset}{i:02d}"
+                y = clip(s * stretch, seed + i, FEAT_SR)
+                if spk == "src" and subset == "dev":
+                    n = int(FEAT_EDGE * FEAT_SR)
+                    y[:n] *= 1e-4
+                    y[-n:] = 0.0
+                write_wav(str(root / f"{spk}_{utt}.wav"), y, FEAT_SR)
+                lengths[spk, utt] = len(y)
+                lines.append(f"{utt} {root / f'{spk}_{utt}.wav'}")
+            scps[spk, subset] = root / f"{spk}_{subset}_wav.scp"
+            scps[spk, subset].write_text("\n".join(lines) + "\n")
+    for rec, seconds, seed in (("rec", 8.0, 310), ("long", FEAT_SEGMENTS[-1][3], 311)):
+        write_wav(str(root / f"{rec}.wav"), clip(seconds, seed, FEAT_SR), FEAT_SR)
+    scps["src", "extra"] = root / "src_extra_wav.scp"
+    scps["src", "extra"].write_text(f"rec {root / 'rec.wav'}\nlong {root / 'long.wav'}\n")
+    (root / "segments").write_text("".join(f"{u} {r} {a} {b}\n" for u, r, a, b in FEAT_SEGMENTS))
+    for utt, _, a, b in FEAT_SEGMENTS:
+        lengths["src", utt] = int(b * FEAT_SR) - int(a * FEAT_SR)
+    return scps, lengths
+
+
+def trimmed_length(y: np.ndarray, conf) -> int:
+    """Samples that the recipe's silence trim keeps of ``y``, worked out
+    apart from ``preprocess.trim_silence``: frames of ``trim_frame_size``
+    samples every ``trim_hop_size``, their mean power from cumulative sums
+    of squares; the first and the last frame within
+    ``trim_threshold_in_db`` of the loudest bound the span kept."""
+    frame, step = conf["trim_frame_size"], conf["trim_hop_size"]
+    if len(y) < frame:
+        return len(y)
+    c = np.concatenate([[0.0], np.cumsum(np.asarray(y, np.float64) ** 2)])
+    starts = np.arange(0, len(y) - frame + 1, step)
+    power = np.maximum((c[starts + frame] - c[starts]) / frame, 1e-20)
+    loud = np.flatnonzero(power > power.max() * 10.0 ** (-conf["trim_threshold_in_db"] / 10))
+    return min(len(y), starts[loud[-1]] + frame) - starts[loud[0]]
+
+
+def feat_frames(n16: int, hop: int):
+    """Frame counts as the JAX package computes them from the 16 kHz wave
+    (n16 samples as read, before padding): the log-mel's 1 + n // hop, the
+    wave padded to that many hops, the PPG's fbank (1 + n // 160) after the
+    conv2d input layer's x4, EnCodec's ceil(n24 / 320) of the padded wave at
+    24 kHz."""
+    from seq2seq_vc_torch.utils.audio import resample
+
+    mel = 1 + n16 // hop
+    wave = mel * hop
+    ppg = (((1 + wave // 160) - 1) // 2 - 1) // 2
+    n24 = len(resample(np.zeros(wave, np.float32), 16000, 24000))
+    return {"mel": mel, "wave": wave, "ppg_sxliu": ppg, "encodec": -(-n24 // 320)}
+
+
+def feature_path(rows):
+    """Phase 26: the recipe's front end on the card, through the entry
+    points. (a) a corpus at 22.05 kHz (``feat_corpus``) and seeded
+    checkpoints (``feat_checkpoints``); (b) ``preprocess`` with an overlay
+    of ``FEAT_CONF`` (``format: npy``; ``mel``, ``ppg_sxliu`` and
+    ``encodec``), the source's dev set under ``trim_silence``, its
+    recordings through ``segments``; (c) ``compute_statistics`` and
+    ``normalize`` for ``mel`` and ``ppg_sxliu`` (and ``encodec``'s
+    statistics); (d) ``vc_train`` of ``FEAT_CONF`` at full width on those
+    features (3 steps, B 16: kernels 1 and 3, each checked at the step's
+    shapes); (e) ``vc_decode`` of the dev set, the segments and the 30 s
+    clip (kernel 1, checked at the decode's shapes), and ``get_vocoder``'s
+    ``encodec`` block over the latents of the 3.8 and 30 s utterances.
+    Checks: frame counts, finite arrays, the statistics against float64
+    numpy, ``normalize`` against the formula, float32 card against CPU for
+    each extractor and the decoder; ms and RTF of each at 3.8 and 30 s,
+    peak memory. Returns (failures, launches by path)."""
+    import yaml
+
+    from seq2seq_vc_torch.bin import compute_statistics, normalize, preprocess, vc_decode, vc_train
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.dsp.features import LogMelExtractor
+    from seq2seq_vc_torch.encoders import encodec, ppg
+    from seq2seq_vc_torch.train.data import DataLoader, ParallelVCMelDataset
+    from seq2seq_vc_torch.utils.audio import read_wav, resample
+    from seq2seq_vc_torch.utils.io import read_stats
+    from seq2seq_vc_torch.vocoder.vocoder import get_vocoder
+
+    failures, launches = [], {}
+    card = card_line()
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_feat_") as tmp:
+        root = Path(tmp)
+        up_ckpt, ds_ckpt, enc_ckpt = feat_checkpoints(root, seed=90)
+        scps, lengths = feat_corpus(root)
+        conf = load_config(str(FEAT_CONF))
+        hop = conf["hop_size"]
+        feat_list = {"mel": {}, "encodec": {"checkpoint": enc_ckpt},
+                     "ppg_sxliu": {"checkpoint": ds_ckpt, "upstream_checkpoint": up_ckpt,
+                                   "input_dim": PPG_UPSTREAM["input_dim"]}}
+        for trim in (False, True):
+            (root / f"pre_{trim}.yaml").write_text(yaml.safe_dump(
+                dict(conf, format="npy", feat_list=feat_list, trim_silence=trim)))
+
+        # (b) preprocess: five runs
+        dump = {}
+        t0 = time.perf_counter()
+        for (spk, subset), scp in scps.items():
+            dump[spk, subset] = root / "dump" / spk / subset / "raw"
+            argv = ["--wav-scp", str(scp), "--dumpdir", str(dump[spk, subset]), "--config",
+                    str(root / f"pre_{spk == 'src' and subset == 'dev'}.yaml")]
+            if subset == "extra":
+                argv += ["--segments", str(root / "segments")]
+            r = preprocess.main(argv)
+            log(f"feat preprocess {spk} {subset}: {r['utterances']} utterances, "
+                f"{r['audio_seconds']:.1f} s of audio; seconds by type "
+                f"{ {k: round(v, 3) for k, v in r['seconds'].items()} }; card {card}")
+        log(f"feat preprocess: {time.perf_counter() - t0:.1f} s for the five runs")
+        bad = []
+        for (spk, subset), d in dump.items():
+            for line in (d / "wave.scp").read_text().splitlines():
+                utt = line.split()[0]
+                arrays = {k: np.load(d / k / f"{utt}.npy") for k in ("wave", *FEAT_TYPES)}
+                n16 = len(resample(np.zeros(lengths[spk, utt], np.float32), FEAT_SR, 16000))
+                want = feat_frames(n16, hop)
+                got = {"wave": len(arrays["wave"]), **{k: arrays[k].shape[0] for k in FEAT_TYPES}}
+                widths = {k: arrays[k].shape[1] for k in FEAT_TYPES}
+                trimmed = spk == "src" and subset == "dev"
+                if trimmed:  # shorter than the clip: frames from the trim rule's own length
+                    y, sr = read_wav(str(root / f"{spk}_{utt}.wav"))
+                    want = feat_frames(trimmed_length(resample(y, sr, 16000), conf), hop)
+                    if got["wave"] >= n16 - FEAT_EDGE * 16000:
+                        bad.append(f"{spk} {utt}: not trimmed ({got['wave']} of {n16})")
+                if got != want or widths != {"mel": conf["num_mels"], "encodec": encodec.EMBED_DIM,
+                                             "ppg_sxliu": PPG_UPSTREAM["adim"]} \
+                        or not all(np.isfinite(a).all() for a in arrays.values()):
+                    bad.append(f"{spk} {subset} {utt}: frames {got}, expected {want}, widths "
+                               f"{widths}")
+        seg = {utt: np.load(dump["src", "extra"] / "ppg_sxliu" / f"{utt}.npy").shape[0]
+               for utt in ("seg2", "long30")}
+        log(f"feat frames: every utterance's wave, log-mel, PPG and EnCodec counts as JAX "
+            f"computes them, all finite: {'ok' if not bad else bad}; PPG frames a second "
+            f"{seg['long30'] / 30.0:.3f} (long30: {seg['long30']} for 30 s; the fbank's 10 ms "
+            f"hop, then conv2d x4); mel frames a second {16000 / hop}")
+        failures += [f"feat frames {b}" for b in bad]
+
+        # (c) statistics and normalisation
+        stats_path, norm = {}, {}
+        for spk in ("src", "trg"):
+            for feat in FEAT_TYPES:
+                if feat == "encodec" and spk == "trg":
+                    continue
+                r = compute_statistics.main(["--rootdir", str(dump[spk, "train"]), "--config",
+                                             str(root / "pre_False.yaml"), "--dumpdir",
+                                             str(root / "stats" / spk / feat), "--feat_type",
+                                             feat])
+                stats_path[spk, feat] = r["path"]
+                own = np.concatenate([np.load(p).astype(np.float64) for p in sorted(
+                    (dump[spk, "train"] / feat).glob("*.npy"))])
+                errs = [float(np.abs(r[k] - ref).max() / np.abs(ref).max())
+                        for k, ref in (("mean", own.mean(0)), ("scale", own.std(0)))]
+                ok = max(errs) <= FEAT_STATS_RTOL and r["path"].endswith("stats.npz")
+                log(f"feat stats {spk} {feat}: {r['utterances']} utterances, mean and scale "
+                    f"against float64 numpy: max abs err over the largest {max(errs):.2e} (tol "
+                    f"{FEAT_STATS_RTOL}): {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"feat stats {spk} {feat}: {errs}, {r['path']}")
+                if feat == "encodec":
+                    continue
+                for subset in ("train", "dev", "extra"):
+                    if (spk, subset) not in dump:
+                        continue
+                    norm[spk, subset] = root / "dump" / spk / subset / "norm"
+                    normalize.main(["--rootdir", str(dump[spk, subset]), "--dumpdir",
+                                    str(norm[spk, subset]), "--stats", r["path"],
+                                    "--feat_type", feat, "--config",
+                                    str(root / "pre_False.yaml")])
+        s = read_stats(stats_path["src", "ppg_sxliu"], "ppg_sxliu")
+        x = np.load(dump["src", "train"] / "ppg_sxliu" / "train00.npy")
+        y = np.load(norm["src", "train"] / "ppg_sxliu" / "train00.npy")
+        err = float(np.abs(y - (x - s["mean"]) / s["scale"]).max())
+        w_same = np.array_equal(np.load(norm["src", "train"] / "wave" / "train00.npy"),
+                                np.load(dump["src", "train"] / "wave" / "train00.npy"))
+        ok = err <= FEAT_NORM_ATOL and w_same
+        log(f"feat normalize: src train00 PPG against (x - mean) / scale in numpy: max abs "
+            f"err {err:.2e} (tol {FEAT_NORM_ATOL}), wave copied {w_same}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"feat normalize: err {err}, wave copied {w_same}")
+
+        # (d) vc_train of the PPG conf on those features
+        scp = {(spk, subset, feat): str(d / f"{feat}.scp") for (spk, subset), d in norm.items()
+               for feat in ("mel", "ppg_sxliu")}
+        exp = root / "exp"
+        (root / "steps.yaml").write_text(yaml.safe_dump(dict(train_max_steps=3,
+                                                             log_interval_steps=1)))
+        log(f"feat: vc_train on {FEAT_CONF.relative_to(REPO)} (full width), {BATCH} train "
+            f"utterances, PPG sources and duration-predictor inputs, mel targets; 3 steps")
+        reset_launch_counts()
+        trainer = vc_train.main(
+            ["--src-train-dumpdir", scp["src", "train", "ppg_sxliu"], "--src-dev-dumpdir",
+             scp["src", "dev", "ppg_sxliu"], "--trg-train-dumpdir", scp["trg", "train", "mel"],
+             "--trg-dev-dumpdir", scp["trg", "dev", "mel"], "--train-dp-input-dir",
+             scp["src", "train", "ppg_sxliu"], "--dev-dp-input-dir",
+             scp["src", "dev", "ppg_sxliu"], "--trg-stats", stats_path["trg", "mel"],
+             "--src-feat-type", "ppg_sxliu", "--config", str(FEAT_CONF), "--additional-config",
+             str(root / "steps.yaml"), "--outdir", str(exp)])
+        launches["feat_train"] = cli_launches("feat_train", failures)
+        history = [h for h in trainer.history if "train/loss" in h]
+        cfg = load_config(str(exp / "config.yml"))
+        train_set = ParallelVCMelDataset(scp["src", "train", "ppg_sxliu"],
+                                         scp["trg", "train", "mel"],
+                                         dp_feats=scp["src", "train", "ppg_sxliu"])
+        batch = next(iter(DataLoader(train_set, vc_train.build_collater(cfg), BATCH,
+                                     prefetch=0)))
+        calls = train_calls(trainer.model, batch)
+        want = {n: 3 * sum(c[0] == n for c in calls) for n in KERNELS}
+        step_ms = [round(h["train/step_time_sec"] * 1e3, 1) for h in history]
+        log(f"feat vc_train: ms a step {step_ms} (the first holds the warm-up), losses "
+            f"{[round(h['train/loss'], 4) for h in history]}; launches as the routing "
+            f"predicts ({ {n: c for n, c in want.items() if c} }): "
+            f"{launches['feat_train'] == want}; card {card}")
+        if ([h["steps"] for h in history] != [1, 2, 3]
+                or not all(math.isfinite(h["train/loss"]) for h in history)
+                or launches["feat_train"] != want):
+            failures.append(f"feat vc_train: steps {[h['steps'] for h in history]}, launches "
+                            f"{launches['feat_train']}, expected {want}")
+        for name, B, H, T, D, lens in sorted(set(calls)):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="feat",
+                                     lens=list(lens)))
+        del trainer
+
+        # (e) vc_decode of the dev set, the segments and the 30 s clip
+        dec_scp = root / "decode.scp"
+        dec_scp.write_text("".join(Path(scp["src", sub, "ppg_sxliu"]).read_text()
+                                   for sub in ("dev", "extra")))
+        ckpt = str(exp / "checkpoint-3steps.pt")
+        reset_launch_counts()
+        r = vc_decode.main(["--dumpdir", str(dec_scp), "--dp-input-dir", str(dec_scp),
+                            "--checkpoint", ckpt, "--outdir", str(root / "dec"),
+                            "--trg-stats", stats_path["trg", "mel"], "--batch-size", "4"])
+        launches["feat_decode"] = cli_launches("feat_decode", failures)
+        model = vc_decode.load_model(cfg, ckpt, "cuda")
+        calls = decode_calls(model, str(dec_scp), 4, root / "dec")
+        want = {n: sum(c[0] == n for c in calls) for n in KERNELS}
+        n_utts = len(dec_scp.read_text().splitlines())
+        wavs = list((root / "dec" / "wav").glob("*.wav"))
+        log(f"feat vc_decode (Griffin-Lim): {n_utts} utterances, {r['frames']} mel frames in "
+            f"{r['seconds'] * 1e3:.1f} ms ({r['frames_per_sec']:.1f} mel-frames/s); launches "
+            f"as the routing predicts ({ {n: c for n, c in want.items() if c} }): "
+            f"{launches['feat_decode'] == want}; card {card}")
+        if len(wavs) != n_utts or launches["feat_decode"] != want:
+            failures.append(f"feat vc_decode: {len(wavs)} wavs, launches "
+                            f"{launches['feat_decode']}, expected {want}")
+        for name, B, H, T, D, lens in sorted(set(calls)):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D, label="feat",
+                                     lens=list(lens)))
+        del model
+
+        # each extractor and the EnCodec decoder alone: card timings at 3.8 and
+        # 30 s, float32 card against CPU at 3.8 s
+        extra = dump["src", "extra"]
+        waves = {s: np.load(extra / "wave" / f"{u}.npy") for s, u in zip(FEAT_TIMED,
+                                                                          ("seg2", "long30"))}
+        enc_stats = read_stats(stats_path["src", "encodec"], "encodec")
+        latents = {s: (np.load(extra / "encodec" / f"{u}.npy") - enc_stats["mean"])
+                   / enc_stats["scale"] for s, u in zip(FEAT_TIMED, ("seg2", "long30"))}
+        mel_kw = dict(sampling_rate=16000, fft_size=conf["fft_size"], hop_size=hop,
+                      num_mels=conf["num_mels"], fmin=conf["fmin"], fmax=conf["fmax"])
+        enc = {d: encodec.load_encodec(enc_ckpt, d) for d in ("cuda", "cpu")}
+        dec = {d: encodec.load_encodec_decoder(enc_ckpt, d) for d in ("cuda", "cpu")}
+        fns = {d: {"mel": LogMelExtractor(**mel_kw, device=d),
+                   "ppg": ppg.build_extractor(up_ckpt, ds_ckpt, input_dim=80, device=d),
+                   "encodec": lambda w, d=d: encodec.encode(
+                       enc[d], resample(w, 16000, 24000)).cpu().numpy()}
+               for d in ("cuda", "cpu")}
+        voc = get_vocoder({"vocoder": {"vocoder_type": "encodec", "checkpoint": enc_ckpt}},
+                          enc_stats, device="cuda")
+        timed = {}
+        for s in FEAT_TIMED:
+            for name, fn in (*fns["cuda"].items(), ("encodec decode", None)):
+                call = (lambda: voc.decode(latents[s])) if fn is None else \
+                    (lambda fn=fn: fn(waves[s]))
+                call()  # the first call at the length
+                out, ms, rtf, peak = voc_timed(call, s)
+                timed[name, s] = (ms, rtf)
+                if not np.isfinite(out).all() or (fn is None and len(out) != len(latents[s]) * 320):
+                    failures.append(f"feat {name} {s} s: shape {out.shape}, finite "
+                                    f"{np.isfinite(out).all()}")
+        log("feat extractors on the card (a second call at the length): " + "; ".join(
+            f"{name} {s} s {ms:.1f} ms (RTF {rtf:.5f})" for (name, s), (ms, rtf) in timed.items())
+            + f"; card {card}")
+        errs = {}
+        w = waves[FEAT_TIMED[0]]
+        for name in ("mel", "ppg", "encodec"):
+            got, ref = fns["cuda"][name](w), fns["cpu"][name](w)
+            scale = 1.0 if name == "mel" else float(np.abs(ref).max())
+            errs[name] = float(np.abs(got - ref).max()) / scale if got.shape == ref.shape \
+                else float("inf")
+        with torch.no_grad():
+            lat = torch.as_tensor(np.asarray(latents[FEAT_TIMED[0]], np.float32))[None]
+            got, ref = dec["cuda"](lat.cuda())[0].cpu(), dec["cpu"](lat)[0]
+        errs["encodec decode"] = voc_err(got, ref)
+        tols = {"mel": FEAT_MEL_ATOL, "ppg": FEAT_RTOL_OF_PEAK, "encodec": FEAT_RTOL_OF_PEAK,
+                "encodec decode": FEAT_RTOL_OF_PEAK}
+        ok = all(errs[k] <= tols[k] for k in errs)
+        log(f"feat float32 card vs CPU at {FEAT_TIMED[0]} s: log-mel max abs err "
+            f"{errs['mel']:.2e} (atol {FEAT_MEL_ATOL}); PPG {errs['ppg']:.2e}, EnCodec "
+            f"embeddings {errs['encodec']:.2e}, EnCodec waveform {errs['encodec decode']:.2e} "
+            f"of the peak (tol {FEAT_RTOL_OF_PEAK}): {'ok' if ok else 'FAIL'}; peak device "
+            f"memory over the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not ok:
+            failures.append(f"feat card vs cpu: {errs}")
+    return failures, launches
+
+
 def optional_packages() -> str:
     """Which of the packages the JAX package's CLIs lean on import here
     (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
@@ -3756,6 +4168,12 @@ def main() -> int:
     failures += fails
     launches.update(voc)
     log(f"phase voc: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fails, feat = feature_path(rows)
+    failures += fails
+    launches.update(feat)
+    log(f"phase feat: {time.perf_counter() - t_phase:.1f} s")
     failures += [f"check {r['name']} {r['shape']} {r['dtype']}: err {r['max_abs_err']}"
                  for r in rows if not r["ok"]]
 

@@ -4,13 +4,18 @@
 # pretraining on the same corpus: the AEPT stage of egs/ljspeech/tts1/run.sh
 # (vc_train with the TTS conf, tts_aept.v1.yaml and the TTS checkpoint) and
 # the fine-tune of egs/arctic/vc1/conf/vtn.tts_pt.v1.yaml from the AEPT
-# checkpoint. Run the JAX recipe's stages 0-2 first; they leave the corpus,
-# the normalised features and the stats under the same work directory:
+# checkpoint. Run the JAX recipe's stage 0 first; it writes the corpus and
+# its transcripts under the same work directory:
 #
-#   egs/synth/tts1/run.sh --stop_stage 2 --workdir DIR
-#   scripts/run_synth_tts_torch.sh --workdir DIR [--device cpu] [--stage N --stop_stage M]
+#   egs/synth/tts1/run.sh --stop_stage 0 --workdir DIR
+#   scripts/run_synth_tts_torch.sh --workdir DIR [--device cpu] [--format npy|hdf5] \
+#       [--stage N --stop_stage M]
 #
-# Stages: 1 tokenize (DIR/tokens_torch.txt), 3 tts_train (DIR/exp_torch), 4
+# Stages: 1 tokenize (DIR/tokens_torch.txt), 2 preprocess, statistics and
+# normalisation of the corpus's source speaker (DIR/dump, DIR/stats; the
+# conf's `format` overlaid by --format, written to DIR/conf_torch: npy, the
+# default, which the card's machine reads without h5py, or hdf5 as the JAX
+# recipe writes it), 3 tts_train (DIR/exp_torch), 4
 # tts_decode of three sentences (DIR/results_torch: .npy, feats.scp, wavs),
 # 5 AEPT (DIR/exp_aept_torch), 6 fine-tune (DIR/exp_tune_torch). The AEPT
 # and fine-tune overlays are the shipped ones with the synth conf's model
@@ -23,6 +28,7 @@ stop_stage=6
 conf=conf/tts.synth.yaml
 workdir=${WORKDIR:-exp_synth_tts}
 device=cuda
+format=npy
 token_type=phn
 g2p=g2p_en
 repo_root=$(cd "$(dirname "$0")/.." && pwd)
@@ -34,13 +40,25 @@ while [ $# -gt 0 ]; do
     --conf) conf=$2; shift 2;;
     --workdir) workdir=$2; shift 2;;
     --device) device=$2; shift 2;;
+    --format) format=$2; shift 2;;
     *) echo "unknown option $1"; exit 1;;
   esac
 done
 
 cd "$repo_root/egs/synth/tts1"
 export PYTHONPATH="$repo_root:${PYTHONPATH:-}"
-feats="$workdir/dump/norm"
+mkdir -p "$workdir/conf_torch"
+feat_conf="$workdir/conf_torch/$(basename "$conf")"
+python - "$conf" "$format" "$feat_conf" <<'PYEOF'
+import sys, yaml
+conf, fmt, out = sys.argv[1:]
+yaml.safe_dump(dict(yaml.safe_load(open(conf)), format=fmt), open(out, "w"))
+PYEOF
+if [ "$format" = npy ]; then
+  feats="$workdir/dump/norm/mel.scp"; stats="$workdir/stats/stats.npz"
+else
+  feats="$workdir/dump/norm"; stats="$workdir/stats/stats.h5"
+fi
 text=("--token-type" "$token_type" "--g2p" "$g2p" "--cleaner" "tacotron")
 
 if [ "$stage" -le 1 ] && [ "$stop_stage" -ge 1 ]; then
@@ -48,6 +66,19 @@ if [ "$stage" -le 1 ] && [ "$stop_stage" -ge 1 ]; then
   python -m seq2seq_vc_torch.bin.tokenize_text \
     --input "$workdir/corpus/text" --output "$workdir/tokens_torch.txt" \
     --token_type "$token_type" --g2p "$g2p" --cleaner tacotron --field 2-
+fi
+
+if [ "$stage" -le 2 ] && [ "$stop_stage" -ge 2 ]; then
+  echo "=== stage 2: features + stats + normalize, the src speaker as the TTS voice (PyTorch port)"
+  python -m seq2seq_vc_torch.bin.preprocess \
+    --wav-scp "$workdir/corpus/src_wav.scp" \
+    --dumpdir "$workdir/dump/raw" --config "$feat_conf" --device "$device"
+  python -m seq2seq_vc_torch.bin.compute_statistics \
+    --rootdir "$workdir/dump/raw" --config "$feat_conf" --dumpdir "$workdir/stats" \
+    --device "$device"
+  python -m seq2seq_vc_torch.bin.normalize \
+    --rootdir "$workdir/dump/raw" --dumpdir "$workdir/dump/norm" --config "$feat_conf" \
+    --stats "$stats" --device "$device"
 fi
 
 if [ "$stage" -le 3 ] && [ "$stop_stage" -ge 3 ]; then
@@ -66,7 +97,7 @@ if [ "$stage" -le 4 ] && [ "$stop_stage" -ge 4 ]; then
   python -m seq2seq_vc_torch.bin.tts_decode \
     --text "$workdir/decode_text" --checkpoint "$ckpt" \
     --token-list "$workdir/tokens_torch.txt" "${text[@]}" \
-    --stats "$workdir/stats/stats.h5" \
+    --stats "$stats" \
     --outdir "$workdir/results_torch" --device "$device"
   ls "$workdir/results_torch/wav"
 fi

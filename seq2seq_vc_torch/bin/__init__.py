@@ -1,8 +1,9 @@
 """Command-line entry points of the PyTorch port (mirror seq2seq_vc_tpu/bin):
-``vc_train``, ``vc_decode``, ``vc_serve``, ``tokenize_text``, ``tts_train``,
-``tts_decode`` and ``vocoder_anasyn_debug``. Each has ``main(argv=None)``, so a script can drive it
-in-process, and each that runs a model a ``--device`` flag (default: the
-card; without one it raises)."""
+``preprocess``, ``compute_statistics``, ``normalize``, ``vc_train``,
+``vc_decode``, ``vc_serve``, ``tokenize_text``, ``tts_train``,
+``tts_decode`` and ``vocoder_anasyn_debug``. Each has ``main(argv=None)``,
+so a script can drive it in-process, and each that computes on a device a
+``--device`` flag (default: the card; without one it raises)."""
 
 from __future__ import annotations
 

@@ -16,7 +16,6 @@ vocoder's seconds and its real-time factor.
 from __future__ import annotations
 
 import argparse
-import fnmatch
 import logging
 import os
 import time
@@ -27,17 +26,15 @@ from ..dsp.features import logmelfilterbank
 from ..dsp.stats import normalize
 from ..train.data import read_scp
 from ..utils.audio import read_wav, write_wav
-from ..utils.io import read_stats
+from ..utils.io import find_files, read_stats
 from ..vocoder.vocoder import get_vocoder
 from . import setup
 
 
 def find_wavs(rootdir: str):
     """(utt_id, path) of every ``*.wav`` under ``rootdir``, sorted by path."""
-    paths = sorted(os.path.join(root, name) for root, _, names in os.walk(rootdir,
-                                                                          followlinks=True)
-                   for name in fnmatch.filter(names, "*.wav"))
-    return [(os.path.splitext(os.path.basename(p))[0], p) for p in paths]
+    return [(os.path.splitext(os.path.basename(p))[0], p)
+            for p in sorted(find_files(rootdir, "*.wav"))]
 
 
 def main(argv=None):

@@ -1,5 +1,5 @@
 """Log-mel features (mirrors seq2seq_vc_tpu/dsp/features.py: ``_logmel``,
-:25, and ``logmelfilterbank``)."""
+:25, ``LogMelExtractor`` and ``logmelfilterbank``)."""
 
 from __future__ import annotations
 
@@ -32,23 +32,47 @@ def _logmel(x: torch.Tensor, window: torch.Tensor, mel_basis_t: torch.Tensor,
     raise ValueError(f"{log_base} is not supported.")
 
 
+class LogMelExtractor:
+    """wav -> log-mel for one run (seq2seq_vc_tpu/dsp/features.py:42-90):
+    the Hann window and the Slaney basis are made once and stay on
+    ``device`` (default: the card). Each call reflect-pads the utterance on
+    the host and takes exactly ``num_frames(len, hop)`` frames. The JAX
+    extractor pads the audio to length buckets so that ``jit`` compiles once
+    a bucket; torch runs each length as it comes without compiling, so this
+    one takes the exact length (the frames are the same: the bucket's zeros
+    lie past the last one)."""
+
+    def __init__(self, sampling_rate: int, fft_size: int = 1024, hop_size: int = 256,
+                 win_length: Optional[int] = None, window: str = "hann", num_mels: int = 80,
+                 fmin: Optional[float] = None, fmax: Optional[float] = None,
+                 log_base: Optional[float] = 10.0, device=None):
+        if window != "hann":
+            raise ValueError(f"unsupported window: {window}")
+        self.device = resolve_device(device)
+        self.fft_size, self.hop_size, self.log_base = fft_size, hop_size, log_base
+        w = hann_window(win_length or fft_size, fft_size)
+        mel_t = mel_filterbank(sampling_rate, fft_size, num_mels, fmin or 0,
+                               sampling_rate / 2 if fmax is None else fmax).T
+        self._window = torch.as_tensor(w, device=self.device)
+        self._mel_t = torch.as_tensor(mel_t, device=self.device)
+
+    def __call__(self, audio: np.ndarray) -> np.ndarray:
+        """(T,) audio -> (1 + T // hop_size, num_mels) float32 log-mel."""
+        pad = self.fft_size // 2
+        x = np.pad(np.asarray(audio, np.float32), (pad, pad), mode="reflect")
+        with torch.no_grad():
+            mel = _logmel(torch.as_tensor(x, device=self.device), self._window, self._mel_t,
+                          self.fft_size, self.hop_size, self.log_base)
+        return mel.cpu().numpy()
+
+
 def logmelfilterbank(audio: np.ndarray, sampling_rate: int, fft_size: int = 1024,
                      hop_size: int = 256, win_length: Optional[int] = None,
                      window: str = "hann", num_mels: int = 80, fmin: Optional[float] = None,
                      fmax: Optional[float] = None, log_base: Optional[float] = 10.0,
                      device=None) -> np.ndarray:
-    """One utterance (T,) -> (1 + T // hop_size, num_mels) float32 log-mel:
-    reflect-padded centred STFT, Slaney mel basis, ``max(1e-10, .)``, on
-    ``device`` (default: the card)."""
-    device = resolve_device(device)
-    if window != "hann":
-        raise ValueError(f"unsupported window: {window}")
-    pad = fft_size // 2
-    x = np.pad(np.asarray(audio, np.float32), (pad, pad), mode="reflect")
-    w = hann_window(win_length or fft_size, fft_size)
-    mel_t = mel_filterbank(sampling_rate, fft_size, num_mels, fmin or 0,
-                           sampling_rate / 2 if fmax is None else fmax).T
-    with torch.no_grad():
-        mel = _logmel(torch.as_tensor(x, device=device), torch.as_tensor(w, device=device),
-                      torch.as_tensor(mel_t, device=device), fft_size, hop_size, log_base)
-    return mel.cpu().numpy()
+    """One utterance (T,) -> (1 + T // hop_size, num_mels) float32 log-mel
+    through a ``LogMelExtractor`` made for it, on ``device`` (default: the
+    card)."""
+    return LogMelExtractor(sampling_rate, fft_size, hop_size, win_length, window, num_mels,
+                           fmin, fmax, log_base, device)(audio)

@@ -8,7 +8,9 @@ input layer, on the positional encoding, inside the feed-forwards, on the
 attention weights, and on each residual branch. The
 conv module's norm is ``MaskedGroupNorm`` (the JAX package's default):
 single-group statistics over valid frames only, so outputs do not depend on
-the pad length. Submodule names follow the reference torch code
+the pad length; or, with ``conv_norm_type="batch_norm"``, ``ConvBatchNorm``
+(flax ``nn.BatchNorm``'s semantics, the espnet conformer's module).
+Submodule names follow the reference torch code
 (``encoders.N.self_attn.linear_pos``, ``conv_module.norm`` ...), which
 ``seq2seq_vc_tpu/convert/reference.py`` consumes.
 """
@@ -57,18 +59,51 @@ class MaskedGroupNorm(torch.nn.Module):
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
+class ConvBatchNorm(torch.nn.BatchNorm1d):
+    """Batch norm over (B, T, C) with flax ``nn.BatchNorm``'s semantics
+    (seq2seq_vc_tpu/nn/conformer.py:92-97): in ``train()`` mode it
+    normalises with the batch's mean and biased variance over every frame,
+    padded ones included (flax's one-pass E[x^2] - E[x]^2 in float32,
+    floored at 0), and moves the running statistics by 0.01 of the batch's
+    (flax momentum 0.99) with that variance, where torch's ``BatchNorm1d``
+    would take the unbiased one; in ``eval()`` mode it
+    uses the running statistics. eps 1e-5. The output is float32, as flax
+    promotes it. Holds torch's names (``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``)."""
+
+    def __init__(self, channels: int, device=None, dtype=None):
+        super().__init__(channels, eps=1e-5, momentum=0.01, device=device, dtype=dtype)
+
+    def forward(self, x, mask=None):
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 1))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight.float() + self.bias.float()
+
+
 class ConvolutionModule(torch.nn.Module):
     """Pointwise(2C) -> GLU -> depthwise -> norm -> swish -> pointwise."""
 
     def __init__(self, channels: int, kernel_size: int, compute_dtype=None,
-                 device=None, dtype=None):
+                 conv_norm_type: str = "group_norm", device=None, dtype=None):
         super().__init__()
         if (kernel_size - 1) % 2:
             raise ValueError("conv module kernel size must be odd")
         kw = dict(compute_dtype=compute_dtype, device=device, dtype=dtype)
         self.pointwise_conv1 = Conv1d(channels, 2 * channels, 1, **kw)
         self.depthwise_conv = Conv1d(channels, channels, kernel_size, groups=channels, **kw)
-        self.norm = MaskedGroupNorm(channels, device=device, dtype=dtype)
+        norms = {"group_norm": MaskedGroupNorm, "batch_norm": ConvBatchNorm}
+        if conv_norm_type not in norms:
+            raise ValueError(f"conv_norm_type {conv_norm_type!r}")
+        self.norm = norms[conv_norm_type](channels, device=device, dtype=dtype)
         self.pointwise_conv2 = Conv1d(channels, channels, 1, **kw)
 
     def forward(self, x, mask=None):
@@ -91,7 +126,8 @@ class ConformerEncoderLayer(torch.nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  zero_triu: bool = False, attention_backend: str = "xla",
                  flash_min_len: int = FLASH_MIN_LEN, rel_scores_bwd: str = "auto",
-                 legacy: bool = False, compute_dtype=None, device=None, dtype=None):
+                 legacy: bool = False, compute_dtype=None, conv_norm_type: str = "group_norm",
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ln = dict(compute_dtype=compute_dtype, **kw)
@@ -114,7 +150,8 @@ class ConformerEncoderLayer(torch.nn.Module):
             self.feed_forward_macaron = _positionwise(*ff, **kw)
             self.norm_ff_macaron = LayerNorm(size, LN_EPS, **ln)
         if use_cnn_module:
-            self.conv_module = ConvolutionModule(size, cnn_module_kernel, compute_dtype, **kw)
+            self.conv_module = ConvolutionModule(size, cnn_module_kernel, compute_dtype,
+                                                 conv_norm_type, **kw)
             self.norm_conv = LayerNorm(size, LN_EPS, **ln)
             self.norm_final = LayerNorm(size, LN_EPS, **ln)
         self.norm_ff = LayerNorm(size, LN_EPS, **ln)
@@ -185,8 +222,6 @@ class ConformerEncoder(torch.nn.Module):
             raise NotImplementedError(
                 f"selfattention_layer_type {selfattention_layer_type!r} is not ported yet"
             )
-        if conv_norm_type != "group_norm":
-            raise NotImplementedError(f"conv_norm_type {conv_norm_type!r} is not ported")
         kw = dict(device=device, dtype=dtype)
         self.input_layer = input_layer
         self.compute_dtype = compute_dtype
@@ -211,7 +246,7 @@ class ConformerEncoder(torch.nn.Module):
                 positionwise_layer_type, macaron_style, use_cnn_module,
                 cnn_module_kernel, zero_triu, attention_backend, flash_min_len,
                 rel_scores_bwd, selfattention_layer_type == "legacy_rel_selfattn",
-                compute_dtype, **kw,
+                compute_dtype, conv_norm_type, **kw,
             )
             for _ in range(num_blocks)
         )

@@ -121,6 +121,14 @@ def make_loader(path: str, feat_key: str = "feats"):
     return HDF5ScpLoader(path, feat_key)
 
 
+def dump_loader(path: str, feat_key: str, fmt: str = "hdf5"):
+    """The loader of ``feat_key`` in a dump directory of ``fmt`` (the
+    ``npy`` format's ``<dir>/<feat_key>.scp``) or in an scp file."""
+    if fmt == "npy" and os.path.isdir(path):
+        return NpyScpLoader(os.path.join(path, f"{feat_key}.scp"))
+    return make_loader(path, feat_key)
+
+
 class ParallelVCMelDataset:
     """Paired (source, target) features matched by utterance id, with an
     optional duration-predictor input and optional teacher durations

@@ -1,18 +1,37 @@
-"""HDF5 and statistics I/O (mirrors seq2seq_vc_tpu/utils/io.py:38-59).
+"""HDF5, dump-directory and statistics I/O (mirrors
+seq2seq_vc_tpu/utils/io.py:24-59).
 
 ``h5py`` is imported only when an HDF5 file is read or written, and its
 absence raises then. Statistics (``<feat>_mean``, ``<feat>_scale``, or
-``mean``, ``scale`` for a vocoder) are read from an ``.h5`` file, as
-``compute_statistics`` writes them, or from an ``.npz`` with the same keys,
-which needs no ``h5py``.
+``mean``, ``scale`` for a vocoder) are read from an ``.h5`` file or from an
+``.npz`` with the same keys, which needs no ``h5py``.
+
+A dump directory holds per-utterance arrays in one of two formats, the
+``format`` key of a recipe's config: ``hdf5`` (``<dumpdir>/<utt>.h5``, one
+dataset an array name, what the JAX package's CLIs write) or ``npy``
+(``<dumpdir>/<name>/<utt>.npy`` and an scp of them, ``<dumpdir>/<name>.scp``,
+what ``train/data.NpyScpLoader`` reads).
 """
 
 from __future__ import annotations
 
+import fnmatch
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
+
+
+FORMATS = ("hdf5", "npy")
+
+
+def find_files(root_dir: str, query: str = "*.wav") -> List[str]:
+    """Files under ``root_dir`` (recursively) whose names match ``query``."""
+    found = []
+    for root, _, filenames in os.walk(root_dir, followlinks=True):
+        for filename in fnmatch.filter(filenames, query):
+            found.append(os.path.join(root, filename))
+    return found
 
 
 def import_h5py():
@@ -72,3 +91,38 @@ def write_stats(path: str, mean, scale, feat: Optional[str] = None) -> None:
         return
     for dset, data in arrays.items():
         write_hdf5(path, dset, data)
+
+
+class DumpWriter:
+    """Writes per-utterance arrays into a dump directory in ``fmt``
+    (``FORMATS``); the ``npy`` scps are written on ``close``. A context
+    manager."""
+
+    def __init__(self, dumpdir: str, fmt: str = "hdf5"):
+        if fmt not in FORMATS:
+            raise ValueError(f"format {fmt!r} is not one of {FORMATS}")
+        self.dumpdir, self.fmt = dumpdir, fmt
+        self.scps: Dict[str, Dict[str, str]] = {}
+        os.makedirs(dumpdir, exist_ok=True)
+
+    def write(self, utt: str, name: str, data) -> None:
+        if self.fmt == "hdf5":
+            write_hdf5(os.path.join(self.dumpdir, f"{utt}.h5"), name, data)
+            return
+        path = os.path.abspath(os.path.join(self.dumpdir, name, f"{utt}.npy"))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, np.asarray(data))
+        self.scps.setdefault(name, {})[utt] = path
+
+    def close(self) -> None:
+        """Each array name's kaldi-style scp, ``<utt_id> <absolute path>`` a
+        line, so that it reads from any working directory."""
+        for name, entries in self.scps.items():
+            with open(os.path.join(self.dumpdir, f"{name}.scp"), "w") as f:
+                f.writelines(f"{utt} {path}\n" for utt, path in entries.items())
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

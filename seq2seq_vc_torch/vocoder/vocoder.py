@@ -11,8 +11,9 @@ and MelGAN (``melgan.py``) in ``parallel_wavegan``'s checkpoint layout,
 else HiFi-GAN in the port's format (``hifigan.py``); ``vocoder_type:
 s3prl_vc`` is the two-stage Taco2-AR vocoder (``s3prl_feat2wav.py``),
 whose downstream config's own ``vocoder:`` block builds the inner
-vocoder. Without the block, Griffin-Lim. ``vocoder_type: encodec`` is
-refused.
+vocoder; ``vocoder_type: encodec`` is EnCodec's SEANet decoder over
+continuous latents (``encodec_dec.py``, 24 kHz). Without the block,
+Griffin-Lim.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from ..core.config import load_config
 from ..device import resolve_device
 from ..dsp.stats import denormalize, normalize
 from ..utils.io import read_stats
+from ..encoders.encodec import SAMPLE_RATE as ENCODEC_FS
+from .encodec_dec import encodec_backend
 from .griffin_lim import Spectrogram2Waveform
 from .hifigan import chunked_generate, load_hifigan_model
 from .melgan import load_melgan_model
@@ -104,9 +107,10 @@ def get_vocoder(config: Dict[str, Any], trg_stats=None, device=None) -> Vocoder:
     voc_cfg = config.get("vocoder") or {}
     voc_type = voc_cfg.get("vocoder_type", "")
     if voc_type == "encodec":
-        raise NotImplementedError(
-            "vocoder_type 'encodec' is not ported yet: ROADMAP.md queue 1 item 6 (feature "
-            "extraction: the EnCodec encoder and its SEANet decoder)")
+        if not voc_cfg.get("checkpoint"):
+            raise ValueError("vocoder_type 'encodec' needs `checkpoint:` (a torch EnCodec "
+                             "state_dict, HF transformers or facebookresearch naming)")
+        return Vocoder(encodec_backend(voc_cfg["checkpoint"], device), ENCODEC_FS, trg_stats)
     if voc_type == "s3prl_vc":
         ds_cfg = load_config(voc_cfg["config"])
         inner = get_vocoder(ds_cfg, None, device)

@@ -211,7 +211,7 @@ def test_registries_name_the_roadmap_item_of_what_is_not_ported():
     assert get_trainer_class("ARTTSTrainer").__name__ == "ARTTSTrainer"
     with pytest.raises(ValueError):
         get_model_class("Nope")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="encodec' needs `checkpoint:`"):
         get_vocoder({"vocoder": {"vocoder_type": "encodec"}}, device="cpu")
 
 

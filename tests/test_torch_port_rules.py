@@ -4,7 +4,7 @@
   (checked in a fresh interpreter: this test process has both loaded).
 - Entry points run on the card unless the caller names another device;
   without a card, one built without ``device=`` (a CLI without
-  ``--device``) raises.
+  ``--device``, the feature CLIs and encoders included) raises.
 - A wrapper takes its kernel's plain version only for a CPU tensor, and
   only a kernel launch counts: CPU calls, forward and backward, leave every
   counter at 0.
@@ -26,9 +26,12 @@ from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixtur
     release_jax_executables,
     vtn_pair,
 )
-from seq2seq_vc_torch.bin import (tts_decode, tts_train, vc_decode, vc_serve, vc_train,
+from seq2seq_vc_torch.bin import (compute_statistics, normalize, preprocess, tts_decode,
+                                  tts_train, vc_decode, vc_serve, vc_train,
                                   vocoder_anasyn_debug)
-from seq2seq_vc_torch.dsp.features import logmelfilterbank
+from seq2seq_vc_torch.dsp.features import LogMelExtractor, logmelfilterbank
+from seq2seq_vc_torch.encoders.encodec import load_encodec, load_encodec_decoder
+from seq2seq_vc_torch.encoders.ppg import build_extractor, load_ppg_upstream
 from seq2seq_vc_torch.models.fastspeech_vc import FastSpeechVC
 from seq2seq_vc_torch.ops.flash_attention import (
     flash_attention,
@@ -144,7 +147,10 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.bin.tts_decode", "seq2seq_vc_torch.bin.vocoder_anasyn_debug",
             "seq2seq_vc_torch.vocoder.common", "seq2seq_vc_torch.vocoder.pwg",
             "seq2seq_vc_torch.vocoder.melgan", "seq2seq_vc_torch.vocoder.taco2ar",
-            "seq2seq_vc_torch.vocoder.s3prl_feat2wav"} <= set(got["modules"])
+            "seq2seq_vc_torch.vocoder.s3prl_feat2wav", "seq2seq_vc_torch.bin.preprocess",
+            "seq2seq_vc_torch.bin.compute_statistics", "seq2seq_vc_torch.bin.normalize",
+            "seq2seq_vc_torch.encoders.ppg", "seq2seq_vc_torch.encoders.encodec",
+            "seq2seq_vc_torch.vocoder.encodec_dec"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -192,12 +198,21 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                        (tts_decode.main, ["--text", "x", "--checkpoint", "x", "--token-list",
                                           "x", "--outdir", "x"]),
                        (vocoder_anasyn_debug.main, ["--rootdir", "x", "--config", "x",
-                                                    "--outdir", "x"])):
+                                                    "--outdir", "x"]),
+                       (preprocess.main, ["--wav-scp", "x", "--dumpdir", "x", "--config", "x"]),
+                       (compute_statistics.main, ["--rootdir", "x", "--config", "x",
+                                                  "--dumpdir", "x"]),
+                       (normalize.main, ["--rootdir", "x", "--dumpdir", "x", "--stats", "x"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
-    # the helpers under them: log-mels, the vocoders
+    # the helpers under them: log-mels, the feature encoders, the vocoders
     spc = np.ones((4, 513), np.float32)
     for helper in (lambda: logmelfilterbank(np.zeros(1024, np.float32), 16000),
+                   lambda: LogMelExtractor(16000), lambda: load_ppg_upstream("x"),
+                   lambda: build_extractor("x", "x"), lambda: load_encodec("x"),
+                   lambda: load_encodec_decoder("x"),
+                   lambda: get_vocoder({"vocoder": {"vocoder_type": "encodec",
+                                                    "checkpoint": "x"}}),
                    lambda: get_vocoder({}),
                    lambda: load_pwg_model("x"), lambda: load_melgan_model("x"),
                    lambda: build_downstream("x", {}, np.zeros(80), np.ones(80)),

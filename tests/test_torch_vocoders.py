@@ -18,8 +18,9 @@ the CPU.
   files, both in float32, agree to 1e-5 of the largest magnitude for
   MelGAN (no noise) and for ``s3prl_vc`` with a MelGAN inner vocoder at
   prenet rate 0; ParallelWaveGAN and StyleMelGAN give finite waveforms of
-  T * hop samples that repeat with the seed; ``encodec`` raises, naming
-  its ROADMAP.md item.
+  T * hop samples that repeat with the seed; an ``encodec`` block without
+  a checkpoint raises, naming the key (the route itself is held against
+  JAX in tests/test_torch_features.py).
 - CLIs: ``vocoder_anasyn_debug`` and ``vc_decode`` (a PWG ``vocoder:``
   block on the tiny VTN; the s3prl-vc vocoder on a tiny VTN whose target
   is a 12-wide PPG, ``--feat-type ppg_sxliu``) write wavs of the right
@@ -319,8 +320,8 @@ def test_get_vocoder_noise_generators_repeat_with_the_seed(tmp_path, kind):
 
 
 def test_get_vocoder_refuses_encodec_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 6 \\(feature extraction"):
-        get_vocoder({"vocoder": {"vocoder_type": "encodec", "checkpoint": "x"}}, device="cpu")
+    with pytest.raises(ValueError, match="encodec' needs `checkpoint:`"):
+        get_vocoder({"vocoder": {"vocoder_type": "encodec"}}, device="cpu")
 
 
 # ----------------------------------------------------------------------- CLIs
