@@ -9,10 +9,12 @@ rec_id start end`` lines cut utterances out of its recordings), takes the
 channel mean, resamples to ``sampling_rate``, trims silence
 (``trim_silence``), applies ``global_gain_scale`` (warning where that
 clips) and extracts the log-mel, which is always written, and each other
-type in ``feat_list``: ``ppg_sxliu`` (``encoders/ppg.py``, at 16 kHz) and
-``encodec`` (``encoders/encodec.py``, at 24 kHz). The wave is padded to
-``len(mel) * hop_size`` samples and written too, as ``wave``. The
-extraction runs on the card unless ``--device`` names another device.
+type in ``feat_list``: ``ppg_sxliu`` (``encoders/ppg.py``, at 16 kHz),
+``encodec`` (``encoders/encodec.py``, at 24 kHz) and ``hubert``
+(``urhythmic/hubert.py``, at 16 kHz: ``layer: N`` or ``feature:
+units``). The wave is padded to ``len(mel) * hop_size`` samples and
+written too, as ``wave``. The extraction runs on the card unless
+``--device`` names another device.
 
 Storage is the config's ``format``: ``hdf5`` (the default, what the JAX
 CLI writes: ``<dumpdir>/<utt>.h5`` with one dataset a type) or ``npy``
@@ -71,10 +73,36 @@ def read_segments(path: str) -> Dict[str, tuple]:
     return segments
 
 
+def hubert_extractor(model, sr: int, layer=None, units: bool = False) -> Callable:
+    """wav at ``sr`` -> HuBERT features at 50 Hz (the JAX CLI's, its
+    seq2seq_vc_tpu/bin/preprocess.py:120-157,255-267): layer ``layer``'s
+    hidden states (768 wide; the last layer's without one) or, with
+    ``units``, the soft units (256 wide). The 16 kHz wave is zero-padded to
+    a 5120-sample bucket and the model runs masked to its length, which
+    gives the exact-length features on the valid frames."""
+    import torch
+
+    from ..urhythmic.hubert import UNITS_PAD, conv_stack_frames
+
+    device = model.proj.weight.device
+
+    @torch.no_grad()
+    def extract(wav: np.ndarray) -> np.ndarray:
+        wav16 = resample(wav, sr, 16000)
+        n_frames = max(int(conv_stack_frames(len(wav16) + (2 * UNITS_PAD if units else 0))), 1)
+        padded = torch.from_numpy(np.pad(wav16, (0, -len(wav16) % 5120))[None]).to(device)
+        lens = torch.tensor([len(wav16)], device=device)
+        feat = (model.units(padded, lens) if units
+                else model.encode(padded, layer, lens))
+        return feat[0, :n_frames].float().cpu().numpy()
+
+    return extract
+
+
 def build_extractors(config: Dict[str, Any], device) -> Dict[str, Callable]:
     """{type: wav at ``sampling_rate`` -> (frames, dim) float32} for the
     log-mel and each other type of the config's ``feat_list``; the
-    refusals of the JAX CLI, and ``hubert``'s."""
+    refusals of the JAX CLI."""
     sr = config["sampling_rate"]
     feat_list = config.get("feat_list", {"mel": {}})
     extractors = {"mel": LogMelExtractor(
@@ -92,9 +120,16 @@ def build_extractors(config: Dict[str, Any], device) -> Dict[str, Callable]:
         extractors["encodec"] = lambda wav: encode(encoder, resample(wav, sr, SAMPLE_RATE)
                                                    ).cpu().numpy()
     if "hubert" in feat_list:
-        raise NotImplementedError(
-            "feature type 'hubert' is not ported yet: ROADMAP.md queue 1 item 7 (Urhythmic, "
-            "whose HuBERT-soft encoder it needs)")
+        hcfg = feat_list["hubert"] or {}
+        ckpt = hcfg.get("checkpoint") or config.get("hubert_checkpoint")
+        if not ckpt:
+            raise ValueError("feat_list.hubert needs `checkpoint:` (a torch HuBERT state_dict, "
+                             "HF transformers or bshall naming)")
+        from ..urhythmic.hubert import load_hubert_soft
+
+        extractors["hubert"] = hubert_extractor(
+            load_hubert_soft(ckpt, device), sr, hcfg.get("layer"),
+            hcfg.get("feature", "layer") == "units")
     if "ppg_sxliu" in feat_list:
         pcfg = feat_list["ppg_sxliu"] or {}
         if not pcfg.get("checkpoint") or not pcfg.get("upstream_checkpoint"):
@@ -111,7 +146,7 @@ def build_extractors(config: Dict[str, Any], device) -> Dict[str, Callable]:
     if unsupported:
         raise NotImplementedError(
             f"feature types {unsupported} need external encoders not present; supported "
-            f"here: {', '.join(repr(t) for t in FEAT_TYPES if t != 'hubert')}")
+            f"here: {', '.join(repr(t) for t in FEAT_TYPES)}")
     return extractors
 
 

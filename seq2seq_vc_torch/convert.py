@@ -16,7 +16,10 @@ Layout transforms (flax -> torch): Dense ``kernel (in, out)`` -> Linear
 ``(out, in, kh, kw)``; ConvTranspose ``(k, in, out)`` -> ``(in, out, k)``
 with the taps reversed; the Conv2dSubsampling output Dense reads its input
 freq-major in flax and channel-major in torch, so its rows are permuted.
-Weight norm (HiFi-GAN) is folded into the plain weight.
+Weight norm (HiFi-GAN) is folded into the plain weight where the port's
+layer holds one, else kept as ``weight_g`` (the flax scale) and
+``weight_v`` (the kernel). ``hubert_soft_state_dict`` is the inverse of
+``seq2seq_vc_tpu/urhythmic/hubert.py:convert_torch_hubert``'s bshall branch.
 """
 
 from __future__ import annotations
@@ -262,38 +265,133 @@ def _wn_weight(src: _Tree, mod: Path_, wn: Path_, conv: str) -> np.ndarray:
     return k * (scale / norm).astype(np.float32)
 
 
+def _wn_conv(src: _Tree, sd, out, tkey: str, mod: Path_, wn: Path_, name: str, layout):
+    """One flax WeightNorm-wrapped conv -> ``tkey``'s tensors: ``weight_v``
+    (the kernel) and ``weight_g`` (the scale) where the port's layer keeps
+    the weight norm, else the folded ``weight``; ``layout`` turns a flax
+    kernel into the torch weight's layout."""
+    if f"{tkey}.weight_v" in sd:
+        g = sd[f"{tkey}.weight_g"]
+        out[f"{tkey}.weight_v"] = _to_torch(layout(src.pop(mod + ("kernel",))),
+                                            sd[f"{tkey}.weight_v"])
+        out[f"{tkey}.weight_g"] = _to_torch(
+            src.pop(wn + (f"{name}/kernel/scale",)).reshape(g.shape), g)
+    else:
+        out[f"{tkey}.weight"] = _to_torch(layout(_wn_weight(src, mod, wn, name)),
+                                          sd[f"{tkey}.weight"])
+    out[f"{tkey}.bias"] = _to_torch(src.pop(mod + ("bias",)), sd[f"{tkey}.bias"])
+
+
+def _conv1d(k):
+    return k.transpose(2, 1, 0)
+
+
+def _conv_transpose1d(k):
+    return k[::-1].transpose(1, 2, 0)
+
+
+def _conv2d(k):
+    return k.transpose(3, 2, 0, 1)
+
+
+def _filled(sd, out) -> Dict[str, torch.Tensor]:
+    missing = set(sd) - set(out)
+    if missing:
+        raise KeyError(f"port parameters left unfilled: {sorted(missing)}")
+    return out
+
+
 def hifigan_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """flax HifiganGenerator params -> a state_dict for the port's
-    ``HifiganGenerator`` ``model`` (weight norm folded)."""
+    ``HifiganGenerator`` ``model``: weight norm folded for the inference
+    form, kept (scale -> ``weight_g``, kernel -> ``weight_v``) for the
+    training form (``weight_norm=True``)."""
     src = _Tree(tree)
     sd = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     nk = model.num_kernels
-
-    def conv(tkey: str, mod: Path_, wn: Path_, name: str):
-        out[f"{tkey}.weight"] = _to_torch(
-            _wn_weight(src, mod, wn, name).transpose(2, 1, 0), sd[f"{tkey}.weight"]
-        )
-        out[f"{tkey}.bias"] = _to_torch(src.pop(mod + ("bias",)), sd[f"{tkey}.bias"])
-
-    conv("conv_pre", ("conv_pre",), ("WeightNorm_0",), "conv_pre")
+    _wn_conv(src, sd, out, "conv_pre", ("conv_pre",), ("WeightNorm_0",), "conv_pre", _conv1d)
     for i in range(len(model.ups)):
         up = (f"up_{i}",)
-        w = _wn_weight(src, up + ("ConvTranspose_0",), up + ("WeightNorm_0",), "ConvTranspose_0")
-        out[f"ups.{i}.weight"] = _to_torch(w[::-1].transpose(1, 2, 0), sd[f"ups.{i}.weight"])
-        out[f"ups.{i}.bias"] = _to_torch(
-            src.pop(up + ("ConvTranspose_0", "bias")), sd[f"ups.{i}.bias"]
-        )
+        _wn_conv(src, sd, out, f"ups.{i}", up + ("ConvTranspose_0",), up + ("WeightNorm_0",),
+                 "ConvTranspose_0", _conv_transpose1d)
         for j in range(nk):
             r = i * nk + j
             rb = (f"resblock_{i}_{j}",)
             for d in range(len(model.resblocks[r].convs1)):
                 for n, t in ((2 * d, f"convs1.{d}"), (2 * d + 1, f"convs2.{d}")):
-                    conv(f"resblocks.{r}.{t}", rb + (f"Conv_{n}",), rb + (f"WeightNorm_{n}",),
-                         f"Conv_{n}")
-    conv("conv_post", ("conv_post",), ("WeightNorm_1",), "conv_post")
+                    _wn_conv(src, sd, out, f"resblocks.{r}.{t}", rb + (f"Conv_{n}",),
+                             rb + (f"WeightNorm_{n}",), f"Conv_{n}", _conv1d)
+    _wn_conv(src, sd, out, "conv_post", ("conv_post",), ("WeightNorm_1",), "conv_post", _conv1d)
     src.finish()
-    missing = set(sd) - set(out)
-    if missing:
-        raise KeyError(f"port parameters left unfilled: {sorted(missing)}")
-    return out
+    return _filled(sd, out)
+
+
+def hifigan_discriminator_state_dict(tree: Dict[str, Any],
+                                     model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax HifiganDiscriminator params -> a state_dict for the port's
+    ``HifiganDiscriminator`` ``model`` (weight norm kept: scale ->
+    ``weight_g``, kernel -> ``weight_v``)."""
+    src = _Tree(tree)
+    sd = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for i, d in enumerate(model.mpd.discriminators):
+        mod = ("mpd", f"period_{d.period}")
+        for j in range(len(d.convs) + 1):
+            tkey = f"mpd.discriminators.{i}." + (f"convs.{j}" if j < len(d.convs) else "conv_post")
+            _wn_conv(src, sd, out, tkey, mod + (f"Conv_{j}",), mod + (f"WeightNorm_{j}",),
+                     f"Conv_{j}", _conv2d)
+    for i, d in enumerate(model.msd.discriminators):
+        mod = ("msd", f"scale_{i}")
+        for j in range(len(d.convs) + 1):
+            tkey = f"msd.discriminators.{i}." + (f"convs.{j}" if j < len(d.convs) else "conv_post")
+            _wn_conv(src, sd, out, tkey, mod + (f"Conv_{j}",), mod + (f"WeightNorm_{j}",),
+                     f"Conv_{j}", _conv1d)
+    src.finish()
+    return _filled(sd, out)
+
+
+def hubert_soft_state_dict(tree: Dict[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax HubertSoft params (seq2seq_vc_tpu/urhythmic/hubert.py) -> a
+    state_dict for the port's ``HubertSoft`` ``model`` (bshall names; q, k
+    and v packed into ``in_proj``)."""
+    src = _Tree(tree)
+    sd = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        out[key] = _to_torch(arr, sd[key])
+
+    def dense(tkey, path):
+        put(f"{tkey}.weight", src.pop(path + ("kernel",)).T)
+        put(f"{tkey}.bias", src.pop(path + ("bias",)))
+
+    def norm(tkey, path):
+        put(f"{tkey}.weight", src.pop(path + ("scale",)))
+        put(f"{tkey}.bias", src.pop(path + ("bias",)))
+
+    fe = ("feature_extractor",)
+    for i in range(sum(k.startswith("feature_extractor.conv") for k in sd)):
+        put(f"feature_extractor.conv{i}.weight", _conv1d(src.pop(fe + (f"conv{i}", "kernel"))))
+    norm("feature_extractor.norm0", fe + ("group_norm",))
+    norm("feature_projection.norm", ("fp_norm",))
+    dense("feature_projection.projection", ("fp_proj",))
+    put("positional_embedding.conv.weight", _conv1d(src.pop(("pos_conv", "kernel"))))
+    put("positional_embedding.conv.bias", src.pop(("pos_conv", "bias")))
+    norm("norm", ("enc_norm",))
+    for i in range(len(model.encoder.layers)):
+        t, f = f"encoder.layers.{i}", (f"layer_{i}",)
+        att = f + ("attention",)
+        put(f"{t}.self_attn.in_proj_weight", np.concatenate(
+            [src.pop(att + (f"{n}_proj", "kernel")).T for n in "qkv"]))
+        put(f"{t}.self_attn.in_proj_bias", np.concatenate(
+            [src.pop(att + (f"{n}_proj", "bias")) for n in "qkv"]))
+        dense(f"{t}.self_attn.out_proj", att + ("out_proj",))
+        norm(f"{t}.norm1", f + ("layer_norm",))
+        norm(f"{t}.norm2", f + ("final_layer_norm",))
+        dense(f"{t}.linear1", f + ("ffn_in",))
+        dense(f"{t}.linear2", f + ("ffn_out",))
+    dense("proj", ("proj",))
+    put("label_embedding.weight", src.pop(("label_embedding",)))
+    src.finish()
+    return _filled(sd, out)

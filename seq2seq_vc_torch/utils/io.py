@@ -25,6 +25,11 @@ import numpy as np
 FORMATS = ("hdf5", "npy")
 
 
+def get_basename(path: str) -> str:
+    """A path's file name without its extension."""
+    return os.path.splitext(os.path.basename(path))[0]
+
+
 def find_files(root_dir: str, query: str = "*.wav") -> List[str]:
     """Files under ``root_dir`` (recursively) whose names match ``query``."""
     found = []

@@ -65,10 +65,22 @@ def generator_params(config_path: Optional[str], keys: Iterable[str]) -> Dict[st
     return out
 
 
+def layer_weight(layer: torch.nn.Module) -> torch.Tensor:
+    """``layer``'s weight; under flax's weight norm (``weight_g`` and
+    ``weight_v``, ``hifigan.weight_norm_``) ``weight_v * rsqrt(sum(weight_v^2)
+    + 1e-12) * weight_g``, the sum over the axes where ``weight_g`` has size
+    1, in float32."""
+    if "weight_v" not in layer._parameters:
+        return layer.weight
+    v, g = layer.weight_v, layer.weight_g
+    dims = [d for d in range(v.ndim) if g.shape[d] == 1]
+    return v * torch.rsqrt(v.square().sum(dims, keepdim=True) + 1e-12) * g
+
+
 def conv(layer: torch.nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` (a Conv1d, Conv2d or ConvTranspose1d holding float32
-    weights) applied to ``x`` in ``dtype``."""
-    w = layer.weight.to(dtype)
+    weights, weight-normed or not) applied to ``x`` in ``dtype``."""
+    w = layer_weight(layer).to(dtype)
     b = None if layer.bias is None else layer.bias.to(dtype)
     if isinstance(layer, torch.nn.ConvTranspose1d):
         return F.conv_transpose1d(x.to(dtype), w, b, layer.stride, layer.padding,

@@ -32,7 +32,7 @@ from ..utils.io import read_stats
 from ..encoders.encodec import SAMPLE_RATE as ENCODEC_FS
 from .encodec_dec import encodec_backend
 from .griffin_lim import Spectrogram2Waveform
-from .hifigan import chunked_generate, load_hifigan_model
+from .hifigan import load_hifigan_backend
 from .melgan import load_melgan_model
 from .pwg import load_pwg_model
 from .s3prl_feat2wav import S3PRLFeat2Wav
@@ -62,20 +62,6 @@ class Vocoder:
         y = np.asarray(self.backend(np.asarray(feats, np.float32)))
         logging.info("vocoder RTF = %.06f", (time.perf_counter() - start) / (len(y) / self.fs))
         return y
-
-
-def hifigan_backend(checkpoint: str, config_path: Optional[str] = None, device=None):
-    """(T, in_channels) features -> (N,) waveform through chunked HiFi-GAN
-    synthesis on ``device`` (default: the card)."""
-    device = resolve_device(device)
-    model = load_hifigan_model(checkpoint, config_path, device=device)
-
-    @torch.no_grad()
-    def backend(feats: np.ndarray) -> np.ndarray:
-        mel = torch.as_tensor(feats, dtype=torch.float32, device=device)
-        return chunked_generate(model, mel).cpu().numpy()
-
-    return backend
 
 
 def generator_backend(model: torch.nn.Module):
@@ -128,7 +114,7 @@ def get_vocoder(config: Dict[str, Any], trg_stats=None, device=None) -> Vocoder:
             backend = generator_backend(load_melgan_model(ckpt, gen_cfg, device,
                                                           style="StyleMelGAN" in gen_type))
         else:
-            backend = hifigan_backend(ckpt, gen_cfg, device)
+            backend = load_hifigan_backend(ckpt, gen_cfg, device)
         vocoder_stats = read_stats(voc_cfg["stats"]) if voc_cfg.get("stats") else None
         return Vocoder(backend, fs, trg_stats, vocoder_stats)
     backend = Spectrogram2Waveform(

@@ -29,8 +29,9 @@ same seeded numpy inputs and the same checkpoint files.
   ``convert_torch_encodec{,_decoder}``; ``get_vocoder``'s ``encodec`` route
   against the JAX one. Within 1e-4 of the output's largest magnitude
   (float32 through 15 layers and an LSTM).
-- The refusals: ``hubert`` (ROADMAP item 7) and a ``ppg_sxliu`` without
-  ``upstream_checkpoint``.
+- The refusals, as the JAX CLI's: a ``hubert`` entry without
+  ``checkpoint`` (its features are held in tests/test_torch_hubert.py), a
+  ``ppg_sxliu`` without ``upstream_checkpoint`` and an unknown type.
 """
 
 import sys
@@ -368,7 +369,7 @@ def test_get_vocoder_routes_encodec(tmp_path):
 
 
 @pytest.mark.parametrize("feat_list, error, match", [
-    ({"mel": {}, "hubert": {"checkpoint": "x"}}, NotImplementedError, "item 7"),
+    ({"mel": {}, "hubert": {}}, ValueError, "feat_list.hubert needs `checkpoint:`"),
     ({"ppg_sxliu": {"checkpoint": "x"}}, ValueError, "upstream_checkpoint"),
     ({"mel": {}, "whisper": {}}, NotImplementedError, "whisper"),
 ], ids=["hubert", "ppg_without_upstream", "unknown"])

@@ -1,7 +1,8 @@
 """Port: the rules every part of seq2seq_vc_torch keeps.
 
-- The package and ``chip_smoke.py`` import neither JAX nor the JAX package
-  (checked in a fresh interpreter: this test process has both loaded).
+- The package and ``chip_smoke.py`` import neither JAX nor the JAX package,
+  nor sklearn or transformers, which the card's machine lacks (checked in
+  a fresh interpreter: this test process has them loaded).
 - Entry points run on the card unless the caller names another device;
   without a card, one built without ``device=`` (a CLI without
   ``--device``, the feature CLIs and encoders included) raises.
@@ -58,7 +59,10 @@ from seq2seq_vc_torch.train.nar_vc import NARVCTrainer
 from seq2seq_vc_torch.train.optim import build_optimizer
 from seq2seq_vc_torch.train.state import TrainState
 from seq2seq_vc_torch.vocoder.griffin_lim import Spectrogram2Waveform, griffin_lim
-from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator
+from seq2seq_vc_torch.urhythmic import cli as urhythmic_cli
+from seq2seq_vc_torch.urhythmic.hubert import load_hubert_soft
+from seq2seq_vc_torch.urhythmic.vocoder_train import HifiganTrainer
+from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator, load_hifigan_backend
 from seq2seq_vc_torch.vocoder.melgan import load_melgan_model
 from seq2seq_vc_torch.vocoder.pwg import load_pwg_model
 from seq2seq_vc_torch.vocoder.taco2ar import build_downstream
@@ -73,8 +77,8 @@ names = [m.name for m in pkgutil.walk_packages(seq2seq_vc_torch.__path__, "seq2s
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "seq2seq_vc_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "seq2seq_vc_tpu", "sklearn", "transformers"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -150,7 +154,12 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.vocoder.s3prl_feat2wav", "seq2seq_vc_torch.bin.preprocess",
             "seq2seq_vc_torch.bin.compute_statistics", "seq2seq_vc_torch.bin.normalize",
             "seq2seq_vc_torch.encoders.ppg", "seq2seq_vc_torch.encoders.encodec",
-            "seq2seq_vc_torch.vocoder.encodec_dec"} <= set(got["modules"])
+            "seq2seq_vc_torch.vocoder.encodec_dec", "seq2seq_vc_torch.urhythmic.cli",
+            "seq2seq_vc_torch.urhythmic.cluster", "seq2seq_vc_torch.urhythmic.hubert",
+            "seq2seq_vc_torch.urhythmic.segmenter", "seq2seq_vc_torch.urhythmic.rhythm_model",
+            "seq2seq_vc_torch.urhythmic.stretcher", "seq2seq_vc_torch.urhythmic.vocoder_train",
+            "seq2seq_vc_torch.urhythmic.dataset",
+            "seq2seq_vc_torch.urhythmic.model"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -205,6 +214,18 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                        (normalize.main, ["--rootdir", "x", "--dumpdir", "x", "--stats", "x"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
+    # urhythmic's six subcommands, the host-only ones included
+    for argv in (["resample", "--in-dir", "x", "--out-dir", "x"],
+                 ["encode", "--in-dir", "x", "--out-dir", "x", "--hubert-checkpoint", "x"],
+                 ["segment", "--logprob-dir", "x", "--out-dir", "x",
+                  "--segmenter-checkpoint", "x"],
+                 ["train-rhythm-model", "--out-path", "x"],
+                 ["fine-tune-vocoder", "--wav-dir", "x", "--unit-dir", "x",
+                  "--checkpoint-dir", "x"],
+                 ["convert", "--in-dir", "x", "--out-dir", "x", "--segmenter-checkpoint", "x",
+                  "--rhythm-model-checkpoint", "x", "--vocoder-checkpoint", "x"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            urhythmic_cli.main(argv)
     # the helpers under them: log-mels, the feature encoders, the vocoders
     spc = np.ones((4, 513), np.float32)
     for helper in (lambda: logmelfilterbank(np.zeros(1024, np.float32), 16000),
@@ -217,7 +238,9 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                    lambda: load_pwg_model("x"), lambda: load_melgan_model("x"),
                    lambda: build_downstream("x", {}, np.zeros(80), np.ones(80)),
                    lambda: Spectrogram2Waveform(16000, 1024, 256),
-                   lambda: griffin_lim(spc, 1024, 256, n_iter=0)):
+                   lambda: griffin_lim(spc, 1024, 256, n_iter=0),
+                   lambda: load_hubert_soft("x"), lambda: HifiganTrainer(),
+                   lambda: load_hifigan_backend("x")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             helper()
     assert griffin_lim(spc, 1024, 256, n_iter=0, device="cpu").shape == (4 * 256,)
