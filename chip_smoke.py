@@ -64,11 +64,12 @@ Phases, each printed on lines of its own:
    FLASH_MIN_LEN..FLASH_MIN_LEN+256 frames (2048-2304: 33-37 s of audio),
    so that every conformer layer takes the flash route with dropout 0.2;
    then the flash forward (with dropout and logsumexp) and its three
-   backward kernels against their plain versions in float32 and bfloat16 at
+   backward kernels against their plain versions in bfloat16 (the steps'
+   type; phase 11 holds the float32 route card against CPU) at
    both head dims, rate 0 and 0.2, with key-length padding and a fully
    masked batch row, and in bfloat16 at every shape the long steps give
    them (the backward's yardstick: SDPA's forward + backward with the band
-   as a bias, beside the four kernels' forward + backward); then 3 timed
+   as a bias, beside the four kernels' forward + backward); then 2 timed
    steps with the launch counts set to 0 just before and read just after
    (8 of each flash kernel per step, no fused launch), ms/step, peak
    memory, a finite loss, every gradient finite and every attention
@@ -83,16 +84,22 @@ Phases, each printed on lines of its own:
    threshold 1.1 and maxlenratio 4.0, as bench.py times the AR decode, so
    that every decode runs its whole budget; requests: a 3.8 s clip, a batch
    of 4 and a 135 s clip, whose encoder key length (~2100 after the x4
-   subsampling) crosses the flash gate. Warm-up (the 135 s clip at a
-   quarter of its step budget: the same kernels and shapes), then the
-   standard flash
+   subsampling) crosses the flash gate. Warm-up (each request once: a
+   streamed synthesis meets cuDNN's plans for its window count the first
+   time), then the standard flash
    forward (kernel 9) against its plain version (float32 and bfloat16, D 96
    at T 640, at the long request's length and at a cross shape, rate 0 and
    0.2, causal off and on, key padding and a fully masked row; and at the
    main path's shape), then the timed requests with the launch counts set to
    0 just before and read just after (6 launches of kernel 9 for the long
    request, none for the short ones or for kernels 10-11), latency, RTF and
-   AR steps per second, peak memory, and a profile of the long request;
+   AR steps per second, peak memory; the vocoder streams (the default: the
+   synthesis of the decoded prefix on a second CUDA stream after every
+   chunk), and the 3.8 s and 135 s requests run once more serially: both
+   latencies and RTFs, whether the kept speculation supplied the result,
+   the waveforms' largest difference (``STREAM_ATOL``) and each chunk's
+   flag-to-synthesis-end gap (the flag read never waits on the synthesis);
+   then a profile of the long request at a quarter of its step budget;
 13. a VTN reference check: the same weights in float32 with the prenet's
    dropout 0 and the flash gate below a 1 s clip's encoder length convert
    the clip on the card (kernel 9) and on the CPU (its plain version); the
@@ -108,7 +115,9 @@ Phases, each printed on lines of its own:
    FLASH_MIN_LEN + 256 after the subsampling; kernels 9-11 against their
    plain versions at the steps' shape (SDPA forward + backward with the
    key-padding mask as the yardstick, and for 10-11 SDPA's backward alone
-   too), 9, 10 and 11 also at rate 0 (the dropout hash's cost), the pair 10 +
+   too), 10 and 11 also at phase 12's head-dim shapes in bfloat16 (phase
+   16 holds the float32 route card against CPU), 9, 10 and 11 also at rate
+   0 (the dropout hash's cost), the pair 10 +
    11 beside SDPA's backward alone; 3 timed steps with 6 launches of each
    of kernels 9, 10 and 11 per step, ms/step, peak memory, finite loss and
    gradients, and a profile of one step;
@@ -128,7 +137,7 @@ Phases, each printed on lines of its own:
    kernel 2 on the card, its plain version on the CPU);
 19. legacy long training: phase 10 on a fresh legacy flagship, every layer
    on the legacy form of kernels 2, 6, 7 and 8 (their checks at both head
-   dims, float32 and bfloat16, rate 0 and 0.2, and at the steps' shapes,
+   dims, bfloat16, rate 0 and 0.2, and at the steps' shapes,
    against SDPA with the dense legacy band as a bias), one warm-up step and
    2 timed steps (8 launches of each a step), and a profile of one step;
 20. a legacy reference training step: phase 11 in the legacy form;
@@ -241,12 +250,26 @@ Phases, each printed on lines of its own:
    RTF at 3.8 and 30 s, the masked bucket batch against exact-length
    runs, HuBERT float32 card against CPU, segmentation ms at 30 s, one
    trainer step card against CPU (``URH_*``), convert ms and RTF at 3.8
-   and 30 s. No kernel lies on this path: every counter must read 0.
+   and 30 s. No kernel lies on this path: every counter must read 0;
+28. the model options (``options_path``): reference-format checkpoints
+   (BatchNorm statistics included) of the conformer VTN of
+   ``vtn.v1.yaml``'s widths (adim 384, 4 heads of D 96, 6 + 6 layers;
+   new-style relative positions, conv1d positionwise layers, batch-norm
+   postnet and conv module, concat_after; ``OPT_VTN``) and of the AAS-VC
+   flagship with batch norms (``OPT_AAS``) through ``convert_checkpoint``,
+   ``vc_decode`` and ``vc_serve`` (the VTN's 135 s request past the flash
+   gate: kernels 1 and 2 at D 96); ``vc_train`` of the conformer VTN
+   (group norms, bf16) at B 16 on 2-5 s (kernels 1 and 3 at D 96) and at B
+   4 on 8200-8600 frames (kernels 2 and 6-8 at D 96); the four models'
+   inference with speaker embeddings, ``add`` and ``concat``, float32 card
+   against CPU (``OPT_SPEMBS_ATOL``); every kernel launched, at each shape,
+   against its plain version (``check ... options`` rows).
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path, phase 23's ``fs2_*``, phase 24's ``tts_*``, phase 25's ``voc_*`` and
-phase 26's ``feat_*`` and phase 27's ``urhythmic`` (all 0) paths included;
+path, phase 23's ``fs2_*``, phase 24's ``tts_*``, phase 25's ``voc_*``,
+phase 26's ``feat_*``, phase 27's ``urhythmic`` (all 0) and phase 28's
+``opt_*`` paths included;
 kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``, kernels
 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
 ``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its library
@@ -455,7 +478,19 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 "feat_decode": ("fused_rel_scores",),
                 # phase 27, Urhythmic: HuBERT's attention is dense, the rest
                 # cuDNN convolutions and host numpy
-                "urhythmic": ()}
+                "urhythmic": (),
+                # phase 28, the model options: the conformer VTN's encoder
+                # (D 96) under the gate in vc_decode and the short requests,
+                # past it in the 135 s request and the long training step;
+                # the AAS-VC flagship's as phase 22's; speaker embeddings on
+                # the dense route
+                "opt_vtn_decode": ("fused_rel_scores",),
+                "opt_vtn_serve": ("fused_rel_scores", "rel_flash_attention"),
+                "opt_aas_decode": ("fused_rel_scores",),
+                "opt_aas_serve": ("fused_rel_scores", "rel_flash_attention"),
+                "opt_vtn_train": ("fused_rel_scores", "rel_band_bwd"),
+                "opt_vtn_train_long": ("rel_flash_attention", *FLASH_BWD),
+                "opt_spembs": ()}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -532,10 +567,9 @@ VTN_CONFIG = dict(
 # bench.py's AR decode: threshold 1.1 never stops, so every decode runs its
 # whole budget of maxlenratio 4.0 (output about as long as the input)
 VTN_INFERENCE = {"threshold": 1.1, "maxlenratio": 4.0, "minlenratio": 0.0}
-# the 135 s request's warm-up decodes this share of its budget: every
+# the 135 s request's profile decodes this share of its budget: every
 # kernel shape but the decode steps past it, whose self-attention reads a
-# longer cache prefix in the same kernels (the synthesis ladder is warmed
-# on its own)
+# longer cache prefix in the same kernels
 VTN_WARM_MAXLENRATIO = 0.25
 VTN_NO_DROPOUT = {k: 0.0 for k in (
     "dprenet_dropout_rate", "transformer_enc_dropout_rate",
@@ -544,6 +578,10 @@ VTN_NO_DROPOUT = {k: 0.0 for k in (
     "transformer_dec_attn_dropout_rate")}
 VTN_LONG = (8200, 9200)  # source and target frames of the long batch
 VTN_REFERENCE_ATOL = 1e-3  # phase 13's features and waveforms, float32 on both devices
+# the streamed vocoder against the serial one, within each item's valid
+# length: the same windows, synthesised in one call for the batch (a
+# convolution's sums may take another order at another batch size)
+STREAM_ATOL = 1e-3
 # the YAML's training settings beside TRAIN_OPT's (the same Adam, warmuplr
 # and clipping): Seq2SeqLoss with bce_pos_weight 10, batch 16, pad multiple 32
 VTN_BCE_POS_WEIGHT = 10.0
@@ -568,7 +606,7 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, min_total_ms: float = 200.0, max_iters: int = 50) -> float:
+def cuda_ms(fn, min_total_ms: float = 100.0, max_iters: int = 50) -> float:
     """Mean device time of ``fn`` over back-to-back launches (CUDA events),
     after one warm-up call; inputs stay where the last call left them."""
     fn()
@@ -1071,7 +1109,8 @@ def serve(conv, requests):
             + ("" if steps is None else f"; {steps} AR steps, {steps / dt:.1f} steps/s"))
         if not ok:
             failures.append(f"request {label}: bad output {lens}")
-        results.append(dict(ms=dt * 1e3, out_frames=[n // conv.hop_size for n in lens]))
+        results.append(dict(ms=dt * 1e3, out_frames=[n // conv.hop_size for n in lens],
+                            wavs=wavs))
     return failures, results
 
 
@@ -1346,14 +1385,16 @@ def profile_step(state, loader, step_ms: float, label: str,
                  port_kernels=("rel_scores_fwd_kernel", "rel_scores_bwd_kernel"),
                  make=make_trainer):
     """Device time by kernel over one training step (torch.profiler),
-    beside the untraced step time; ``port_kernels`` are summed by name."""
+    beside the untraced step time; ``port_kernels`` are summed by name. Only
+    device activity is traced, as ``profile_request`` traces it: the host
+    operator events of a step were recorded and never read, and building
+    their tree took most of the profile's time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         make(state, loader, 1).run()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    kernels = trace_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels)
     if busy == 0:
         log("profile train step: the trace holds no device time: not measured")
@@ -1506,13 +1547,13 @@ def long_lens(seed: int):
 
 def train_long_path(rows, path="train_long"):
     """Phases 10-11 (``path`` "train_long"): long-utterance training through
-    the flash kernels, 3 timed steps; phases 19-20 ("train_long_legacy"):
-    the legacy flagship, through the flash kernels' legacy form, 2 timed
-    steps. Appends the kernel checks to ``rows``; returns (failures,
+    the flash kernels; phases 19-20 ("train_long_legacy"): the legacy
+    flagship, through the flash kernels' legacy form; 2 timed steps each.
+    Appends the kernel checks to ``rows``; returns (failures,
     launches of the timed steps, by kernel)."""
     failures = []
     legacy = path == "train_long_legacy"
-    steps = 2 if legacy else 3
+    steps = 2
     tmp = REPO / "build"
     tmp.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tmp, prefix=f"chip_smoke_{path}_") as root:
@@ -1530,8 +1571,10 @@ def train_long_path(rows, path="train_long"):
         train_steps(state, loader, 1, f"{path} warm-up")
 
         calls = train_calls(state.model, batch)
+        # bf16, the type these steps train in (the float32 flash route is held
+        # card against CPU by this phase's reference step)
         for D, T in ((192, 640), (768, 1300)):
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.bfloat16,):
                 for rate in (0.0, 0.2):
                     for name in PATH_KERNELS[path]:
                         rows.append(check_kernel(name, 3, 2, T, D, dtype, seed=T + D,
@@ -1610,14 +1653,14 @@ def vtn_request_calls(conv, clips):
                              n_trues)
 
 
-def std_head_dim_checks(rows, names):
+def std_head_dim_checks(rows, names, dtypes=(torch.float32, torch.bfloat16)):
     """The standard flash kernels ``names`` against their plain versions at
-    the VTN's head dim (4 heads of D 96): float32 and bfloat16, causal off
+    the VTN's head dim (4 heads of D 96): in ``dtypes``, causal off
     and on, the serving form (kernel 9 only) and the training form at rate
     0 and 0.2, at T 640 with key padding and a fully masked batch row; and
     at two cross shapes, fewer queries than keys and more."""
     for name in names:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             for causal in (False, True):
                 for rate in ((None, 0.0, 0.2) if name == "flash_attention" else (0.0, 0.2)):
                     rows.append(check_std_kernel(name, 3, 4, 640, 640, 96, dtype, seed=640,
@@ -1721,14 +1764,10 @@ def vtn_serve_path(rows, src, trg):
             ("VTN single 135 s", [clip(135.0, 16)]),
         ]
         log(f"VTN serving: Wav2WavARConverter, the VTN at full width (float32, attention "
-            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once (the 135 s "
-            f"one at maxlenratio {VTN_WARM_MAXLENRATIO}), then the synthesis ladder")
-        fails, _ = serve(conv, requests[:-1])
+            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once (so the "
+            f"streamed synthesis meets its shapes), then the synthesis ladder")
+        fails, _ = serve(conv, requests)
         failures += fails
-        conv.ar_decode.maxr = VTN_WARM_MAXLENRATIO
-        fails, _ = serve(conv, requests[-1:])
-        failures += fails
-        conv.ar_decode.maxr = VTN_INFERENCE["maxlenratio"]
         log(f"VTN warm-up synthesis buckets: {conv.warmup_synth()}")
         calls = [vtn_request_calls(conv, clips) for _, clips in requests]
         log(f"VTN encoder flash calls per request (B, H, T, D, key lengths): "
@@ -1748,6 +1787,7 @@ def vtn_serve_path(rows, src, trg):
             before = launch_counts()
             fails, res = serve(conv, [request])
             failures += fails
+            res[0].update(kept=conv.last_stream_kept, gaps=stream_report(conv))
             timed += res
             per_request.append({k: v - before[k] for k, v in launch_counts().items()})
         launches = launch_counts()
@@ -1759,9 +1799,61 @@ def vtn_serve_path(rows, src, trg):
             want = {n: len(cs) if n == "flash_attention" else 0 for n in KERNELS}
             if got != want:
                 failures.append(f"vtn_serve {label}: launches {got}, expected {want}")
-        profile_request(conv, requests[-1], timed[-1]["ms"], port_kernels=("flash_fwd_kernel",))
+        failures += stream_checks(conv, requests, timed)
+        conv.ar_decode.maxr = VTN_WARM_MAXLENRATIO
+        fails, quarter = serve(conv, requests[-1:])
+        failures += fails
+        profile_request(conv, requests[-1], quarter[0]["ms"], port_kernels=("flash_fwd_kernel",))
+        conv.ar_decode.maxr = VTN_INFERENCE["maxlenratio"]
         failures += vtn_reference_check(model, vocoder, src, trg)
     return failures, launches
+
+
+def stream_report(conv):
+    """The last streamed request's chunks on the card: for each, the time
+    from its stop-flag copy completing to its speculative synthesis
+    ending (CUDA events; positive: the flag was readable before the
+    synthesis ended, so a read of it never waits on the synthesis)."""
+    flags = conv.ar_decode.flag_events
+    synths = conv.last_synth_events
+    torch.cuda.synchronize()
+    return [round(flag.elapsed_time(done), 3) for flag, (_, done) in zip(flags, synths)]
+
+
+def stream_checks(conv, requests, timed):
+    """The streamed vocoder (the main path's default) against the serial
+    path on the 3.8 s and the 135 s request: the streamed runs are the timed
+    main path's (``timed``: latency, waveforms, whether the kept speculation
+    supplied the result, each chunk's flag-to-synthesis-end gap); each
+    request runs once more serially. The waveforms must agree within each
+    item's valid length to STREAM_ATOL."""
+    failures = []
+    sr = FEATS["sampling_rate"]
+
+    for i in (0, len(requests) - 1):
+        label, clips = requests[i]
+        secs = sum(len(c) for c in clips) / sr
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = conv.convert_batch(clips, stream_vocoder=False)
+        torch.cuda.synchronize()
+        serial_ms = (time.perf_counter() - t0) * 1e3
+        kept, gaps, streamed = timed[i]["kept"], timed[i]["gaps"], timed[i]["wavs"]
+        same = [len(a) == len(b) for a, b in zip(streamed, serial)]
+        err = max(float(np.abs(a - b).max()) if ok else float("inf")
+                  for a, b, ok in zip(streamed, serial, same))
+        ok = kept and all(same) and err <= STREAM_ATOL and all(g > 0 for g in gaps)
+        log(f"VTN {label} streamed vs serial vocoder: streamed {timed[i]['ms']:.1f} ms (RTF "
+            f"{timed[i]['ms'] / 1e3 / secs:.5f}), serial {serial_ms:.1f} ms (RTF "
+            f"{serial_ms / 1e3 / secs:.5f}); the kept speculation supplied the result: "
+            f"{'yes' if kept else 'NO'}; output samples {[len(w) for w in streamed]} / "
+            f"{[len(w) for w in serial]}, max abs diff {err:.3e} (atol {STREAM_ATOL}); each "
+            f"chunk's flag ready before its synthesis ended by (ms) {gaps}: "
+            f"{'ok' if ok else 'FAIL'}; card {card_line()}")
+        if not ok:
+            failures.append(f"vtn_serve {label} streamed vs serial: kept {kept}, lengths {same}, "
+                            f"diff {err}, gaps {gaps}")
+    return failures
 
 
 def make_vtn_trainer(state, loader, steps: int, device=None):
@@ -1813,8 +1905,8 @@ def vtn_train_path(rows, path: str):
         calls = [(name, *c, rate) for c in vtn_encoder_calls(state.model, batch["xs"].shape[1],
                                                               batch["ilens"].tolist())
                  for name in STD]
-        if path == "vtn_train_long":
-            std_head_dim_checks(rows, STD[1:])
+        if path == "vtn_train_long":  # bf16, as the steps (phase 16 holds float32)
+            std_head_dim_checks(rows, STD[1:], (torch.bfloat16,))
         for name, B, H, T, D, kv_lens, r in sorted(set(calls)):
             rows.append(check_std_kernel(name, B, H, T, T, D, torch.bfloat16, seed=T,
                                          label="main-path", lens=list(kv_lens), rate=r))
@@ -2251,8 +2343,6 @@ def cli_path(rows):
     ``vc_serve``; each kernel is checked at the shapes each CLI gave it
     (``vc_decode``'s from its batches and the output lengths it wrote)."""
     import argparse
-    import contextlib
-    import io
 
     import yaml
 
@@ -2387,15 +2477,8 @@ def cli_path(rows):
         argv = [a for k, v in serve.items() if v is not None
                 for a in (f"--{k.replace('_', '-')}", str(v))]
         reset_launch_counts()
-        stdin, sys.stdin = sys.stdin, io.StringIO("\n".join(lines) + "\n")
-        buf = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(buf):
-                vc_serve.main(argv)
-        finally:
-            sys.stdin = stdin
+        results = _run_serve(vc_serve, argv, lines)
         launches["cli_serve"] = cli_launches("cli_serve", failures)
-        results = [json.loads(x) for x in buf.getvalue().splitlines()]
         if results[:1] != [{"ready": True}] or len(results) != 1 + len(clips) \
                 or not all(r.get("ok") for r in results[1:]):
             failures.append(f"cli vc_serve: {results}")
@@ -2702,8 +2785,6 @@ def fs2_cli_path(rows):
     reach the flash gate. Each kernel is checked at the shapes each CLI
     gave it. Returns (failures, launches by path)."""
     import argparse
-    import contextlib
-    import io
 
     import yaml
 
@@ -2838,15 +2919,8 @@ def fs2_cli_path(rows):
         argv = [a for k, v in serve.items() if v is not None
                 for a in (f"--{k.replace('_', '-')}", str(v))]
         reset_launch_counts()
-        stdin, sys.stdin = sys.stdin, io.StringIO("\n".join(lines) + "\n")
-        buf = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(buf):
-                vc_serve.main(argv)
-        finally:
-            sys.stdin = stdin
+        results = _run_serve(vc_serve, argv, lines)
         launches["fs2_cli_serve"] = cli_launches("fs2_cli_serve", failures)
-        results = [json.loads(x) for x in buf.getvalue().splitlines()]
         if results[:1] != [{"ready": True}] or len(results) != 1 + len(clips) \
                 or not all(r.get("ok") for r in results[1:]):
             failures.append(f"fs2 cli vc_serve: {results}")
@@ -4268,6 +4342,349 @@ def urhythmic_path():
     return failures, launches
 
 
+# ------------------------------------------- model options, checkpoints
+# phase 28: the conformer VTN of egs/arctic/vc1/conf/vtn.v1.yaml (adim 384,
+# 4 heads of D 96, 6 + 6 layers, eunits 1536, float32) with the options a
+# reference checkpoint carries: new-style relative positions on the fused
+# and flash kernels, conv1d positionwise layers of 3 taps, the batch-norm
+# postnet and conv module, concat_after in both stacks
+OPT_VTN = dict(encoder_type="conformer", conformer_rel_pos_type="latest",
+               positionwise_layer_type="conv1d", positionwise_conv_kernel_size=3,
+               postnet_norm_type="batch_norm", conformer_conv_norm_type="batch_norm",
+               encoder_concat_after=True, decoder_concat_after=True, attention_backend="flash")
+# training: the trainers refuse batch norms (as the JAX package's raise),
+# so the training config takes group norms; bf16, as phases 14-15 train
+OPT_VTN_TRAIN = dict(OPT_VTN, postnet_norm_type="group_norm",
+                     conformer_conv_norm_type="group_norm", compute_dtype="bfloat16")
+# the AAS-VC flagship's conf with the batch-norm postnet and conv module
+OPT_AAS = dict(postnet_norm_type="batch_norm", conformer_conv_norm_type="batch_norm")
+# the VTN's decode budget in vc_decode and vc_serve: threshold 1.1 never
+# stops, maxlenratio 0.25 (the encoder, past the gate at 135 s, is the path)
+OPT_INFERENCE = {"threshold": 1.1, "maxlenratio": 0.25, "minlenratio": 0.0}
+OPT_LONG_SECONDS = 135.0  # vc_serve's long VTN request: ~2110 encoder keys
+OPT_TRAIN_LONG = (8200, 8600)  # source and target frames of the long VTN step
+OPT_LONG_BATCH = 4
+OPT_SPK_DIM = 512  # x-vector width
+OPT_SPEMBS_ATOL = 1e-3  # float32 card vs CPU, as phase 13
+OPT_DEPTH = 2  # each stack of the speaker-embedding models (widths published)
+
+
+def _bn_stats_(model: torch.nn.Module, seed: int) -> None:
+    """Running statistics away from 0 and 1, and a counter, in every batch
+    norm: a trained reference checkpoint's."""
+    from seq2seq_vc_torch.nn.conformer import ConvBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, ConvBatchNorm):
+                m.running_mean.copy_(0.3 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+                m.num_batches_tracked.fill_(50000)
+
+
+def rel_encoder_calls(model, n_padded: int, n_trues, train: bool = False, rate=None):
+    """The rel-pos kernel calls of a conv2d-subsampled conformer encoder on
+    a batch padded to ``n_padded`` frames with true lengths ``n_trues``:
+    (kernel, B, H, T, D, key lengths, rate) for each layer, from its
+    routing; with ``train`` the backward kernels too (the fused route's
+    ``bwd`` variant)."""
+    from seq2seq_vc_torch.ops.rel_scores import resolve_bwd
+
+    T = ((n_padded - 1) // 2 - 1) // 2
+    mask = torch.arange(n_padded)[None, :] < torch.as_tensor(list(n_trues))[:, None]
+    lens = tuple(int(n) for n in mask[:, :-2:2][:, :-2:2].sum(-1))
+    calls = []
+    for layer in model.encoder.encoders:
+        att = layer.self_attn
+        shape = (len(lens), att.n_head, T, att.d_k)
+        path = att.route(T, T, 2 * T - 1, KEY_PADDING)
+        if path == "fused":
+            bwd = {"banded": ("rel_band_bwd",), "pallas": PAIR}.get(
+                resolve_bwd(att.rel_scores_bwd, T), ()) if train else ()
+            calls += [(n, *shape, (T,) * len(lens), None) for n in ("fused_rel_scores", *bwd)]
+        elif path == "flash":
+            calls += [(n, *shape, lens, rate) for n in
+                      ("rel_flash_attention", *(FLASH_BWD if train else ()))]
+    return calls
+
+
+def _run_serve(vc_serve, argv, lines):
+    """vc_serve over stdio on ``lines``; returns its JSON result lines."""
+    import contextlib
+    import io
+
+    stdin, sys.stdin = sys.stdin, io.StringIO("\n".join(lines) + "\n")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            vc_serve.main(argv)
+    finally:
+        sys.stdin = stdin
+    return [json.loads(x) for x in buf.getvalue().splitlines()]
+
+
+def spembs_checks(card):
+    """Phase 28 (c): each of the four models with speaker embeddings,
+    ``add`` and ``concat``, at published widths and OPT_DEPTH layers a
+    stack, float32, dropout off, the dense attention route: ``inference``
+    on the card against the CPU on the same weights and inputs."""
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.models import get_model_class
+
+    failures = []
+    depth = dict(elayers=OPT_DEPTH, dlayers=OPT_DEPTH, spk_embed_dim=OPT_SPK_DIM)
+    tts = dict(load_config(str(TTS_CONF))["model_params"], idim=40, **VTN_NO_DROPOUT)
+    models = {"AASVC": dict(FLAGSHIP, **NO_DROPOUT, compute_dtype="float32",
+                            attention_backend="xla"),
+              "FastSpeechVC": dict(FS2, **FS2_NO_DROPOUT, compute_dtype="float32",
+                                   attention_backend="xla"),
+              "VTN": dict(VTN_CONFIG, **VTN_NO_DROPOUT, attention_backend="xla"),
+              "TransformerTTS": tts}
+    rng = np.random.default_rng(77)
+    feats = torch.from_numpy((-4 + rng.standard_normal((2, 64, 80))).astype(np.float32))
+    lens = torch.tensor([64, 50])
+    tokens = torch.from_numpy(rng.integers(1, 39, (2, 24)))
+    tlens = torch.tensor([24, 17])
+    spembs = torch.from_numpy(rng.standard_normal((2, OPT_SPK_DIM)).astype(np.float32))
+    for name, cfg in models.items():
+        for kind in ("add", "concat"):
+            torch.manual_seed(80)
+            model = get_model_class(name)(**dict(cfg, **depth, spk_embed_integration_type=kind))
+            perturb_(model, 81)
+            model.eval()
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                m = copy.deepcopy(model).to(dev)
+                sp = spembs.to(dev)
+                with torch.no_grad():
+                    if name == "AASVC":
+                        o = m.inference(feats.to(dev), lens.to(dev), feats.to(dev), spembs=sp,
+                                        max_output_frames=128,
+                                        generator=torch.Generator().manual_seed(0))
+                    elif name == "FastSpeechVC":
+                        o = m.inference(feats.to(dev), lens.to(dev), feats.to(dev), spembs=sp,
+                                        max_output_frames=128)
+                    elif name == "VTN":
+                        o = m.inference(feats.to(dev), lens.to(dev), None, 1.1, 0.0, 2.0,
+                                        spembs=sp)
+                    else:
+                        o = m.inference(tokens.to(dev), tlens.to(dev), None, 1.1, 0.0, 1.0,
+                                        spembs=sp)
+                outs[dev] = (o["outs"].float().cpu(), o["out_lens"].cpu())
+            (a, la), (b, lb) = outs["cuda"], outs["cpu"]
+            same = a.shape == b.shape and torch.equal(la, lb)
+            err = max(float((a[i, :n] - b[i, :n]).abs().max()) for i, n in enumerate(lb.tolist())
+                      ) if same else float("inf")
+            ok = same and err <= OPT_SPEMBS_ATOL and bool(torch.isfinite(a).all())
+            log(f"options spembs {name} {kind} (spk_embed_dim {OPT_SPK_DIM}, adim "
+                f"{cfg['adim']}, {OPT_DEPTH} + {OPT_DEPTH} layers, float32): outs "
+                f"{tuple(a.shape)}, out_lens {la.tolist()} / {lb.tolist()}, card vs CPU max abs "
+                f"diff {err:.3e} (atol {OPT_SPEMBS_ATOL}): {'ok' if ok else 'FAIL'}; card {card}")
+            if not ok:
+                failures.append(f"options spembs {name} {kind}: diff {err}, lens {la} {lb}")
+    return failures
+
+
+def options_path(rows):
+    """Phase 28: the model options of ROADMAP.md queue 1 item 4 and
+    ``convert_checkpoint`` through the CLIs. (a) A reference-format
+    checkpoint (``{"model": state_dict, ...}``, BatchNorm statistics
+    included) of the conformer VTN (OPT_VTN) goes through
+    ``convert_checkpoint``, then ``vc_decode`` (2 utterances, Griffin-Lim)
+    and ``vc_serve`` (a 3.8 s and a 135 s request, the latter's encoder past
+    the flash gate; the vocoder streams); the same for the AAS-VC flagship
+    with the batch-norm postnet and conv module (OPT_AAS; a 3.8 s and a
+    33 s request). (b) ``vc_train`` of the conformer VTN (OPT_VTN_TRAIN) 2
+    steps at B 16 on 2-5 s utterances (kernels 1 and 3 at D 96) and 2 at B
+    OPT_LONG_BATCH on OPT_TRAIN_LONG frames (kernels 2 and 6-8 at D 96).
+    (c) ``spembs_checks``. (d) Every kernel launched, at each shape the
+    CLIs gave it, against its plain version. Returns (failures, launches by
+    path)."""
+    import argparse
+
+    import yaml
+
+    from seq2seq_vc_torch.bin import convert_checkpoint, vc_decode, vc_serve, vc_train
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.models import get_model_class
+    from seq2seq_vc_torch.nn.attention import FLASH_MIN_LEN
+    from seq2seq_vc_torch.train.data import DataLoader, ParallelVCMelDataset
+    from seq2seq_vc_torch.utils.audio import write_wav
+
+    failures, launches, calls = [], {}, set()
+    card = card_line()
+    sr, hop = FEATS["sampling_rate"], FEATS["hop_size"]
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_options_") as tmp:
+        root = Path(tmp)
+        c = cli_corpus(root)
+        torch.save(build_vocoder(seed=91).state_dict(), root / "hifigan.pt")
+        gen = {k: [list(x) if isinstance(x, tuple) else x for x in v] if isinstance(v, tuple)
+               else v for k, v in HIFIGAN.items()}
+        (root / "hifigan.yaml").write_text(yaml.safe_dump(
+            {"generator_type": "HifiganGenerator", "generator_params": gen}))
+        two = root / "src_two.scp"
+        two.write_text("\n".join(Path(c["src_dev"]).read_text().splitlines()[:2]) + "\n")
+
+        def reference(name, conf, over, seed, inference=None):
+            """A reference checkpoint of ``conf`` with ``over``, through
+            convert_checkpoint: (config, the port checkpoint's path)."""
+            cfg = load_config(str(conf))
+            cfg["model_params"] = dict(cfg["model_params"], **over)
+            if inference:
+                cfg["inference"] = dict(cfg.get("inference") or {}, **inference)
+            exp = root / f"exp_{name}"
+            exp.mkdir()
+            (exp / "config.yml").write_text(yaml.safe_dump(cfg))
+            torch.manual_seed(seed)
+            model = get_model_class(cfg["model_type"])(**cfg["model_params"])
+            perturb_(model, seed)
+            _bn_stats_(model, seed)
+            ref = {"model": model.state_dict(), "steps": 50000, "epochs": 120}
+            torch.save(ref, root / f"{name}.pkl")
+            t0 = time.perf_counter()
+            out = convert_checkpoint.main(["--torch-checkpoint", str(root / f"{name}.pkl"),
+                                           "--config", str(exp / "config.yml"), "--outpath",
+                                           str(exp / "checkpoint-50000steps.pt")])
+            got = torch.load(out, map_location="cpu", weights_only=True)
+            same = all(torch.equal(got["model"][k], v) for k, v in ref["model"].items()
+                       if not k.endswith("num_batches_tracked")) and got["steps"] == 50000
+            log(f"options {name}: convert_checkpoint of a reference checkpoint "
+                f"({sum(v.numel() for v in ref['model'].values()) / 1e6:.2f}M values) in "
+                f"{time.perf_counter() - t0:.1f} s; every tensor carried: "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                failures.append(f"options {name}: convert_checkpoint changed a tensor")
+            return cfg, out
+
+        def decode(name, cfg, ckpt, path, dp):
+            reset_launch_counts()
+            r = vc_decode.main(["--dumpdir", str(two), "--checkpoint", ckpt, "--outdir",
+                                str(root / f"dec_{name}"), "--batch-size", "1"]
+                               + (["--dp-input-dir", str(two)] if dp else []))
+            launches[path] = cli_launches(path, failures)
+            log(f"options {name} vc_decode: 2 utterances, {r['frames']} mel frames in "
+                f"{r['seconds'] * 1e3:.1f} ms, {r['frames_per_sec']:.1f} mel-frames/s; card {card}")
+            if len(list((root / f"dec_{name}" / "wav").glob("*.wav"))) != 2:
+                failures.append(f"options {name} vc_decode: wavs missing")
+            return vc_decode.load_model(cfg, ckpt, "cuda")
+
+        def serve_requests(name, ckpt, path, seconds):
+            clips = [(f"{s:.1f} s", clip(s, 95 + i)) for i, s in enumerate(seconds)]
+            lines = []
+            for i, (_, audio) in enumerate(clips):
+                write_wav(str(root / f"{name}_req{i}.wav"), audio, sr)
+                lines.append(f"{root / f'{name}_req{i}.wav'} {root / f'{name}_res{i}.wav'}")
+            args = dict(checkpoint=ckpt, config=None, src_stats=c["src_stats"],
+                        trg_stats=c["trg_stats"], vocoder_checkpoint=str(root / "hifigan.pt"),
+                        vocoder_config=str(root / "hifigan.yaml"), vocoder_stats=None,
+                        feat_type="mel", bucket_frames=128, device=None)
+            argv = [a for k, v in args.items() if v is not None
+                    for a in (f"--{k.replace('_', '-')}", str(v))]
+            reset_launch_counts()
+            results = _run_serve(vc_serve, argv, lines)
+            launches[path] = cli_launches(path, failures)
+            if results[:1] != [{"ready": True}] or len(results) != 1 + len(clips) \
+                    or not all(r.get("ok") for r in results[1:]):
+                failures.append(f"options {name} vc_serve: {results}")
+            for (label, _), r in zip(clips, results[1:]):
+                log(f"options {name} vc_serve request {label}: wall {r.get('wall_ms')} ms, RTF "
+                    f"{r.get('rtf')}, output {r.get('output_seconds')} s; card {card}")
+            return vc_serve.build_converter(argparse.Namespace(**args)), clips, results
+
+        # (a) the conformer VTN
+        cfg, ckpt = reference("vtn", CLI_VTN_CONF, OPT_VTN, seed=92, inference=OPT_INFERENCE)
+        model = decode("vtn", cfg, ckpt, "opt_vtn_decode", dp=False)
+        lens = [len(np.load(line.split()[1], mmap_mode="r"))
+                for line in two.read_text().splitlines()]
+        for n in lens:
+            m = vc_decode.frame_multiple(model)
+            calls.update(cl + ("float32",) for cl in rel_encoder_calls(model, -(-n // m) * m, [n]))
+        del model
+        conv, clips, _ = serve_requests("vtn", ckpt, "opt_vtn_serve", (3.8, OPT_LONG_SECONDS))
+        for _, audio in clips:
+            batch, n_trues = conv._prepare([audio])
+            calls.update(cl + ("float32",) for cl in rel_encoder_calls(
+                conv.model, 1 + (batch.shape[1] - conv.fft_size) // conv.hop_size, n_trues))
+        if not any(cl[0] == "rel_flash_attention" for cl in calls):
+            failures.append(f"options vtn: the {OPT_LONG_SECONDS} s request's encoder is not on "
+                            f"the flash route")
+        del conv
+
+        # (a) the AAS-VC flagship with batch norms
+        cfg, ckpt = reference("aas", CLI_CONF, OPT_AAS, seed=93)
+        model = decode("aas", cfg, ckpt, "opt_aas_decode", dp=True)
+        calls.update(cl + (None, "bfloat16")
+                     for cl in decode_calls(model, str(two), 1, root / "dec_aas"))
+        del model
+        long_s = FLASH_MIN_LEN * hop * cfg["model_params"]["encoder_reduction_factor"] / sr + 0.5
+        conv, clips, results = serve_requests("aas", ckpt, "opt_aas_serve", (3.8, long_s))
+        out_frames = [[round(r["output_seconds"] * sr / hop)] for r in results[1:]]
+        calls.update(cl + (None, "bfloat16") for cl in planned_calls(
+            conv, [(label, [a]) for label, a in clips], out_frames))
+        del conv
+
+        # (b) conformer VTN training, under the gate and past it
+        tcfg = load_config(str(CLI_VTN_CONF))
+        tcfg["model_params"] = dict(tcfg["model_params"], **OPT_VTN_TRAIN)
+        tcfg.update(train_max_steps=2, log_interval_steps=1, eval_interval_steps=1000,
+                    save_interval_steps=1000)
+        long_dir = root / "long"
+        long_dir.mkdir()
+        trg = np.linspace(*OPT_TRAIN_LONG, OPT_LONG_BATCH).round().astype(int)
+        pairs = list(zip(np.random.default_rng(94).permutation(trg).tolist(), trg.tolist()))
+        lines = {"src_feat": [], "trg_feat": []}
+        for item in feature_items(pairs, seed=95):
+            for key, out in lines.items():
+                path = long_dir / f"{key}_{item['utt_id']}.npy"
+                np.save(path, item[key])
+                out.append(f"{item['utt_id']} {path}")
+        for key, out in lines.items():
+            (long_dir / f"{key}.scp").write_text("\n".join(out) + "\n")
+        long_src, long_trg = (str(long_dir / f"{k}.scp") for k in lines)
+        for path, src, trg_scp, batch_size in (
+                ("opt_vtn_train", c["src_train"], c["trg_train"], BATCH),
+                ("opt_vtn_train_long", long_src, long_trg, OPT_LONG_BATCH)):
+            exp = root / f"exp_{path}"
+            exp.mkdir()
+            (exp / "train.yml").write_text(yaml.safe_dump(dict(tcfg, batch_size=batch_size)))
+            reset_launch_counts()
+            trainer = vc_train.main(["--src-train-dumpdir", src, "--src-dev-dumpdir", src,
+                                     "--trg-train-dumpdir", trg_scp, "--trg-dev-dumpdir", trg_scp,
+                                     "--config", str(exp / "train.yml"), "--outdir", str(exp)])
+            launches[path] = cli_launches(path, failures)
+            hist = [h for h in trainer.history if "train/loss" in h]
+            log(f"options {path}: vc_train of the conformer VTN (bf16, group norms) at B "
+                f"{batch_size}: ms a step {[round(h['train/step_time_sec'] * 1e3, 1) for h in hist]}"
+                f" (the first with its warm-up), losses {[round(h['train/loss'], 4) for h in hist]}; "
+                f"card {card}")
+            if trainer.steps != 2 or not all(math.isfinite(h["train/loss"]) for h in hist):
+                failures.append(f"options {path}: steps {trainer.steps}, history {hist}")
+            data = ParallelVCMelDataset(src, trg_scp)
+            batch = next(iter(DataLoader(data, vc_train.build_collater(tcfg), batch_size,
+                                         prefetch=0)))
+            rate = trainer.model.encoder.encoders[0].self_attn.dropout_rate
+            calls.update(cl + ("bfloat16",) for cl in rel_encoder_calls(
+                trainer.model, batch["xs"].shape[1], batch["ilens"].tolist(), train=True,
+                rate=rate))
+            del trainer
+
+        # (c) speaker embeddings
+        reset_launch_counts()
+        failures += spembs_checks(card)
+        launches["opt_spembs"] = cli_launches("opt_spembs", failures)
+
+        # (d) each kernel at each shape the phase gave it, in the type it
+        # ran in (the VTN's conf serves in float32, the flagship in bf16,
+        # the training config is bf16)
+        for name, B, H, T, D, lens, rate, dtype in sorted(calls, key=str):
+            rows.append(check_kernel(name, B, H, T, D, getattr(torch, dtype), seed=T + D,
+                                     label="options", lens=list(lens), rate=rate))
+    return failures, launches
+
+
 def optional_packages() -> str:
     """Which of the packages the JAX package's CLIs lean on import here
     (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
@@ -4460,7 +4877,8 @@ def main() -> int:
         failures += fails
     for name, run in (("cli", lambda: cli_path(rows)), ("fs2", lambda: fs2_path(rows, src, trg)),
                       ("tts", lambda: tts_path(rows)), ("voc", lambda: vocoder_path(rows)),
-                      ("feat", lambda: feature_path(rows)), ("urhythmic", urhythmic_path)):
+                      ("feat", lambda: feature_path(rows)), ("urhythmic", urhythmic_path),
+                      ("options", lambda: options_path(rows))):
         fails, by_path = run_phase(name, run)
         failures += fails
         launches.update(by_path)

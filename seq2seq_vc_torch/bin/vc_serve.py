@@ -8,7 +8,10 @@ seq2seq_vc_tpu/bin/vc_serve.py:46-449).
 AAS-VC and FastSpeech-VC checkpoints ride ``pipeline.Wav2WavConverter``
 (log-mel -> normalisation -> conversion -> stat chain -> chunked HiFi-GAN
 on the card); VTN checkpoints ride ``pipeline.Wav2WavARConverter`` (the
-chunked AR decode). The model loads once; every request after the warm-up finds its
+chunked AR decode), which streams its vocoder as the JAX server does: the
+synthesis of the decoded prefix runs beside the decode, and the config's
+``inference.stream_vocoder: false`` turns that off (synthesis after the
+decode). The model loads once; every request after the warm-up finds its
 weights and kernels on the card.
 
 Protocols (one ``<in_wav> <out_wav>`` request per line, one JSON result
@@ -283,7 +286,9 @@ def serve_tcp(service: ConversionService, host: str, port: int, max_idle_seconds
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Resident wav->wav VC server (PyTorch port)")
+    parser = argparse.ArgumentParser(
+        description="Resident wav->wav VC server (PyTorch port). A VTN streams its vocoder "
+                    "beside the decode unless the config says inference.stream_vocoder: false.")
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--config", default=None, help="defaults to <ckpt_dir>/config.yml")
     parser.add_argument("--src-stats", required=True, help=".npz or .h5")

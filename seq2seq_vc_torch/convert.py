@@ -6,9 +6,14 @@ and of ``seq2seq_vc_tpu/vocoder/convert_torch.py:torch_hifigan_to_flax``,
 written here so the port needs nothing of the JAX package; ``flax_paths``
 names each port parameter by its flax path, which ``init-mods`` and
 ``freeze-mods`` match (``core/checkpoint.py``, ``train/optim.py``). A
-tree is nested dicts of numpy arrays (``{"params": ...}`` or the inner
-dict). Every tensor of the port module is looked up by name; a missing
-leaf raises ``KeyError`` and leftover leaves raise ``ValueError``.
+tree is nested dicts of numpy arrays (``{"params": ...}``, with a
+``batch_stats`` collection or without, or the inner dict). Every tensor of
+the port module is looked up by name; a missing leaf raises ``KeyError``
+and leftover leaves raise ``ValueError``. A batch norm (the postnet's and
+the conformer conv module's with ``batch_norm``) takes ``scale`` and
+``bias`` from the parameters and ``running_mean``/``running_var`` from
+``batch_stats`` (``mean``, ``var``); its ``num_batches_tracked`` is set to
+``NUM_BATCHES_TRACKED`` (0), as flax counts no batches.
 
 Layout transforms (flax -> torch): Dense ``kernel (in, out)`` -> Linear
 ``weight (out, in)``; Conv ``kernel (k, in/groups, out)`` -> Conv1d
@@ -34,36 +39,48 @@ Path_ = Tuple[str, ...]
 
 
 class _Tree:
-    """Flattened parameter tree that tracks which leaves were consumed."""
+    """Flattened parameter tree that tracks which leaves were consumed. A
+    tree of variables (``{"params": ...}``, with a ``batch_stats``
+    collection or without) keeps that collection's leaves apart
+    (``pop_stat``)."""
 
     def __init__(self, tree: Dict[str, Any]):
-        if set(tree) == {"params"}:
-            tree = tree["params"]
+        stats = {}
+        if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+            tree, stats = tree["params"], tree.get("batch_stats", {})
         self.leaves: Dict[Path_, np.ndarray] = {}
-        self._flatten(tree, ())
+        self._flatten(tree, (), self.leaves)
+        self.stats: Dict[Path_, np.ndarray] = {}
+        self._flatten(stats, (), self.stats)
 
-    def _flatten(self, node, prefix: Path_):
+    def _flatten(self, node, prefix: Path_, out):
         for k, v in node.items():
             if isinstance(v, dict):
-                self._flatten(v, prefix + (k,))
+                self._flatten(v, prefix + (k,), out)
             else:
-                self.leaves[prefix + (k,)] = np.asarray(v)
+                out[prefix + (k,)] = np.asarray(v)
 
-    def pop(self, path: Path_) -> np.ndarray:
+    @staticmethod
+    def _pop(leaves, path: Path_, what: str) -> np.ndarray:
         try:
-            return self.leaves.pop(path)
+            return leaves.pop(path)
         except KeyError:
             raise KeyError(
-                f"flax parameter {'/'.join(path)!r} not found "
-                f"(remaining: {['/'.join(p) for p in sorted(self.leaves)][:10]}...)"
+                f"flax {what} {'/'.join(path)!r} not found "
+                f"(remaining: {['/'.join(p) for p in sorted(leaves)][:10]}...)"
             ) from None
 
+    def pop(self, path: Path_) -> np.ndarray:
+        return self._pop(self.leaves, path, "parameter")
+
+    def pop_stat(self, path: Path_) -> np.ndarray:
+        """A leaf of the ``batch_stats`` collection (``mean``, ``var``)."""
+        return self._pop(self.stats, path, "batch_stats leaf")
+
     def finish(self):
-        if self.leaves:
-            raise ValueError(
-                "unconverted flax parameters: "
-                f"{['/'.join(p) for p in sorted(self.leaves)]}"
-            )
+        left = sorted(self.leaves) + sorted(self.stats)
+        if left:
+            raise ValueError(f"unconverted flax parameters: {['/'.join(p) for p in left]}")
 
 
 def _dds_name(m: re.Match) -> str:
@@ -114,8 +131,13 @@ _VTN_RENAMES = _SUBSAMPLE_RENAMES + [
     (r"^decoder\.embed\.0\.1$", "dprenet_proj"),
     (r"^decoder\.embed\.1$", "decoder.pos_enc"),
     (r"(^|\.)(encoders|decoders)\.(\d+)\.", r"\1layers_\3."),
-    (r"\.feed_forward\.w_1$", ".feed_forward.Dense_0"),
-    (r"\.feed_forward\.w_2$", ".feed_forward.Dense_1"),
+    (r"\.feed_forward(_macaron)?\.w_1$", r".feed_forward\1.Dense_0"),
+    (r"\.feed_forward(_macaron)?\.w_2$", r".feed_forward\1.Dense_1"),
+    # the conformer encoder (``encoder_type: conformer``)
+    (r"\.conv_module\.pointwise_conv1$", ".conv_module.Conv_0"),
+    (r"\.conv_module\.depthwise_conv$", ".conv_module.Conv_1"),
+    (r"\.conv_module\.pointwise_conv2$", ".conv_module.Conv_2"),
+    (r"\.conv_module\.norm$", ".conv_module.MaskedGroupNorm_0"),
     (r"^postnet\.postnet\.(\d+)\.0$", r"postnet.Conv_\1"),
     (r"^postnet\.postnet\.(\d+)\.1$", r"postnet.GroupNorm_\1"),
 ]
@@ -138,11 +160,32 @@ _SUBSAMPLE_OUTS = {"encoder.embed.out.0": "encoder.embed.conv.2",
 _SDP_DENSE = re.compile(r"^duration_predictor\.(pre|proj|post_pre|post_proj)$")
 
 
-def _flax_module(mod_path: str, renames) -> str:
-    """The flax module path (dotted) of a torch module path."""
+def _flax_module(mod_path: str, renames, model=None) -> str:
+    """The flax module path (dotted) of a torch module path; with the port
+    ``model``, the names that depend on a module's kind: a batch norm is
+    flax's ``BatchNorm_<i>``, and the conv forms of the positionwise layer
+    name their layers ``Conv_0``, ``Conv_1`` (``MultiLayeredConv1d``) or
+    ``Conv_0``, ``Dense_0`` (``Conv1dLinear``)."""
+    from .nn.conformer import ConvBatchNorm
+    from .nn.transformer import Conv1dLinear, MultiLayeredConv1d
+
+    flax_path = mod_path
     for pat, rep in renames:
-        mod_path = re.sub(pat, rep, mod_path)
-    return mod_path
+        flax_path = re.sub(pat, rep, flax_path)
+    if model is None or not mod_path:
+        return flax_path
+    parent, _, name = mod_path.rpartition(".")
+    try:
+        mod, outer = model.get_submodule(mod_path), model.get_submodule(parent)
+    except AttributeError:  # a key of another layout (flax_paths' keys)
+        return flax_path
+    if isinstance(mod, ConvBatchNorm):
+        flax_path = re.sub(r"(Masked)?GroupNorm_(\d+)$", r"BatchNorm_\2", flax_path)
+    elif isinstance(outer, MultiLayeredConv1d):
+        kind = ("Dense_0" if name == "w_2" and isinstance(outer, Conv1dLinear)
+                else f"Conv_{int(name == 'w_2')}")
+        flax_path = flax_path.rpartition(".")[0] + "." + kind
+    return flax_path
 
 
 def _renames_of(model: torch.nn.Module):
@@ -155,9 +198,9 @@ def flax_paths(model: torch.nn.Module, keys=None) -> Dict[str, str]:
     VTN, TransformerTTS, AASVC or FastSpeechVC ``model`` (``keys``: other
     keys of the same layout, e.g. a checkpoint's; default the model's own).
     The leaf is named as in flax: ``kernel``, ``scale`` (norms),
-    ``embedding``, ``bias`` or the torch name (``alpha``, ...)."""
-    from .nn.conformer import MaskedGroupNorm
-
+    ``embedding``, ``bias``, ``mean`` and ``var`` (a batch norm's running
+    statistics, of the ``batch_stats`` collection) or the torch name
+    (``alpha``, ...)."""
     renames = _renames_of(model)
     modules = dict(model.named_modules())
     out = {}
@@ -165,10 +208,24 @@ def flax_paths(model: torch.nn.Module, keys=None) -> Dict[str, str]:
         mod_path, _, leaf = key.rpartition(".")
         mod = modules.get(mod_path)
         if leaf == "weight":
-            leaf = ("scale" if isinstance(mod, (torch.nn.LayerNorm, MaskedGroupNorm))
+            leaf = ("scale" if isinstance(mod, _norm_kinds())
                     else "embedding" if isinstance(mod, torch.nn.Embedding) else "kernel")
-        out[key] = "/".join(_flax_module(mod_path, renames).split(".") + [leaf])
+        leaf = _STATS.get(leaf, leaf)
+        out[key] = "/".join(_flax_module(mod_path, renames, model).split(".") + [leaf])
     return out
+
+
+def _norm_kinds():
+    from .nn.conformer import ConvBatchNorm, MaskedGroupNorm
+
+    return (torch.nn.LayerNorm, MaskedGroupNorm, ConvBatchNorm)
+
+
+# a batch norm's running statistics: their leaves in flax's ``batch_stats``
+_STATS = {"running_mean": "mean", "running_var": "var"}
+# what a converted batch norm's ``num_batches_tracked`` holds (flax counts
+# no batches; with a momentum set, torch reads the counter nowhere)
+NUM_BATCHES_TRACKED = 0
 
 
 def _to_torch(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -183,20 +240,22 @@ def _state_dict(tree: Dict[str, Any], model: torch.nn.Module, renames,
     """Every tensor of ``model`` looked up in the flax ``tree`` by its module
     path after ``renames``. ``subsample_outs`` maps each Conv2dSubsampling
     output Linear to the conv whose channels order its input rows."""
-    from .nn.conformer import MaskedGroupNorm
-
     src = _Tree(tree)
     out: Dict[str, torch.Tensor] = {}
     for key, like in model.state_dict().items():
         mod_path, _, leaf = key.rpartition(".")
-        flax_mod = _flax_module(mod_path, renames)
-        path = tuple(flax_mod.split(".")) if flax_mod else ()
         mod = model.get_submodule(mod_path)
-        if leaf == "bias":
+        flax_mod = _flax_module(mod_path, renames, model)
+        path = tuple(flax_mod.split(".")) if flax_mod else ()
+        if leaf == "num_batches_tracked":  # flax counts no batches
+            arr = np.full(like.shape, NUM_BATCHES_TRACKED)
+        elif leaf in _STATS:
+            arr = src.pop_stat(path + (_STATS[leaf],))
+        elif leaf == "bias":
             arr = src.pop(path + ("bias",))
         elif leaf != "weight":  # pos_bias_u/v, alpha, flow m/logs: same layout
             arr = src.pop(path + (leaf,)).reshape(like.shape)
-        elif isinstance(mod, (torch.nn.LayerNorm, MaskedGroupNorm)):
+        elif isinstance(mod, _norm_kinds()):
             arr = src.pop(path + ("scale",))
         elif isinstance(mod, torch.nn.Embedding):
             arr = src.pop(path + ("embedding",))

@@ -7,10 +7,14 @@ inverse) or deterministic (inference) -> Gaussian upsampling -> conformer
 decoder -> ``feat_out`` -> postnet. ``forward`` is the training pass and
 also returns the stochastic predictor's NLL of the MAS durations, or the
 deterministic one's log-durations. The constructor takes the JAX model's
-config fields by the same names and defaults, dropout rates included;
-options the port does not have yet raise ``NotImplementedError`` (the
-flagship sets every ported one). Submodule names are the reference
-torch names, so a ``state_dict`` converts with
+config fields by the same names and defaults, dropout rates included:
+the positionwise layer's three kinds (``linear``, ``conv1d``,
+``conv1d-linear``, of ``positionwise_conv_kernel_size`` taps), speaker
+embeddings (``spk_embed_dim``, ``add`` or ``concat``; ``spembs`` to
+``forward`` and ``inference``), the group- or batch-norm postnet and conv
+module; the diffusion decoders raise ``NotImplementedError`` (ROADMAP.md
+queue 1 item 5). Submodule names are the reference torch names, so a
+``state_dict`` converts with
 ``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``.
 """
 
@@ -31,7 +35,13 @@ from ..nn.transformer import Conv2dSubsampling
 from ..ops.mas import viterbi_decode
 from ..ops.masks import make_non_pad_mask
 from ..ops.upsampling import gaussian_upsampling
-from .common import conv2d_subsampled_lengths, nearest_interpolate, reduce_frames
+from .common import (
+    conv2d_subsampled_lengths,
+    integrate_spk_embed,
+    nearest_interpolate,
+    reduce_frames,
+    speaker_projection,
+)
 
 MAX_DP_OUTPUT = 10  # duration clamp (reference ``aas_vc.py:35``)
 
@@ -64,6 +74,7 @@ class AASVC(torch.nn.Module):
         dlayers: int = 6,
         dunits: int = 1536,
         positionwise_layer_type: str = "conv1d",
+        positionwise_conv_kernel_size: int = 1,
         use_batch_norm: bool = True,
         encoder_input_layer: str = "linear",
         encoder_normalize_before: bool = False,
@@ -94,6 +105,7 @@ class AASVC(torch.nn.Module):
         conformer_enc_kernel_size: int = 7,
         conformer_dec_kernel_size: int = 31,
         spk_embed_dim: Optional[int] = None,
+        spk_embed_integration_type: str = "add",
         transformer_enc_dropout_rate: float = 0.1,
         transformer_enc_positional_dropout_rate: float = 0.1,
         transformer_enc_attn_dropout_rate: float = 0.1,
@@ -120,16 +132,10 @@ class AASVC(torch.nn.Module):
         picks the fused attention's backward variant
         (``ops/rel_scores.py``)."""
         super().__init__()
-        unsupported = {
-            "encoder_type": (encoder_type, "conformer"),
-            "decoder_type": (decoder_type, "conformer"),
-            "positionwise_layer_type": (positionwise_layer_type, "linear"),
-            "postnet_norm_type": (postnet_norm_type, "group_norm"),
-            "spk_embed_dim": (spk_embed_dim, None),
-        }
-        for key, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(f"AASVC {key}={got!r} is not ported yet")
+        for key, kind in (("encoder_type", encoder_type), ("decoder_type", decoder_type)):
+            if kind != "conformer":
+                raise NotImplementedError(f"AASVC {key}={kind!r} is not ported yet: ROADMAP.md "
+                                          "queue 1 item 5 (the diffusion decoders)")
         if duration_predictor_type not in ("deterministic", "stochastic"):
             raise ValueError(f"unknown duration_predictor_type: {duration_predictor_type}")
         self.duration_predictor_type = duration_predictor_type
@@ -140,11 +146,13 @@ class AASVC(torch.nn.Module):
         self.encoder_input_layer = encoder_input_layer
         self.duration_predictor_use_encoder_outputs = duration_predictor_use_encoder_outputs
         self.stochastic_duration_predictor_noise_scale = stochastic_duration_predictor_noise_scale
+        self.spk_embed_integration_type = spk_embed_integration_type
         cdt = _DTYPES[compute_dtype]
         pos_enc, self_attn = _conformer_types(conformer_rel_pos_type, conformer_pos_enc_layer_type,
                                               conformer_self_attn_layer_type)
         common = dict(
             positionwise_layer_type=positionwise_layer_type,
+            positionwise_conv_kernel_size=positionwise_conv_kernel_size,
             macaron_style=use_macaron_style_in_conformer,
             pos_enc_layer_type=pos_enc,
             selfattention_layer_type=self_attn,
@@ -166,6 +174,8 @@ class AASVC(torch.nn.Module):
             concat_after=encoder_concat_after, cnn_module_kernel=conformer_enc_kernel_size,
             **common,
         )
+        self.projection = speaker_projection(spk_embed_dim, spk_embed_integration_type, adim,
+                                             device)
         # the predictor's input is the stacked encoder states or the
         # separate conv2d projection of the source features
         dp_idim = (adim * post_encoder_reduction_factor
@@ -209,15 +219,18 @@ class AASVC(torch.nn.Module):
         )
         self.postnet = (
             Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
-                    dropout_rate=postnet_dropout_rate, use_norm=use_batch_norm, compute_dtype=cdt, device=device)
+                    dropout_rate=postnet_dropout_rate, use_norm=use_batch_norm,
+                    norm_type=postnet_norm_type, compute_dtype=cdt, device=device)
             if postnet_layers > 0 else None
         )
 
-    def _encode(self, xs, ilens):
+    def _encode(self, xs, ilens, spembs=None):
         xs, ilens = reduce_frames(xs, ilens, self.encoder_reduction_factor)
         hs, _ = self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
         if self.encoder_input_layer == "conv2d":
             ilens = conv2d_subsampled_lengths(ilens)
+        if self.projection is not None:
+            hs = integrate_spk_embed(self.projection, self.spk_embed_integration_type, hs, spembs)
         return reduce_frames(hs, ilens, self.post_encoder_reduction_factor)
 
     def _dp_features(self, hs, dp_inputs):
@@ -236,6 +249,7 @@ class AASVC(torch.nn.Module):
         tgt_speech_lengths: torch.Tensor,
         dp_inputs: Optional[torch.Tensor] = None,
         dp_lengths: Optional[torch.Tensor] = None,
+        spembs: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
@@ -249,10 +263,12 @@ class AASVC(torch.nn.Module):
         ``generator``). The deterministic one gives ``d_outs``, its
         log-durations clamped at ``MAX_DP_OUTPUT``.
         ``dp_lengths`` is accepted for the JAX signature and not read.
+        ``spembs`` (B, spk_embed_dim): the speaker embeddings, with
+        ``spk_embed_dim``.
         """
         xs, ys = src_speech, tgt_speech
         ilens, olens = src_speech_lengths, tgt_speech_lengths
-        hs, ilens_red = self._encode(xs, ilens)
+        hs, ilens_red = self._encode(xs, ilens, spembs)
         dp_in = self._dp_features(hs, dp_inputs)
         ys_red, olens_red = reduce_frames(ys, olens, self.decoder_reduction_factor)
 
@@ -294,6 +310,7 @@ class AASVC(torch.nn.Module):
         src_speech: torch.Tensor,
         src_speech_lengths: torch.Tensor,
         dp_inputs: Optional[torch.Tensor] = None,
+        spembs: Optional[torch.Tensor] = None,
         max_output_frames: Optional[int] = None,
         tgt_speech: Optional[torch.Tensor] = None,
         tgt_speech_lengths: Optional[torch.Tensor] = None,
@@ -308,7 +325,7 @@ class AASVC(torch.nn.Module):
         drawn from ``generator``). With a ground-truth target (debug use),
         the MAS durations ``ds`` and ``log_p_attn`` are returned as well.
         """
-        hs, ilens_red = self._encode(src_speech, src_speech_lengths)
+        hs, ilens_red = self._encode(src_speech, src_speech_lengths, spembs)
         debug: Dict[str, torch.Tensor] = {}
         if tgt_speech is not None:
             ys_red, olens_red = reduce_frames(

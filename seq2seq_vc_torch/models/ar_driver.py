@@ -12,6 +12,9 @@ speculative reads of the stop flags.
   so the card keeps working while the host reads. A chunk enqueued past the
   stop produces only dead frames (finished items keep their ``out_len``)
   and is dropped, so the result equals the serial loop's, frame for frame.
+- **The chunk hook** (``on_chunk``, the streamed vocoder's synthesis of
+  the decoded prefix) is called after the chunk's flag copy is enqueued,
+  so no flag read waits on the work the hook enqueues.
 """
 
 from typing import Any, Dict, List, Optional
@@ -60,7 +63,7 @@ def _enqueue_all_finished(finished: torch.Tensor):
         return done, None
     host = torch.empty((), dtype=torch.bool, pin_memory=True)
     host.copy_(done, non_blocking=True)
-    event = torch.cuda.Event()
+    event = torch.cuda.Event(enable_timing=True)  # timed against the hook's work
     event.record()
     return host, event
 
@@ -112,13 +115,15 @@ class ChunkedARDecoder:
 
     @torch.no_grad()
     def __call__(self, xs, ilens, generator: Optional[torch.Generator] = None,
-                 est_steps: int = 0, on_chunk=None) -> Dict[str, Any]:
+                 est_steps: int = 0, on_chunk=None, spembs=None) -> Dict[str, Any]:
         """``est_steps`` > 0: the expected step count, which sizes the first
         chunk. ``on_chunk(chunk_idx, outs_list, state)`` runs right after
-        each chunk is enqueued, before the host waits on any flag; it must
-        only enqueue device work."""
+        each chunk and its flag copy are enqueued, before the host waits on
+        any flag; it must only enqueue device work. ``spembs``: the speaker
+        embeddings of a model with them."""
         m = self.model
-        st = m.decode_init(xs, ilens, self.maxr, round_budget_to=self.base)
+        self.flag_events = []  # each chunk's flag-copy event (None off the card)
+        st = m.decode_init(xs, ilens, self.maxr, round_budget_to=self.base, spembs=spembs)
         sizes = chunk_schedule(st["maxlen"], self.base, self.max_chunk, est_steps)
         outs_c, probs_c, att_c = [], [], []
         pending = None  # the flags from before the most recently enqueued chunk
@@ -130,6 +135,8 @@ class ChunkedARDecoder:
             probs_c.append(probs)
             att_c.append(att)
             t0 += s
+            flag = _enqueue_all_finished(st["finished"])  # ahead of the hook's work
+            self.flag_events.append(flag[1])
             if on_chunk is not None:
                 on_chunk(si, list(outs_c), st)
             if self.speculate:
@@ -137,8 +144,8 @@ class ChunkedARDecoder:
                 if pending is not None and _read(pending):
                     outs_c.pop(), probs_c.pop(), att_c.pop()
                     break
-                pending = _enqueue_all_finished(st["finished"])
-            elif _read(_enqueue_all_finished(st["finished"])):
+                pending = flag
+            elif _read(flag):
                 break
         out_lens = m.decode_out_lens(st, self.maxr)
         return {

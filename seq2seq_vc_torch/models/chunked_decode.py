@@ -41,16 +41,18 @@ def step_stop(prob_r, t: int, threshold: float, minlen_b, maxlen_b, finished, ou
 
 class ChunkedARDecodeMixin:
     def decode_init(self, xs, ilens, maxlenratio: float = 10.0,
-                    round_budget_to: int = 1) -> Dict[str, Any]:
+                    round_budget_to: int = 1, spembs=None) -> Dict[str, Any]:
         """The chunked-decode state. The cache length (``state["maxlen"]``)
         is the step budget, rounded up to a multiple of ``round_budget_to``
         so that the chunk schedule can cover it with chunk sizes from a fixed set;
-        each item's own stop point comes from its true encoder length."""
+        each item's own stop point comes from its true encoder length.
+        ``spembs`` (B, spk_embed_dim): the speaker embeddings, for a model
+        with them (``encode``)."""
         if self.training:
             raise ValueError("decoding runs in eval() mode")
         r = self.decoder_reduction_factor
         B = xs.shape[0]
-        hs, h_masks = self.encode(xs, ilens)
+        hs, h_masks = self.encode(xs, ilens, spembs)
         t_mem = hs.shape[1]
         hlens = h_masks.sum(-1).to(torch.int32)
         maxlen = max(int(t_mem * maxlenratio / r), 1)

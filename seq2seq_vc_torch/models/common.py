@@ -29,3 +29,34 @@ def nearest_interpolate(x: torch.Tensor, out_len: int) -> torch.Tensor:
     t_in = x.shape[1]
     idx = torch.arange(out_len, device=x.device) * t_in // out_len
     return x[:, idx, :]
+
+
+def speaker_projection(spk_embed_dim, integration_type: str, adim: int, device=None):
+    """The speaker-embedding projection of the four models (their
+    ``projection``): ``Linear(spk_embed_dim, adim)`` for ``add``,
+    ``Linear(adim + spk_embed_dim, adim)`` for ``concat``; None without
+    speaker embeddings."""
+    from ..nn.layers import Linear
+
+    if spk_embed_dim is None:
+        return None
+    if integration_type not in ("add", "concat"):
+        raise ValueError(f"unknown spk_embed_integration_type: {integration_type}")
+    idim = spk_embed_dim if integration_type == "add" else adim + spk_embed_dim
+    return Linear(idim, adim, device=device)
+
+
+def integrate_spk_embed(projection, integration_type: str, hs: torch.Tensor,
+                        spembs: torch.Tensor) -> torch.Tensor:
+    """hs (B, T, adim) with the (B, spk_embed_dim) speaker embeddings,
+    L2-normalised (the norm floored at 1e-12): projected and added to every
+    frame (``add``), or tiled, concatenated to every frame and projected
+    (``concat``); the JAX models' ``_integrate_with_spk_embed``."""
+    if spembs is None:
+        raise ValueError("the model has speaker embeddings (spk_embed_dim): pass spembs")
+    spembs = spembs / torch.clamp(torch.linalg.vector_norm(spembs, dim=-1, keepdim=True),
+                                  min=1e-12)
+    if integration_type == "add":
+        return hs + projection(spembs)[:, None, :]
+    tiled = spembs[:, None, :].expand(*hs.shape[:2], spembs.shape[-1])
+    return projection(torch.cat([hs, tiled.to(hs.dtype)], dim=-1))

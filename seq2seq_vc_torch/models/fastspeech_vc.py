@@ -11,8 +11,10 @@ length regulator, with the teacher durations scaled by
 decoder (no input layer) -> ``feat_out`` -> postnet. The JAX model passes
 its attention backend to the conformer stacks only: the transformer stacks
 stay dense. The constructor takes the JAX model's config fields by the
-same names and defaults; options the port does not have yet raise
-``NotImplementedError``. Submodule names are the reference torch names, so
+same names and defaults: the positionwise layer's three kinds, speaker
+embeddings (``spk_embed_dim``, ``add`` or ``concat``; ``spembs`` to
+``forward`` and ``inference``), the group- or batch-norm postnet and conv
+module. Submodule names are the reference torch names, so
 a ``state_dict`` converts with
 ``seq2seq_vc_tpu/convert/reference.py:convert_fastspeech_vc``.
 """
@@ -32,7 +34,13 @@ from ..nn.transformer import Conv2dSubsampling, Encoder
 from ..ops.masks import make_non_pad_mask
 from ..ops.upsampling import length_regulator
 from .aas_vc import _DTYPES, _conformer_types
-from .common import conv2d_subsampled_lengths, nearest_interpolate, reduce_frames
+from .common import (
+    conv2d_subsampled_lengths,
+    integrate_spk_embed,
+    nearest_interpolate,
+    reduce_frames,
+    speaker_projection,
+)
 
 
 class FastSpeechVC(torch.nn.Module):
@@ -50,6 +58,7 @@ class FastSpeechVC(torch.nn.Module):
         postnet_chans: int = 512,
         postnet_filts: int = 5,
         positionwise_layer_type: str = "conv1d",
+        positionwise_conv_kernel_size: int = 1,
         use_batch_norm: bool = True,
         encoder_input_layer: str = "linear",
         encoder_normalize_before: bool = False,
@@ -73,6 +82,7 @@ class FastSpeechVC(torch.nn.Module):
         conformer_enc_kernel_size: int = 7,
         conformer_dec_kernel_size: int = 31,
         spk_embed_dim: Optional[int] = None,
+        spk_embed_integration_type: str = "add",
         transformer_enc_dropout_rate: float = 0.1,
         transformer_enc_positional_dropout_rate: float = 0.1,
         transformer_enc_attn_dropout_rate: float = 0.1,
@@ -99,17 +109,6 @@ class FastSpeechVC(torch.nn.Module):
         conformer stacks; ``compute_dtype`` runs the transformer stacks in
         that type too."""
         super().__init__()
-        unsupported = {
-            "positionwise_layer_type": (positionwise_layer_type, "linear",
-                                        "ROADMAP.md queue 1 item 4 (conv1d feed-forwards)"),
-            "spk_embed_dim": (spk_embed_dim, None, "ROADMAP.md queue 1 item 4 (speaker "
-                                                   "embeddings)"),
-            "postnet_norm_type": (postnet_norm_type, "group_norm",
-                                  "ROADMAP.md queue 1 item 4 (batch-norm postnets)"),
-        }
-        for key, (got, want, item) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(f"FastSpeechVC {key}={got!r} is not ported yet: {item}")
         for key, kind in (("encoder_type", encoder_type), ("decoder_type", decoder_type)):
             if kind not in ("transformer", "conformer"):
                 raise ValueError(f"unknown {key}: {kind}")
@@ -120,22 +119,23 @@ class FastSpeechVC(torch.nn.Module):
         self.decoder_reduction_factor = decoder_reduction_factor
         self.teacher_model_decoder_reduction_factor = teacher_model_decoder_reduction_factor
         self.duration_predictor_use_encoder_outputs = duration_predictor_use_encoder_outputs
+        self.spk_embed_integration_type = spk_embed_integration_type
         cdt = _DTYPES[compute_dtype]
+        pw = dict(positionwise_layer_type=positionwise_layer_type,
+                  positionwise_conv_kernel_size=positionwise_conv_kernel_size)
         pos_enc, self_attn = _conformer_types(conformer_rel_pos_type, conformer_pos_enc_layer_type,
                                               conformer_self_attn_layer_type)
         conformer = dict(
-            attention_heads=aheads, positionwise_layer_type=positionwise_layer_type,
-            macaron_style=use_macaron_style_in_conformer, pos_enc_layer_type=pos_enc,
-            selfattention_layer_type=self_attn, use_cnn_module=use_cnn_in_conformer,
-            conv_norm_type=conformer_conv_norm_type, attention_backend=attention_backend,
+            attention_heads=aheads, macaron_style=use_macaron_style_in_conformer,
+            pos_enc_layer_type=pos_enc, selfattention_layer_type=self_attn,
+            use_cnn_module=use_cnn_in_conformer, conv_norm_type=conformer_conv_norm_type, attention_backend=attention_backend,
             flash_min_len=flash_min_len, rel_scores_bwd=rel_scores_bwd, compute_dtype=cdt,
-            device=device,
+            device=device, **pw,
         )
         # the JAX model gives its transformer stacks only the residual
         # dropout rate: the positional and attention rates stay at the
         # encoder's defaults, and the attention stays dense
-        transformer = dict(attention_heads=aheads, positionwise_layer_type=positionwise_layer_type,
-                           compute_dtype=cdt, device=device)
+        transformer = dict(attention_heads=aheads, compute_dtype=cdt, device=device, **pw)
         if encoder_type == "transformer":
             self.encoder = Encoder(
                 idim, attention_dim=adim, linear_units=eunits, num_blocks=elayers,
@@ -153,6 +153,8 @@ class FastSpeechVC(torch.nn.Module):
                 concat_after=encoder_concat_after, cnn_module_kernel=conformer_enc_kernel_size,
                 **conformer,
             )
+        self.projection = speaker_projection(spk_embed_dim, spk_embed_integration_type, adim,
+                                             device)
         self.duration_predictor = DurationPredictor(
             adim, duration_predictor_layers, duration_predictor_chans,
             duration_predictor_kernel_size, duration_predictor_dropout_rate, device=device,
@@ -180,13 +182,15 @@ class FastSpeechVC(torch.nn.Module):
         self.feat_out = Linear(adim, odim * decoder_reduction_factor, device=device)
         self.postnet = Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
                                dropout_rate=postnet_dropout_rate, use_norm=use_batch_norm,
-                               compute_dtype=cdt, device=device)
+                               norm_type=postnet_norm_type, compute_dtype=cdt, device=device)
 
-    def _encode(self, xs, ilens):
+    def _encode(self, xs, ilens, spembs=None):
         xs, ilens = reduce_frames(xs, ilens, self.encoder_reduction_factor)
         hs, _ = self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
         if self.encoder_type == "transformer" or self.encoder_input_layer == "conv2d":
             ilens = conv2d_subsampled_lengths(ilens)
+        if self.projection is not None:
+            hs = integrate_spk_embed(self.projection, self.spk_embed_integration_type, hs, spembs)
         return hs, ilens
 
     def _dp_features(self, hs, dp_inputs):
@@ -222,14 +226,16 @@ class FastSpeechVC(torch.nn.Module):
         durations_lengths: Optional[torch.Tensor] = None,
         dp_inputs: Optional[torch.Tensor] = None,
         dp_lengths: Optional[torch.Tensor] = None,
+        spembs: Optional[torch.Tensor] = None,
         max_feats: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         """Training forward on teacher durations (B, T_text), which are
         cropped or zero-padded to the encoder grid and zeroed past each
         item's length. ``durations_lengths`` and ``dp_lengths`` are accepted
-        for the JAX signature and not read."""
+        for the JAX signature and not read; ``spembs`` (B, spk_embed_dim)
+        are the speaker embeddings, with ``spk_embed_dim``."""
         ys, olens = tgt_speech, tgt_speech_lengths
-        hs, ilens_red = self._encode(src_speech, src_speech_lengths)
+        hs, ilens_red = self._encode(src_speech, src_speech_lengths, spembs)
         dp_in = self._dp_features(hs, dp_inputs)
         h_nonpad = make_non_pad_mask(ilens_red, hs.shape[1])
         d_outs = self.duration_predictor(dp_in, ~h_nonpad)
@@ -259,6 +265,7 @@ class FastSpeechVC(torch.nn.Module):
         src_speech: torch.Tensor,
         src_speech_lengths: torch.Tensor,
         dp_inputs: Optional[torch.Tensor] = None,
+        spembs: Optional[torch.Tensor] = None,
         alpha: float = 1.0,
         max_output_frames: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
@@ -269,7 +276,7 @@ class FastSpeechVC(torch.nn.Module):
         and out_lens (B,) the valid output frame counts. As in the JAX model,
         ``out_lens`` is not clamped to ``max_output_frames``.
         """
-        hs, ilens_red = self._encode(src_speech, src_speech_lengths)
+        hs, ilens_red = self._encode(src_speech, src_speech_lengths, spembs)
         dp_in = self._dp_features(hs, dp_inputs)
         h_nonpad = make_non_pad_mask(ilens_red, hs.shape[1])
         d_outs = self.duration_predictor(dp_in, ~h_nonpad, is_inference=True)

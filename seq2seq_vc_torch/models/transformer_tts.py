@@ -15,11 +15,13 @@ decode (``models/chunked_decode.py``) run through ``encode``, so the
 decoder's memory holds the eos and its lengths count it.
 
 The model runs no kernel of its own, as in the JAX package, whose model
-has no attention backend: every attention is dense. Speaker embeddings are
-refused (ROADMAP.md queue 1 item 4), as the port's VTN refuses them.
-Submodule names are the reference torch names (``encoder.embed.0`` the
-embedding, ``encoder.embed.1.alpha``, ``decoder.embed.0.0``/``.0.1`` the
-prenet and its projection), so a ``state_dict`` converts with
+has no attention backend: every attention is dense. Speaker embeddings
+(``spk_embed_dim``, ``add`` or ``concat``) join the encoder states after
+the eos, as in the VTN; the positionwise layer takes its three kinds and
+the postnet its group or batch norm. Submodule names are the reference
+torch names (``encoder.embed.0`` the embedding, ``encoder.embed.1.alpha``,
+``decoder.embed.0.0``/``.0.1`` the prenet and its projection), so a
+``state_dict`` converts with
 ``seq2seq_vc_tpu/convert/reference.py:convert_transformer_tts``.
 """
 
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from ..nn.transformer import Encoder
 from ..ops.masks import make_non_pad_mask
+from .common import speaker_projection
 from .vtn import ARSeq2Seq, ar_decoder_modules
 
 
@@ -79,17 +82,8 @@ class TransformerTTS(ARSeq2Seq):
         device=None,
     ):
         super().__init__()
-        unsupported = {
-            "positionwise_layer_type": (positionwise_layer_type, "linear"),
-            "postnet_norm_type": (postnet_norm_type, "group_norm"),
-        }
-        for key, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(f"TransformerTTS {key}={got!r} is not ported yet")
-        if spk_embed_dim is not None:
-            raise NotImplementedError("TransformerTTS speaker embeddings are not ported yet: "
-                                      "ROADMAP.md queue 1 item 4")
         self.idim, self.odim, self.adim = idim, odim, adim
+        self.spk_embed_integration_type = spk_embed_integration_type
         self.decoder_reduction_factor = r = decoder_reduction_factor
         self.num_heads_applied_guided_attn = num_heads_applied_guided_attn
         self.num_layers_applied_guided_attn = num_layers_applied_guided_attn
@@ -100,14 +94,17 @@ class TransformerTTS(ARSeq2Seq):
             attention_dropout_rate=transformer_enc_attn_dropout_rate, input_layer="embed",
             normalize_before=encoder_normalize_before, concat_after=encoder_concat_after,
             positionwise_layer_type=positionwise_layer_type,
+            positionwise_conv_kernel_size=positionwise_conv_kernel_size,
             init_enc_alpha=initial_encoder_alpha, device=device,
         )
+        self.projection = speaker_projection(spk_embed_dim, spk_embed_integration_type, adim,
+                                             device)
         self.decoder, self.feat_out, self.prob_out, self.postnet = ar_decoder_modules(
             odim, adim, aheads, dprenet_layers, dprenet_units, dprenet_dropout_rate, dlayers,
             dunits, transformer_dec_dropout_rate, transformer_dec_positional_dropout_rate,
             transformer_dec_attn_dropout_rate, decoder_normalize_before, decoder_concat_after,
             initial_decoder_alpha, r, postnet_layers, postnet_chans, postnet_filts,
-            use_batch_norm, device=device)
+            use_batch_norm, device=device, postnet_norm_type=postnet_norm_type)
 
     @property
     def padding_idx(self) -> int:
@@ -124,20 +121,23 @@ class TransformerTTS(ARSeq2Seq):
         pos = torch.arange(xs.shape[1], device=xs.device)[None, :]
         return torch.where(pos == ilens[:, None], self.eos, xs), ilens + 1
 
-    def encode(self, xs, ilens):
+    def encode(self, xs, ilens, spembs=None):
         """(B, T + 1, adim) float32 encoder states of the tokens with eos
-        appended, and their (B, T + 1) mask."""
+        appended, with the speaker embeddings ``spembs`` (B, spk_embed_dim)
+        where the model has them, and their (B, T + 1) mask."""
         xs, ilens = self._add_eos(xs, ilens)
-        return self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
+        hs, h_masks = self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
+        return self._with_speaker(hs, spembs), h_masks
 
     def forward(self, xs, ilens, ys, labels, olens,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None, spembs=None) -> Dict[str, Any]:
         """Teacher-forced forward. xs: (B, T) integer tokens; ilens: (B,);
         ys: (B, Lmax, odim) targets, Lmax a multiple of r; labels: (B, Lmax)
         stop labels; olens: (B,). ``att_ws`` is (B, H' * L', Lmax // r, T +
         1) for the selected heads and layers; ``ilens`` counts the eos.
-        ``generator`` draws the prenet's dropout."""
-        hs, h_masks = self.encode(xs, ilens)
+        ``generator`` draws the prenet's dropout; ``spembs`` (B,
+        spk_embed_dim) are the speaker embeddings, with ``spk_embed_dim``."""
+        hs, h_masks = self.encode(xs, ilens, spembs)
         out = self.decode_teacher_forced(hs, h_masks, ys, labels, olens, True, generator)
         sel = out.pop("src_ws")[-self.num_layers_applied_guided_attn:]
         out["att_ws"] = torch.cat([w[:, :self.num_heads_applied_guided_attn] for w in sel],

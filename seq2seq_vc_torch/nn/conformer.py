@@ -127,7 +127,7 @@ class ConformerEncoderLayer(torch.nn.Module):
                  zero_triu: bool = False, attention_backend: str = "xla",
                  flash_min_len: int = FLASH_MIN_LEN, rel_scores_bwd: str = "auto",
                  legacy: bool = False, compute_dtype=None, conv_norm_type: str = "group_norm",
-                 device=None, dtype=None):
+                 positionwise_conv_kernel_size: int = 1, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ln = dict(compute_dtype=compute_dtype, **kw)
@@ -143,8 +143,10 @@ class ConformerEncoderLayer(torch.nn.Module):
             backend=attention_backend, compute_dtype=compute_dtype,
             flash_min_len=flash_min_len, rel_scores_bwd=rel_scores_bwd, **kw,
         )
-        # the conformer passes Swish into the linear-flavour FFN
-        ff = (positionwise_layer_type, size, linear_units, dropout_rate, compute_dtype, "swish")
+        # the conformer passes Swish into the linear-flavour FFN; the conv
+        # flavours keep their ReLU
+        ff = (positionwise_layer_type, size, linear_units, dropout_rate, compute_dtype, "swish",
+              positionwise_conv_kernel_size)
         self.feed_forward = _positionwise(*ff, **kw)
         if macaron_style:
             self.feed_forward_macaron = _positionwise(*ff, **kw)
@@ -210,6 +212,7 @@ class ConformerEncoder(torch.nn.Module):
                  attention_dropout_rate: float = 0.0,
                  input_layer: Optional[str] = "linear", normalize_before: bool = True,
                  concat_after: bool = False, positionwise_layer_type: str = "linear",
+                 positionwise_conv_kernel_size: int = 1,
                  macaron_style: bool = True, pos_enc_layer_type: str = "rel_pos",
                  selfattention_layer_type: str = "rel_selfattn",
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
@@ -246,7 +249,7 @@ class ConformerEncoder(torch.nn.Module):
                 positionwise_layer_type, macaron_style, use_cnn_module,
                 cnn_module_kernel, zero_triu, attention_backend, flash_min_len,
                 rel_scores_bwd, selfattention_layer_type == "legacy_rel_selfattn",
-                compute_dtype, conv_norm_type, **kw,
+                compute_dtype, conv_norm_type, positionwise_conv_kernel_size, **kw,
             )
             for _ in range(num_blocks)
         )

@@ -51,22 +51,27 @@ class LayerNorm(torch.nn.LayerNorm):
 
 
 class Conv1d(torch.nn.Conv1d):
-    """Conv1d over channel-last input; ``padding`` defaults to SAME for an
-    odd kernel (dilation * (k - 1) // 2 each side)."""
+    """Conv1d over channel-last input; ``padding`` defaults to flax's SAME
+    at stride 1: dilation * (k - 1) // 2 on the left and the rest on the
+    right, so an even kernel puts its odd pad sample on the right."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=None,
                  dilation=1, groups=1, bias=True, compute_dtype=None, device=None,
                  dtype=None):
+        extra_right = 0
         if padding is None:
-            padding = dilation * (kernel_size - 1) // 2
+            total = dilation * (kernel_size - 1)
+            padding, extra_right = total // 2, total % 2
         super().__init__(in_channels, out_channels, kernel_size, stride, padding,
                          dilation, groups, bias, device=device, dtype=dtype)
         self.compute_dtype = compute_dtype
+        self.extra_right = extra_right
 
     def forward(self, x):
         dt = _dtype(self.compute_dtype, x, self.weight)
-        y = F.conv1d(
-            x.transpose(1, 2).to(dt), self.weight.to(dt), _cast(self.bias, dt),
-            self.stride, self.padding, self.dilation, self.groups,
-        )
+        h = x.transpose(1, 2).to(dt)
+        if self.extra_right:
+            h = F.pad(h, (0, self.extra_right))
+        y = F.conv1d(h, self.weight.to(dt), _cast(self.bias, dt),
+                     self.stride, self.padding, self.dilation, self.groups)
         return y.transpose(1, 2)

@@ -5,8 +5,12 @@ The prenet's dropout is always on, at inference too (the reference relies
 on it for stable AR decoding), and draws from the ``torch.Generator`` its
 caller passes (torch's default generator of the input's device when none).
 
-The norm is ``MaskedGroupNorm`` (eps 1e-6), the JAX package's default in
-place of the reference BatchNorm. Names follow the reference:
+The postnet's norm is ``MaskedGroupNorm`` (eps 1e-6, ``norm_type:
+group_norm``), the JAX package's default in place of the reference
+BatchNorm, or with ``norm_type: batch_norm`` the reference's BatchNorm as
+flax's ``nn.BatchNorm(use_running_average=deterministic)``
+(``nn/conformer.ConvBatchNorm``: running statistics in ``eval()`` mode),
+which a reference checkpoint needs. Names follow the reference:
 ``postnet.N.0`` is the conv (no bias), ``postnet.N.1`` the norm. Each
 layer's output goes through dropout (0.5 by default) in ``train()`` mode.
 """
@@ -16,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .conformer import MaskedGroupNorm
+from .conformer import ConvBatchNorm, MaskedGroupNorm
 from .layers import Conv1d, Linear
 
 
@@ -51,8 +55,10 @@ class Prenet(torch.nn.Module):
 class Postnet(torch.nn.Module):
     def __init__(self, odim: int, n_layers: int = 5, n_chans: int = 512,
                  n_filts: int = 5, dropout_rate: float = 0.5, use_norm: bool = True,
-                 compute_dtype=None, device=None, dtype=None):
+                 norm_type: str = "group_norm", compute_dtype=None, device=None, dtype=None):
         super().__init__()
+        if norm_type not in ("group_norm", "batch_norm"):
+            raise ValueError(f"unknown postnet norm_type: {norm_type}")
         self.compute_dtype = compute_dtype
         self.dropout_rate = dropout_rate
         kw = dict(device=device, dtype=dtype)
@@ -63,7 +69,8 @@ class Postnet(torch.nn.Module):
             mods = [Conv1d(ichans, ochans, n_filts, bias=False,
                            compute_dtype=compute_dtype, **kw)]
             if use_norm:
-                mods.append(MaskedGroupNorm(ochans, eps=1e-6, **kw))
+                mods.append(MaskedGroupNorm(ochans, eps=1e-6, **kw) if norm_type == "group_norm"
+                            else ConvBatchNorm(ochans, **kw))
             layers.append(torch.nn.ModuleList(mods))
         self.postnet = torch.nn.ModuleList(layers)
 
@@ -72,9 +79,10 @@ class Postnet(torch.nn.Module):
 
         ``mask`` (B, T) True at valid frames: invalid frames are re-zeroed
         after every layer, so each conv sees zeros past the end, as the
-        reference's exact-length decode does, and the norm's statistics
-        ignore them. Training passes no mask, as the JAX package's step
-        does: there the convs and norms read the padded frames.
+        reference's exact-length decode does, and the group norm's
+        statistics ignore them (the batch norm's are the running ones).
+        Training passes no mask, as the JAX package's step does: there the
+        convs and norms read the padded frames.
         """
         h = xs if self.compute_dtype is None else xs.to(self.compute_dtype)
         n = len(self.postnet)

@@ -1,5 +1,6 @@
 """Transformer stack (mirrors seq2seq_vc_tpu/nn/transformer.py): LN_EPS,
-the position-wise feed-forward, the positional-encoding factory,
+the position-wise feed-forward and its conv forms (``MultiLayeredConv1d``,
+``Conv1dLinear``), the positional-encoding factory,
 Conv2dSubsampling, and the VTN's encoder and decoder (``EncoderLayer``,
 ``Encoder``, ``DecoderLayer``, ``Decoder``).
 
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import FLASH_MIN_LEN, MultiHeadedAttention
-from .layers import LayerNorm, Linear
+from .layers import Conv1d, LayerNorm, Linear
 from .positional_encoding import (
     LegacyRelPositionalEncoding,
     RelPositionalEncoding,
@@ -50,14 +51,50 @@ class PositionwiseFeedForward(torch.nn.Module):
         return self.w_2(h)
 
 
+class MultiLayeredConv1d(torch.nn.Module):
+    """w_2(dropout(relu(w_1(x)))) with both layers ``Conv1d`` of
+    ``kernel_size`` taps over time, flax's SAME padding (FastSpeech's
+    positionwise layer; the ReLU whatever the caller's activation)."""
+
+    def __init__(self, idim: int, hidden_chans: int, kernel_size: int,
+                 dropout_rate: float = 0.1, compute_dtype=None, device=None, dtype=None):
+        super().__init__()
+        kw = dict(compute_dtype=compute_dtype, device=device, dtype=dtype)
+        self.w_1 = Conv1d(idim, hidden_chans, kernel_size, **kw)
+        self.w_2 = Conv1d(hidden_chans, idim, kernel_size, **kw)
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x):
+        return self.w_2(F.dropout(F.relu(self.w_1(x)), self.dropout_rate, self.training))
+
+
+class Conv1dLinear(MultiLayeredConv1d):
+    """As ``MultiLayeredConv1d`` with ``w_2`` a ``Linear``."""
+
+    def __init__(self, idim: int, hidden_chans: int, kernel_size: int,
+                 dropout_rate: float = 0.1, compute_dtype=None, device=None, dtype=None):
+        super().__init__(idim, hidden_chans, kernel_size, dropout_rate, compute_dtype,
+                         device, dtype)
+        self.w_2 = Linear(hidden_chans, idim, compute_dtype=compute_dtype, device=device,
+                          dtype=dtype)
+
+
 def _positionwise(kind: str, idim: int, linear_units: int, dropout_rate: float = 0.1,
-                  compute_dtype=None, activation: str = "relu", device=None, dtype=None):
+                  compute_dtype=None, activation: str = "relu", kernel_size: int = 1,
+                  device=None, dtype=None):
+    """The positionwise layer of ``positionwise_layer_type`` ``kind``;
+    ``activation`` acts only in the ``linear`` kind, ``kernel_size`` only
+    in the conv kinds (the JAX package's ``_positionwise``)."""
+    kw = dict(device=device, dtype=dtype)
     if kind == "linear":
-        return PositionwiseFeedForward(
-            idim, linear_units, dropout_rate, activation, compute_dtype,
-            device=device, dtype=dtype,
-        )
-    raise NotImplementedError(f"positionwise_layer_type {kind!r} is not ported yet")
+        return PositionwiseFeedForward(idim, linear_units, dropout_rate, activation,
+                                       compute_dtype, **kw)
+    if kind == "conv1d":
+        return MultiLayeredConv1d(idim, linear_units, kernel_size, dropout_rate, compute_dtype,
+                                  **kw)
+    if kind == "conv1d-linear":
+        return Conv1dLinear(idim, linear_units, kernel_size, dropout_rate, compute_dtype, **kw)
+    raise ValueError(f"unknown positionwise_layer_type: {kind}")
 
 
 def _make_pos_enc(kind: str, d: int, dropout_rate: float = 0.1):
@@ -114,7 +151,8 @@ class EncoderLayer(torch.nn.Module):
                  attention_dropout_rate: float = 0.0, normalize_before: bool = True,
                  concat_after: bool = False, positionwise_layer_type: str = "linear",
                  attention_backend: str = "xla", flash_min_len: int = FLASH_MIN_LEN,
-                 compute_dtype=None, device=None, dtype=None):
+                 compute_dtype=None, positionwise_conv_kernel_size: int = 1, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ln = dict(compute_dtype=compute_dtype, **kw)
@@ -126,7 +164,8 @@ class EncoderLayer(torch.nn.Module):
             compute_dtype=compute_dtype, flash_min_len=flash_min_len, **kw,
         )
         self.feed_forward = _positionwise(positionwise_layer_type, size, linear_units,
-                                          dropout_rate, compute_dtype, **kw)
+                                          dropout_rate, compute_dtype,
+                                          kernel_size=positionwise_conv_kernel_size, **kw)
         self.norm1 = LayerNorm(size, LN_EPS, **ln)
         self.norm2 = LayerNorm(size, LN_EPS, **ln)
         if concat_after:
@@ -174,7 +213,8 @@ class Encoder(torch.nn.Module):
                  concat_after: bool = False, positionwise_layer_type: str = "linear",
                  selfattention_layer_type: str = "selfattn", init_enc_alpha: float = 1.0,
                  attention_backend: str = "xla", flash_min_len: int = FLASH_MIN_LEN,
-                 compute_dtype=None, device=None, dtype=None):
+                 compute_dtype=None, positionwise_conv_kernel_size: int = 1, device=None,
+                 dtype=None):
         super().__init__()
         if input_layer not in ("conv2d-scaled-pos-enc", "embed", None):
             raise NotImplementedError(f"input_layer={input_layer!r} is not ported yet")
@@ -196,7 +236,7 @@ class Encoder(torch.nn.Module):
             EncoderLayer(attention_dim, attention_heads, linear_units, dropout_rate,
                          attention_dropout_rate, normalize_before, concat_after,
                          positionwise_layer_type, attention_backend, flash_min_len,
-                         compute_dtype, **kw)
+                         compute_dtype, positionwise_conv_kernel_size, **kw)
             for _ in range(num_blocks)
         )
         self.normalize_before = normalize_before
@@ -284,16 +324,21 @@ class DecoderLayer(torch.nn.Module):
         """One decode step. x_t: (B, 1, size); k_cache, v_cache: (B, H,
         maxlen, d_k), entry t written here in place; mem_k, mem_v: (B, H,
         Tmem, d_k); memory_mask: (B, Tmem) or None. Returns (y_t (B, 1,
-        size), cross-attention weights (B, H, 1, Tmem))."""
-        if self.concat_after:
-            raise NotImplementedError("decode steps with concat_after are not ported")
+        size), cross-attention weights (B, H, 1, Tmem)). With ``concat_after``
+        the step applies ``concat_linear1``/``concat_linear2`` as the
+        teacher-forced ``forward`` does (the JAX package's step leaves them
+        out, so its decode is not the function its model trains; ROADMAP.md
+        §3)."""
         residual = x_t
         x = self.norm1(x_t) if self.normalize_before else x_t
         k_new, v_new = self.self_attn.project_kv(x, x)
         k_cache[:, :, t] = k_new[:, :, 0]
         v_cache[:, :, t] = v_new[:, :, 0]
-        x = residual + self.self_attn.attend_with_kv(x, k_cache[:, :, :t + 1],
-                                                     v_cache[:, :, :t + 1])
+        sa = self.self_attn.attend_with_kv(x, k_cache[:, :, :t + 1], v_cache[:, :, :t + 1])
+        if self.concat_after:
+            x = residual + self.concat_linear1(torch.cat([x, sa], dim=-1))
+        else:
+            x = residual + sa
         if not self.normalize_before:
             x = self.norm1(x)
 
@@ -301,7 +346,10 @@ class DecoderLayer(torch.nn.Module):
         h = self.norm2(x) if self.normalize_before else x
         mmask = None if memory_mask is None else memory_mask[:, None, None, :]
         ca, ca_w = self.src_attn.attend_with_kv(h, mem_k, mem_v, mmask, return_weights=True)
-        x = residual + ca
+        if self.concat_after:
+            x = residual + self.concat_linear2(torch.cat([h, ca], dim=-1))
+        else:
+            x = residual + ca
         if not self.normalize_before:
             x = self.norm2(x)
 

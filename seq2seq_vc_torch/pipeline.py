@@ -8,7 +8,8 @@ re-normalisation -> chunked HiFi-GAN, all on one device, with one host fetch of 
 length between the model and the synthesis stage. An AR request (VTN)
 replaces the model stage with the chunked AR decode of
 ``models/ar_driver.ChunkedARDecoder``, whose host reads one stop flag per
-chunk.
+chunk, and streams its vocoder by default: the synthesis of the decoded
+prefix is enqueued after every chunk.
 """
 
 from __future__ import annotations
@@ -179,14 +180,25 @@ class Wav2WavARConverter(Wav2WavConverter):
     """Wav->wav conversion through an AR model (VTN): batched log-mel
     analysis, the chunked AR decode (geometric chunks, speculative flag
     reads, an expected-length first chunk), the stat chain and chunked
-    HiFi-GAN per item on its length bucket. Same serving surface as
-    ``Wav2WavConverter`` (``__call__``, ``convert_batch``,
-    ``warmup_synth``).
+    HiFi-GAN. Same serving surface as ``Wav2WavConverter`` (``__call__``,
+    ``convert_batch``, ``warmup_synth``).
 
     ``generator`` draws the prenet's always-on dropout; by default a
-    generator on the device seeded with 0 per request. Synthesis is serial
-    after the decode: overlapping it with the decode (the JAX package's
-    ``stream_vocoder``) is not ported yet.
+    generator on the device seeded with 0 per request.
+
+    The vocoder streams by default, as the JAX package's converter does
+    (``inference.stream_vocoder`` absent or true): after each decode chunk
+    the postnet, the stat chain and a batched chunked HiFi-GAN of the
+    decoded prefix are enqueued (``_stream_synth``), on the card on a
+    second CUDA stream that waits on an event recorded after the chunk, so
+    the synthesis overlaps the next chunk's decode and no stop-flag read
+    waits on it. The speculation whose chunk count is the decode's kept
+    count is the result; each item's waveform is trimmed to its
+    ``out_lens[i] * hop`` samples. Each item's frames past its synthesis
+    bucket repeat the bucket's last frame, the serial path's edge padding,
+    so the two paths synthesise the same windows. ``stream_vocoder=False``
+    (or ``inference.stream_vocoder: false``) is the serial path: each item
+    synthesises after the decode, on its own length bucket.
     """
 
     def __init__(self, model, vocoder: HifiganGenerator, src_stats: Dict[str, np.ndarray],
@@ -198,6 +210,10 @@ class Wav2WavARConverter(Wav2WavConverter):
         self._r = int(model.decoder_reduction_factor)
         self.ar_decode = ChunkedARDecoder.from_config(self.model, config.get("inference"))
         self.last_decode_steps = 0  # AR steps the last request's decode ran
+        # the last streamed request: the kept speculation supplied the result,
+        # and each chunk's synthesis (start, end) events on the card
+        self.last_stream_kept = False
+        self.last_synth_events: List[Any] = []
 
     def _prepare(self, audios):
         """Reflect-padded audio batch, true frame counts and the padded
@@ -215,30 +231,93 @@ class Wav2WavARConverter(Wav2WavConverter):
             batch[i, :n] = x[:n]
         return batch, n_trues
 
+    def _voc_feats(self, outs: torch.Tensor) -> torch.Tensor:
+        """De-normalised, then vocoder-normalised decoder features."""
+        return (outs * self._trg_scale + self._trg_mean - self._voc_mean) / self._voc_scale
+
+    def _stream_synth(self, outs_list, state):
+        """The decoded prefix's waveforms on the device, with no host read:
+        (wavs (B, T * hop), out_lens (B,) frames). Postnet over the
+        concatenated chunks (``decode_out_lens`` masks each item's dead
+        tail), the stat chain, each item's frames past its synthesis bucket
+        (``_geom_bucket`` of its length, on the device) replaced by the
+        bucket's last frame, then one batched chunked HiFi-GAN."""
+        m = self.model
+        lens = m.decode_out_lens(state, self.ar_decode.maxr)
+        feats = self._voc_feats(m.decode_postnet(torch.cat(outs_list, 1), lens))
+        B, cap, D = feats.shape
+        # the bucket ladder made on the device (a host-to-device copy would
+        # wait for the decode)
+        steps = torch.arange(len(_synth_ladder(cap, self.bucket_frames)), device=feats.device)
+        ladder = torch.clamp(self.bucket_frames * 2 ** steps, max=cap)
+        need = torch.clamp(lens, min=1, max=cap).to(ladder.dtype)
+        bucket = ladder[torch.searchsorted(ladder, need)]
+        idx = torch.minimum(torch.arange(cap, device=feats.device)[None, :], bucket[:, None] - 1)
+        feats = torch.gather(feats, 1, idx[..., None].expand(B, cap, D))
+        return chunked_generate(self.vocoder, feats), lens
+
     @torch.no_grad()
     def convert_batch(self, audios, generator: Optional[torch.Generator] = None,
-                      stream_vocoder: bool = False):
+                      stream_vocoder: Optional[bool] = None, spembs=None):
         """Convert several waveforms with one batched AR decode (each item
-        stops on its own); each item then synthesises on its own length
-        bucket. Returns waveforms in input order."""
-        if stream_vocoder:
-            raise NotImplementedError("stream_vocoder (synthesis overlapped with the decode) "
-                                      "is not ported yet")
+        stops on its own). ``stream_vocoder`` (default: the config's
+        ``inference.stream_vocoder``, else True) overlaps the synthesis
+        with the decode; without it each item synthesises after the decode
+        on its own length bucket. ``spembs``: the speaker embeddings of a
+        model with them. Returns waveforms in input order."""
         audios = [np.asarray(a, np.float32) for a in audios]
         if not audios:
             return []
+        if stream_vocoder is None:
+            stream_vocoder = bool((self.config.get("inference") or {}).get("stream_vocoder", True))
         batch, n_trues = self._prepare(audios)
         x = torch.as_tensor(batch, device=self.device)
         mel = _logmel(x, self._window, self._mel_t, self.fft_size, self.hop_size, 10.0)
         mel = (mel - self._src_mean) / self._src_scale
         lens = torch.as_tensor(np.asarray(n_trues, np.int64), device=self.device)
+        spec: Dict[int, Any] = {}
+        side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self.last_synth_events = []
+
+        def on_chunk(si, outs_list, state):
+            if side is None:
+                wav, out_lens = self._stream_synth(outs_list, state)
+                spec[len(outs_list)] = (wav.cpu(), out_lens.cpu(), None)
+                return
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()  # after the chunk (and its flag copy) on the decode's stream
+            with torch.cuda.stream(side):
+                side.wait_event(start)
+                wav, out_lens = self._stream_synth(outs_list, state)
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        for t in (wav, out_lens)]
+                for h, t in zip(host, (wav, out_lens)):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event(enable_timing=True)
+                done.record(side)
+            # the decode's tensors that the second stream reads stay
+            # allocated until its work is done
+            for t in (*outs_list, state["finished"], state["out_len"], state["hlens"]):
+                t.record_stream(side)
+            self.last_synth_events.append((start, done))
+            spec[len(outs_list)] = (*host, done)
+
         out = self.ar_decode(mel, lens, self._generator(generator),
-                             est_steps=self.ar_decode.expected_steps(max(n_trues)))
+                             est_steps=self.ar_decode.expected_steps(max(n_trues)),
+                             on_chunk=on_chunk if stream_vocoder else None, spembs=spembs)
         self.last_decode_steps = int(out["outs"].shape[1]) // self._r
-        feats = out["outs"] * self._trg_scale + self._trg_mean
-        feats = (feats - self._voc_mean) / self._voc_scale
+        self.last_synth_cap = int(out["outs"].shape[1])
+        kept = spec.get(out["n_chunks_kept"])
+        self.last_stream_kept = kept is not None
+        if kept is not None:
+            wavs, out_lens, done = kept
+            if done is not None:
+                done.synchronize()
+            self.last_out_frames = max(1, int(out_lens[-1]))
+            return [wavs[i, :max(1, int(out_lens[i])) * self.hop_size].numpy()
+                    for i in range(len(audios))]
+        feats = self._voc_feats(out["outs"])
         out_lens = out["out_lens"].cpu().numpy()
-        self.last_synth_cap = int(feats.shape[1])
         wavs = []
         for i in range(len(audios)):
             self.last_out_frames = max(1, int(out_lens[i]))

@@ -69,6 +69,22 @@ def save_intermediate(outdir: str, batch: Dict[str, Any], outs: np.ndarray, out_
         plt.close(fig)
 
 
+def refuse_batch_norm(model: torch.nn.Module) -> None:
+    """Raise for a model with a batch norm (``postnet_norm_type`` or
+    ``conformer_conv_norm_type: batch_norm``), as the JAX package's
+    trainers do: they keep no ``batch_stats`` collection, so their train
+    step raises flax's ``ModifyScopeVariableError`` on the first batch
+    norm. Such a model (a converted reference checkpoint) decodes and
+    serves; it trains with ``group_norm``."""
+    from ..nn.conformer import ConvBatchNorm
+
+    if any(isinstance(m, ConvBatchNorm) for m in model.modules()):
+        raise NotImplementedError(
+            "a model with batch norm (postnet_norm_type or conformer_conv_norm_type "
+            "batch_norm) does not train: the JAX package's trainers keep no batch_stats "
+            "and their train step raises ModifyScopeVariableError; train with group_norm")
+
+
 class Trainer:
     """Base trainer. Subclasses implement ``loss_fn(batch, flags,
     generator) -> (loss, metrics)`` and may implement
@@ -83,6 +99,7 @@ class Trainer:
         dev_loader=None,
         device=None,
     ):
+        refuse_batch_norm(state.model)
         self.device = resolve_device(device)
         self.state = state
         self.model = state.model.to(self.device)  # in place: the optimizer keeps its parameters

@@ -290,24 +290,36 @@ def feature_matching_loss(real_fmaps, fake_fmaps):
 
 def chunked_generate(vocoder: HifiganGenerator, mel: torch.Tensor,
                      chunk_frames: int = 160, halo_frames: int = 8) -> torch.Tensor:
-    """Overlap-halo chunked synthesis: (T, D) mel -> (T * hop,) waveform.
+    """Overlap-halo chunked synthesis: (T, D) mel -> (T * hop,) waveform, or
+    a (B, T, D) batch -> (B, T * hop), every item's chunks in one call.
 
     The utterance is cut into overlapping chunks synthesised as one batch
     and re-assembled by trimming the halos; interior samples match
     unchunked synthesis up to float tolerance once ``halo_frames`` exceeds
     the generator's receptive field.
     """
+    if mel.dim() == 3:
+        b, t, _ = mel.shape
+        hop = int(np.prod(vocoder.upsample_factors))
+        chunks = torch.cat([_chunks(m, chunk_frames, halo_frames) for m in mel])
+        wavs = vocoder(chunks)[:, halo_frames * hop: (halo_frames + chunk_frames) * hop]
+        return wavs.reshape(b, -1)[:, : t * hop]
     t, _ = mel.shape
     hop = int(np.prod(vocoder.upsample_factors))
-    n_chunks = max((t + chunk_frames - 1) // chunk_frames, 1)
-    t_pad = n_chunks * chunk_frames
-    # edge-pad so halos at the borders see real context
-    mel_p = F.pad(mel.T[None], (halo_frames, t_pad - t + halo_frames), mode="replicate")[0].T
-    window = chunk_frames + 2 * halo_frames
-    chunks = mel_p.unfold(0, window, chunk_frames).transpose(1, 2)  # (n, window, D)
-    wavs = vocoder(chunks)  # (n_chunks, window * hop)
+    wavs = vocoder(_chunks(mel, chunk_frames, halo_frames))  # (n_chunks, window * hop)
     core = wavs[:, halo_frames * hop: (halo_frames + chunk_frames) * hop]
     return core.reshape(-1)[: t * hop]
+
+
+def _chunks(mel: torch.Tensor, chunk_frames: int, halo_frames: int) -> torch.Tensor:
+    """(T, D) -> (n_chunks, chunk_frames + 2 * halo_frames, D) windows,
+    edge-padded so that halos at the borders see real context."""
+    t = mel.shape[0]
+    n_chunks = max((t + chunk_frames - 1) // chunk_frames, 1)
+    t_pad = n_chunks * chunk_frames
+    mel_p = F.pad(mel.T[None], (halo_frames, t_pad - t + halo_frames), mode="replicate")[0].T
+    window = chunk_frames + 2 * halo_frames
+    return mel_p.unfold(0, window, chunk_frames).transpose(1, 2)
 
 
 def load_hifigan_model(checkpoint: str, config_path: Optional[str] = None,

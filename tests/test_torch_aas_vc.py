@@ -156,8 +156,9 @@ def test_debug_alignment_branch_matches_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        AASVC(idim=80, odim=80, adim=32, aheads=2, positionwise_layer_type="conv1d",
+    # the diffusion decoders are ROADMAP.md queue 1 item 5
+    with pytest.raises(NotImplementedError, match="item 5"):
+        AASVC(idim=80, odim=80, adim=32, aheads=2, decoder_type="diffsinger",
               duration_predictor_type="stochastic")
 
 

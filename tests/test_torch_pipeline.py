@@ -139,3 +139,36 @@ def test_convert_batch_matches_jax_converter(converters):
         assert g.shape == r.shape and len(g) % 256 == 0
         np.testing.assert_allclose(g, r, atol=1e-4)
     assert port_conv.warmup_synth() == jax_conv.warmup_synth()
+
+
+@pytest.mark.parametrize("speculate", [True, False])
+def test_streamed_vocoder_equals_the_serial_path(vocoders, speculate):
+    """The VTN's ``Wav2WavARConverter``: the streamed vocoder (the default)
+    gives the serial path's waveform on every sample within each item's
+    valid length, with the kept speculation supplying it. Three sources of
+    different lengths stop at their own budgets over several geometric
+    chunks (threshold 1.1 never stops early). Both paths synthesise the
+    same windows; the streamed path runs every item's windows in one
+    vocoder call, and oneDNN's convolutions sum the same products in an
+    order that depends on the batch (seen: up to 4 float32 ulps), so the
+    waveforms agree to atol 1e-6 (a tanh output, |x| <= 1)."""
+    from _torch_port import vtn_pair
+    from seq2seq_vc_torch.pipeline import Wav2WavARConverter
+
+    port_voc = vocoders[0]
+    port, _, _ = vtn_pair(seed=4)
+    config = dict(CONFIG, inference={"threshold": 1.1, "maxlenratio": 6.0,
+                                     "decode_chunk_steps": 4, "decode_max_chunk_steps": 8,
+                                     "decode_est_len_ratio": 0.0})
+    conv = Wav2WavARConverter(port, port_voc, _stats(1), _stats(2), config, device="cpu")
+    conv.ar_decode.speculate = speculate
+    audios = [_audio(s, f, 9 + i) for i, (s, f) in enumerate([(0.7, 220), (0.42, 330),
+                                                               (0.55, 440)])]
+    serial = conv.convert_batch(audios, stream_vocoder=False)
+    assert not conv.last_stream_kept
+    streamed = conv.convert_batch(audios)
+    assert conv.last_stream_kept
+    assert len(conv.ar_decode.flag_events) > 2  # several chunks, so several speculations
+    for s, w in zip(streamed, serial):
+        assert s.shape == w.shape and len(s) % 256 == 0 and np.isfinite(s).all()
+        np.testing.assert_allclose(s, w, atol=1e-6, rtol=0)

@@ -159,7 +159,8 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.urhythmic.segmenter", "seq2seq_vc_torch.urhythmic.rhythm_model",
             "seq2seq_vc_torch.urhythmic.stretcher", "seq2seq_vc_torch.urhythmic.vocoder_train",
             "seq2seq_vc_torch.urhythmic.dataset",
-            "seq2seq_vc_torch.urhythmic.model"} <= set(got["modules"])
+            "seq2seq_vc_torch.urhythmic.model",
+            "seq2seq_vc_torch.bin.convert_checkpoint"} <= set(got["modules"])
     assert got["bad"] == []
 
 
