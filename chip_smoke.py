@@ -64,8 +64,7 @@ Phases, each printed on lines of its own:
    FLASH_MIN_LEN..FLASH_MIN_LEN+256 frames (2048-2304: 33-37 s of audio),
    so that every conformer layer takes the flash route with dropout 0.2;
    then the flash forward (with dropout and logsumexp) and its three
-   backward kernels against their plain versions in bfloat16 (the steps'
-   type; phase 11 holds the float32 route card against CPU) at
+   backward kernels against their plain versions in float32 and bfloat16 at
    both head dims, rate 0 and 0.2, with key-length padding and a fully
    masked batch row, and in bfloat16 at every shape the long steps give
    them (the backward's yardstick: SDPA's forward + backward with the band
@@ -84,9 +83,9 @@ Phases, each printed on lines of its own:
    threshold 1.1 and maxlenratio 4.0, as bench.py times the AR decode, so
    that every decode runs its whole budget; requests: a 3.8 s clip, a batch
    of 4 and a 135 s clip, whose encoder key length (~2100 after the x4
-   subsampling) crosses the flash gate. Warm-up (each request once: a
-   streamed synthesis meets cuDNN's plans for its window count the first
-   time), then the standard flash
+   subsampling) crosses the flash gate. Warm-up (each request once, then
+   ``warmup_synth`` and ``warmup_stream`` at batch sizes 1 and 4, as
+   ``vc_serve`` warms), then the standard flash
    forward (kernel 9) against its plain version (float32 and bfloat16, D 96
    at T 640, at the long request's length and at a cross shape, rate 0 and
    0.2, causal off and on, key padding and a fully masked row; and at the
@@ -97,8 +96,12 @@ Phases, each printed on lines of its own:
    synthesis of the decoded prefix on a second CUDA stream after every
    chunk), and the 3.8 s and 135 s requests run once more serially: both
    latencies and RTFs, whether the kept speculation supplied the result,
-   the waveforms' largest difference (``STREAM_ATOL``) and each chunk's
-   flag-to-synthesis-end gap (the flag read never waits on the synthesis);
+   the waveforms' largest difference (``STREAM_ATOL``) and, read on the
+   host, whether each chunk's flag read began and returned while that
+   chunk's synthesis ran (no read may wait on it; with every synthesis held
+   past the decode's end, every read must return while it runs); a
+   request of a new length streamed then serially, and another serially
+   then streamed (``VTN_COLD_SECONDS``);
    then a profile of the long request at a quarter of its step budget;
 13. a VTN reference check: the same weights in float32 with the prenet's
    dropout 0 and the flash gate below a 1 s clip's encoder length convert
@@ -115,8 +118,7 @@ Phases, each printed on lines of its own:
    FLASH_MIN_LEN + 256 after the subsampling; kernels 9-11 against their
    plain versions at the steps' shape (SDPA forward + backward with the
    key-padding mask as the yardstick, and for 10-11 SDPA's backward alone
-   too), 10 and 11 also at phase 12's head-dim shapes in bfloat16 (phase
-   16 holds the float32 route card against CPU), 9, 10 and 11 also at rate
+   too), 10 and 11 also at phase 12's head-dim shapes, 9, 10 and 11 also at rate
    0 (the dropout hash's cost), the pair 10 +
    11 beside SDPA's backward alone; 3 timed steps with 6 launches of each
    of kernels 9, 10 and 11 per step, ms/step, peak memory, finite loss and
@@ -137,7 +139,7 @@ Phases, each printed on lines of its own:
    kernel 2 on the card, its plain version on the CPU);
 19. legacy long training: phase 10 on a fresh legacy flagship, every layer
    on the legacy form of kernels 2, 6, 7 and 8 (their checks at both head
-   dims, bfloat16, rate 0 and 0.2, and at the steps' shapes,
+   dims, float32 and bfloat16, rate 0 and 0.2, and at the steps' shapes,
    against SDPA with the dense legacy band as a bias), one warm-up step and
    2 timed steps (8 launches of each a step), and a profile of one step;
 20. a legacy reference training step: phase 11 in the legacy form;
@@ -582,6 +584,8 @@ VTN_REFERENCE_ATOL = 1e-3  # phase 13's features and waveforms, float32 on both 
 # length: the same windows, synthesised in one call for the batch (a
 # convolution's sums may take another order at another batch size)
 STREAM_ATOL = 1e-3
+# phase 12's requests of lengths no other request has (after the warm-up)
+VTN_COLD_SECONDS = (23.7, 27.1)
 # the YAML's training settings beside TRAIN_OPT's (the same Adam, warmuplr
 # and clipping): Seq2SeqLoss with bce_pos_weight 10, batch 16, pad multiple 32
 VTN_BCE_POS_WEIGHT = 10.0
@@ -1571,10 +1575,8 @@ def train_long_path(rows, path="train_long"):
         train_steps(state, loader, 1, f"{path} warm-up")
 
         calls = train_calls(state.model, batch)
-        # bf16, the type these steps train in (the float32 flash route is held
-        # card against CPU by this phase's reference step)
         for D, T in ((192, 640), (768, 1300)):
-            for dtype in (torch.bfloat16,):
+            for dtype in (torch.float32, torch.bfloat16):
                 for rate in (0.0, 0.2):
                     for name in PATH_KERNELS[path]:
                         rows.append(check_kernel(name, 3, 2, T, D, dtype, seed=T + D,
@@ -1653,14 +1655,14 @@ def vtn_request_calls(conv, clips):
                              n_trues)
 
 
-def std_head_dim_checks(rows, names, dtypes=(torch.float32, torch.bfloat16)):
+def std_head_dim_checks(rows, names):
     """The standard flash kernels ``names`` against their plain versions at
-    the VTN's head dim (4 heads of D 96): in ``dtypes``, causal off
+    the VTN's head dim (4 heads of D 96): float32 and bfloat16, causal off
     and on, the serving form (kernel 9 only) and the training form at rate
     0 and 0.2, at T 640 with key padding and a fully masked batch row; and
     at two cross shapes, fewer queries than keys and more."""
     for name in names:
-        for dtype in dtypes:
+        for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 for rate in ((None, 0.0, 0.2) if name == "flash_attention" else (0.0, 0.2)):
                     rows.append(check_std_kernel(name, 3, 4, 640, 640, 96, dtype, seed=640,
@@ -1764,11 +1766,13 @@ def vtn_serve_path(rows, src, trg):
             ("VTN single 135 s", [clip(135.0, 16)]),
         ]
         log(f"VTN serving: Wav2WavARConverter, the VTN at full width (float32, attention "
-            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once (so the "
-            f"streamed synthesis meets its shapes), then the synthesis ladder")
+            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once, then the "
+            f"serial synthesis ladder and the streamed one at batch sizes 1 and 4, as vc_serve "
+            f"warms")
         fails, _ = serve(conv, requests)
         failures += fails
-        log(f"VTN warm-up synthesis buckets: {conv.warmup_synth()}")
+        log(f"VTN warm-up synthesis buckets: {conv.warmup_synth()}, streamed synthesis shapes: "
+            f"{conv.warmup_stream([1, 4])}")
         calls = [vtn_request_calls(conv, clips) for _, clips in requests]
         log(f"VTN encoder flash calls per request (B, H, T, D, key lengths): "
             f"{[[(*c[:4], _short(list(c[4]))) for c in cs] for cs in calls]}")
@@ -1785,9 +1789,10 @@ def vtn_serve_path(rows, src, trg):
         timed, per_request = [], []
         for request in requests:
             before = launch_counts()
-            fails, res = serve(conv, [request])
+            with FlagReads(conv) as reads:
+                fails, res = serve(conv, [request])
             failures += fails
-            res[0].update(kept=conv.last_stream_kept, gaps=stream_report(conv))
+            res[0].update(kept=conv.last_stream_kept, reads=reads)
             timed += res
             per_request.append({k: v - before[k] for k, v in launch_counts().items()})
         launches = launch_counts()
@@ -1800,6 +1805,7 @@ def vtn_serve_path(rows, src, trg):
             if got != want:
                 failures.append(f"vtn_serve {label}: launches {got}, expected {want}")
         failures += stream_checks(conv, requests, timed)
+        failures += cold_length_requests(conv)
         conv.ar_decode.maxr = VTN_WARM_MAXLENRATIO
         fails, quarter = serve(conv, requests[-1:])
         failures += fails
@@ -1809,26 +1815,87 @@ def vtn_serve_path(rows, src, trg):
     return failures, launches
 
 
-def stream_report(conv):
-    """The last streamed request's chunks on the card: for each, the time
-    from its stop-flag copy completing to its speculative synthesis
-    ending (CUDA events; positive: the flag was readable before the
-    synthesis ended, so a read of it never waits on the synthesis)."""
-    flags = conv.ar_decode.flag_events
-    synths = conv.last_synth_events
-    torch.cuda.synchronize()
-    return [round(flag.elapsed_time(done), 3) for flag, (_, done) in zip(flags, synths)]
+class FlagReads:
+    """Watches the AR decode's stop-flag reads on the host (wraps
+    ``ar_driver._read`` while entered): for the read of each chunk's flag,
+    whether that chunk's speculative synthesis was still running when the
+    read began and when it returned (a ``query`` of its end event). A read
+    that began while its synthesis ran and returned after it had ended
+    waited on it."""
+
+    def __init__(self, conv):
+        self.conv, self.rows = conv, []
+
+    def __enter__(self):
+        from seq2seq_vc_torch.models import ar_driver
+
+        self.real, self.rows = ar_driver._read, []
+
+        def read(pending):
+            done = self.conv.last_synth_done[len(self.rows)]  # this chunk's synthesis
+            running = not done.query()
+            value = self.real(pending)
+            self.rows.append((running, not done.query()))
+            return value
+
+        ar_driver._read = read
+        return self
+
+    def __exit__(self, *exc):
+        from seq2seq_vc_torch.models import ar_driver
+
+        ar_driver._read = self.real
+
+    def waited(self) -> int:
+        return sum(began and not ended for began, ended in self.rows)
+
+    def report(self) -> str:
+        began = sum(b for b, _ in self.rows)
+        return (f"{len(self.rows)} flag reads, {began} begun while their chunk's synthesis "
+                f"ran, {self.waited()} of these returned after it ended")
+
+
+def held_synthesis(conv, request, hold_ms: float):
+    """The streamed request once more, in chunks that grow from the first
+    (no expected-length first chunk, so that there are several), with
+    every chunk's synthesis held on its stream for ``hold_ms`` after it (a
+    spin kernel of ``hold_ms`` at 2 GHz or more, so that each synthesis
+    outlasts the whole decode): every flag read must begin and return while
+    its chunk's synthesis runs. Returns (waveforms, FlagReads)."""
+    synth, est = conv._stream_synth, conv.ar_decode.est_len_ratio
+
+    def held(outs_list, state):
+        out = synth(outs_list, state)
+        torch.cuda._sleep(int(hold_ms * 2e6))
+        return out
+
+    conv._stream_synth, conv.ar_decode.est_len_ratio = held, 0.0
+    try:
+        with FlagReads(conv) as reads:
+            wavs = conv.convert_batch(request[1])
+    finally:
+        conv._stream_synth, conv.ar_decode.est_len_ratio = synth, est
+    return wavs, reads
 
 
 def stream_checks(conv, requests, timed):
     """The streamed vocoder (the main path's default) against the serial
     path on the 3.8 s and the 135 s request: the streamed runs are the timed
     main path's (``timed``: latency, waveforms, whether the kept speculation
-    supplied the result, each chunk's flag-to-synthesis-end gap); each
-    request runs once more serially. The waveforms must agree within each
-    item's valid length to STREAM_ATOL."""
+    supplied the result, their flag reads); each request runs once more
+    serially. The waveforms must agree within each item's valid length to
+    STREAM_ATOL, and no flag read may wait on a synthesis. Then the 3.8 s
+    request with every synthesis held past the decode's end
+    (``held_synthesis``): every flag read must return while its
+    synthesis runs."""
     failures = []
     sr = FEATS["sampling_rate"]
+
+    def compare(a_wavs, b_wavs):
+        same = [len(a) == len(b) for a, b in zip(a_wavs, b_wavs)]
+        err = max(float(np.abs(a - b).max()) if ok else float("inf")
+                  for a, b, ok in zip(a_wavs, b_wavs, same))
+        return all(same), err
 
     for i in (0, len(requests) - 1):
         label, clips = requests[i]
@@ -1838,21 +1905,63 @@ def stream_checks(conv, requests, timed):
         serial = conv.convert_batch(clips, stream_vocoder=False)
         torch.cuda.synchronize()
         serial_ms = (time.perf_counter() - t0) * 1e3
-        kept, gaps, streamed = timed[i]["kept"], timed[i]["gaps"], timed[i]["wavs"]
-        same = [len(a) == len(b) for a, b in zip(streamed, serial)]
-        err = max(float(np.abs(a - b).max()) if ok else float("inf")
-                  for a, b, ok in zip(streamed, serial, same))
-        ok = kept and all(same) and err <= STREAM_ATOL and all(g > 0 for g in gaps)
+        kept, reads, streamed = timed[i]["kept"], timed[i]["reads"], timed[i]["wavs"]
+        same, err = compare(streamed, serial)
+        ok = kept and same and err <= STREAM_ATOL and reads.waited() == 0
         log(f"VTN {label} streamed vs serial vocoder: streamed {timed[i]['ms']:.1f} ms (RTF "
             f"{timed[i]['ms'] / 1e3 / secs:.5f}), serial {serial_ms:.1f} ms (RTF "
             f"{serial_ms / 1e3 / secs:.5f}); the kept speculation supplied the result: "
             f"{'yes' if kept else 'NO'}; output samples {[len(w) for w in streamed]} / "
-            f"{[len(w) for w in serial]}, max abs diff {err:.3e} (atol {STREAM_ATOL}); each "
-            f"chunk's flag ready before its synthesis ended by (ms) {gaps}: "
-            f"{'ok' if ok else 'FAIL'}; card {card_line()}")
+            f"{[len(w) for w in serial]}, max abs diff {err:.3e} (atol {STREAM_ATOL}); "
+            f"{reads.report()}: {'ok' if ok else 'FAIL'}; card {card_line()}")
         if not ok:
             failures.append(f"vtn_serve {label} streamed vs serial: kept {kept}, lengths {same}, "
-                            f"diff {err}, gaps {gaps}")
+                            f"diff {err}, flag reads {reads.rows}")
+
+    label = requests[0][0]
+    held, reads = held_synthesis(conv, requests[0], hold_ms=timed[0]["ms"])
+    same, err = compare(held, timed[0]["wavs"])
+    ok = (conv.last_stream_kept and same and err <= STREAM_ATOL and reads.rows
+          and all(began and ended for began, ended in reads.rows))
+    log(f"VTN {label} streamed with every chunk's synthesis held {timed[0]['ms']:.1f} ms past "
+        f"it: {reads.report()}, {sum(e for _, e in reads.rows)} still running when the read "
+        f"returned (each must); output max abs diff {err:.3e} against the timed run: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"vtn_serve {label} held synthesis: flag reads {reads.rows}, diff {err}")
+    return failures
+
+
+def cold_length_requests(conv):
+    """Requests of lengths no earlier request had, after the server's
+    warm-up alone (``warmup_synth`` and ``warmup_stream``): the first
+    streamed and then serial, the second serial and then streamed, so that
+    each path meets a new length first once. Below the decode's budget the
+    streamed synthesis's shapes come from the warmed ladder; a decode that
+    runs its whole budget (as these do, threshold 1.1) synthesises at the
+    budget on both paths, a shape of its own. Prints every latency; the
+    waveforms must agree to STREAM_ATOL."""
+    failures = []
+    for seconds, seed, order in ((VTN_COLD_SECONDS[0], 17, (True, False)),
+                                 (VTN_COLD_SECONDS[1], 18, (False, True))):
+        audio = clip(seconds, seed)
+        ms, wavs = {}, {}
+        for stream in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wavs[stream] = conv.convert_batch([audio], stream_vocoder=stream)[0]
+            torch.cuda.synchronize()
+            ms[stream] = (time.perf_counter() - t0) * 1e3
+        a, b = wavs[True], wavs[False]
+        err = float(np.abs(a - b).max()) if len(a) == len(b) else float("inf")
+        ok = err <= STREAM_ATOL and np.isfinite(a).all()
+        runs = ", then ".join(f"{'streamed' if st else 'serial'} {ms[st]:.1f} ms (RTF "
+                              f"{ms[st] / 1e3 / seconds:.5f})" for st in order)
+        log(f"VTN new length {seconds:.1f} s (the first request of its length): {runs}; output "
+            f"samples {len(a)} / {len(b)}, max abs diff {err:.3e}: {'ok' if ok else 'FAIL'}; "
+            f"card {card_line()}")
+        if not ok:
+            failures.append(f"vtn_serve new length {seconds} s: diff {err}")
     return failures
 
 
@@ -1905,8 +2014,8 @@ def vtn_train_path(rows, path: str):
         calls = [(name, *c, rate) for c in vtn_encoder_calls(state.model, batch["xs"].shape[1],
                                                               batch["ilens"].tolist())
                  for name in STD]
-        if path == "vtn_train_long":  # bf16, as the steps (phase 16 holds float32)
-            std_head_dim_checks(rows, STD[1:], (torch.bfloat16,))
+        if path == "vtn_train_long":
+            std_head_dim_checks(rows, STD[1:])
         for name, B, H, T, D, kv_lens, r in sorted(set(calls)):
             rows.append(check_std_kernel(name, B, H, T, T, D, torch.bfloat16, seed=T,
                                          label="main-path", lens=list(kv_lens), rate=r))

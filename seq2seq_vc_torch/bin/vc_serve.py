@@ -175,8 +175,9 @@ class ConversionService:
                     req.event.set()
 
     def warmup(self, seconds):
-        """Convert silence of each duration once, run the synthesis ladder,
-        and every batch size the dispatcher can form."""
+        """Convert silence of each duration once, run the synthesis ladder
+        (and an AR converter's streamed ladder at every batch size the
+        dispatcher can form), and every batch size the dispatcher can form."""
         for s in seconds:
             silence = np.zeros(int(self.sr * s), np.float32)
             t0 = time.time()
@@ -185,6 +186,12 @@ class ConversionService:
             t0 = time.time()
             n = self.converter.warmup_synth()
             logging.info("warmup %.1fs synth ladder (%d buckets): %.1fs", s, n, time.time() - t0)
+            warmup_stream = getattr(self.converter, "warmup_stream", None)  # an AR converter's
+            if warmup_stream is not None:
+                t0 = time.time()
+                n = warmup_stream([1] + batch_sizes(self.max_batch))
+                logging.info("warmup %.1fs streamed synth ladder (%d shapes): %.1fs", s, n,
+                             time.time() - t0)
             if self.max_batch > 1:
                 for b in batch_sizes(self.max_batch):
                     t0 = time.time()

@@ -63,7 +63,7 @@ def _enqueue_all_finished(finished: torch.Tensor):
         return done, None
     host = torch.empty((), dtype=torch.bool, pin_memory=True)
     host.copy_(done, non_blocking=True)
-    event = torch.cuda.Event(enable_timing=True)  # timed against the hook's work
+    event = torch.cuda.Event()
     event.record()
     return host, event
 
@@ -115,15 +115,13 @@ class ChunkedARDecoder:
 
     @torch.no_grad()
     def __call__(self, xs, ilens, generator: Optional[torch.Generator] = None,
-                 est_steps: int = 0, on_chunk=None, spembs=None) -> Dict[str, Any]:
+                 est_steps: int = 0, on_chunk=None) -> Dict[str, Any]:
         """``est_steps`` > 0: the expected step count, which sizes the first
         chunk. ``on_chunk(chunk_idx, outs_list, state)`` runs right after
         each chunk and its flag copy are enqueued, before the host waits on
-        any flag; it must only enqueue device work. ``spembs``: the speaker
-        embeddings of a model with them."""
+        any flag; it must only enqueue device work."""
         m = self.model
-        self.flag_events = []  # each chunk's flag-copy event (None off the card)
-        st = m.decode_init(xs, ilens, self.maxr, round_budget_to=self.base, spembs=spembs)
+        st = m.decode_init(xs, ilens, self.maxr, round_budget_to=self.base)
         sizes = chunk_schedule(st["maxlen"], self.base, self.max_chunk, est_steps)
         outs_c, probs_c, att_c = [], [], []
         pending = None  # the flags from before the most recently enqueued chunk
@@ -136,7 +134,6 @@ class ChunkedARDecoder:
             att_c.append(att)
             t0 += s
             flag = _enqueue_all_finished(st["finished"])  # ahead of the hook's work
-            self.flag_events.append(flag[1])
             if on_chunk is not None:
                 on_chunk(si, list(outs_c), st)
             if self.speculate:

@@ -181,7 +181,7 @@ class Wav2WavARConverter(Wav2WavConverter):
     analysis, the chunked AR decode (geometric chunks, speculative flag
     reads, an expected-length first chunk), the stat chain and chunked
     HiFi-GAN. Same serving surface as ``Wav2WavConverter`` (``__call__``,
-    ``convert_batch``, ``warmup_synth``).
+    ``convert_batch``, ``warmup_synth``), and ``warmup_stream``.
 
     ``generator`` draws the prenet's always-on dropout; by default a
     generator on the device seeded with 0 per request.
@@ -196,9 +196,13 @@ class Wav2WavARConverter(Wav2WavConverter):
     count is the result; each item's waveform is trimmed to its
     ``out_lens[i] * hop`` samples. Each item's frames past its synthesis
     bucket repeat the bucket's last frame, the serial path's edge padding,
-    so the two paths synthesise the same windows. ``stream_vocoder=False``
-    (or ``inference.stream_vocoder: false``) is the serial path: each item
-    synthesises after the decode, on its own length bucket.
+    so the two paths synthesise the same windows. A prefix is synthesised
+    at ``_geom_bucket`` of its length under the decode's budget: its
+    window counts come from the budget's ladder (below the budget, the
+    same for every request), which ``warmup_stream`` runs.
+    ``stream_vocoder=False`` (or ``inference.stream_vocoder: false``) is
+    the serial path: each item synthesises after the decode, on its own
+    length bucket.
     """
 
     def __init__(self, model, vocoder: HifiganGenerator, src_stats: Dict[str, np.ndarray],
@@ -210,10 +214,29 @@ class Wav2WavARConverter(Wav2WavConverter):
         self._r = int(model.decoder_reduction_factor)
         self.ar_decode = ChunkedARDecoder.from_config(self.model, config.get("inference"))
         self.last_decode_steps = 0  # AR steps the last request's decode ran
+        self.last_stream_budget = 0  # the last request's decode budget, in frames
         # the last streamed request: the kept speculation supplied the result,
-        # and each chunk's synthesis (start, end) events on the card
+        # and each chunk's synthesis-end event on the card
         self.last_stream_kept = False
-        self.last_synth_events: List[Any] = []
+        self.last_synth_done: List[Any] = []
+
+    def warmup_stream(self, batch_sizes=(1,)) -> int:
+        """Run the streamed synthesis's ladder (``_synth_ladder`` of the
+        most recent streamed request's decode budget) at each of
+        ``batch_sizes``, so that no later request meets a streamed synthesis
+        shape for the first time below that budget. Returns the number of
+        shapes run."""
+        if self.last_stream_budget <= 0:
+            return 0
+        d = self.model.odim
+        n = 0
+        with torch.no_grad():
+            for b in batch_sizes:
+                for length in _synth_ladder(self.last_stream_budget, self.bucket_frames):
+                    zeros = torch.zeros((b, length, d), device=self.device)
+                    chunked_generate(self.vocoder, zeros).cpu()
+                    n += 1
+        return n
 
     def _prepare(self, audios):
         """Reflect-padded audio batch, true frame counts and the padded
@@ -239,32 +262,34 @@ class Wav2WavARConverter(Wav2WavConverter):
         """The decoded prefix's waveforms on the device, with no host read:
         (wavs (B, T * hop), out_lens (B,) frames). Postnet over the
         concatenated chunks (``decode_out_lens`` masks each item's dead
-        tail), the stat chain, each item's frames past its synthesis bucket
-        (``_geom_bucket`` of its length, on the device) replaced by the
-        bucket's last frame, then one batched chunked HiFi-GAN."""
+        tail), the stat chain, the prefix gathered to ``_geom_bucket`` of
+        its length under the decode's budget with each item's frames past
+        its synthesis bucket (``_geom_bucket`` of its length, on the
+        device) replaced by the bucket's last frame, then one batched
+        chunked HiFi-GAN."""
         m = self.model
         lens = m.decode_out_lens(state, self.ar_decode.maxr)
         feats = self._voc_feats(m.decode_postnet(torch.cat(outs_list, 1), lens))
         B, cap, D = feats.shape
+        n = _geom_bucket(cap, int(state["maxlen"]) * self._r, self.bucket_frames)
         # the bucket ladder made on the device (a host-to-device copy would
         # wait for the decode)
         steps = torch.arange(len(_synth_ladder(cap, self.bucket_frames)), device=feats.device)
         ladder = torch.clamp(self.bucket_frames * 2 ** steps, max=cap)
         need = torch.clamp(lens, min=1, max=cap).to(ladder.dtype)
         bucket = ladder[torch.searchsorted(ladder, need)]
-        idx = torch.minimum(torch.arange(cap, device=feats.device)[None, :], bucket[:, None] - 1)
-        feats = torch.gather(feats, 1, idx[..., None].expand(B, cap, D))
+        idx = torch.minimum(torch.arange(n, device=feats.device)[None, :], bucket[:, None] - 1)
+        feats = torch.gather(feats, 1, idx[..., None].expand(B, n, D))
         return chunked_generate(self.vocoder, feats), lens
 
     @torch.no_grad()
     def convert_batch(self, audios, generator: Optional[torch.Generator] = None,
-                      stream_vocoder: Optional[bool] = None, spembs=None):
+                      stream_vocoder: Optional[bool] = None):
         """Convert several waveforms with one batched AR decode (each item
         stops on its own). ``stream_vocoder`` (default: the config's
         ``inference.stream_vocoder``, else True) overlaps the synthesis
         with the decode; without it each item synthesises after the decode
-        on its own length bucket. ``spembs``: the speaker embeddings of a
-        model with them. Returns waveforms in input order."""
+        on its own length bucket. Returns waveforms in input order."""
         audios = [np.asarray(a, np.float32) for a in audios]
         if not audios:
             return []
@@ -277,14 +302,15 @@ class Wav2WavARConverter(Wav2WavConverter):
         lens = torch.as_tensor(np.asarray(n_trues, np.int64), device=self.device)
         spec: Dict[int, Any] = {}
         side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        self.last_synth_events = []
+        self.last_synth_done = []
 
         def on_chunk(si, outs_list, state):
+            self.last_stream_budget = int(state["maxlen"]) * self._r
             if side is None:
                 wav, out_lens = self._stream_synth(outs_list, state)
                 spec[len(outs_list)] = (wav.cpu(), out_lens.cpu(), None)
                 return
-            start = torch.cuda.Event(enable_timing=True)
+            start = torch.cuda.Event()
             start.record()  # after the chunk (and its flag copy) on the decode's stream
             with torch.cuda.stream(side):
                 side.wait_event(start)
@@ -293,18 +319,18 @@ class Wav2WavARConverter(Wav2WavConverter):
                         for t in (wav, out_lens)]
                 for h, t in zip(host, (wav, out_lens)):
                     h.copy_(t, non_blocking=True)
-                done = torch.cuda.Event(enable_timing=True)
+                done = torch.cuda.Event()
                 done.record(side)
             # the decode's tensors that the second stream reads stay
             # allocated until its work is done
             for t in (*outs_list, state["finished"], state["out_len"], state["hlens"]):
                 t.record_stream(side)
-            self.last_synth_events.append((start, done))
+            self.last_synth_done.append(done)
             spec[len(outs_list)] = (*host, done)
 
         out = self.ar_decode(mel, lens, self._generator(generator),
                              est_steps=self.ar_decode.expected_steps(max(n_trues)),
-                             on_chunk=on_chunk if stream_vocoder else None, spembs=spembs)
+                             on_chunk=on_chunk if stream_vocoder else None)
         self.last_decode_steps = int(out["outs"].shape[1]) // self._r
         self.last_synth_cap = int(out["outs"].shape[1])
         kept = spec.get(out["n_chunks_kept"])

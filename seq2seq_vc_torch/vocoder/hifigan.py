@@ -298,17 +298,13 @@ def chunked_generate(vocoder: HifiganGenerator, mel: torch.Tensor,
     unchunked synthesis up to float tolerance once ``halo_frames`` exceeds
     the generator's receptive field.
     """
-    if mel.dim() == 3:
-        b, t, _ = mel.shape
-        hop = int(np.prod(vocoder.upsample_factors))
-        chunks = torch.cat([_chunks(m, chunk_frames, halo_frames) for m in mel])
-        wavs = vocoder(chunks)[:, halo_frames * hop: (halo_frames + chunk_frames) * hop]
-        return wavs.reshape(b, -1)[:, : t * hop]
-    t, _ = mel.shape
+    if mel.dim() == 2:
+        return chunked_generate(vocoder, mel[None], chunk_frames, halo_frames)[0]
+    b, t, _ = mel.shape
     hop = int(np.prod(vocoder.upsample_factors))
-    wavs = vocoder(_chunks(mel, chunk_frames, halo_frames))  # (n_chunks, window * hop)
-    core = wavs[:, halo_frames * hop: (halo_frames + chunk_frames) * hop]
-    return core.reshape(-1)[: t * hop]
+    chunks = torch.cat([_chunks(m, chunk_frames, halo_frames) for m in mel])
+    wavs = vocoder(chunks)[:, halo_frames * hop: (halo_frames + chunk_frames) * hop]
+    return wavs.reshape(b, -1)[:, : t * hop]
 
 
 def _chunks(mel: torch.Tensor, chunk_frames: int, halo_frames: int) -> torch.Tensor:

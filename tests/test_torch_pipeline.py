@@ -35,7 +35,7 @@ from seq2seq_vc_torch.convert import hifigan_state_dict
 from seq2seq_vc_torch.dsp.features import _logmel
 from seq2seq_vc_torch.dsp.mel import mel_filterbank
 from seq2seq_vc_torch.dsp.stft import hann_window
-from seq2seq_vc_torch.pipeline import Wav2WavConverter
+from seq2seq_vc_torch.pipeline import Wav2WavConverter, _synth_ladder
 from seq2seq_vc_torch.vocoder.hifigan import HifiganGenerator, chunked_generate
 
 SR = 16000
@@ -166,9 +166,14 @@ def test_streamed_vocoder_equals_the_serial_path(vocoders, speculate):
                                                                (0.55, 440)])]
     serial = conv.convert_batch(audios, stream_vocoder=False)
     assert not conv.last_stream_kept
+    synth, prefixes = conv._stream_synth, []
+    conv._stream_synth = lambda outs, st: prefixes.append(len(outs)) or synth(outs, st)
     streamed = conv.convert_batch(audios)
     assert conv.last_stream_kept
-    assert len(conv.ar_decode.flag_events) > 2  # several chunks, so several speculations
+    assert len(prefixes) > 2  # several chunks, so several speculations
+    # the streamed ladder: the budget's synthesis ladder at each batch size
+    ladder = _synth_ladder(conv.last_stream_budget, conv.bucket_frames)
+    assert conv.warmup_stream([1, 3]) == 2 * len(ladder)
     for s, w in zip(streamed, serial):
         assert s.shape == w.shape and len(s) % 256 == 0 and np.isfinite(s).all()
         np.testing.assert_allclose(s, w, atol=1e-6, rtol=0)
