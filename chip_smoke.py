@@ -79,7 +79,8 @@ Phases, each printed on lines of its own:
    the card, their plain versions on the CPU);
 12. VTN serving: a full-width ``Wav2WavARConverter`` (the VTN of
    ``egs/arctic/vc1/conf/vtn.v1.yaml``, float32, ``attention_backend:
-   flash``, seeded random weights, and phase 2's HiFi-GAN) decodes with
+   flash``, its decoder cut to VTN_SERVE_DLAYERS of its 6 layers, seeded
+   random weights, and phase 2's HiFi-GAN) decodes with
    threshold 1.1 and maxlenratio 4.0, as bench.py times the AR decode, so
    that every decode runs its whole budget; requests: a 3.8 s clip, a batch
    of 4 and a 135 s clip, whose encoder key length (~2100 after the x4
@@ -265,13 +266,40 @@ Phases, each printed on lines of its own:
    4 on 8200-8600 frames (kernels 2 and 6-8 at D 96); the four models'
    inference with speaker embeddings, ``add`` and ``concat``, float32 card
    against CPU (``OPT_SPEMBS_ATOL``); every kernel launched, at each shape,
-   against its plain version (``check ... options`` rows).
+   against its plain version (``check ... options`` rows);
+29. the diffusion decoders (``diffusion_path``) on the flagship's encoder
+   (adim 384, 2 heads of D 192, bf16, flash) and its 1536-wide upsampled
+   states: DiffSinger at the JAX defaults (256 residual channels, 20
+   layers, 100 steps) ancestral and DDIM in 4 steps, and ProDiff (20
+   layers of 256 channels, 4 steps, timescale 1), each behind a
+   ``Wav2WavConverter`` serving a 3.8 s and a 30 s clip (latency, RTF,
+   peak memory); ``vc_train`` of the flagship's conf with each decoder at
+   B 16 on phase 22's corpus (diffsinger on ``DiffSingerL2Loss``, no
+   ``L1Loss``), ``vc_decode`` of its dev set and, for diffsinger,
+   ``vc_serve`` with the two requests; one B 16 diffsinger step at
+   2048-2304 frames (kernels 2 and 6-8 in the encoder); every kernel at
+   each shape the phase gave it against its plain version (``check ...
+   diffusion`` rows); the float32 DiffNet forward and a whole 100-step
+   ancestral run, card against CPU, the noise drawn on the CPU
+   (``DIFF_RTOL_OF_PEAK``);
+30. objective evaluation (``evaluate_path``): ``bin/evaluate`` over phase
+   29's decoded wavs against the corpus targets (MCD, F0RMSE, F0CORR,
+   DDUR, over 4 spawned processes) with CER and WER from the port's
+   wav2vec2-CTC at ``wav2vec2-large-960h-lv60-self``'s published widths
+   (24 layers, 1024 wide, 16 heads, FFN 4096, layer-norm feature encoder,
+   stable layer norm, 32 tokens), its seeded weights written in Hugging
+   Face's layout as ``model.safetensors`` and ``pytorch_model.bin`` (both
+   read, the same logits); ``--gt-ceiling`` once; the ASR's ms and RTF an
+   utterance at 3.8 and 30 s, peak memory, float32 logits card against CPU
+   (``ASR_RTOL_OF_PEAK``, equal argmax ids away from near-ties). No kernel
+   lies on this path: every counter must read 0.
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
-path, phase 23's ``fs2_*``, phase 24's ``tts_*``, phase 25's ``voc_*``,
-phase 26's ``feat_*``, phase 27's ``urhythmic`` (all 0) and phase 28's
-``opt_*`` paths included;
+path where they are not 0, phase 23's ``fs2_*``, phase 24's ``tts_*``, phase 25's ``voc_*``,
+phase 26's ``feat_*``, phase 27's ``urhythmic`` (all 0), phase 28's
+``opt_*``, phase 29's ``diff_*`` and phase 30's ``evaluate`` (all 0) paths
+included;
 kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``, kernels
 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
 ``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its library
@@ -492,7 +520,18 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 "opt_aas_serve": ("fused_rel_scores", "rel_flash_attention"),
                 "opt_vtn_train": ("fused_rel_scores", "rel_band_bwd"),
                 "opt_vtn_train_long": ("rel_flash_attention", *FLASH_BWD),
-                "opt_spembs": ()}
+                "opt_spembs": (),
+                # phase 29, the diffusion decoders: the flagship's encoder
+                # (D 192) under the gate when serving (the 30 s request's
+                # 1920 frames), in vc_train and vc_decode, past it in the
+                # long step; the decoders are cuDNN convolutions
+                "diff_serve": ("fused_rel_scores",),
+                "diff_train": ("fused_rel_scores", "rel_band_bwd"),
+                "diff_decode": ("fused_rel_scores",),
+                "diff_train_long": ("rel_flash_attention", *FLASH_BWD),
+                # phase 30, objective evaluation: host numpy and the dense
+                # wav2vec2
+                "evaluate": ()}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -573,6 +612,11 @@ VTN_INFERENCE = {"threshold": 1.1, "maxlenratio": 4.0, "minlenratio": 0.0}
 # kernel shape but the decode steps past it, whose self-attention reads a
 # longer cache prefix in the same kernels
 VTN_WARM_MAXLENRATIO = 0.25
+# phase 12 serves the VTN with its decoder cut to this depth (of 6) to keep
+# the script in its time: a whole-budget decode is host-bound, one step
+# through every decoder layer at a time; the encoder, which launches kernel
+# 9, keeps its 6 layers
+VTN_SERVE_DLAYERS = 3
 VTN_NO_DROPOUT = {k: 0.0 for k in (
     "dprenet_dropout_rate", "transformer_enc_dropout_rate",
     "transformer_enc_positional_dropout_rate", "transformer_enc_attn_dropout_rate",
@@ -610,8 +654,10 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, min_total_ms: float = 100.0, max_iters: int = 50) -> float:
+def cuda_ms(fn, min_total_ms: float = 50.0, max_iters: int = 50) -> float:
     """Mean device time of ``fn`` over back-to-back launches (CUDA events),
+    at least 3 of them and ``min_total_ms`` (~300 kernel checks each time
+    three functions this way, so the window weighs on the script's time),
     after one warm-up call; inputs stay where the last call left them."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1030,7 +1076,7 @@ def inference_calls(m, T_enc, enc_lens, T_dec, dec_lens):
     dec_lens = [min(n, T_dec) for n in dec_lens]
     calls = []
     for stack, T, lens in ((m.encoder, T_enc, enc_lens), (m.decoder, T_dec, dec_lens)):
-        for layer in stack.encoders:
+        for layer in getattr(stack, "encoders", ()):  # a diffusion decoder has none
             att = layer.self_attn
             path = att.route(T, T, T if att.legacy else 2 * T - 1, KEY_PADDING)
             name = {"fused": "fused_rel_scores", "flash": "rel_flash_attention"}.get(path)
@@ -1315,7 +1361,7 @@ def train_calls(model, batch):
         if conv2d and stack is m.encoder:
             T, lens = subsampled(T), [subsampled(int(n)) for n in lens]
         lens = tuple(int(n) for n in lens)
-        for layer in stack.encoders:
+        for layer in getattr(stack, "encoders", ()):  # a diffusion decoder has none
             att = layer.self_attn
             shape = (B, att.n_head, T, att.d_k)
             path = att.route(T, T, T if att.legacy else 2 * T - 1, KEY_PADDING)
@@ -1345,7 +1391,7 @@ def watch_grads(state):
         att_norms = torch.stack(torch._foreach_norm([p.grad for p in att]))
         notes.append((torch.isfinite(norms).all(), att_norms.min()))
 
-    return notes, state.optimizer.adam.register_step_pre_hook(hook), len(att)
+    return notes, state.optimizer.opt.register_step_pre_hook(hook), len(att)
 
 
 def train_steps(state, loader, steps: int, label: str, make=make_trainer):
@@ -1722,7 +1768,8 @@ def vtn_reference_check(model, vocoder, src, trg):
     from seq2seq_vc_torch.models.vtn import VTN
     from seq2seq_vc_torch.pipeline import Wav2WavARConverter
 
-    m32 = VTN(**dict(VTN_CONFIG, flash_min_len=8, **VTN_NO_DROPOUT))
+    m32 = VTN(**dict(VTN_CONFIG, flash_min_len=8, dlayers=len(model.decoder.decoders),
+                     **VTN_NO_DROPOUT))
     m32.load_state_dict(model.state_dict())
     v32 = copy.deepcopy(vocoder)
     v32.compute_dtype = torch.float32
@@ -1758,7 +1805,8 @@ def vtn_serve_path(rows, src, trg):
 
     failures = []
     with torch.no_grad():
-        model, vocoder = vtn_model(seed=20).eval(), build_vocoder(seed=21)
+        model = vtn_model(seed=20, dlayers=VTN_SERVE_DLAYERS).eval()
+        vocoder = build_vocoder(seed=21)
         conv = Wav2WavARConverter(model, vocoder, src, trg, dict(FEATS, inference=VTN_INFERENCE))
         requests = [
             ("VTN single 3.8 s", [clip(3.8, 10)]),
@@ -1766,7 +1814,8 @@ def vtn_serve_path(rows, src, trg):
             ("VTN single 135 s", [clip(135.0, 16)]),
         ]
         log(f"VTN serving: Wav2WavARConverter, the VTN at full width (float32, attention "
-            f"backend flash), decode {VTN_INFERENCE}; warm-up: each request once, then the "
+            f"backend flash; {VTN_SERVE_DLAYERS} of its 6 decoder layers), decode "
+            f"{VTN_INFERENCE}; warm-up: each request once, then the "
             f"serial synthesis ladder and the streamed one at batch sizes 1 and 4, as vc_serve "
             f"warms")
         fails, _ = serve(conv, requests)
@@ -4794,6 +4843,411 @@ def options_path(rows):
     return failures, launches
 
 
+# ------------------------------------------------- the diffusion decoders
+# phase 29: the flagship's encoder (adim 384, 2 heads of D 192, bf16,
+# flash) with a diffusion decoder on the 1536-wide (adim x 4) upsampled
+# states. DiffSinger at the JAX defaults (256 residual channels, 20 layers,
+# 100 steps; ancestral, and DDIM in 4 steps); ProDiff with 20 layers of
+# 256 channels in the paper's regime (4 steps, timescale 1)
+DIFF_MODELS = {
+    "diffsinger": dict(decoder_type="diffsinger"),
+    "diffsinger_ddim4": dict(decoder_type="diffsinger", diffsinger_inference_steps=4),
+    "prodiff": dict(decoder_type="prodiff", prodiff_denoiser_layers=20,
+                    prodiff_denoiser_channels=256, prodiff_diffusion_steps=4,
+                    prodiff_diffusion_timescale=1),
+}
+DIFF_CRITERIONS = {"diffsinger": ("DiffSingerL2Loss", "ForwardSumLoss",
+                                  "StochasticDurationPredictorLoss"),
+                   "prodiff": CRITERIONS}
+DIFF_SECONDS = (3.8, 30.0)  # the requests each sampler serves
+DIFF_TRAIN_STEPS = 3  # vc_train at B 16 on the CLI corpus
+# the float32 denoiser and one whole sampler run, card against CPU: sums of
+# up to 1536 products in other orders through 20 layers, and for the
+# sampler 100 steps each feeding the last; each held to this fraction of
+# its largest magnitude
+DIFF_RTOL_OF_PEAK = 1e-4
+DIFF_REF_FRAMES = 96  # the card-vs-CPU conditioner's frames
+PHASE_ROOT = {}  # phase 29's corpus and decodes, which phase 30 evaluates
+
+
+def _train_rate(name: str):
+    """The dropout rate a training call of kernel ``name`` runs at: the
+    flagship's 0.2 for the flash kernels, none for the fused ones."""
+    return FLAGSHIP["transformer_enc_attn_dropout_rate"] if name.startswith("rel_flash") else None
+
+
+def diffusion_conf(kind: str, root: Path) -> Path:
+    """The flagship's shipped conf with ``kind``'s decoder and its
+    criteria (a diffsinger decoder trains on ``DiffSingerL2Loss``, no
+    ``L1Loss``), written to ``root``."""
+    import yaml
+
+    from seq2seq_vc_torch.core.config import load_config
+
+    cfg = load_config(str(CLI_CONF))
+    cfg["model_params"] = dict(cfg["model_params"], **DIFF_MODELS[kind])
+    crit = DIFF_CRITERIONS["diffsinger" if kind.startswith("diffsinger") else "prodiff"]
+    cfg["criterions"] = {n: (cfg["criterions"] or {}).get(n) or {} for n in crit}
+    path = root / f"{kind}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def diffusion_reference(card: str):
+    """Phase 29 (e): the float32 DiffNet forward and one whole ancestral
+    DiffSinger run (100 steps) at the flagship's widths, card against CPU,
+    the conditioner and the noise drawn on the CPU (the sampler's noise
+    from a CPU generator, moved to the card)."""
+    from seq2seq_vc_torch.nn.diffusion import GaussianDiffusion
+
+    failures = []
+    torch.manual_seed(70)
+    cond_dim = FLAGSHIP["adim"] * FLAGSHIP["post_encoder_reduction_factor"]
+    dec = GaussianDiffusion(cond_dim, FLAGSHIP["odim"])
+    perturb_(dec, 71)
+    g = torch.Generator().manual_seed(72)
+    cond = torch.randn(1, DIFF_REF_FRAMES, cond_dim, generator=g)
+    x = torch.randn(1, DIFF_REF_FRAMES, FLAGSHIP["odim"], generator=g)
+    t = torch.tensor([57])
+    masks = torch.arange(DIFF_REF_FRAMES)[None] < DIFF_REF_FRAMES - 9
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        d = copy.deepcopy(dec).to(dev)
+        with torch.no_grad():
+            net = d.denoise_fn(x.to(dev), t.to(dev), cond.to(dev)).cpu()
+        sample = d.inference(cond.to(dev), masks.to(dev),
+                             generator=torch.Generator().manual_seed(73)).cpu()
+        outs[dev] = (net, sample)
+    for i, what in enumerate(("DiffNet forward", "ancestral sampler (100 steps)")):
+        a, b = outs["cuda"][i], outs["cpu"][i]
+        peak = float(b.abs().max())
+        err = float((a - b).abs().max())
+        ok = bool(torch.isfinite(a).all()) and err <= DIFF_RTOL_OF_PEAK * peak
+        log(f"diffusion reference {what} (float32, rc 256, 20 layers, cond {cond_dim}, "
+            f"T {DIFF_REF_FRAMES}): card vs CPU max abs diff {err:.3e} of a peak {peak:.3e} "
+            f"(rtol of peak {DIFF_RTOL_OF_PEAK}): {'ok' if ok else 'FAIL'}; card {card}")
+        if not ok:
+            failures.append(f"diffusion reference {what}: diff {err}, peak {peak}")
+    return failures
+
+
+def diffusion_path(rows):
+    """Phase 29: the diffusion decoders on the AAS-VC flagship. (a) Each
+    sampler (DIFF_MODELS) in a ``Wav2WavConverter`` with phase 2's HiFi-GAN
+    serves DIFF_SECONDS: latency, RTF, peak memory. (b) ``vc_train`` of
+    the diffsinger conf (DIFF_TRAIN_STEPS steps at B 16 on the CLI corpus,
+    an evaluation and a checkpoint at step 2), ``vc_decode`` of the dev set
+    and ``vc_serve`` with the DIFF_SECONDS requests; ``vc_train`` and
+    ``vc_decode`` of the prodiff conf. (c) One B 16 diffsinger step at
+    2048-2304 frames, so that kernels 2 and 6-8 launch in the encoder. (d)
+    Every kernel at each shape the phase gave it against its plain
+    version. (e) ``diffusion_reference``. Returns (failures, launches by
+    path)."""
+    import argparse
+
+    import yaml
+
+    from seq2seq_vc_torch.bin import vc_decode, vc_serve, vc_train
+    from seq2seq_vc_torch.core.config import load_config
+    from seq2seq_vc_torch.losses import get_criterion
+    from seq2seq_vc_torch.pipeline import Wav2WavConverter
+    from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
+    from seq2seq_vc_torch.train.data import DataLoader, ParallelVCMelDataset
+    from seq2seq_vc_torch.utils.audio import write_wav
+
+    failures, launches, calls = [], {}, set()
+    card = card_line()
+    sr, hop = FEATS["sampling_rate"], FEATS["hop_size"]
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=build, prefix="chip_smoke_diffusion_"))
+    PHASE_ROOT["root"] = root
+    c = cli_corpus(root)
+    PHASE_ROOT["corpus"] = c
+
+    # (a) the three samplers behind the serving entry point
+    src, trg = stats(1), stats(2)
+    requests = [(f"{s:.1f} s", [clip(s, 120 + i)]) for i, s in enumerate(DIFF_SECONDS)]
+    for i, kind in enumerate(DIFF_MODELS):
+        with torch.no_grad():
+            model, vocoder = build_models(seed=121 + i, **DIFF_MODELS[kind])
+            conv = Wav2WavConverter(model, vocoder, src, trg, FEATS)
+            fails, warm = serve(conv, requests)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            fails, timed = serve(conv, requests)
+            launches[f"diff_serve_{kind}"] = cli_launches("diff_serve", failures)
+        failures += fails
+        for (label, clips), r in zip(requests, timed):
+            secs = len(clips[0]) / sr
+            log(f"diffusion serve {kind} request {label}: latency {r['ms']:.1f} ms, RTF "
+                f"{r['ms'] / 1e3 / secs:.5f}, output frames {r['out_frames']}; card {card}")
+        log(f"diffusion serve {kind}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        calls.update(cl + (None,) for cl in planned_calls(
+            conv, requests, [r["out_frames"] for r in timed]))
+        del conv, model, vocoder
+
+    # (b) the CLIs on the diffusion confs
+    data = ["--src-train-dumpdir", c["src_train"], "--src-dev-dumpdir", c["src_dev"],
+            "--trg-train-dumpdir", c["trg_train"], "--trg-dev-dumpdir", c["trg_dev"],
+            "--trg-stats", c["trg_stats"], "--train-dp-input-dir", c["src_train"],
+            "--dev-dp-input-dir", c["src_dev"]]
+    torch.save(build_vocoder(seed=124).state_dict(), root / "hifigan.pt")
+    gen = {k: [list(x) if isinstance(x, tuple) else x for x in v] if isinstance(v, tuple)
+           else v for k, v in HIFIGAN.items()}
+    (root / "hifigan.yaml").write_text(yaml.safe_dump(
+        {"generator_type": "HifiganGenerator", "generator_params": gen}))
+    vocoder_block = {"checkpoint": str(root / "hifigan.pt"),
+                     "config": str(root / "hifigan.yaml")}
+    for kind in ("diffsinger", "prodiff"):
+        conf = diffusion_conf(kind, root)
+        cfg = load_config(str(conf))
+        steps = DIFF_TRAIN_STEPS if kind == "diffsinger" else 2
+        cfg.update(train_max_steps=steps, eval_interval_steps=2, save_interval_steps=steps,
+                   log_interval_steps=1, vocoder=vocoder_block)
+        conf.write_text(yaml.safe_dump(cfg))
+        exp = root / f"exp_{kind}"
+        reset_launch_counts()
+        trainer = vc_train.main(data + ["--config", str(conf), "--outdir", str(exp)])
+        launches[f"diff_train_{kind}"] = cli_launches("diff_train", failures)
+        hist = [h for h in trainer.history if "train/loss" in h]
+        term = "train/diffsinger_l2_loss" if kind == "diffsinger" else "train/l1_loss"
+        log(f"diffusion vc_train {kind} (B {BATCH}): ms a step "
+            f"{[round(h['train/step_time_sec'] * 1e3, 1) for h in hist]} (the first with its "
+            f"warm-up, step 3's with step 2's evaluation), {term[6:]} "
+            f"{[round(h.get(term, float('nan')), 4) for h in hist]}, peak "
+            f"{max(h.get('train/peak_memory_mib', 0) for h in hist) / 1024:.2f} GiB; "
+            f"card {card}")
+        preds = list((exp / "predictions" / "2steps").glob("*.npy"))
+        if trainer.steps != steps or not all(math.isfinite(h[term]) for h in hist) or not preds:
+            failures.append(f"diffusion vc_train {kind}: steps {trainer.steps}, {hist}, "
+                            f"{len(preds)} predictions")
+        train_set = ParallelVCMelDataset(c["src_train"], c["trg_train"], dp_feats=c["src_train"])
+        batch = next(iter(DataLoader(train_set, vc_train.build_collater(cfg), BATCH, prefetch=0)))
+        calls.update(cl + (_train_rate(cl[0]),) for cl in train_calls(trainer.model, batch))
+        del trainer
+        ckpt = str(exp / f"checkpoint-{steps}steps.pt")
+        out = root / f"dec_{kind}"
+        reset_launch_counts()
+        r = vc_decode.main(["--dumpdir", c["src_dev"], "--dp-input-dir", c["src_dev"],
+                            "--checkpoint", ckpt, "--outdir", str(out), "--skip-plots"])
+        launches[f"diff_decode_{kind}"] = cli_launches("diff_decode", failures)
+        n_utts = len(Path(c["src_dev"]).read_text().splitlines())
+        log(f"diffusion vc_decode {kind}: {n_utts} utterances, {r['frames']} mel frames in "
+            f"{r['seconds'] * 1e3:.1f} ms ({r['seconds'] * 1e3 / n_utts:.1f} ms an utterance), "
+            f"{r['frames_per_sec']:.1f} mel-frames/s; card {card}")
+        if len(list((out / "wav").glob("*.wav"))) != n_utts:
+            failures.append(f"diffusion vc_decode {kind}: wavs missing")
+        PHASE_ROOT[f"wav_{kind}"] = out / "wav"
+        model = vc_decode.load_model(cfg, ckpt, "cuda")
+        calls.update(cl + (None,) for cl in decode_calls(model, c["src_dev"], 1, out))
+        del model
+        if kind != "diffsinger":
+            continue
+        lines = []
+        for i, s in enumerate(DIFF_SECONDS):
+            write_wav(str(root / f"req{i}.wav"), clip(s, 130 + i), sr)
+            lines.append(f"{root / f'req{i}.wav'} {root / f'res{i}.wav'}")
+        args = dict(checkpoint=ckpt, config=None, src_stats=c["src_stats"],
+                    trg_stats=c["trg_stats"], vocoder_checkpoint=vocoder_block["checkpoint"],
+                    vocoder_config=vocoder_block["config"], vocoder_stats=None,
+                    feat_type="mel", bucket_frames=128, device=None)
+        argv = [a for k, v in args.items() if v is not None
+                for a in (f"--{k.replace('_', '-')}", str(v))]
+        reset_launch_counts()
+        results = _run_serve(vc_serve, argv, lines)
+        launches["diff_cli_serve"] = cli_launches("diff_serve", failures)
+        if results[:1] != [{"ready": True}] or len(results) != 1 + len(DIFF_SECONDS) \
+                or not all(r.get("ok") for r in results[1:]):
+            failures.append(f"diffusion vc_serve: {results}")
+        for s, r in zip(DIFF_SECONDS, results[1:]):
+            log(f"diffusion vc_serve {kind} request {s:.1f} s: wall {r.get('wall_ms')} ms, RTF "
+                f"{r.get('rtf')}, output {r.get('output_seconds')} s; card {card}")
+        conv = vc_serve.build_converter(argparse.Namespace(**args))
+        out_frames = [[round(r["output_seconds"] * sr / hop)] for r in results[1:]]
+        calls.update(cl + (None,) for cl in planned_calls(
+            conv, [(f"{s}", [clip(s, 130 + i)]) for i, s in enumerate(DIFF_SECONDS)],
+            out_frames))
+        del conv
+
+    # (c) one long step: the encoder on the flash kernels
+    loader = corpus_loader(root / "long", long_lens(seed=125), seed=125)
+    batch = next(iter(loader))
+    model = flagship(seed=126, **DIFF_MODELS["diffsinger"]).to(DEVICE)
+
+    def make(state, loader, steps, device=None):
+        config = dict(TRAIN_CONFIG, train_max_steps=state.steps + steps)
+        return AASVCTrainer(state, {n: get_criterion(n) for n in DIFF_CRITERIONS["diffsinger"]},
+                            config, loader, device=device or DEVICE)
+
+    state = train_state(model)
+    train_steps(state, loader, 1, "diffusion long warm-up", make=make)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer = train_steps(state, loader, 1, "diffusion long", make=make)
+    launches["diff_train_long"] = cli_launches("diff_train_long", failures)
+    h = trainer.history[-1]
+    log(f"diffusion long step (diffsinger, B {BATCH}, padded {batch['xs'].shape[1]} / "
+        f"{batch['ys'].shape[1]} frames): {h['train/step_time_sec'] * 1e3:.1f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}")
+    if not math.isfinite(h["train/loss"]):
+        failures.append(f"diffusion long step: loss {h['train/loss']}")
+    calls.update(cl + (_train_rate(cl[0]),) for cl in train_calls(state.model, batch))
+    del state, trainer, model
+
+    # (d) each kernel at each shape the phase gave it (bf16, the flagship's type)
+    for name, B, H, T, D, lens, rate in sorted(calls, key=str):
+        rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D,
+                                 label="diffusion", lens=list(lens), rate=rate))
+
+    # (e) the float32 denoiser and a sampler, card against CPU
+    failures += diffusion_reference(card)
+    return failures, launches
+
+
+# ----------------------------------------------------- objective evaluation
+# phase 30: facebook/wav2vec2-large-960h-lv60-self's published widths (its
+# config.json), seeded weights in Hugging Face's layout
+W2V_LV60 = dict(
+    architectures=["Wav2Vec2ForCTC"], model_type="wav2vec2", vocab_size=32, hidden_size=1024,
+    num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096, hidden_act="gelu",
+    conv_dim=[512] * 7, conv_kernel=[10, 3, 3, 3, 3, 2, 2], conv_stride=[5, 2, 2, 2, 2, 2, 2],
+    conv_bias=True, feat_extract_norm="layer", feat_extract_activation="gelu",
+    do_stable_layer_norm=True, num_conv_pos_embeddings=128, num_conv_pos_embedding_groups=16,
+    layer_norm_eps=1e-5, pad_token_id=0, mask_time_prob=0.05)
+W2V_VOCAB = ["<pad>", "<s>", "</s>", "<unk>", "|", "E", "T", "A", "O", "N", "I", "H", "S", "R",
+             "D", "L", "U", "M", "W", "C", "F", "G", "Y", "P", "B", "V", "K", "'", "X", "J", "Q",
+             "Z"]
+ASR_SECONDS = (3.8, 30.0)
+ASR_RTOL_OF_PEAK = 1e-4  # float32 logits card vs CPU through 24 layers of width 1024
+ASR_TIMED = 3  # timed runs an utterance length
+
+
+def wav2vec2_dirs(root: Path, seed: int):
+    """Seeded lv60-wide wav2vec2-CTC checkpoints in HF's layout: ``full``
+    holds config, vocabulary, processor and tokenizer files and the weights
+    as both ``model.safetensors`` and ``pytorch_model.bin`` (the positional
+    conv in the parametrised weight-norm names, ``masked_spec_embed``
+    included), ``bin`` the same files but only the ``.bin``."""
+    from seq2seq_vc_torch.evaluate.wav2vec2 import Wav2Vec2ForCTC, save_safetensors
+
+    torch.manual_seed(seed)
+    model = Wav2Vec2ForCTC(W2V_LV60)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    p = "wav2vec2.encoder.pos_conv_embed.conv"
+    w = sd.pop(f"{p}.weight")
+    sd[f"{p}.parametrizations.weight.original0"] = w.square().sum((0, 1), keepdim=True).sqrt()
+    sd[f"{p}.parametrizations.weight.original1"] = w
+    sd["wav2vec2.masked_spec_embed"] = torch.rand(W2V_LV60["hidden_size"])
+    dirs = {"full": root / "w2v_full", "bin": root / "w2v_bin"}
+    files = {"config.json": W2V_LV60,
+             "vocab.json": {t: i for i, t in enumerate(W2V_VOCAB)},
+             "preprocessor_config.json": dict(do_normalize=True, sampling_rate=16000,
+                                              return_attention_mask=True, feature_size=1,
+                                              padding_value=0.0),
+             "tokenizer_config.json": dict(pad_token="<pad>", unk_token="<unk>",
+                                           word_delimiter_token="|", do_lower_case=False)}
+    for d in dirs.values():
+        d.mkdir()
+        for name, obj in files.items():
+            (d / name).write_text(json.dumps(obj))
+    t0 = time.perf_counter()
+    torch.save(sd, dirs["full"] / "pytorch_model.bin")
+    save_safetensors(str(dirs["full"] / "model.safetensors"), sd)
+    (dirs["bin"] / "pytorch_model.bin").symlink_to(dirs["full"] / "pytorch_model.bin")
+    n = sum(v.numel() for v in sd.values())
+    log(f"evaluate: seeded wav2vec2 at lv60 widths ({n / 1e6:.1f}M values) written as "
+        f"safetensors and pytorch_model.bin in {time.perf_counter() - t0:.1f} s")
+    return dirs
+
+
+def evaluate_path():
+    """Phase 30: ``bin/evaluate`` over phase 29's decoded wavs (diffsinger)
+    against the corpus targets (MCD, F0RMSE, F0CORR, DDUR) with
+    the ASR's CER and WER; the ASR alone at lv60's widths: ms and RTF an
+    utterance at ASR_SECONDS, peak memory, both weight files giving the
+    same logits, float32 logits card against CPU (equal argmax ids away
+    from near-ties); ``--gt-ceiling`` once. No kernel lies on this path.
+    Returns (failures, launches by path)."""
+    from seq2seq_vc_torch.bin import evaluate
+    from seq2seq_vc_torch.evaluate.asr import ASRTranscriber
+
+    failures, launches = [], {}
+    card = card_line()
+    root, c = PHASE_ROOT["root"], PHASE_ROOT["corpus"]
+    try:
+        dirs = wav2vec2_dirs(root, seed=140)
+        gt = root / "gt"
+        gt.mkdir()
+        utts = [line.split()[0] for line in Path(c["src_dev"]).read_text().splitlines()]
+        for utt in utts:
+            (gt / f"{utt}.wav").symlink_to(root / f"trg_{utt}.wav")
+        (root / "text").write_text("".join(f"{u} THE QUICK BROWN FOX\n" for u in utts))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        means = evaluate.main(["--wavdir", str(PHASE_ROOT["wav_diffsinger"]), "--gt-wavdir",
+                               str(gt), "--f0min", "80", "--f0max", "400", "--n-jobs", "4",
+                               "--transcription", str(root / "text"), "--asr-model",
+                               str(dirs["full"]), "--out", str(root / "eval.txt")])
+        n = len((root / "eval.txt").read_text().splitlines())
+        log(f"evaluate diffsinger: {n} utterances in {time.perf_counter() - t0:.1f} s, means "
+            f"{ {k: round(v, 4) for k, v in means.items()} } (random weights: the values mean "
+            f"nothing); card {card}")
+        if n != len(utts) or set(means) != {"MCD", "F0RMSE", "F0CORR", "DDUR", "CER", "WER"} \
+                or not math.isfinite(means["MCD"]):
+            failures.append(f"evaluate diffsinger: {n} lines, means {means}")
+        ceiling = evaluate.main(["--wavdir", str(gt), "--gt-wavdir", str(gt), "--transcription",
+                                 str(root / "text"), "--asr-model", str(dirs["bin"]),
+                                 "--gt-ceiling", "--out", str(root / "eval_gt.txt")])
+        log(f"evaluate --gt-ceiling: {ceiling}")
+        if len((root / "eval_gt.txt").read_text().splitlines()) != len(utts):
+            failures.append("evaluate --gt-ceiling: lines missing")
+
+        asr = ASRTranscriber(str(dirs["full"]), device="cuda")
+        from_bin = ASRTranscriber(str(dirs["bin"]), device="cuda")
+        clips = {s: clip(s, 141 + i) for i, s in enumerate(ASR_SECONDS)}
+        same = torch.equal(asr.logits(clips[3.8]), from_bin.logits(clips[3.8]))
+        log(f"evaluate ASR: safetensors and pytorch_model.bin give the same logits: "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append("evaluate ASR: the two weight files differ")
+        del from_bin
+        torch.cuda.reset_peak_memory_stats()
+        for s, audio in clips.items():
+            asr.transcribe(audio)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ASR_TIMED):
+                text = asr.transcribe(audio)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / ASR_TIMED * 1e3
+            log(f"evaluate ASR {s:.1f} s: {ms:.1f} ms an utterance, RTF {ms / 1e3 / s:.5f} "
+                f"(transcribe: normalise, 1 s bucket, {W2V_LV60['num_hidden_layers']} layers, "
+                f"argmax, decode; "
+                f"{len(text)} characters); card {card}")
+        log(f"evaluate ASR: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB (weights {sum(p.numel() for p in asr.model.parameters()) * 4 / 2**30:.2f} GiB)")
+        a = asr.logits(clips[3.8]).cpu()
+        del asr
+        b = ASRTranscriber(str(dirs["full"]), device="cpu").logits(clips[3.8])
+        peak, err = float(b.abs().max()), float((a - b).abs().max())
+        top2 = b.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        ids_equal = bool((a.argmax(-1) == b.argmax(-1))[clear].all())
+        ok = a.shape == b.shape and err <= ASR_RTOL_OF_PEAK * peak and ids_equal
+        log(f"evaluate ASR float32 logits card vs CPU (3.8 s, {a.shape[0]} frames): max abs "
+            f"diff {err:.3e} of a peak {peak:.3e} (rtol of peak {ASR_RTOL_OF_PEAK}); argmax ids "
+            f"equal on the {int(clear.sum())} frames whose top-2 gap exceeds twice that: "
+            f"{'ok' if ok else 'FAIL'}; card {card}")
+        if not ok:
+            failures.append(f"evaluate ASR card vs CPU: diff {err}, ids equal {ids_equal}")
+        launches["evaluate"] = cli_launches("evaluate", failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return failures, launches
+
+
 def optional_packages() -> str:
     """Which of the packages the JAX package's CLIs lean on import here
     (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
@@ -4987,7 +5441,8 @@ def main() -> int:
     for name, run in (("cli", lambda: cli_path(rows)), ("fs2", lambda: fs2_path(rows, src, trg)),
                       ("tts", lambda: tts_path(rows)), ("voc", lambda: vocoder_path(rows)),
                       ("feat", lambda: feature_path(rows)), ("urhythmic", urhythmic_path),
-                      ("options", lambda: options_path(rows))):
+                      ("options", lambda: options_path(rows)),
+                      ("diffusion", lambda: diffusion_path(rows)), ("evaluate", evaluate_path)):
         fails, by_path = run_phase(name, run)
         failures += fails
         launches.update(by_path)
@@ -5008,8 +5463,9 @@ def main() -> int:
             bound_by=top["bound_by"], library_ms=top["library_ms"],
             library_bwd_ms=top.get("library_bwd_ms"), half_work_ms=top.get("half_work_ms"),
             ms_rate_0=rate0[0]["ms"] if rate0 else None, rate=top["rate"],
-            library=LIBRARY[name], launches_by_path=by_path,
-            shape_bhtd=list(top["shape"]), kv_lens=top["kv_lens"], dtype=top["dtype"],
+            library=LIBRARY[name], launches_by_path={p: n for p, n in by_path.items() if n},
+            shape_bhtd=list(top["shape"]), dtype=top["dtype"],
+            kv_len_range=[min(top["kv_lens"]), max(top["kv_lens"])],
         ))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s; by phase (s): {phase_s}")
     log(json.dumps({"kernels": table}))

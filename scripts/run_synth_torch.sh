@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # Stages 1-7 of egs/synth/vc1/run.sh on the PyTorch port (python -m
 # seq2seq_vc_torch.bin.*): feature extraction (1), statistics and
-# normalisation (2), AAS-VC training and decoding (3-4), the VTN teacher's
+# normalisation (2), AAS-VC training, decoding and the objective evaluation
+# of the decoded wavs against the target speaker's (3-4), the VTN teacher's
 # training (5), its teacher-forced decode, which writes the durations, and
 # its free-running decode (6), then FastSpeech-VC training on those
 # durations and one decode of it (7). Run the JAX recipe's stage 0 first;
@@ -9,8 +10,11 @@
 #
 #   egs/synth/vc1/run.sh --stop_stage 0 --workdir DIR
 #   scripts/run_synth_torch.sh --workdir DIR [--device cpu] [--format npy|hdf5] \
-#       [--stage N --stop_stage M]
+#       [--conf conf/aas_vc_diffsinger.synth.yaml] [--stage N --stop_stage M]
 #
+# --conf picks stage 3's AAS-VC conf: conf/aas_vc.synth.yaml (the default),
+# or a diffusion decoder's, conf/aas_vc_diffsinger.synth.yaml or
+# conf/aas_vc_prodiff.synth.yaml.
 # --format overlays the conf's `format` (written to DIR/conf_torch): npy
 # (the default; .npy features with an scp each and .npz stats, which the
 # card's machine reads without h5py) or hdf5 (per-utterance .h5 files and
@@ -18,7 +22,8 @@
 # runs on the JAX recipe's stages 0-2). The port writes its features under
 # DIR/dump and DIR/stats, checkpoint-<N>steps.pt under DIR/exp_torch,
 # DIR/exp_vtn_torch and DIR/exp_fs2_torch, and decoded features (.npy,
-# feats.scp), durations and wavs under DIR/results_torch,
+# feats.scp), durations and wavs under DIR/results_torch (with the
+# evaluation's per-utterance MCD, F0RMSE, F0CORR and DDUR in eval.txt),
 # DIR/results_tf_torch, DIR/results_ar_torch and DIR/results_fs2_torch. A
 # relative DIR is taken from egs/synth/vc1, as run.sh takes it. --device
 # defaults to the card.
@@ -109,6 +114,12 @@ if [ "$stage" -le 4 ] && [ "$stop_stage" -ge 4 ]; then
     --outdir "$workdir/results_torch" \
     --trg-stats "$trg_stats" --device "$device"
   echo "decoded wavs:"; ls "$workdir/results_torch/wav" | head
+  echo "=== stage 4b: objective evaluation (PyTorch port)"
+  python -m seq2seq_vc_torch.bin.evaluate \
+    --wavdir "$workdir/results_torch/wav" \
+    --gt-wavdir "$workdir/corpus/trg" \
+    --f0min 80 --f0max 400 --n-jobs 2 \
+    --out "$workdir/results_torch/eval.txt" --device "$device"
 fi
 
 if [ "$stage" -le 5 ] && [ "$stop_stage" -ge 5 ]; then

@@ -1,13 +1,14 @@
 #!/usr/bin/env bash
-# Stages 0-5 of egs/synth/urhythmic/run.sh on the PyTorch port (python -m
-# seq2seq_vc_torch.urhythmic.cli), with no JAX, sklearn or transformers:
+# Stages 0-6 of egs/synth/urhythmic/run.sh on the PyTorch port (python -m
+# seq2seq_vc_torch.urhythmic.cli, then python -m seq2seq_vc_torch.bin.evaluate),
+# with no JAX, sklearn or transformers:
 # fixtures and resampling (0: scripts/make_synth_urhythmic_fixtures.py
 # writes both speakers at 22.05 kHz, a seeded HuBERT-soft checkpoint in
 # bshall naming and a segmenter fitted by the port's clustering; `resample`
 # takes the speakers to 16 kHz), HuBERT-soft encoding (1), segmentation
 # (2), the rhythm model (3), the vocoder fine-tune on the target speaker
-# (4) and conversion (5). Stage 6 of run.sh, the objective evaluation, is
-# not ported yet (ROADMAP.md queue 1 item 5): this script stops before it.
+# (4), conversion (5) and the objective evaluation of the converted wavs
+# against the target speaker's (6).
 #
 #   scripts/run_synth_urhythmic_torch.sh --workdir DIR [--device cpu] \
 #       [--finetune_steps 3] [--stage N --stop_stage M]
@@ -17,7 +18,7 @@
 set -euo pipefail
 
 stage=0
-stop_stage=5
+stop_stage=6
 workdir=exp_synth_torch
 finetune_steps=3
 device=
@@ -86,4 +87,13 @@ if [ "$stage" -le 5 ] && [ "$stop_stage" -ge 5 ]; then
     --rhythm-model-checkpoint "$workdir/rhythm_src_trg.pkl" --vocoder-checkpoint "$ckpt"
 fi
 
-echo "=== synth urhythmic stages 0-5 done on the port; stage 6 (evaluate) is not ported"
+if [ "$stage" -le 6 ] && [ "$stop_stage" -ge 6 ]; then
+  echo "=== stage 6: objective evaluation"
+  python3 -m seq2seq_vc_torch.bin.evaluate \
+    --wavdir "$workdir/converted_src_trg" \
+    --gt-wavdir "$workdir/trg/wav16k" \
+    --f0min 60 --f0max 400 \
+    --out "$workdir/eval/results.txt" "${dev[@]}"
+fi
+
+echo "=== synth urhythmic recipe done on the port"

@@ -1,11 +1,11 @@
 """Command-line entry points of the PyTorch port (mirror seq2seq_vc_tpu/bin):
 ``preprocess``, ``compute_statistics``, ``normalize``, ``vc_train``,
 ``vc_decode``, ``vc_serve``, ``tokenize_text``, ``tts_train``,
-``tts_decode``, ``vocoder_anasyn_debug`` and ``convert_checkpoint`` (a
-reference checkpoint to a port one, on the CPU). Each has
-``main(argv=None)``, so a script can drive it in-process, and each that
-computes on a device a ``--device`` flag (default: the card; without one
-it raises)."""
+``tts_decode``, ``vocoder_anasyn_debug``, ``evaluate`` and
+``convert_checkpoint`` (a reference checkpoint to a port one, on the
+CPU). Each has ``main(argv=None)``, so a script can drive it in-process,
+and each that computes on a device a ``--device`` flag (default: the
+card; without one it raises)."""
 
 from __future__ import annotations
 

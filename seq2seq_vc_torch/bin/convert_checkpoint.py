@@ -11,7 +11,9 @@ TransformerTTS checkpoints as ``torch.save`` dicts (``{"model":
 state_dict, "steps": N, "epochs": E, ...}``) or bare state dicts. The
 port's modules carry the reference's parameter names, so the state dict
 loads into the model of the config's ``model_type`` and ``model_params``
-by name, strictly: every tensor of the model must be in the checkpoint and
+by name, strictly (a conf with a diffusion decoder, ``decoder_type:
+diffsinger`` or ``prodiff``, is refused: the reference has no diffusion
+classes, so none of its checkpoints holds one): every tensor of the model must be in the checkpoint and
 every tensor of the checkpoint must be consumed. Names are mapped only
 where the JAX converter maps them (``seq2seq_vc_tpu/convert/reference.py``):
 BatchNorm ``num_batches_tracked`` counters are dropped (the model's own
@@ -106,6 +108,10 @@ def main(argv=None) -> str:
     if model_type not in MODEL_TYPES:
         raise NotImplementedError(f"model_type {model_type!r}: converters exist for "
                                   f"{sorted(MODEL_TYPES)}")
+    decoder = config["model_params"].get("decoder_type")
+    if model_type == "AASVC" and decoder in ("diffsinger", "prodiff"):
+        raise ValueError(f"decoder_type {decoder!r}: the reference snapshot has no diffusion "
+                         "classes, so no reference checkpoint holds this decoder")
     obj = torch.load(args.torch_checkpoint, map_location="cpu", weights_only=False)
     state, steps, epochs = reference_state_dict(obj)
     model = get_model_class(model_type)(**config["model_params"], device="cpu")

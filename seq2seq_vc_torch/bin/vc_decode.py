@@ -23,8 +23,15 @@ each padded to its longest item rounded up to ``BUCKET_FRAMES`` (and to the
 model's frame stacking), as the JAX driver buckets them. The duration noise
 (AAS-VC) and the prenet's dropout (VTN) of a batch come from
 ``utterance_generator(seed, i)``, ``i`` the index of its first utterance.
-``--data-parallel`` is refused (ROADMAP.md queue 1 item 5); the JAX
-driver's diagnostic plots are not ported.
+``--data-parallel`` is refused (ROADMAP.md queue 1 item 5). Unless
+``--skip-plots``, each utterance's features are plotted as
+``outs/<utt>.png``, and for the AR path its stop probabilities as
+``probs/<utt>_prob.png`` and its attention as ``att_ws/<utt>_att_ws.png``
+(teacher forcing: the features and the attention), as the JAX driver
+plots them, best-effort (``utils/plot.py``: without ``matplotlib`` a
+warning is logged and the decode carries on). A diffusion decoder
+(``decoder_type: diffsinger`` or ``prodiff``) samples with the batch's
+generator.
 """
 
 from __future__ import annotations
@@ -88,7 +95,8 @@ def load_model(config: Dict[str, Any], checkpoint: str, device) -> torch.nn.Modu
 
 
 def _teacher_forced(model, item, xs, ilens, generator):
-    """The VTN's teacher-forced pass on one utterance: (features, durations)."""
+    """The VTN's teacher-forced pass on one utterance: (features, durations,
+    the cross-attention over the valid frames)."""
     trg = item["trg_feat"]
     r = model.decoder_reduction_factor
     ys = torch.as_tensor(pad_batch([trg], int(np.lcm(BUCKET_FRAMES, r))), device=xs.device)
@@ -99,10 +107,21 @@ def _teacher_forced(model, item, xs, ilens, generator):
         out = model(xs, ilens, ys, labels, olens, need_att_ws=True, generator=generator)
     n = int(out["olens"][0])
     att = out["att_ws"][:, 0].float().cpu().numpy()  # (layers, heads, T_out / r, T_mem)
-    durations, focus = calculate_durations(
-        att[:, :, : int(out["olens_in"][0]), : int(out["ilens_ds_st"][0])])
+    att = att[:, :, : int(out["olens_in"][0]), : int(out["ilens_ds_st"][0])]
+    durations, focus = calculate_durations(att)
     logging.info("%s: focus rate = %.3f", item["utt_id"], focus)
-    return out["after_outs"][0, :n].float().cpu().numpy(), durations
+    return out["after_outs"][0, :n].float().cpu().numpy(), durations, att
+
+
+def plot_decode(outdir: str, utt: str, feats, probs=None, att_ws=None) -> None:
+    """The JAX driver's diagnostic plots of one utterance."""
+    from ..utils.plot import plot_1d, plot_2d, plot_attention
+
+    plot_2d(feats, os.path.join(outdir, "outs", f"{utt}.png"))
+    if probs is not None:
+        plot_1d(probs, os.path.join(outdir, "probs", f"{utt}_prob.png"))
+    if att_ws is not None:
+        plot_attention(att_ws, os.path.join(outdir, "att_ws", f"{utt}_att_ws.png"))
 
 
 def main(argv=None) -> Dict[str, float]:
@@ -119,6 +138,8 @@ def main(argv=None) -> Dict[str, float]:
     parser.add_argument("--use-teacher-forcing", action="store_true")
     parser.add_argument("--batch-size", type=int, default=1)
     parser.add_argument("--data-parallel", type=int, default=1)
+    parser.add_argument("--skip-plots", action="store_true",
+                        help="skip mel/attention/stop-prob diagnostic plots")
     parser.add_argument("--device", default=None, help="torch device (default: the card)")
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
@@ -159,13 +180,17 @@ def main(argv=None) -> Dict[str, float]:
         ilens = torch.tensor([len(it["src_feat"]) for it in items], device=device)
         generator = utterance_generator(seed, group[0])
         durations = [None] * len(items)
+        probs = att = [None] * len(items)
         start = time.perf_counter()
         if args.use_teacher_forcing:
-            feats, durations[0] = _teacher_forced(model, items[0], xs, ilens, generator)
-            outs, out_lens = feats[None], [len(feats)]
+            feats, durations[0], att_tf = _teacher_forced(model, items[0], xs, ilens, generator)
+            outs, out_lens, att = feats[None], [len(feats)], [att_tf]
         elif is_ar:
             out = drv(xs, ilens, generator, est_steps=drv.expected_steps(int(ilens.max())))
             outs, out_lens = out["outs"].float().cpu().numpy(), out["out_lens"].tolist()
+            if not args.skip_plots:  # att_ws (layers, B, heads, T_out / r, T_mem)
+                probs = out["probs"].float().cpu().numpy()
+                att = out["att_ws"].float().cpu().numpy().swapaxes(0, 1)
         else:
             dp = None
             if "dp_input" in items[0]:
@@ -182,13 +207,15 @@ def main(argv=None) -> Dict[str, float]:
         total_sec += elapsed
         logging.info("batch of %d: %d frames in %.3f s (%.1f frames/sec)", len(items),
                      sum(out_lens), elapsed, sum(out_lens) / max(elapsed, 1e-9))
-        for it, feats, n, dur in zip(items, outs, out_lens, durations):
+        for it, feats, n, dur, prob, aw in zip(items, outs, out_lens, durations, probs, att):
             utt = it["utt_id"]
             path = os.path.join(args.outdir, f"{utt}.npy")
             np.save(path, feats[:n])
             scp.append(f"{utt} {os.path.abspath(path)}")
             if dur is not None:
                 np.savetxt(os.path.join(dur_dir, f"{utt}.txt"), dur[None], fmt="%d")
+            if not args.skip_plots:
+                plot_decode(args.outdir, utt, feats[:n], None if prob is None else prob[:n], aw)
             write_wav(os.path.join(wav_dir, f"{utt}.wav"), vocoder.decode(feats[:n]), vocoder.fs)
     with open(os.path.join(args.outdir, "feats.scp"), "w") as f:
         f.write("\n".join(scp) + "\n")

@@ -3,19 +3,24 @@
 
 Conformer encoder (with post-encoder frame stacking) -> alignment module
 and MAS durations (training) or the duration predictor, stochastic (run
-inverse) or deterministic (inference) -> Gaussian upsampling -> conformer
-decoder -> ``feat_out`` -> postnet. ``forward`` is the training pass and
-also returns the stochastic predictor's NLL of the MAS durations, or the
-deterministic one's log-durations. The constructor takes the JAX model's
-config fields by the same names and defaults, dropout rates included:
-the positionwise layer's three kinds (``linear``, ``conv1d``,
-``conv1d-linear``, of ``positionwise_conv_kernel_size`` taps), speaker
-embeddings (``spk_embed_dim``, ``add`` or ``concat``; ``spembs`` to
-``forward`` and ``inference``), the group- or batch-norm postnet and conv
-module; the diffusion decoders raise ``NotImplementedError`` (ROADMAP.md
-queue 1 item 5). Submodule names are the reference torch names, so a
-``state_dict`` converts with
-``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``.
+inverse) or deterministic (inference) -> Gaussian upsampling -> the
+decoder: a conformer with ``feat_out`` and the postnet, DiffSinger's
+Gaussian diffusion (``decoder_type: diffsinger``, no postnet; its training
+forward gives ``noise`` and ``x_recon`` for ``DiffSingerL2Loss`` and no
+mel outputs) or ProDiff's x0-prediction denoiser (``prodiff``, no
+``feat_out``), both conditioned on the upsampled states and float32
+(``nn/diffusion.py``). ``forward`` is the training pass and also returns
+the stochastic predictor's NLL of the MAS durations, or the deterministic
+one's log-durations. The constructor takes the JAX model's config fields
+by the same names and defaults, dropout rates included: the positionwise
+layer's three kinds (``linear``, ``conv1d``, ``conv1d-linear``, of
+``positionwise_conv_kernel_size`` taps), speaker embeddings
+(``spk_embed_dim``, ``add`` or ``concat``; ``spembs`` to ``forward`` and
+``inference``), the group- or batch-norm postnet and conv module, the
+diffusion decoders' ``diffsinger_*`` and ``prodiff_*`` fields. Submodule
+names are the reference torch names, so a ``state_dict`` converts with
+``seq2seq_vc_tpu/convert/reference.py:convert_aasvc``; the diffusion
+decoders, which the reference lacks, take the flax names.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from ..nn.alignment import AlignmentModule
 from ..nn.attention import FLASH_MIN_LEN
 from ..nn.conformer import ConformerEncoder
+from ..nn.diffusion import GaussianDiffusion, SpectogramDenoiser
 from ..nn.duration_predictor import DurationPredictor
 from ..nn.flows import StochasticDurationPredictor
 from ..nn.layers import Linear
@@ -97,6 +103,16 @@ class AASVC(torch.nn.Module):
         postnet_chans: int = 512,
         postnet_filts: int = 5,
         postnet_dropout_rate: float = 0.5,
+        diffsinger_denoiser_residual_channels: int = 256,
+        diffsinger_diffusion_steps: int = 100,
+        diffsinger_inference_steps: Optional[int] = None,
+        prodiff_denoiser_layers: int = 20,
+        prodiff_denoiser_channels: int = 256,
+        prodiff_diffusion_steps: int = 1000,
+        prodiff_diffusion_timescale: int = 1,
+        prodiff_diffusion_beta: float = 40.0,
+        prodiff_diffusion_scheduler: str = "vpsde",
+        prodiff_diffusion_cycle_ln: int = 1,
         conformer_rel_pos_type: str = "latest",
         conformer_pos_enc_layer_type: str = "rel_pos",
         conformer_self_attn_layer_type: str = "rel_selfattn",
@@ -132,10 +148,11 @@ class AASVC(torch.nn.Module):
         picks the fused attention's backward variant
         (``ops/rel_scores.py``)."""
         super().__init__()
-        for key, kind in (("encoder_type", encoder_type), ("decoder_type", decoder_type)):
-            if kind != "conformer":
-                raise NotImplementedError(f"AASVC {key}={kind!r} is not ported yet: ROADMAP.md "
-                                          "queue 1 item 5 (the diffusion decoders)")
+        if encoder_type != "conformer":
+            raise NotImplementedError("AASVC supports conformer encoder only")
+        if decoder_type not in ("conformer", "diffsinger", "prodiff"):
+            raise ValueError(f"decoder_type {decoder_type!r} is not supported")
+        self.decoder_type = decoder_type
         if duration_predictor_type not in ("deterministic", "stochastic"):
             raise ValueError(f"unknown duration_predictor_type: {duration_predictor_type}")
         self.duration_predictor_type = duration_predictor_type
@@ -203,25 +220,40 @@ class AASVC(torch.nn.Module):
             adim * post_encoder_reduction_factor, odim * decoder_reduction_factor,
             device=device,
         )
-        self.decoder = ConformerEncoder(
-            idim=0, attention_dim=adim * post_encoder_reduction_factor,
-            attention_heads=aheads, linear_units=dunits, num_blocks=dlayers,
-            dropout_rate=transformer_dec_dropout_rate,
-            positional_dropout_rate=transformer_dec_positional_dropout_rate,
-            attention_dropout_rate=transformer_dec_attn_dropout_rate,
-            input_layer=None, normalize_before=decoder_normalize_before,
-            concat_after=decoder_concat_after, cnn_module_kernel=conformer_dec_kernel_size,
-            **common,
-        )
-        self.feat_out = Linear(
-            adim * post_encoder_reduction_factor, odim * decoder_reduction_factor,
-            device=device,
-        )
+        cond_dim, out_dim = adim * post_encoder_reduction_factor, odim * decoder_reduction_factor
+        self.feat_out = None
+        if decoder_type == "diffsinger":
+            self.decoder = GaussianDiffusion(
+                cond_dim, out_dim, residual_channels=diffsinger_denoiser_residual_channels,
+                timesteps=diffsinger_diffusion_steps,
+                inference_steps=diffsinger_inference_steps, device=device,
+            )
+        elif decoder_type == "prodiff":
+            self.decoder = SpectogramDenoiser(
+                out_dim, cond_dim, layers=prodiff_denoiser_layers,
+                channels=prodiff_denoiser_channels, timesteps=prodiff_diffusion_steps,
+                timescale=prodiff_diffusion_timescale, max_beta=prodiff_diffusion_beta,
+                scheduler=prodiff_diffusion_scheduler, cycle_length=prodiff_diffusion_cycle_ln,
+                device=device,
+            )
+        else:
+            self.decoder = ConformerEncoder(
+                idim=0, attention_dim=cond_dim,
+                attention_heads=aheads, linear_units=dunits, num_blocks=dlayers,
+                dropout_rate=transformer_dec_dropout_rate,
+                positional_dropout_rate=transformer_dec_positional_dropout_rate,
+                attention_dropout_rate=transformer_dec_attn_dropout_rate,
+                input_layer=None, normalize_before=decoder_normalize_before,
+                concat_after=decoder_concat_after, cnn_module_kernel=conformer_dec_kernel_size,
+                **common,
+            )
+            self.feat_out = Linear(cond_dim, out_dim, device=device)
+        # "only diffsinger does not have postnet" (the reference's words)
         self.postnet = (
             Postnet(odim, postnet_layers, postnet_chans, postnet_filts,
                     dropout_rate=postnet_dropout_rate, use_norm=use_batch_norm,
                     norm_type=postnet_norm_type, compute_dtype=cdt, device=device)
-            if postnet_layers > 0 else None
+            if postnet_layers > 0 and decoder_type != "diffsinger" else None
         )
 
     def _encode(self, xs, ilens, spembs=None):
@@ -252,7 +284,8 @@ class AASVC(torch.nn.Module):
         spembs: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-    ) -> Dict[str, torch.Tensor]:
+        diffusion_draws: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, Optional[torch.Tensor]]:
         """Training forward (``__call__`` of the JAX model).
 
         MAS durations ``ds`` (no gradient) from the alignment log-probs
@@ -264,7 +297,11 @@ class AASVC(torch.nn.Module):
         log-durations clamped at ``MAX_DP_OUTPUT``.
         ``dp_lengths`` is accepted for the JAX signature and not read.
         ``spembs`` (B, spk_embed_dim): the speaker embeddings, with
-        ``spk_embed_dim``.
+        ``spk_embed_dim``. A diffusion decoder draws its step and noise
+        from ``generator`` after the duration predictor, or takes them from
+        ``diffusion_draws`` (``t``, ``eps``); ``diffsinger`` returns
+        ``noise`` and ``x_recon`` and no mel outputs (``before_outs`` and
+        ``after_outs`` None).
         """
         xs, ys = src_speech, tgt_speech
         ilens, olens = src_speech_lengths, tgt_speech_lengths
@@ -286,15 +323,29 @@ class AASVC(torch.nn.Module):
         hs_up = gaussian_upsampling(
             hs, ds, make_non_pad_mask(olens_red, ys_red.shape[1]), h_nonpad
         )
-        zs, _ = self.decoder(hs_up, make_non_pad_mask(olens_red, hs_up.shape[1]))
-        before_outs = self.feat_out(zs).reshape(hs_up.shape[0], -1, self.odim)
-        after_outs = before_outs
-        if self.postnet is not None:
-            after_outs = before_outs + self.postnet(before_outs)
+        d_masks = make_non_pad_mask(olens_red, hs_up.shape[1])
+        B = hs_up.shape[0]
+        draws = dict(diffusion_draws or {}, generator=generator)
+        diffusion: Dict[str, torch.Tensor] = {}
+        if self.decoder_type == "diffsinger":
+            diffusion["noise"], diffusion["x_recon"] = self.decoder(hs_up, ys_red, d_masks,
+                                                                    **draws)
+            before_outs = after_outs = None
+        else:
+            if self.decoder_type == "prodiff":  # no feat_out
+                before_outs = self.decoder(hs_up, ys_red, d_masks, **draws).reshape(
+                    B, -1, self.odim)
+            else:
+                zs, _ = self.decoder(hs_up, d_masks)
+                before_outs = self.feat_out(zs).reshape(B, -1, self.odim)
+            after_outs = before_outs
+            if self.postnet is not None:
+                after_outs = before_outs + self.postnet(before_outs)
         return {
             "before_outs": before_outs,
             "after_outs": after_outs,
             **dur,
+            **diffusion,
             "ds": ds,
             "ilens": ilens_red,
             "bin_loss": bin_loss,
@@ -316,6 +367,7 @@ class AASVC(torch.nn.Module):
         tgt_speech_lengths: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        diffusion_draws: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """NAR inference: predict durations, upsample, decode.
 
@@ -324,6 +376,9 @@ class AASVC(torch.nn.Module):
         2) is the stochastic duration predictor's standard-normal draw (else
         drawn from ``generator``). With a ground-truth target (debug use),
         the MAS durations ``ds`` and ``log_p_attn`` are returned as well.
+        A diffusion decoder samples with ``generator`` (after the duration
+        predictor's draw) or takes its draws from ``diffusion_draws``
+        (``x_init``, ``z``).
         """
         hs, ilens_red = self._encode(src_speech, src_speech_lengths, spembs)
         debug: Dict[str, torch.Tensor] = {}
@@ -356,9 +411,13 @@ class AASVC(torch.nn.Module):
         h_masks = make_non_pad_mask(out_lens_red, max_output_frames)
         hs_up = gaussian_upsampling(hs, d_outs, h_masks, h_nonpad)
         B = hs_up.shape[0]
-        zs, _ = self.decoder(hs_up, h_masks)
-        before_outs = self.feat_out(zs).reshape(B, -1, self.odim)
-        after_outs = before_outs
+        draws = dict(diffusion_draws or {}, generator=generator)
+        if self.feat_out is None:  # a diffusion decoder (diffsinger has no postnet)
+            x = self.decoder.inference(hs_up, h_masks, **draws)
+            before_outs = after_outs = x.reshape(B, -1, self.odim)
+        else:
+            zs, _ = self.decoder(hs_up, h_masks)
+            before_outs = after_outs = self.feat_out(zs).reshape(B, -1, self.odim)
         if self.postnet is not None:
             # zero frames past each item's predicted length before the
             # postnet, as the reference decodes at the exact length

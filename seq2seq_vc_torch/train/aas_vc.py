@@ -1,14 +1,18 @@
-"""AAS-VC trainer (mirrors seq2seq_vc_tpu/train/aas_vc.py): L1 +
-lambda_align * (forward-sum + binarisation) + the duration loss, gated by
-``dp_train_start_steps``: ``DurationPredictorLoss`` of the deterministic
-predictor against the MAS durations where the criteria name it, else the
-stochastic predictor's NLL.
+"""AAS-VC trainer (mirrors seq2seq_vc_tpu/train/aas_vc.py): L1 (where the
+criteria name it) + ``DiffSingerL2Loss`` between the diffusion decoder's
+injected and predicted noise on the reduced frame grid (where they name
+it) + lambda_align * (forward-sum + binarisation) + the duration loss,
+gated by ``dp_train_start_steps``: ``DurationPredictorLoss`` of the
+deterministic predictor against the MAS durations where the criteria name
+it, else the stochastic predictor's NLL. The diffusion decoder's step and
+noise come from the trainer's generator, as the duration noise does.
 
 The forward-sum prior depends only on the lengths, so it is built on the
 host from the numpy batch (cached per length pair) and goes to the device
 with the batch; the CTC takes the same host lengths. At each evaluation,
 ``generate_intermediate`` runs ``AASVC.inference`` on the first dev batch
-(the duration noise from a CPU generator seeded 0).
+(the duration noise and a diffusion decoder's samples from a CPU generator
+seeded 0, as JAX's ``PRNGKey(0)``).
 """
 
 from __future__ import annotations
@@ -58,13 +62,18 @@ class AASVCTrainer(Trainer):
             batch.get("dp_inputs"), batch.get("dplens"), generator=generator,
         )
         metrics: Dict[str, torch.Tensor] = {}
-        loss = torch.zeros((), device=out["after_outs"].device)
+        loss = torch.zeros((), device=out["bin_loss"].device)
         if "L1Loss" in self.criterion:
             l1 = self.criterion["L1Loss"](
                 out["after_outs"], out["before_outs"], out["ys"], out["olens"]
             )
             loss = loss + l1
             metrics["l1_loss"] = l1
+        if "DiffSingerL2Loss" in self.criterion:
+            l2 = self.criterion["DiffSingerL2Loss"](
+                out["noise"], out["x_recon"], out["olens_reduced"])
+            loss = loss + l2
+            metrics["diffsinger_l2_loss"] = l2
         ilens_r, olens_r = batch["ctc_lens"]
         fsum = forward_sum_loss(out["log_p_attn"] + batch["bb_prior"], ilens_r, olens_r)
         bin_loss = out["bin_loss"]

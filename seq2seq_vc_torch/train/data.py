@@ -4,9 +4,10 @@ seq2seq_vc_tpu/train/data.py and the scp loaders of
 seq2seq_vc_tpu/utils/io.py).
 
 Feature storage: an scp of ``.npy`` paths, an scp of HDF5 entries
-(``<utt> <file.h5>[:dset[,dset2]]``) or a dump directory of per-utterance
-``.h5`` files. ``h5py`` is imported only when an HDF5 source is read, and
-its absence raises then. Kaldi ark storage is not ported yet.
+(``<utt> <file.h5>[:dset[,dset2]]``), an scp of kaldi binary ark entries
+(``<utt> <file.ark>:<offset>``, read natively: no kaldiio) or a dump
+directory of per-utterance ``.h5`` files. ``h5py`` is imported only when
+an HDF5 source is read, and its absence raises then.
 
 Batches are numpy, padded along time to a bucket multiple, built
 length-sorted with the batch order shuffled per epoch; the trainer moves
@@ -25,7 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.io import import_h5py, read_hdf5
+from ..utils.io import import_h5py, read_hdf5, read_kaldi_header, read_kaldi_matrix
 
 
 def read_scp(scp_path: str) -> Dict[str, str]:
@@ -83,6 +84,26 @@ class HDF5ScpLoader(NpyScpLoader):
             return int(f[dsets[0]].shape[0])
 
 
+class KaldiArkScpLoader(NpyScpLoader):
+    """{utt_id: array} over an scp of kaldi ark entries
+    (``path.ark:offset``)."""
+
+    def _open(self, key: str):
+        path, offset = self.data[key].rsplit(":", 1)
+        f = open(path, "rb")
+        f.seek(int(offset))
+        return f
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        with self._open(key) as f:
+            return read_kaldi_matrix(f)
+
+    def length(self, key: str) -> int:
+        """Row count from the matrix header (no data read)."""
+        with self._open(key) as f:
+            return read_kaldi_header(f)[1]
+
+
 class _DirLoader:
     """{utt_id: array} over a dump directory of per-utterance HDF5 files."""
 
@@ -106,7 +127,8 @@ class _DirLoader:
 
 def make_loader(path: str, feat_key: str = "feats"):
     """The loader of an scp file or a dump directory (scp sniffing as the
-    JAX package: ``.npy`` values -> numpy, anything else -> HDF5)."""
+    JAX package: ``.npy`` values -> numpy, ``.ark:<offset>`` -> kaldi ark,
+    anything else -> HDF5)."""
     if os.path.isdir(path):
         return _DirLoader(path, feat_key)
     if not os.path.isfile(path):
@@ -117,7 +139,7 @@ def make_loader(path: str, feat_key: str = "feats"):
     if value.endswith(".npy"):
         return NpyScpLoader(path)
     if value.rsplit(":", 1)[0].endswith(".ark"):
-        raise NotImplementedError("kaldi ark features are not ported yet")
+        return KaldiArkScpLoader(path)
     return HDF5ScpLoader(path, feat_key)
 
 

@@ -1,8 +1,9 @@
-"""Optimizer: Adam on the warmup schedule, clip by global norm, gradient
-accumulation (mirrors seq2seq_vc_tpu/train/optim.py, an optax chain there).
+"""Optimizer: Adam, AdamW or SGD on the warmup schedule, clip by global
+norm, gradient accumulation (mirrors seq2seq_vc_tpu/train/optim.py, an
+optax chain there).
 
 ``Optimizer.step`` is one optax update of ``chain(clip_by_global_norm,
-adam(schedule))`` under ``MultiSteps``:
+adam(schedule))`` (or ``adamw``, ``sgd``) under ``MultiSteps``:
 
 - accumulation: ``backward`` sums the micro-batch gradients into ``.grad``;
   the step divides them by the count, as MultiSteps averages them;
@@ -18,6 +19,14 @@ adam(schedule))`` under ``MultiSteps``:
 
 Adam's arithmetic is ``torch.optim.Adam``'s, the same formula as
 ``optax.adam`` (``b1``, ``b2``, ``eps`` under the optax names).
+``optax.adamw`` adds ``weight_decay`` (optax's default 1e-4) times the
+parameter to the Adam direction and scales the sum by the learning rate:
+``torch.optim.AdamW``'s decay of ``p`` by ``lr * weight_decay`` before its
+Adam step, from the same ``p``. ``optax.sgd`` with ``momentum`` (None by
+default: plain SGD) keeps a trace ``m = g + momentum * m`` from zero and
+steps along it, or along ``g + momentum * m`` with ``nesterov``:
+``torch.optim.SGD``'s buffer, which starts at the first gradient, and its
+Nesterov step, with no dampening.
 
 ``freeze_mods`` (JAX: ``optax.multi_transform`` routing the frozen subtrees
 to ``set_to_zero``): a parameter whose flax path (``convert.flax_paths``,
@@ -51,16 +60,37 @@ def frozen_names(model: torch.nn.Module, freeze_mods: Sequence[str]) -> List[str
     return out
 
 
+def _torch_optimizer(name: str, params, lr: float, kw: Dict[str, Any]):
+    """The torch optimizer of ``optimizer_type`` ``name`` with optax's
+    ``optimizer_params`` names and defaults."""
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(kw.pop("b1", 0.9), kw.pop("b2", 0.999)),
+                                eps=kw.pop("eps", 1e-8))
+    if name == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(kw.pop("b1", 0.9), kw.pop("b2", 0.999)),
+                                 eps=kw.pop("eps", 1e-8),
+                                 weight_decay=kw.pop("weight_decay", 1e-4))
+    if name == "sgd":
+        momentum, nesterov = kw.pop("momentum", None), kw.pop("nesterov", False)
+        if momentum is None:  # optax: no trace, so no Nesterov step either
+            return torch.optim.SGD(params, lr=lr)
+        return torch.optim.SGD(params, lr=lr, momentum=momentum, nesterov=nesterov)
+    raise ValueError(f"unknown optimizer_type: {name}")
+
+
 class Optimizer:
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule, grad_norm=None,
-                 gradient_accumulate_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 gradient_accumulate_steps: int = 1, optimizer_type: str = "Adam",
+                 **optimizer_params):
         self.params: List[torch.nn.Parameter] = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.grad_norm = grad_norm if grad_norm and grad_norm > 0 else None
         self.accumulate = int(gradient_accumulate_steps or 1)
         self.count = 0  # optimizer updates applied
-        self.adam = torch.optim.Adam(self.params, lr=schedule(0), betas=(b1, b2), eps=eps)
+        kw = dict(optimizer_params)
+        self.opt = _torch_optimizer(optimizer_type.lower(), self.params, schedule(0), kw)
+        if kw:
+            raise TypeError(f"{optimizer_type}: unexpected optimizer_params {sorted(kw)}")
 
     def lr(self) -> float:
         """The learning rate of the next update."""
@@ -85,18 +115,18 @@ class Optimizer:
             )
             scale = self.grad_norm / torch.clamp(norm, min=self.grad_norm)
             torch._foreach_mul_(grads, scale)
-        for group in self.adam.param_groups:
+        for group in self.opt.param_groups:
             group["lr"] = self.lr()
-        self.adam.step()
-        self.adam.zero_grad(set_to_none=True)
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
         self.count += 1
         return norm
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"adam": self.adam.state_dict(), "count": self.count}
+        return {"adam": self.opt.state_dict(), "count": self.count}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.adam.load_state_dict(state["adam"])
+        self.opt.load_state_dict(state["adam"])
         self.count = int(state["count"])
 
 
@@ -122,9 +152,8 @@ def build_optimizer(
             params.get_parameter(name).requires_grad_(False)
     if isinstance(params, torch.nn.Module):
         params = params.parameters()
-    if optimizer_type.lower() != "adam":
-        raise NotImplementedError(f"optimizer_type {optimizer_type!r} is not ported yet")
     optimizer_params = dict(optimizer_params or {})
     lr = optimizer_params.pop("lr", 1e-3)
     schedule = get_scheduler(scheduler, lr, **(scheduler_params or {}))
-    return Optimizer(params, schedule, grad_norm, gradient_accumulate_steps, **optimizer_params)
+    return Optimizer(params, schedule, grad_norm, gradient_accumulate_steps, optimizer_type,
+                     **optimizer_params)

@@ -50,18 +50,48 @@ UNITS_PAD = (400 - HOP) // 2  # samples ``units`` pads on each side
 MASK_FILL = -1e9  # the logit of a padded key (not -inf, as in JAX)
 
 
-def conv_stack_frames(n):
-    """Valid output frame count of the conv stack for ``n`` input samples
-    (unpadded convs: every returned frame reads only the first ``n``
+def conv_frames(n, kernels, strides):
+    """Valid output frame count of a stack of unpadded strided convs for
+    ``n`` input samples (every returned frame reads only the first ``n``
     samples). Works on ints, integer arrays and tensors."""
-    for k, s in zip(CONV_KERNEL, CONV_STRIDE):
+    for k, s in zip(kernels, strides):
         n = (n - k) // s + 1
     return n
 
 
-def _valid(n_valid: torch.Tensor, length: int) -> torch.Tensor:
+def conv_stack_frames(n):
+    """``conv_frames`` of HuBERT's conv stack."""
+    return conv_frames(n, CONV_KERNEL, CONV_STRIDE)
+
+
+def valid_mask(n_valid: torch.Tensor, length: int) -> torch.Tensor:
     """(B, length) True on each row's first ``n_valid`` frames."""
     return torch.arange(length, device=n_valid.device)[None, :] < n_valid[:, None]
+
+
+def masked_instance_norm(h: torch.Tensor, n_valid: torch.Tensor, norm: torch.nn.GroupNorm):
+    """A group norm of one group a channel (``norm``'s affine and eps) over
+    each row's first ``n_valid`` frames of h (B, C, T), two-pass variance."""
+    mask = valid_mask(n_valid, h.shape[2])[:, None, :].to(h.dtype)
+    cnt = n_valid.clamp(min=1).to(h.dtype)[:, None, None]
+    mean = (h * mask).sum(2, keepdim=True) / cnt
+    var = ((h - mean).square() * mask).sum(2, keepdim=True) / cnt
+    h = (h - mean) * torch.rsqrt(var + norm.eps)
+    return h * norm.weight[:, None] + norm.bias[:, None]
+
+
+def fold_weight_norm(sd: Dict[str, torch.Tensor], prefix: str) -> None:
+    """Fold ``<prefix>.weight_g``/``weight_v`` (or the parametrisation's
+    ``original0``/``original1``) into ``<prefix>.weight``, in place: the
+    norm over the weight's axes 0 and 1, one a tap (``weight_norm(dim=2)``),
+    clipped at 1e-12."""
+    for g_key, v_key in ((f"{prefix}.weight_g", f"{prefix}.weight_v"),
+                         (f"{prefix}.parametrizations.weight.original0",
+                          f"{prefix}.parametrizations.weight.original1")):
+        if g_key in sd and v_key in sd:
+            g, v = sd.pop(g_key).float(), sd.pop(v_key).float()
+            sd[f"{prefix}.weight"] = v / v.square().sum((0, 1), keepdim=True).sqrt().clamp(
+                min=1e-12) * g
 
 
 class FeatureExtractor(torch.nn.Module):
@@ -83,19 +113,9 @@ class FeatureExtractor(torch.nn.Module):
             h = getattr(self, f"conv{i}")(h)
             n_valid = (n_valid - k) // s + 1
             if i == 0:
-                h = self._instance_norm(h, n_valid)
+                h = masked_instance_norm(h, n_valid, self.norm0)
             h = F.gelu(h)
         return h.transpose(1, 2)
-
-    def _instance_norm(self, h: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-        """Per (item, channel) norm over the first ``n_valid`` frames,
-        two-pass variance, eps 1e-5."""
-        mask = _valid(n_valid, h.shape[2])[:, None, :].to(h.dtype)
-        cnt = n_valid.clamp(min=1).to(h.dtype)[:, None, None]
-        mean = (h * mask).sum(2, keepdim=True) / cnt
-        var = ((h - mean).square() * mask).sum(2, keepdim=True) / cnt
-        h = (h - mean) * torch.rsqrt(var + LN_EPS)
-        return h * self.norm0.weight[:, None] + self.norm0.bias[:, None]
 
 
 class FeatureProjection(torch.nn.Module):
@@ -195,7 +215,7 @@ class HubertSoft(torch.nn.Module):
         h = self.feature_projection(self.feature_extractor(wav, lengths))
         key_mask = None
         if masked:
-            key_mask = _valid(conv_stack_frames(lengths), h.shape[1])
+            key_mask = valid_mask(conv_stack_frames(lengths), h.shape[1])
             # the exact run's positional conv sees zeros past the end
             h = h.masked_fill(~key_mask[..., None], 0.0)
         h = self.norm(h + self.positional_embedding(h))
@@ -230,10 +250,6 @@ class HubertSoft(torch.nn.Module):
 _HF_RENAMES = (
     ("feature_extractor.conv_layers.0.layer_norm.", "feature_extractor.norm0."),
     ("feature_projection.layer_norm.", "feature_projection.norm."),
-    ("encoder.pos_conv_embed.conv.parametrizations.weight.original0",
-     "positional_embedding.conv.weight_g"),
-    ("encoder.pos_conv_embed.conv.parametrizations.weight.original1",
-     "positional_embedding.conv.weight_v"),
     ("encoder.pos_conv_embed.", "positional_embedding."),
     ("encoder.layer_norm.", "norm."),
 )
@@ -285,11 +301,7 @@ def hubert_soft_weights(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     if any(k.startswith(("feature_extractor.conv_layers.", "hubert.")) for k in sd):
         sd = _rename_hf(sd)
     sd.pop("masked_spec_embed", None)
-    g = sd.pop("positional_embedding.conv.weight_g", None)
-    v = sd.pop("positional_embedding.conv.weight_v", None)
-    if g is not None and v is not None:
-        norm = v.square().sum((0, 1), keepdim=True).sqrt().clamp(min=1e-12)
-        sd["positional_embedding.conv.weight"] = v / norm * g
+    fold_weight_norm(sd, "positional_embedding.conv")
     sd.setdefault("proj.weight", torch.zeros(SOFT_DIM, HIDDEN))
     sd.setdefault("proj.bias", torch.zeros(SOFT_DIM))
     sd.setdefault("label_embedding.weight", torch.zeros(N_CLUSTERS, SOFT_DIM))

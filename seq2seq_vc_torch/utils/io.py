@@ -6,6 +6,11 @@ absence raises then. Statistics (``<feat>_mean``, ``<feat>_scale``, or
 ``mean``, ``scale`` for a vocoder) are read from an ``.h5`` file or from an
 ``.npz`` with the same keys, which needs no ``h5py``.
 
+Kaldi binary arks (``read_kaldi_matrix``, ``write_kaldi_ark``; copies of
+seq2seq_vc_tpu/utils/io.py:142-191) hold uncompressed float32 (``FM``) or
+float64 (``DM``) matrices addressed by ``<ark>:<offset>`` scp values, which
+``train/data.KaldiArkScpLoader`` reads.
+
 A dump directory holds per-utterance arrays in one of two formats, the
 ``format`` key of a recipe's config: ``hdf5`` (``<dumpdir>/<utt>.h5``, one
 dataset an array name, what the JAX package's CLIs write) or ``npy``
@@ -17,7 +22,7 @@ from __future__ import annotations
 
 import fnmatch
 import os
-from typing import Dict, List, Optional
+from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -131,3 +136,57 @@ class DumpWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def read_kaldi_header(f: BinaryIO) -> Tuple[np.dtype, int, int]:
+    """A kaldi binary matrix's header at the file's offset: (dtype, rows,
+    cols). The layout kaldi and kaldiio write for an scp-addressed entry:
+    a "\\0B" binary marker, an "FM "/"DM " type token, then per dimension a
+    size byte (4) and a little-endian int32. Compressed matrices (CM*) are
+    not read: re-dump them uncompressed."""
+    marker = f.read(2)
+    if marker != b"\x00B":
+        raise ValueError(f"not a kaldi binary entry (marker {marker!r})")
+    token = b""
+    while not token.endswith(b" "):
+        c = f.read(1)
+        if not c:
+            raise EOFError("truncated kaldi matrix header")
+        token += c
+    kind = token.strip().decode()
+    if kind not in ("FM", "DM"):
+        raise ValueError(f"kaldi matrix type {kind!r} unsupported (only FM/DM; compressed CM "
+                         "matrices must be re-dumped uncompressed)")
+    dims = []
+    for _ in range(2):
+        if f.read(1) != b"\x04":
+            raise ValueError("unexpected kaldi int size byte")
+        dims.append(int.from_bytes(f.read(4), "little", signed=True))
+    return np.dtype(np.float32 if kind == "FM" else np.float64), dims[0], dims[1]
+
+
+def read_kaldi_matrix(f: BinaryIO) -> np.ndarray:
+    """The kaldi binary matrix at the file's offset, (rows, cols)."""
+    dtype, rows, cols = read_kaldi_header(f)
+    data = np.frombuffer(f.read(rows * cols * dtype.itemsize), dtype=dtype)
+    return data.reshape(rows, cols)
+
+
+def write_kaldi_ark(ark_path: str, arrays: Dict[str, np.ndarray]) -> Dict[str, str]:
+    """Write a binary kaldi ark of float32 matrices; returns {utt_id:
+    "path:offset"}, the scp values that address each entry."""
+    scp: Dict[str, str] = {}
+    dirname = os.path.dirname(ark_path)
+    if dirname:
+        os.makedirs(dirname, exist_ok=True)
+    with open(ark_path, "wb") as f:
+        for utt, arr in arrays.items():
+            arr = np.ascontiguousarray(arr, np.float32)
+            f.write(utt.encode() + b" ")
+            offset = f.tell()
+            f.write(b"\x00BFM ")
+            for d in arr.shape:
+                f.write(b"\x04" + int(d).to_bytes(4, "little", signed=True))
+            f.write(arr.tobytes())
+            scp[utt] = f"{ark_path}:{offset}"
+    return scp

@@ -156,10 +156,14 @@ def test_debug_alignment_branch_matches_jax():
 
 
 def test_unported_options_raise():
-    # the diffusion decoders are ROADMAP.md queue 1 item 5
-    with pytest.raises(NotImplementedError, match="item 5"):
-        AASVC(idim=80, odim=80, adim=32, aheads=2, decoder_type="diffsinger",
-              duration_predictor_type="stochastic")
+    # the diffusion decoders are ported; the encoder types the JAX model
+    # refuses are refused, and unknown decoder types raise as in JAX
+    with pytest.raises(NotImplementedError, match="conformer encoder only"):
+        AASVC(idim=80, odim=80, adim=32, aheads=2, encoder_type="transformer")
+    with pytest.raises(ValueError, match="decoder_type"):
+        AASVC(idim=80, odim=80, adim=32, aheads=2, decoder_type="transformer")
+    assert AASVC(idim=80, odim=80, adim=32, aheads=2, decoder_type="diffsinger",
+                 duration_predictor_type="stochastic").postnet is None
 
 
 def test_conv2d_subsampled_lengths_match_jax_and_the_layer():

@@ -27,10 +27,12 @@ from _torch_port import (  # noqa: F401 (release_jax_executables: autouse fixtur
     release_jax_executables,
     vtn_pair,
 )
-from seq2seq_vc_torch.bin import (compute_statistics, normalize, preprocess, tts_decode,
-                                  tts_train, vc_decode, vc_serve, vc_train,
+from seq2seq_vc_torch.bin import (compute_statistics, evaluate, normalize, preprocess,
+                                  tts_decode, tts_train, vc_decode, vc_serve, vc_train,
                                   vocoder_anasyn_debug)
 from seq2seq_vc_torch.dsp.features import LogMelExtractor, logmelfilterbank
+from seq2seq_vc_torch.evaluate.asr import ASRTranscriber
+from seq2seq_vc_torch.evaluate.wav2vec2 import load_wav2vec2
 from seq2seq_vc_torch.encoders.encodec import load_encodec, load_encodec_decoder
 from seq2seq_vc_torch.encoders.ppg import build_extractor, load_ppg_upstream
 from seq2seq_vc_torch.models.fastspeech_vc import FastSpeechVC
@@ -160,7 +162,11 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.urhythmic.stretcher", "seq2seq_vc_torch.urhythmic.vocoder_train",
             "seq2seq_vc_torch.urhythmic.dataset",
             "seq2seq_vc_torch.urhythmic.model",
-            "seq2seq_vc_torch.bin.convert_checkpoint"} <= set(got["modules"])
+            "seq2seq_vc_torch.bin.convert_checkpoint", "seq2seq_vc_torch.nn.diffusion",
+            "seq2seq_vc_torch.losses.diffsinger_l2", "seq2seq_vc_torch.losses.mle",
+            "seq2seq_vc_torch.evaluate.wav2vec2", "seq2seq_vc_torch.evaluate.asr",
+            "seq2seq_vc_torch.evaluate.harvest", "seq2seq_vc_torch.utils.plot",
+            "seq2seq_vc_torch.bin.evaluate"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -212,7 +218,8 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                        (preprocess.main, ["--wav-scp", "x", "--dumpdir", "x", "--config", "x"]),
                        (compute_statistics.main, ["--rootdir", "x", "--config", "x",
                                                   "--dumpdir", "x"]),
-                       (normalize.main, ["--rootdir", "x", "--dumpdir", "x", "--stats", "x"])):
+                       (normalize.main, ["--rootdir", "x", "--dumpdir", "x", "--stats", "x"]),
+                       (evaluate.main, ["--wavdir", "x", "--gt-wavdir", "x"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     # urhythmic's six subcommands, the host-only ones included
@@ -241,6 +248,7 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                    lambda: Spectrogram2Waveform(16000, 1024, 256),
                    lambda: griffin_lim(spc, 1024, 256, n_iter=0),
                    lambda: load_hubert_soft("x"), lambda: HifiganTrainer(),
+                   lambda: load_wav2vec2("x"), lambda: ASRTranscriber("x"),
                    lambda: load_hifigan_backend("x")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             helper()

@@ -140,7 +140,7 @@ def test_freeze_mods_step_matches_jax_multi_transform(mods):
         if k in names:
             assert torch.equal(v, before[k]), k
         np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=1e-6, rtol=0, err_msg=k)
-    assert sum(len(s) > 0 for s in opt.adam.state.values()) == len(params) - len(names)
+    assert sum(len(s) > 0 for s in opt.opt.state.values()) == len(params) - len(names)
     with pytest.raises(ValueError, match="the model"):
         build_optimizer(port.parameters(), freeze_mods=mods)
 

@@ -237,9 +237,10 @@ def test_optimizer_refuses_what_is_not_ported():
     p = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(ValueError, match="freeze_mods needs the model"):
         build_optimizer(p, freeze_mods=["encoder"])
-    with pytest.raises(NotImplementedError, match="SGD"):
-        build_optimizer(p, optimizer_type="SGD")
-    assert isinstance(build_optimizer(p), Optimizer)
+    with pytest.raises(ValueError, match="unknown optimizer_type"):
+        build_optimizer(p, optimizer_type="Lion")
+    for kind in ("Adam", "AdamW", "SGD"):  # SGD and AdamW are ported
+        assert isinstance(build_optimizer(p, optimizer_type=kind), Optimizer)
 
 
 def _write_corpus(root, lens, seed=0, fmt="npy"):
@@ -349,8 +350,8 @@ def test_trainer_runs_evaluates_saves_and_resumes(tmp_path):
     assert resumed.steps == 3
     for k, v in trainer.model.state_dict().items():
         assert torch.equal(resumed.model.state_dict()[k], v), k
-    a = trainer.state.optimizer.adam.state_dict()["state"]
-    b = resumed.state.optimizer.adam.state_dict()["state"]
+    a = trainer.state.optimizer.opt.state_dict()["state"]
+    b = resumed.state.optimizer.opt.state_dict()["state"]
     assert all(torch.equal(a[i]["exp_avg_sq"], b[i]["exp_avg_sq"]) for i in a)
     resumed.run()
     assert resumed.steps == 4
