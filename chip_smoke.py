@@ -292,14 +292,32 @@ Phases, each printed on lines of its own:
    read, the same logits); ``--gt-ceiling`` once; the ASR's ms and RTF an
    utterance at 3.8 and 30 s, peak memory, float32 logits card against CPU
    (``ASR_RTOL_OF_PEAK``, equal argmax ids away from near-ties). No kernel
-   lies on this path: every counter must read 0.
+   lies on this path: every counter must read 0;
+31. the options of queue 1 item 8 (``item8_path``): the full-width
+   flagship with ``conformer_self_attn_layer_type: selfattn`` and
+   ``conformer_pos_enc_layer_type: abs_pos`` (bf16, dropout 0.2, flash)
+   takes one training step at B 16 on 2048-2304 frames, so that the
+   encoder's standard attention (2 heads of D 192) and the decoder's
+   (D 768) both take kernels 9-11: their launch counts set to 0 just
+   before and read just after must equal the routing's, kernels 1-8 at 0;
+   each of kernels 9-11 against its plain version in float32 and bf16 at D
+   192 and 768, rate 0 and 0.2, with key padding and a fully masked row,
+   and at the step's shapes; then a float32 reference step, card against
+   CPU, past a lowered gate (``reference_step(path="item8")``);
+32. data parallelism (``ddp_path``): ``vc_train`` on the flagship's shipped
+   conf at full width, B 16, 3 steps on phase 7's synthetic corpus (its T
+   512 set), as a one-rank NCCL process group (``RANK``/``WORLD_SIZE`` as
+   ``torchrun`` sets them) and then without one: the per-step losses must
+   agree to ``DDP_RTOL`` (kernels 1 and 3 launched in the group's run);
+   ``vc_decode --data-parallel 1`` must write the files of the plain call,
+   and ``--data-parallel 2`` on the one card must raise.
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
 path where they are not 0, phase 23's ``fs2_*``, phase 24's ``tts_*``, phase 25's ``voc_*``,
 phase 26's ``feat_*``, phase 27's ``urhythmic`` (all 0), phase 28's
-``opt_*``, phase 29's ``diff_*`` and phase 30's ``evaluate`` (all 0) paths
-included;
+``opt_*``, phase 29's ``diff_*``, phase 30's ``evaluate`` (all 0), phase
+31's ``item8`` and phase 32's ``ddp`` paths included;
 kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``, kernels
 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
 ``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its library
@@ -310,12 +328,15 @@ it exits at once.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import os
 import pickle
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -531,7 +552,12 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 "diff_train_long": ("rel_flash_attention", *FLASH_BWD),
                 # phase 30, objective evaluation: host numpy and the dense
                 # wav2vec2
-                "evaluate": ()}
+                "evaluate": (),
+                # phase 31, item 8: the flagship's conformers on standard
+                # attention with absolute positions, past the flash gate
+                "item8": STD,
+                # phase 32, data parallelism: vc_train under the gate
+                "ddp": ("fused_rel_scores", "rel_band_bwd")}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -616,7 +642,7 @@ VTN_WARM_MAXLENRATIO = 0.25
 # the script in its time: a whole-budget decode is host-bound, one step
 # through every decoder layer at a time; the encoder, which launches kernel
 # 9, keeps its 6 layers
-VTN_SERVE_DLAYERS = 3
+VTN_SERVE_DLAYERS = 1
 VTN_NO_DROPOUT = {k: 0.0 for k in (
     "dprenet_dropout_rate", "transformer_enc_dropout_rate",
     "transformer_enc_positional_dropout_rate", "transformer_enc_attn_dropout_rate",
@@ -654,7 +680,7 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, min_total_ms: float = 50.0, max_iters: int = 50) -> float:
+def cuda_ms(fn, min_total_ms: float = 20.0, max_iters: int = 50) -> float:
     """Mean device time of ``fn`` over back-to-back launches (CUDA events),
     at least 3 of them and ``min_total_ms`` (~300 kernel checks each time
     three functions this way, so the window weighs on the script's time),
@@ -1464,12 +1490,13 @@ def reference_step(seed: int, path: str = "train"):
     the fused route (kernels 1 and 3); "train_long": the flash gate lowered
     below the batch's lengths, so that every layer takes the flash route
     (kernels 2, 6, 7 and 8); "train_long_legacy": the same in the legacy
-    form. The trainer's own CPU generator draws the duration predictor's
+    form; "item8": the same with standard attention (kernels 9-11). The trainer's own CPU generator draws the duration predictor's
     e_q, the same on both."""
     from seq2seq_vc_torch.train.data import NARVCCollater
 
     route = {"train": dict(rel_scores_bwd="banded"), "train_long": dict(flash_min_len=64),
-             "train_long_legacy": dict(flash_min_len=64, **LEGACY_CONFIG)}[path]
+             "train_long_legacy": dict(flash_min_len=64, **LEGACY_CONFIG),
+             "item8": dict(flash_min_len=64, **ITEM8)}[path]
     model = flagship(seed, compute_dtype="float32", **route, **NO_DROPOUT)
     collater = NARVCCollater(PAD_MULTIPLE, 1, FLAGSHIP["post_encoder_reduction_factor"], 1)
     batch = collater(feature_items([(128, 128), (100, 112)], seed))
@@ -5248,6 +5275,177 @@ def evaluate_path():
     return failures, launches
 
 
+# ------------------------------------------------------- item 8 and parallel/
+# phase 31's flagship: standard attention with absolute positions (ROADMAP
+# queue 1 item 8)
+ITEM8 = dict(conformer_self_attn_layer_type="selfattn", conformer_pos_enc_layer_type="abs_pos")
+# phase 32: a one-rank group's losses against the plain run's (the same
+# arithmetic: each count summed over one rank, the gradients through one
+# all-reduce)
+DDP_RTOL = 1e-5
+
+
+def selfattn_calls(model, batch):
+    """The standard flash launches one training step on ``batch`` makes:
+    (kernel name, B, H, T, D, key lengths) for kernels 9, 10 and 11 of each
+    encoder and decoder layer whose route at the padded length is flash."""
+    B = len(batch["ilens"])
+    m = model
+    calls = []
+    for stack, T, lens in (
+        (m.encoder, batch["xs"].shape[1] // m.encoder_reduction_factor,
+         batch["ilens"] // m.encoder_reduction_factor),
+        (m.decoder, batch["ys"].shape[1] // m.decoder_reduction_factor,
+         batch["olens"] // m.decoder_reduction_factor),
+    ):
+        lens = tuple(int(n) for n in lens)
+        for layer in stack.encoders:
+            att = layer.self_attn
+            if att.route(T, KEY_PADDING) == "flash":
+                calls += [(n, B, att.n_head, T, att.d_k, lens) for n in STD]
+    return calls
+
+
+def item8_path(rows):
+    """Phase 31. Appends the kernel checks to ``rows``; returns (failures,
+    {"item8": launches of the step, by kernel})."""
+    failures = []
+    tmp = REPO / "build"
+    tmp.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp, prefix="chip_smoke_item8_") as root:
+        loader = corpus_loader(Path(root), long_lens(seed=31), seed=31)
+        batch = next(iter(loader))
+        state = train_state(flagship(seed=31, **ITEM8).to(DEVICE))
+        calls = selfattn_calls(state.model, batch)
+        dims = sorted({c[4] for c in calls})
+        label = f"T{batch['xs'].shape[1]}/{batch['ys'].shape[1]}"
+        log(f"item8: AASVCTrainer, flagship at full width with {ITEM8} (bf16, dropout 0.2), "
+            f"B{BATCH}; sources {sorted(batch['ilens'].tolist())}, targets "
+            f"{sorted(batch['olens'].tolist())} frames, padded {label}; standard flash head "
+            f"dims {dims}")
+        for D in (192, 768):
+            for name in STD:
+                for dtype in (torch.float32, torch.bfloat16):
+                    for rate in (0.0, 0.2):
+                        rows.append(check_std_kernel(name, 3, 2, 384, 384, D, dtype, seed=384 + D,
+                                                     label="head-dim", lens=[384, 256, 0],
+                                                     rate=rate))
+        for name, B, H, T, D, lens in sorted(set(calls)):
+            rows.append(check_std_kernel(name, B, H, T, T, D, torch.bfloat16, seed=T + D,
+                                         label="main-path", lens=list(lens), rate=0.2))
+        log(f"item8 main path: 1 step at {label}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trainer = train_steps(state, loader, 1, label)
+        launches = launch_counts()
+        expected = {n: sum(c[0] == n for c in calls) for n in KERNELS}
+        log(f"item8: {trainer.history[0]['train/step_time_sec'] * 1e3:.1f} ms a step (the "
+            f"first); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {launches}, expected from the routing {expected}")
+        if dims != [192, 768]:
+            failures.append(f"item8: standard flash head dims {dims}, expected [192, 768]")
+        for name in KERNELS:
+            if launches[name] != expected[name] or (launches[name] == 0) == (name in STD):
+                failures.append(f"item8 {name}: {launches[name]} launches, expected "
+                                f"{expected[name]}")
+        if not all(math.isfinite(h["train/loss"]) for h in trainer.history):
+            failures.append(f"item8: loss not finite: {trainer.history}")
+        del state, trainer
+    failures += reference_step(seed=32, path="item8")
+    return failures, {"item8": launches}
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """The environment ``torchrun --nproc_per_node 1`` gives its process
+    (rank 0 of 1, a free local port), so that an entry point starts a
+    one-rank process group; the group is left and the variables removed
+    afterwards."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+
+
+def ddp_path(rows):
+    """Phase 32. Returns (failures, {"ddp": the group's launches, by
+    kernel})."""
+    import yaml
+
+    from seq2seq_vc_torch.bin import vc_decode, vc_train
+
+    failures = []
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_ddp_") as tmp:
+        root = Path(tmp)
+        corpus_loader(root, corpus_lens(160, 512, seed=512), seed=512)  # phase 7's T 512 set
+        src, trg = str(root / "src_feat.scp"), str(root / "trg_feat.scp")
+        (root / "steps.yaml").write_text(yaml.safe_dump(dict(
+            train_max_steps=3, log_interval_steps=1, eval_interval_steps=0,
+            save_interval_steps=0, batch_size=BATCH)))
+
+        def train(out):
+            return vc_train.main([
+                "--src-train-dumpdir", src, "--src-dev-dumpdir", src, "--trg-train-dumpdir", trg,
+                "--trg-dev-dumpdir", trg, "--train-dp-input-dir", src, "--dev-dp-input-dir", src,
+                "--config", str(CLI_CONF), "--additional-config", str(root / "steps.yaml"),
+                "--outdir", str(root / out)])
+
+        log(f"ddp: vc_train on {CLI_CONF.relative_to(REPO)} at B {BATCH}, 3 steps, as a "
+            "one-rank NCCL group, then without a group")
+        with one_rank_group():
+            reset_launch_counts()
+            ddp = train("ddp")
+            group = (ddp.data_parallel, torch.distributed.get_backend(), ddp.world)
+            launches = cli_launches("ddp", failures)
+        plain = train("plain")
+        losses = {k: [h["train/loss"] for h in t.history if "train/loss" in h]
+                  for k, t in (("ddp", ddp), ("plain", plain))}
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses["ddp"], losses["plain"]))
+        log(f"ddp: group (data parallel, backend, world) {group}; per-step losses {losses}; "
+            f"largest relative difference {diff:.3e} (DDP_RTOL {DDP_RTOL}); ms/step "
+            f"{[round(h['train/step_time_sec'] * 1e3, 1) for h in ddp.history]} in the group, "
+            f"{[round(h['train/step_time_sec'] * 1e3, 1) for h in plain.history]} without")
+        if group != (True, "nccl", 1) or len(losses["ddp"]) != 3 or not diff <= DDP_RTOL:
+            failures.append(f"ddp: group {group}, losses {losses}")
+
+        scp = root / "decode.scp"  # 2 utterances: one batch
+        scp.write_text("".join(Path(src).read_text().splitlines(True)[:2]))
+        dec = ["--dumpdir", str(scp), "--dp-input-dir", src, "--checkpoint",
+               str(root / "ddp" / "checkpoint-3steps.pt"), "--batch-size", "2", "--skip-plots"]
+        vc_decode.main(dec + ["--outdir", str(root / "dec")])
+        vc_decode.main(dec + ["--outdir", str(root / "dec_dp1"), "--data-parallel", "1"])
+        names = sorted(p.relative_to(root / "dec") for p in (root / "dec").rglob("*")
+                       if p.is_file())
+
+        def content(out, name):  # feats.scp lists absolute paths: its utterances
+            text = (root / out / name).read_bytes()
+            return text.split()[::2] if str(name) == "feats.scp" else text
+
+        same = [n for n in names if content("dec", n) == content("dec_dp1", n)]
+        try:
+            vc_decode.main(dec + ["--outdir", str(root / "dec_dp2"), "--data-parallel", "2"])
+            refused = "no error"
+        except ValueError as e:
+            refused = str(e)
+        log(f"ddp: vc_decode --data-parallel 1: {len(same)} of {len(names)} files the same as "
+            f"the plain call's; --data-parallel 2 on one card: {refused}")
+        if len(same) != len(names) or len(names) < 5 or "available devices 1" not in refused:
+            failures.append(f"ddp decode: {len(same)}/{len(names)} files the same, --data-parallel "
+                            f"2: {refused}")
+    return failures, {"ddp": launches}
+
+
 def optional_packages() -> str:
     """Which of the packages the JAX package's CLIs lean on import here
     (the port's CLIs use ``yaml``; HDF5 and plots only where they import)."""
@@ -5442,7 +5640,8 @@ def main() -> int:
                       ("tts", lambda: tts_path(rows)), ("voc", lambda: vocoder_path(rows)),
                       ("feat", lambda: feature_path(rows)), ("urhythmic", urhythmic_path),
                       ("options", lambda: options_path(rows)),
-                      ("diffusion", lambda: diffusion_path(rows)), ("evaluate", evaluate_path)):
+                      ("diffusion", lambda: diffusion_path(rows)), ("evaluate", evaluate_path),
+                      ("item8", lambda: item8_path(rows)), ("ddp", lambda: ddp_path(rows))):
         fails, by_path = run_phase(name, run)
         failures += fails
         launches.update(by_path)

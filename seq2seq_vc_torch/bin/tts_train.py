@@ -11,8 +11,9 @@ token list of ``tokenize_text`` and the target mels) with the
 ``idim`` set to the vocabulary size, and the ``ARTTSTrainer`` by default.
 ``--init-checkpoint``, ``init-mods``, ``freeze-mods``, the guided-attention
 criterion, ``--resume`` and the final ``checkpoint-<N>steps.pt`` are
-``vc_train``'s. ``--stats`` is accepted and not read, as in the JAX driver
-(training reads normalised features).
+``vc_train``'s, and so are data parallelism under ``torchrun`` and the
+``prng_impl`` and parallelism options. ``--stats`` is accepted and not
+read, as in the JAX driver (training reads normalised features).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import seq2seq_vc_torch
 from ..core.config import dump_config, load_config, merge_args
 from ..device import resolve_device
 from ..models import get_model_class
+from ..parallel import initialize_multihost, is_coordinator
 from ..train import get_trainer_class
 from ..train.data import DataLoader
 from ..train.state import TrainState
@@ -63,12 +65,13 @@ def main(argv=None):
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
     setup(args.verbose)
-    device = resolve_device(args.device)
+    device = initialize_multihost(resolve_device(args.device))
 
     config = merge_args(load_config(args.config), args, args.additional_config)
     refuse_unported(config)
     os.makedirs(args.outdir, exist_ok=True)
-    dump_config(config, args.outdir, seq2seq_vc_torch.__version__)
+    if is_coordinator():
+        dump_config(config, args.outdir, seq2seq_vc_torch.__version__)
 
     token_list = read_token_list(args.token_list)
     logging.info("vocabulary size = %d", len(token_list))

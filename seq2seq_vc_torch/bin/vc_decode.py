@@ -23,7 +23,18 @@ each padded to its longest item rounded up to ``BUCKET_FRAMES`` (and to the
 model's frame stacking), as the JAX driver buckets them. The duration noise
 (AAS-VC) and the prenet's dropout (VTN) of a batch come from
 ``utterance_generator(seed, i)``, ``i`` the index of its first utterance.
-``--data-parallel`` is refused (ROADMAP.md queue 1 item 5). Unless
+``--data-parallel N`` decodes with N ranks of one process group (``torchrun
+--nproc_per_node N``; one card a rank, or ``gloo`` processes with
+``--device cpu``), as the JAX driver shards a batch over N devices: each
+batch is padded to a multiple of N rows by repeating its last utterance and
+each rank decodes its block of rows at the whole batch's padded length,
+with the whole batch's draws (the duration noise, the prenet's masks), so
+the outputs are those of ``--data-parallel 1``; a diffusion decoder's
+sampler draws for the rank's rows alone. Each rank writes its utterances;
+rank 0 writes ``feats.scp``. ``--batch-size`` must be a positive multiple of
+N, and N at most the cards (the ranks on the CPU). With
+``--use-teacher-forcing`` (one utterance a batch) rank r takes every Nth
+utterance. Unless
 ``--skip-plots``, each utterance's features are plotted as
 ``outs/<utt>.png``, and for the AR path its stop probabilities as
 ``probs/<utt>_prob.png`` and its attention as ``att_ws/<utt>_att_ws.png``
@@ -50,6 +61,7 @@ from ..models import AR_VC_MODELS, get_model_class
 from ..models.aas_vc import AASVC
 from ..models.ar_driver import ChunkedARDecoder
 from ..device import resolve_device
+from ..parallel import initialize_multihost, is_coordinator, rank, world_size
 from ..train.data import ParallelVCMelDataset, SourceVCMelDataset, pad_batch
 from ..utils.audio import write_wav
 from ..utils.duration_calculator import calculate_durations
@@ -84,6 +96,44 @@ def decode_batches(dataset, batch_size: int):
     ``batch_size`` at a time."""
     order = sorted(range(len(dataset)), key=lambda i: (dataset.length(i, "src_feat"), i))
     return [order[g: g + batch_size] for g in range(0, len(order), batch_size)]
+
+
+def data_parallel_device(device: torch.device, n_dp: int, batch_size: int) -> torch.device:
+    """This rank's device for ``--data-parallel n_dp``; raises as the JAX
+    driver does for a batch size that is not a positive multiple of n_dp
+    and for more ranks than devices (the cards; on the CPU the ranks)."""
+    if batch_size < n_dp or batch_size % n_dp:
+        raise ValueError("--batch-size must be a positive multiple of --data-parallel")
+    device = initialize_multihost(device)
+    available = torch.cuda.device_count() if device.type == "cuda" else world_size()
+    if n_dp > available:
+        raise ValueError(f"--data-parallel {n_dp} > available devices {available}")
+    if world_size() != n_dp:
+        raise ValueError(f"--data-parallel {n_dp} runs as {n_dp} ranks of one process group "
+                         f"(torchrun --nproc_per_node {n_dp}); this group has {world_size()}")
+    return device
+
+
+def rank_positions(n: int, n_dp: int, me: int) -> range:
+    """Rank ``me``'s rows of a batch of ``n`` padded to a multiple of n_dp,
+    as positions in the padded batch."""
+    per = -(-n // n_dp)
+    return range(me * per, (me + 1) * per)
+
+
+def rank_rows(n: int, n_dp: int, me: int):
+    """The utterances (indices into the batch) of rank ``me``'s rows: the
+    padding repeats the last one."""
+    return [min(p, n - 1) for p in rank_positions(n, n_dp, me)]
+
+
+def duration_noise(model: AASVC, whole, n_frames: int, generator: torch.Generator):
+    """The duration predictor's noise of the whole batch (as a run of one
+    draws it), at this rank's rows."""
+    n, rows = whole
+    noise = torch.randn(n, model.text_frames(n_frames), 2, generator=generator,
+                        device=generator.device)
+    return noise[rows]
 
 
 def load_model(config: Dict[str, Any], checkpoint: str, device) -> torch.nn.Module:
@@ -145,9 +195,10 @@ def main(argv=None) -> Dict[str, float]:
     args = parser.parse_args(argv)
     setup(args.verbose)
     device = resolve_device(args.device)
-    if args.data_parallel > 1:
-        raise NotImplementedError("--data-parallel is not ported yet: ROADMAP.md queue 1 "
-                                  "item 5 (the rest: parallel/)")
+    n_dp = max(1, int(args.data_parallel))
+    if n_dp > 1:
+        device = data_parallel_device(device, n_dp, args.batch_size)
+    me = rank() if n_dp > 1 else 0
     config = load_config(args.config or os.path.join(os.path.dirname(args.checkpoint),
                                                      "config.yml"))
     stats_path = args.trg_stats or config.get("trg_stats")
@@ -173,12 +224,25 @@ def main(argv=None) -> Dict[str, float]:
     os.makedirs(wav_dir, exist_ok=True)
     os.makedirs(dur_dir, exist_ok=True)
     batch_size = 1 if args.use_teacher_forcing else max(1, args.batch_size)
+    batches = decode_batches(dataset, batch_size)
+    utt_order = {dataset.utt_ids[i]: k for k, i in enumerate(sum(batches, []))}
     scp, total_frames, total_sec = [], 0, 0.0
-    for group in decode_batches(dataset, batch_size):
+    for n_group, group in enumerate(batches):
+        if args.use_teacher_forcing and n_group % n_dp != me:
+            continue  # another rank's utterance
         items = [dataset[i] for i in group]
-        xs = torch.as_tensor(pad_batch([it["src_feat"] for it in items], multiple), device=device)
-        ilens = torch.tensor([len(it["src_feat"]) for it in items], device=device)
+        # this rank's rows of the batch padded to a multiple of n_dp (all of
+        # it without teacher forcing at n_dp 1, and for teacher forcing)
+        rows = (list(range(len(items))) if args.use_teacher_forcing
+                else rank_rows(len(items), n_dp, me))
+        xs = torch.as_tensor(pad_batch([it["src_feat"] for it in items], multiple)[rows],
+                             device=device)
+        ilens = torch.tensor([len(items[i]["src_feat"]) for i in rows], device=device)
         generator = utterance_generator(seed, group[0])
+        whole = len(items), torch.tensor(rows)  # the batch's draws, kept at these rows
+        real = ([True] if args.use_teacher_forcing
+                else [p < len(items) for p in rank_positions(len(items), n_dp, me)])
+        items = [items[i] for i in rows]
         durations = [None] * len(items)
         probs = att = [None] * len(items)
         start = time.perf_counter()
@@ -186,7 +250,9 @@ def main(argv=None) -> Dict[str, float]:
             feats, durations[0], att_tf = _teacher_forced(model, items[0], xs, ilens, generator)
             outs, out_lens, att = feats[None], [len(feats)], [att_tf]
         elif is_ar:
-            out = drv(xs, ilens, generator, est_steps=drv.expected_steps(int(ilens.max())))
+            longest = max(len(it["src_feat"]) for it in items)
+            drv.model.dprenet.draw_rows = whole if n_dp > 1 else None
+            out = drv(xs, ilens, generator, est_steps=drv.expected_steps(longest))
             outs, out_lens = out["outs"].float().cpu().numpy(), out["out_lens"].tolist()
             if not args.skip_plots:  # att_ws (layers, B, heads, T_out / r, T_mem)
                 probs = out["probs"].float().cpu().numpy()
@@ -198,6 +264,8 @@ def main(argv=None) -> Dict[str, float]:
                                      device=device)
             # only AAS-VC draws (its duration noise); FastSpeech-VC takes no generator
             noise = {"generator": generator} if isinstance(model, AASVC) else {}
+            if noise and n_dp > 1:
+                noise["noise"] = duration_noise(model, whole, xs.shape[1], generator)
             out = model.inference(xs, ilens, dp, max_output_frames=2 * xs.shape[1], **noise)
             outs, out_lens = out["outs"].float().cpu().numpy(), out["out_lens"].tolist()
             d_outs, d_lens = out["d_outs"].cpu().numpy(), out["d_lens"].tolist()
@@ -207,7 +275,10 @@ def main(argv=None) -> Dict[str, float]:
         total_sec += elapsed
         logging.info("batch of %d: %d frames in %.3f s (%.1f frames/sec)", len(items),
                      sum(out_lens), elapsed, sum(out_lens) / max(elapsed, 1e-9))
-        for it, feats, n, dur, prob, aw in zip(items, outs, out_lens, durations, probs, att):
+        for it, feats, n, dur, prob, aw, ok in zip(items, outs, out_lens, durations, probs, att,
+                                                   real):
+            if not ok:  # a repeated row that pads the batch
+                continue
             utt = it["utt_id"]
             path = os.path.join(args.outdir, f"{utt}.npy")
             np.save(path, feats[:n])
@@ -217,8 +288,13 @@ def main(argv=None) -> Dict[str, float]:
             if not args.skip_plots:
                 plot_decode(args.outdir, utt, feats[:n], None if prob is None else prob[:n], aw)
             write_wav(os.path.join(wav_dir, f"{utt}.wav"), vocoder.decode(feats[:n]), vocoder.fs)
-    with open(os.path.join(args.outdir, "feats.scp"), "w") as f:
-        f.write("\n".join(scp) + "\n")
+    if n_dp > 1:  # every rank's lines, in the order of a run of one
+        gathered = [None] * world_size()
+        torch.distributed.all_gather_object(gathered, scp)
+        scp = sorted(sum(gathered, []), key=lambda line: utt_order[line.split(" ", 1)[0]])
+    if is_coordinator():
+        with open(os.path.join(args.outdir, "feats.scp"), "w") as f:
+            f.write("\n".join(scp) + "\n")
     rate = total_frames / max(total_sec, 1e-9)
     logging.info("decode finished: %d frames in %.3f s (avg %.1f mel-frames/sec)",
                  total_frames, total_sec, rate)

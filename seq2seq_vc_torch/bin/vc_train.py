@@ -25,9 +25,14 @@ the VTN's TTS pretraining (``egs/ljspeech/tts1/run.sh`` stage 6: the
 Transformer-TTS conf, ``--additional-config tts_aept.v1.yaml`` and the TTS
 checkpoint).
 
-Refused, with the ROADMAP.md item (queue 1) that lifts the refusal:
-``tensor_parallel``, ``sequence_parallel``, ``pipeline_parallel`` above 1 and
-``prng_impl`` (item 5).
+Data parallelism: launched by ``torchrun --nproc_per_node N -m
+seq2seq_vc_torch.bin.vc_train ...`` the run is N ranks of one process group
+(NCCL on the cards, ``gloo`` with ``--device cpu``), each on its rows of
+every global batch (``train/trainer.py``); rank 0 writes the config, the
+logs and the checkpoints. ``prng_impl`` (the JAX PRNG) is accepted and has
+no effect. Refused, with the ROADMAP.md item (queue 1) that lifts the
+refusal: ``tensor_parallel``, ``sequence_parallel`` and ``pipeline_parallel``
+above 1 (item 5's last part).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..core.config import dump_config, load_config, merge_args
 from ..losses import GuidedMultiHeadAttentionLoss, get_criterion
 from ..models import get_model_class
 from ..device import resolve_device
+from ..parallel import initialize_multihost, is_coordinator
 from ..train import get_trainer_class
 from ..train.data import ARVCCollater, DataLoader, NARVCCollater, ParallelVCMelDataset
 from ..train.optim import build_optimizer
@@ -67,14 +73,17 @@ def build_collater(config: Dict[str, Any]):
 
 
 def refuse_unported(config: Dict[str, Any]) -> None:
-    """Raise for an option of the JAX driver that the port does not have."""
-    item5 = "ROADMAP.md queue 1 item 5 (the rest: parallel/)"
-    refused = {"prng_impl": config.get("prng_impl")}
+    """Raise for an option of the JAX driver that the port does not have;
+    log ``prng_impl``, which has no counterpart in torch."""
+    if config.get("prng_impl"):
+        logging.info("prng_impl %r has no effect in the port: torch's generators draw "
+                     "(the JAX PRNG's draws are not reproduced)", config["prng_impl"])
     for key in ("tensor_parallel", "sequence_parallel", "pipeline_parallel"):
-        refused[key] = int(config.get(key) or 1) > 1
-    for name, given in refused.items():
-        if given:
-            raise NotImplementedError(f"{name} is not ported yet: {item5}")
+        if int(config.get(key) or 1) > 1:
+            raise NotImplementedError(
+                f"{key} is not ported yet: ROADMAP.md queue 1 item 5, its last part "
+                "(parallel/tp.py, pp.py and ring_attention.py); data parallelism runs "
+                "under torchrun")
 
 
 def build_criterion(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -140,12 +149,13 @@ def main(argv=None):
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
     setup(args.verbose)
-    device = resolve_device(args.device)
+    device = initialize_multihost(resolve_device(args.device))
 
     config = merge_args(load_config(args.config), args, args.additional_config)
     refuse_unported(config)
     os.makedirs(args.outdir, exist_ok=True)
-    dump_config(config, args.outdir, seq2seq_vc_torch.__version__)
+    if is_coordinator():
+        dump_config(config, args.outdir, seq2seq_vc_torch.__version__)
 
     collater = build_collater(config)
     datasets = [

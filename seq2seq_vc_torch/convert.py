@@ -154,7 +154,8 @@ _FASTSPEECH_VC_RENAMES = [(r"^decoder\.embed\.0$", "decoder.pos_enc")] + _AASVC_
 # each Conv2dSubsampling output Linear of AAS-VC and FastSpeech-VC, and the
 # conv whose channels order its input rows
 _SUBSAMPLE_OUTS = {"encoder.embed.out.0": "encoder.embed.conv.2",
-                   "duration_predictor_projection.out": "duration_predictor_projection.conv.2"}
+                   "duration_predictor_projection.out": "duration_predictor_projection.conv.2",
+                   "embed.out.0": "embed.conv.2"}  # a conformer encoder on its own
 
 # the SDP's 1x1 convs are Dense layers in flax
 _SDP_DENSE = re.compile(r"^duration_predictor\.(pre|proj|post_pre|post_proj)$")
@@ -166,8 +167,8 @@ def _flax_module(mod_path: str, renames, model=None) -> str:
     flax's ``BatchNorm_<i>``, and the conv forms of the positionwise layer
     name their layers ``Conv_0``, ``Conv_1`` (``MultiLayeredConv1d``) or
     ``Conv_0``, ``Dense_0`` (``Conv1dLinear``)."""
-    from .nn.conformer import ConvBatchNorm
-    from .nn.transformer import Conv1dLinear, MultiLayeredConv1d
+    from .nn.conformer import ConformerEncoder, ConvBatchNorm
+    from .nn.transformer import Conv1dLinear, Encoder, MultiLayeredConv1d
 
     flax_path = mod_path
     for pat, rep in renames:
@@ -175,10 +176,20 @@ def _flax_module(mod_path: str, renames, model=None) -> str:
     if model is None or not mod_path:
         return flax_path
     parent, _, name = mod_path.rpartition(".")
+    encoder, _, attr = parent.rpartition(".")
     try:
         mod, outer = model.get_submodule(mod_path), model.get_submodule(parent)
+        owner = model.get_submodule(encoder) if attr == "embed" else None
     except AttributeError:  # a key of another layout (flax_paths' keys)
         return flax_path
+    if isinstance(owner, Encoder):
+        # a transformer encoder's input layer ``embed.<i>``, by kind
+        kind = _EMBED_KINDS.get(type(mod).__name__)
+        if kind is not None:
+            return ".".join(filter(None, (_flax_module(encoder, renames), kind)))
+    if isinstance(outer, ConformerEncoder) and name == "embed" and isinstance(
+            mod, torch.nn.Embedding):
+        return flax_path.rpartition(".")[0] + ".embed_tokens" if parent else "embed_tokens"
     if isinstance(mod, ConvBatchNorm):
         flax_path = re.sub(r"(Masked)?GroupNorm_(\d+)$", r"BatchNorm_\2", flax_path)
     elif isinstance(outer, MultiLayeredConv1d):
@@ -186,6 +197,13 @@ def _flax_module(mod_path: str, renames, model=None) -> str:
                 else f"Conv_{int(name == 'w_2')}")
         flax_path = flax_path.rpartition(".")[0] + "." + kind
     return flax_path
+
+
+# the flax names of a transformer encoder's input-layer modules (``linear``:
+# pre, pre_norm; ``embed``: embed_tokens; the encoding: pos_enc)
+_EMBED_KINDS = {"Linear": "pre", "LayerNorm": "pre_norm", "Embedding": "embed_tokens",
+                "PositionalEncoding": "pos_enc", "ScaledPositionalEncoding": "pos_enc",
+                "RelPositionalEncoding": "pos_enc", "LegacyRelPositionalEncoding": "pos_enc"}
 
 
 def _renames_of(model: torch.nn.Module):

@@ -25,8 +25,9 @@
 // max, sum and accumulator in VMEM scratch, its head dim padded to 128 lanes
 // and its logsumexp broadcast over 128 lanes. Here blocks run in parallel
 // and the walk is a loop inside a block; D is padded only to the next of
-// 64, 96, 128, 256 (a template parameter, DP), and the logsumexp is one
-// float a row.
+// 96, 128, 256, 768 (a template parameter, DP; no model runs these kernels
+// at D 64 or less, whose variants cost build time), and the logsumexp is
+// one float a row.
 // - A block of 4 warps owns BM = 64 query rows of one (b, h), 16 a warp,
 //   and walks the key tiles of BN = 64 up to kv_len (under the causal mask
 //   up to its last row). A warp skips a 16-key chunk in which no cell is
@@ -57,6 +58,11 @@
 //   output columns are split over two warps per 16 rows (8 warps a block),
 //   each computing the same scores. float32 at DP 256 halves the tiles (BM =
 //   BN = 32) to fit shared memory.
+// - At DP 768 (the AAS-VC decoder's heads, D 768) the same rule splits the
+//   output columns over six warps of 128 columns, each recomputing the 16
+//   rows' scores over the full D; a block owns one such group (BM = 16),
+//   walks key tiles of BN = 32 (float32: 16, through a ring of one buffer),
+//   so that its q rows and K/V tiles at full width fit shared memory.
 // - float32 (the card's reference path, no TF32) runs the same tiling in FMA
 //   on the CUDA cores. The shared FMA fragments of mma_tiles.cuh read about
 //   one shared-memory float per FMA, which bounds them; this kernel's
@@ -82,8 +88,7 @@ namespace {
 using s2s::from_f;
 namespace tc = s2s::tc;
 
-constexpr int MAX_D = 256;
-constexpr int NSTAGE = 2;          // buffers of the cp.async ring
+constexpr int MAX_D = 768;
 constexpr float kNegInf = -1e30f;  // finite, as the TPU kernel's _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -105,11 +110,15 @@ struct Args {
 template <typename T, int DP>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int WM = (F32 && DP > 128) ? 2 : 4;  // 16-row groups a block owns
-  static constexpr int NWR = DP > 128 ? 2 : 1;          // warps a group, splitting columns
+  // DP 768 ("wide"): 16 rows a block, output columns over 6 warps, short
+  // key tiles, and in float32 a ring of one buffer, to fit shared memory
+  static constexpr bool WIDE = DP > 256;
+  static constexpr int WM = WIDE ? 1 : (F32 && DP > 128) ? 2 : 4;  // 16-row groups a block owns
+  static constexpr int NWR = WIDE ? DP / 128 : DP > 128 ? 2 : 1;   // warps a group, splitting columns
   static constexpr int NW = WM * NWR, NT = 32 * NW;
-  static constexpr int BM = 16 * WM;                      // query rows a block
-  static constexpr int BN = (F32 && DP > 128) ? 32 : 64;  // keys a tile
+  static constexpr int BM = 16 * WM;  // query rows a block
+  static constexpr int BN = WIDE ? (F32 ? 16 : 32) : (F32 && DP > 128) ? 32 : 64;  // keys a tile
+  static constexpr int NSTAGE = (WIDE && F32) ? 1 : 2;  // buffers of the cp.async ring
   static constexpr int NS = BN / 8;                       // score n-tiles of a tile
   static constexpr int NTW = DP / 8 / NWR;                // output n-tiles a warp owns
   static constexpr int KS = DP / 16;                      // k-steps of the score product
@@ -252,7 +261,7 @@ __global__ void __launch_bounds__(Cfg<T, DP>::NT, 1) flash_fwd_kernel(const Args
   tc::cp_async_commit();
   auto issue = [&](int t) {
     if (t < ntiles) {
-      T* buf = ring + (t % NSTAGE) * 2 * TILE;
+      T* buf = ring + (t % C::NSTAGE) * 2 * TILE;
       tc::stage<C::NT, DP>(buf, LD, k, D, t * BN, BN, 0, kv_end, 0, D, aligned);
       tc::stage<C::NT, DP>(buf + TILE, LD, v, D, t * BN, BN, 0, kv_end, 0, D, aligned);
     }
@@ -292,10 +301,8 @@ __global__ void __launch_bounds__(Cfg<T, DP>::NT, 1) flash_fwd_kernel(const Args
   }
 
   for (int t = 0; t < ntiles; ++t) {
-    issue(t + 1);
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    const T* sk = ring + (t % NSTAGE) * 2 * TILE;
+    tc::walk_wait<C::NSTAGE>([&] { issue(t + 1); });
+    const T* sk = ring + (t % C::NSTAGE) * 2 * TILE;
     const T* sv = sk + TILE;
     const int j0 = t * BN;
     unsigned live = 0;  // warp-uniform: chunks with a live cell
@@ -356,6 +363,7 @@ __global__ void __launch_bounds__(Cfg<T, DP>::NT, 1) flash_fwd_kernel(const Args
       }
     }
     __syncthreads();  // the buffer is free for the tile after next
+    if constexpr (C::NSTAGE == 1) issue(t + 1);  // (one buffer: the next tile)
   }
   tc::cp_async_wait<0>();  // no copy outlives the block (the q rows with no tile)
 
@@ -411,17 +419,17 @@ cudaError_t launch_dp(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if (a.D <= 64) return launch_dp<T, 64>(a, stream);
   if (a.D <= 96) return launch_dp<T, 96>(a, stream);
   if (a.D <= 128) return launch_dp<T, 128>(a, stream);
-  return launch_dp<T, 256>(a, stream);
+  if (a.D <= 256) return launch_dp<T, 256>(a, stream);
+  return launch_dp<T, 768>(a, stream);
 }
 
 }  // namespace
 
 // q: (BH, Tq, D), k, v: (BH, Tk, D), contiguous; kv_lens: (BH/H,) int32 on
 // the device; out: (BH, Tq, D) in the input type; lse: (BH, Tq) float32, or
-// null for none. D <= 256. causal: 0 or 1. Dropout: rate in [0, 1) (0:
+// null for none. D <= 768. causal: 0 or 1. Dropout: rate in [0, 1) (0:
 // none), keep_scale = 1/(1-rate) in float32, the seed, tq_pad =
 // round_up(Tq, 128) and tk_pad = round_up(Tk, 128) for the hash index.
 // Returns the launch's cudaError_t (0 = launched).

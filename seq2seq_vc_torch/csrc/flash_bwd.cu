@@ -21,7 +21,7 @@
 // The TPU kernels carry their sums over a sequential grid axis in VMEM
 // scratch at D padded to 128 with a lane-broadcast logsumexp; here blocks
 // run in parallel, each sum is a loop inside a block, and D is padded only
-// to the next of 64, 96, 128, 256 (a template parameter, DP).
+// to the next of 96, 128, 256, 768 (a template parameter, DP).
 // - dq: a block of 4 warps owns BM = 64 query rows, 16 a warp, and walks
 //   the key tiles of BN = 64 up to kv_len (under the causal mask up to its
 //   last row). A warp takes a tile in chunks of 16 keys: S = q . K^T and
@@ -58,9 +58,13 @@
 //   dv (256), so the output columns are split over two warps per 16 keys
 //   (8 warps a block), each recomputing the same 16 x 16 chunk of scores.
 //   float32 at DP 256 halves the tiles (BM = BN = 32) to fit shared memory.
+//   At DP 768 both kernels split the output columns over six warps of 128
+//   columns (dq too), each recomputing the chunk's scores over the full D;
+//   a block owns 16 rows and walks tiles of 16, float32 through a ring of
+//   one buffer, so that the own rows and the walked tiles fit shared memory.
 //   All under __launch_bounds__(threads, 1).
 // No atomics: every output element has one owner, so both are
-// deterministic. D <= 256.
+// deterministic. D <= 768.
 //
 // Bound: per (b, h) about 3 (dq) or 4 (dk/dv) x 2 x live scores x D flops
 // (two recomputed products, then one or two accumulations) against ~(3 Tq
@@ -76,8 +80,7 @@ namespace {
 using s2s::from_f;
 namespace tc = s2s::tc;
 
-constexpr int MAX_D = 256;
-constexpr int NSTAGE = 2;  // buffers of the cp.async ring
+constexpr int MAX_D = 768;
 
 struct Args {
   const void *q, *k, *v;
@@ -99,11 +102,16 @@ struct Args {
 template <typename T, int DP, bool DKV>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int WM = (F32 && DP > 128) ? 2 : 4;  // 16-row groups a block owns
-  static constexpr int NWR = (DKV && DP > 128) ? 2 : 1;  // warps a group, splitting columns
+  // DP 768 ("wide"): 16 own rows a block, output columns over 6 warps,
+  // walked tiles of 16 rows, and in float32 a ring of one buffer, to fit
+  // shared memory
+  static constexpr bool WIDE = DP > 256;
+  static constexpr int WM = WIDE ? 1 : (F32 && DP > 128) ? 2 : 4;  // 16-row groups a block owns
+  static constexpr int NWR = WIDE ? DP / 128 : (DKV && DP > 128) ? 2 : 1;  // warps a group
   static constexpr int NW = WM * NWR, NT = 32 * NW;
-  static constexpr int BM = 16 * WM;                      // own rows a block
-  static constexpr int BN = (F32 && DP > 128) ? 32 : 64;  // rows a walked tile
+  static constexpr int BM = 16 * WM;                                    // own rows a block
+  static constexpr int BN = WIDE ? 16 : (F32 && DP > 128) ? 32 : 64;  // rows a walked tile
+  static constexpr int NSTAGE = (WIDE && F32) ? 1 : 2;  // buffers of the cp.async ring
   static constexpr int NTW = DP / 8 / NWR;                // output n-tiles a warp owns
   static constexpr int KS = DP / 16;                      // k-steps of a score product
   static constexpr bool AREG = !F32 && DP <= (DKV ? 96 : 128);  // own rows in registers
@@ -208,9 +216,11 @@ __global__ void __launch_bounds__(Cfg<T, DP, false>::NT, 1) flash_bwd_dq_kernel(
   T* ring = smem_t + C::OWN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* scratch = reinterpret_cast<float*>(smem + C::SCR_OFF) + warp * 16 * tc::kLdScratch;
+  const int grp = warp / C::NWR;               // the warp's 16 rows
+  const int col0 = (warp % C::NWR) * NTW * 8;  // and its output columns
 
   const int D = a.D, bh = blockIdx.y, i0 = blockIdx.x * BM;
-  const int iw = i0 + 16 * warp;  // the warp's first row
+  const int iw = i0 + 16 * grp;  // the warp's first row
   const int kv_len = max(0, min(a.kv_lens[bh / a.H], a.Tk));
   const int kv_end = a.causal ? min(kv_len, i0 + BM) : kv_len;  // keys the block sees
   const int ntiles = (kv_end + BN - 1) / BN;
@@ -222,7 +232,7 @@ __global__ void __launch_bounds__(Cfg<T, DP, false>::NT, 1) flash_bwd_dq_kernel(
                               static_cast<const T*>(a.d_out) + qbase, i0, a.Tq, D, aligned);
   auto issue = [&](int t) {
     if (t < ntiles) {
-      T* buf = ring + (t % NSTAGE) * 2 * TILE;
+      T* buf = ring + (t % C::NSTAGE) * 2 * TILE;
       tc::stage<C::NT, DP>(buf, LD, k, D, t * BN, BN, 0, kv_end, 0, D, aligned);
       tc::stage<C::NT, DP>(buf + TILE, LD, v, D, t * BN, BN, 0, kv_end, 0, D, aligned);
     }
@@ -240,9 +250,9 @@ __global__ void __launch_bounds__(Cfg<T, DP, false>::NT, 1) flash_bwd_dq_kernel(
     dl_r[h] = i < a.Tq ? a.delta[(size_t)bh * a.Tq + i] : 0.f;
   }
   tc::AFrag<T> fq[C::AREG ? C::KS : 1], fdo[C::AREG ? C::KS : 1];
-  own_ready<C>(fq, fdo, own, 16 * warp);
-  const T* own_q = own + 16 * warp * LD;
-  const T* own_do = own + (BM + 16 * warp) * LD;
+  own_ready<C>(fq, fdo, own, 16 * grp);
+  const T* own_q = own + 16 * grp * LD;
+  const T* own_do = own + (BM + 16 * grp) * LD;
 
   float acc[NTW][4];
 #pragma unroll
@@ -251,10 +261,8 @@ __global__ void __launch_bounds__(Cfg<T, DP, false>::NT, 1) flash_bwd_dq_kernel(
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    issue(t + 1);
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    const T* sk = ring + (t % NSTAGE) * 2 * TILE;
+    tc::walk_wait<C::NSTAGE>([&] { issue(t + 1); });
+    const T* sk = ring + (t % C::NSTAGE) * 2 * TILE;
     const T* sv = sk + TILE;
 #pragma unroll 1
     for (int c = 0; c < BN / 16; ++c) {
@@ -276,9 +284,10 @@ __global__ void __launch_bounds__(Cfg<T, DP, false>::NT, 1) flash_bwd_dq_kernel(
         }
       tc::AFrag2<T> fds;
       tc::acc_to_a(fds, s[0], s[1], scratch);
-      tc::mma_cols<NTW>(acc, fds, sk + 16 * c * LD, LD, 0, D);  // dq += dS . K
+      tc::mma_cols<NTW>(acc, fds, sk + 16 * c * LD, LD, col0, D);  // dq += dS . K
     }
     __syncthreads();  // the buffer is free for the tile after next
+    if constexpr (C::NSTAGE == 1) issue(t + 1);  // (one buffer: the next tile)
   }
   tc::cp_async_wait<0>();  // no copy outlives the block (the own rows with no tile)
 
@@ -287,7 +296,7 @@ __global__ void __launch_bounds__(Cfg<T, DP, false>::NT, 1) flash_bwd_dq_kernel(
   for (int n = 0; n < NTW; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int i = iw + tc::frag_row(e), c = 8 * n + tc::frag_col(e);
+      const int i = iw + tc::frag_row(e), c = col0 + 8 * n + tc::frag_col(e);
       if (i < a.Tq && c < D) dq[(size_t)i * D + c] = from_f<T>(acc[n][e]);
     }
 }
@@ -328,7 +337,7 @@ __global__ void __launch_bounds__(Cfg<T, DP, true>::NT, 1) flash_bwd_dkv_kernel(
                                 static_cast<const T*>(a.v) + kbase, j0, kv_len, D, aligned);
     auto issue = [&](int t) {
       if (t < ntiles) {
-        const int b = t % NSTAGE, r0 = (first + t) * BN;
+        const int b = t % C::NSTAGE, r0 = (first + t) * BN;
         T* buf = ring + b * 2 * TILE;
         tc::stage<C::NT, DP>(buf, LD, q, D, r0, BN, 0, a.Tq, 0, D, aligned);
         tc::stage<C::NT, DP>(buf + TILE, LD, dout, D, r0, BN, 0, a.Tq, 0, D, aligned);
@@ -349,12 +358,10 @@ __global__ void __launch_bounds__(Cfg<T, DP, true>::NT, 1) flash_bwd_dkv_kernel(
     const int g = lane / 4, t2 = 2 * (lane % 4);
 
     for (int t = 0; t < ntiles; ++t) {
-      issue(t + 1);
-      tc::cp_async_wait<1>();
-      __syncthreads();
-      const T* sq = ring + (t % NSTAGE) * 2 * TILE;
+      tc::walk_wait<C::NSTAGE>([&] { issue(t + 1); });
+      const T* sq = ring + (t % C::NSTAGE) * 2 * TILE;
       const T* sdo = sq + TILE;
-      const float* s_lse = rows + (t % NSTAGE) * 2 * BN;
+      const float* s_lse = rows + (t % C::NSTAGE) * 2 * BN;
       const float* s_dl = s_lse + BN;
 #pragma unroll 1
       for (int c = 0; c < BN / 16; ++c) {
@@ -381,6 +388,7 @@ __global__ void __launch_bounds__(Cfg<T, DP, true>::NT, 1) flash_bwd_dkv_kernel(
         tc::mma_cols<NTW>(acc_k, fa, sq + 16 * c * LD, LD, col0, D);   // dk += dS^T . Q
       }
       __syncthreads();
+      if constexpr (C::NSTAGE == 1) issue(t + 1);  // (one buffer: the next tile)
     }
     tc::cp_async_wait<0>();
   }
@@ -419,10 +427,10 @@ cudaError_t launch_dp(const Args& a, bool dkv, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
-  if (a.D <= 64) return launch_dp<T, 64>(a, dkv, stream);
   if (a.D <= 96) return launch_dp<T, 96>(a, dkv, stream);
   if (a.D <= 128) return launch_dp<T, 128>(a, dkv, stream);
-  return launch_dp<T, 256>(a, dkv, stream);
+  if (a.D <= 256) return launch_dp<T, 256>(a, dkv, stream);
+  return launch_dp<T, 768>(a, dkv, stream);
 }
 
 int run(int dtype, const Args& a, bool dkv, void* stream) {
@@ -445,7 +453,7 @@ int run(int dtype, const Args& a, bool dkv, void* stream) {
 
 // Shared arguments: q, d_out (BH, Tq, D) and k, v (BH, Tk, D), contiguous,
 // in one storage type; kv_lens (BH/H,) int32; lse and delta (BH, Tq)
-// float32; D <= 256; causal 0 or 1; dropout rate in [0, 1) (0: none),
+// float32; D <= 768; causal 0 or 1; dropout rate in [0, 1) (0: none),
 // keep_scale = 1/(1-rate) in float32, the seed, tq_pad = round_up(Tq, 128)
 // and tk_pad = round_up(Tk, 128). Each returns the launch's cudaError_t.
 

@@ -296,6 +296,21 @@ __device__ __forceinline__ void mma_cols(float acc[NTW][4], const AFrag2<float>&
   mma_cols<NTW>(acc, a.hi, b, ldb, col0, D);
 }
 
+// The top of one step of a walk over cp.async-staged tiles: with a ring of
+// two buffers, issue the next tile and wait for this one (the next may stay
+// in flight); with one, wait for this one (the caller issues the next after
+// the step's last barrier). Then the barrier.
+template <int NSTAGE, typename F>
+__device__ __forceinline__ void walk_wait(F issue_next) {
+  if constexpr (NSTAGE > 1) {
+    issue_next();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+}
+
 // true where every row of the (rows, D) inputs starts on 16 bytes (the
 // condition of `stage`'s cp.async path)
 template <typename T>

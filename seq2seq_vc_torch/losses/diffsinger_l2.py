@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.masks import make_non_pad_mask
+from ..parallel.mesh import global_count
 
 
 class DiffSingerL2Loss:
@@ -22,5 +23,5 @@ class DiffSingerL2Loss:
             mask = make_non_pad_mask(olens, noise.shape[1]).to(noise.dtype)[..., None]
         else:
             mask = torch.ones_like(noise[..., :1])
-        n = torch.clamp(mask.sum() * noise.shape[-1], min=1)
+        n = torch.clamp(global_count(mask.sum() * noise.shape[-1]), min=1)
         return ((x_recon - noise).square() * mask).sum() / n

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.masks import make_non_pad_mask
+from ..parallel.mesh import global_count
 
 
 class DurationPredictorLoss:
@@ -30,7 +31,7 @@ class DurationPredictorLoss:
             mask = torch.ones_like(d_outs)
         target = torch.log(ds.float() + self.offset)
         sq = (d_outs - target) ** 2 * mask
-        return sq.sum() / torch.clamp(mask.sum(), min=1)
+        return sq.sum() / torch.clamp(global_count(mask.sum()), min=1)
 
 
 class StochasticDurationPredictorLoss:

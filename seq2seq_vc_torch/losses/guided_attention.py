@@ -16,6 +16,7 @@ import math
 import torch
 
 from ..ops.masks import make_non_pad_mask
+from ..parallel.mesh import global_count
 
 
 def _guided_attention_weights(ilens, olens, max_ilen: int, max_olen: int, sigma: float):
@@ -43,7 +44,7 @@ class GuidedAttentionLoss:
         heads = tuple(range(1, att_ws.dim() - 2))
         summed = att_ws.float().sum(dim=heads) if heads else att_ws.float()
         num = (summed * torch.where(valid, w, 0.0)).sum()
-        den = (valid.sum() * math.prod(att_ws.shape[1:-2])).clamp_min(1)
+        den = global_count(valid.sum() * math.prod(att_ws.shape[1:-2])).clamp_min(1)
         return self.alpha * num / den
 
     def __call__(self, att_ws, ilens, olens):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.masks import make_non_pad_mask
+from ..parallel.mesh import global_count
 
 
 class L1Loss:
@@ -20,7 +21,7 @@ class L1Loss:
             mask = make_non_pad_mask(olens, ys.shape[1]).to(ys.dtype)[..., None]
         else:
             mask = torch.ones_like(ys[..., :1])
-        n = torch.clamp(mask.sum() * ys.shape[-1], min=1)
+        n = torch.clamp(global_count(mask.sum() * ys.shape[-1]), min=1)
         loss = ((before_outs - ys).abs() * mask).sum() / n
         if after_outs is not None:
             loss = loss + ((after_outs - ys).abs() * mask).sum() / n

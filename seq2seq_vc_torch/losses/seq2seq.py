@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.masks import make_non_pad_mask
+from ..parallel.mesh import global_count
 
 
 def bce_with_logits(logits, labels, pos_weight: float = 1.0):
@@ -24,8 +25,9 @@ class Seq2SeqLoss:
         Lmax, odim); logits, labels: (B, Lmax); olens: (B,)."""
         mask = make_non_pad_mask(olens, ys.shape[1]).to(ys.dtype)
         m3 = mask[..., None]
-        n_feat = torch.clamp(mask.sum() * ys.shape[-1], min=1)
+        n_frames = global_count(mask.sum())
+        n_feat = torch.clamp(n_frames * ys.shape[-1], min=1)
         l1 = ((after_outs - ys).abs() * m3).sum() / n_feat
         l1 = l1 + ((before_outs - ys).abs() * m3).sum() / n_feat
         bce = bce_with_logits(logits, labels.to(logits.dtype), self.bce_pos_weight)
-        return l1, (bce * mask).sum() / torch.clamp(mask.sum(), min=1)
+        return l1, (bce * mask).sum() / torch.clamp(n_frames, min=1)

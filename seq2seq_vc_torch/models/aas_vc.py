@@ -41,6 +41,7 @@ from ..nn.transformer import Conv2dSubsampling
 from ..ops.mas import viterbi_decode
 from ..ops.masks import make_non_pad_mask
 from ..ops.upsampling import gaussian_upsampling
+from ..parallel.mesh import global_count
 from .common import (
     conv2d_subsampled_lengths,
     integrate_spk_embed,
@@ -256,6 +257,16 @@ class AASVC(torch.nn.Module):
             if postnet_layers > 0 and decoder_type != "diffsinger" else None
         )
 
+    def text_frames(self, n_frames):
+        """The length of the encoder's (the duration predictor's) grid for
+        ``n_frames`` source frames (an int or an integer array): the
+        stacking, a ``conv2d`` input layer's subsampling and the post-encoder
+        stacking."""
+        t = n_frames // self.encoder_reduction_factor
+        if self.encoder_input_layer == "conv2d":
+            t = conv2d_subsampled_lengths(t)
+        return t // self.post_encoder_reduction_factor
+
     def _encode(self, xs, ilens, spembs=None):
         xs, ilens = reduce_frames(xs, ilens, self.encoder_reduction_factor)
         hs, _ = self.encoder(xs, make_non_pad_mask(ilens, xs.shape[1]))
@@ -318,7 +329,7 @@ class AASVC(torch.nn.Module):
             dur = {"d_outs": torch.clamp(d_outs, max=MAX_DP_OUTPUT)}
         else:
             dur_nll = self.duration_predictor.nll(dp_in, h_nonpad, ds, noise, generator)
-            dur = {"dur_nll": dur_nll.sum() / torch.clamp(h_nonpad.sum(), min=1)}
+            dur = {"dur_nll": dur_nll.sum() / torch.clamp(global_count(h_nonpad.sum()), min=1)}
 
         hs_up = gaussian_upsampling(
             hs, ds, make_non_pad_mask(olens_red, ys_red.shape[1]), h_nonpad

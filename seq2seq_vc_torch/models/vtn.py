@@ -2,7 +2,9 @@
 seq2seq_vc_tpu/models/vtn.py: ``setup``, ``encode``, ``__call__`` and
 ``inference``).
 
-Conv2d-subsampled transformer encoder (its self-attention on the flash
+Transformer encoder (its input layer ``encoder_input_layer``'s: the
+conv2d subsampling of ``conv2d-scaled-pos-enc`` or ``conv2d``, ``linear``,
+``embed`` or none, then the scaled encoding; its self-attention on the flash
 kernels from ``flash_min_len`` keys under ``attention_backend: flash``) or
 conformer encoder (``encoder_type: conformer``: conv2d subsampling, then
 relative-position layers, new style or legacy by
@@ -14,8 +16,8 @@ reduction factor r, feature and stop heads, conv postnet (group or batch
 norm). ``forward`` is the teacher-forced training pass; ``inference``
 decodes autoregressively with per-layer K/V caches
 (``models/chunked_decode.py``). The constructor takes the JAX model's
-config fields by the same names and defaults; other input layers and
-decoder types raise ``NotImplementedError``. Submodule names are the
+config fields by the same names and defaults; other decoder types raise
+``NotImplementedError``. Submodule names are the
 reference torch names (the decoder's prenet and projection are
 ``decoder.embed.0.0`` and ``decoder.embed.0.1``, its alpha
 ``decoder.embed.1.alpha``), so a ``state_dict`` converts with
@@ -208,13 +210,8 @@ class VTN(ARSeq2Seq):
         (``nn/attention.py``); ``rel_scores_bwd`` the conformer encoder's
         fused backward variant (``ops/rel_scores.py``)."""
         super().__init__()
-        unsupported = {
-            "decoder_type": (decoder_type, "transformer"),
-            "encoder_input_layer": (encoder_input_layer, "conv2d-scaled-pos-enc"),
-        }
-        for key, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(f"VTN {key}={got!r} is not ported yet")
+        if decoder_type != "transformer":
+            raise NotImplementedError(f"VTN decoder_type={decoder_type!r} is not ported yet")
         self.idim, self.odim, self.adim = idim, odim, adim
         self.decoder_reduction_factor = r = decoder_reduction_factor
         self.spk_embed_integration_type = spk_embed_integration_type
@@ -274,8 +271,9 @@ class VTN(ARSeq2Seq):
         hs, h_masks = self.encode(xs, ilens, spembs)
         out = self.decode_teacher_forced(hs, h_masks, ys, labels, olens, need_att_ws, generator)
         src_ws = out.pop("src_ws")
-        out["ilens_ds_st"] = torch.div(torch.div(ilens - 1, 2, rounding_mode="floor") - 1, 2,
-                                       rounding_mode="floor")
+        out["ilens_ds_st"] = (torch.div(torch.div(ilens - 1, 2, rounding_mode="floor") - 1, 2,
+                                        rounding_mode="floor")
+                              if self.encoder.conv_subsampling_factor == 4 else ilens)
         if need_att_ws:
             out["att_ws"] = torch.stack(src_ws)
         return out

@@ -22,13 +22,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .attention import (
-    FLASH_MIN_LEN,
-    LegacyRelPositionMultiHeadedAttention,
-    RelPositionMultiHeadedAttention,
-)
+from .attention import FLASH_MIN_LEN
 from .layers import Conv1d, LayerNorm, Linear
-from .transformer import LN_EPS, Conv2dSubsampling, _make_pos_enc, _positionwise
+from .transformer import (
+    LN_EPS,
+    Conv2dSubsampling,
+    _make_pos_enc,
+    _positionwise,
+    self_attention,
+)
+
+# the conformer's ``pos_enc_layer_type`` -> the encoding's kind
+_POS_ENC_KINDS = {"abs_pos": "abs", "scaled_abs_pos": "scaled", "rel_pos": "rel_pos",
+                  "legacy_rel_pos": "legacy_rel_pos"}
 
 
 class MaskedGroupNorm(torch.nn.Module):
@@ -117,7 +123,9 @@ class ConvolutionModule(torch.nn.Module):
 
 
 class ConformerEncoderLayer(torch.nn.Module):
-    """Macaron-FFN + rel-pos MHA + conv module + FFN + final LN."""
+    """Macaron-FFN + MHA + conv module + FFN + final LN. The MHA is
+    ``selfattention_layer_type``'s: rel-pos (new style or legacy), or the
+    standard one (``selfattn``), which takes no ``pos_emb``."""
 
     def __init__(self, size: int, n_head: int, linear_units: int,
                  dropout_rate: float = 0.1, attention_dropout_rate: float = 0.0,
@@ -126,8 +134,9 @@ class ConformerEncoderLayer(torch.nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  zero_triu: bool = False, attention_backend: str = "xla",
                  flash_min_len: int = FLASH_MIN_LEN, rel_scores_bwd: str = "auto",
-                 legacy: bool = False, compute_dtype=None, conv_norm_type: str = "group_norm",
-                 positionwise_conv_kernel_size: int = 1, device=None, dtype=None):
+                 selfattention_layer_type: str = "rel_selfattn", compute_dtype=None,
+                 conv_norm_type: str = "group_norm", positionwise_conv_kernel_size: int = 1,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ln = dict(compute_dtype=compute_dtype, **kw)
@@ -136,13 +145,10 @@ class ConformerEncoderLayer(torch.nn.Module):
         self.concat_after = concat_after
         self.macaron_style = macaron_style
         self.use_cnn_module = use_cnn_module
-        attention = (LegacyRelPositionMultiHeadedAttention if legacy
-                     else RelPositionMultiHeadedAttention)
-        self.self_attn = attention(
-            n_head, size, attention_dropout_rate, zero_triu=zero_triu,
-            backend=attention_backend, compute_dtype=compute_dtype,
-            flash_min_len=flash_min_len, rel_scores_bwd=rel_scores_bwd, **kw,
-        )
+        self.self_attn = self_attention(selfattention_layer_type, n_head, size,
+                                        attention_dropout_rate, attention_backend,
+                                        flash_min_len, compute_dtype, zero_triu,
+                                        rel_scores_bwd, **kw)
         # the conformer passes Swish into the linear-flavour FFN; the conv
         # flavours keep their ReLU
         ff = (positionwise_layer_type, size, linear_units, dropout_rate, compute_dtype, "swish",
@@ -175,7 +181,10 @@ class ConformerEncoderLayer(torch.nn.Module):
 
         residual = x
         h = self.norm_mha(x) if self.normalize_before else x
-        att = self.self_attn(h, h, h, pos_emb, mask)
+        if pos_emb is not None:
+            att = self.self_attn(h, h, h, pos_emb, mask)
+        else:
+            att = self.self_attn(h, h, h, mask)
         if self.concat_after:
             x = residual + self.concat_linear(torch.cat([h, att], dim=-1))
         else:
@@ -203,8 +212,12 @@ class ConformerEncoderLayer(torch.nn.Module):
 
 
 class ConformerEncoder(torch.nn.Module):
-    """Conformer encoder with a ``linear``, a ``conv2d`` (x4 subsampling) or
-    no (``None``) input layer."""
+    """Conformer encoder with a ``linear``, a ``conv2d`` (x4 subsampling), an
+    ``embed`` (a token embedding of ``idim`` rows) or no (``None``) input
+    layer, and the ``pos_enc_layer_type`` encoding: relative (``rel_pos``,
+    ``legacy_rel_pos``) or absolute (``abs_pos``: x * sqrt(d) + PE;
+    ``scaled_abs_pos``: x + alpha * PE), the absolute ones with no table for
+    the layers."""
 
     def __init__(self, idim: int, attention_dim: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6,
@@ -221,10 +234,6 @@ class ConformerEncoder(torch.nn.Module):
                  rel_scores_bwd: str = "auto", compute_dtype=None, device=None,
                  dtype=None):
         super().__init__()
-        if selfattention_layer_type not in ("rel_selfattn", "legacy_rel_selfattn"):
-            raise NotImplementedError(
-                f"selfattention_layer_type {selfattention_layer_type!r} is not ported yet"
-            )
         kw = dict(device=device, dtype=dtype)
         self.input_layer = input_layer
         self.compute_dtype = compute_dtype
@@ -239,17 +248,21 @@ class ConformerEncoder(torch.nn.Module):
             # the relative encoding returns (xs, pos_emb), so it runs after
             # the subsampling as self.pos_enc, not inside ``out``
             self.embed = Conv2dSubsampling(idim, attention_dim, torch.nn.Identity(), **kw)
+        elif input_layer == "embed":
+            self.embed = torch.nn.Embedding(idim, attention_dim, **kw)
+            torch.nn.init.normal_(self.embed.weight, std=attention_dim ** -0.5)
         elif input_layer is not None:
-            raise NotImplementedError(f"input_layer {input_layer!r} is not ported yet")
-        self.pos_enc = _make_pos_enc(pos_enc_layer_type, attention_dim, positional_dropout_rate)
+            raise ValueError(f"unknown input_layer: {input_layer}")
+        self.pos_enc = _make_pos_enc(_POS_ENC_KINDS[pos_enc_layer_type], attention_dim,
+                                     positional_dropout_rate, device=device)
         self.encoders = torch.nn.ModuleList(
             ConformerEncoderLayer(
                 attention_dim, attention_heads, linear_units, dropout_rate,
                 attention_dropout_rate, normalize_before, concat_after,
                 positionwise_layer_type, macaron_style, use_cnn_module,
                 cnn_module_kernel, zero_triu, attention_backend, flash_min_len,
-                rel_scores_bwd, selfattention_layer_type == "legacy_rel_selfattn",
-                compute_dtype, conv_norm_type, positionwise_conv_kernel_size, **kw,
+                rel_scores_bwd, selfattention_layer_type, compute_dtype, conv_norm_type,
+                positionwise_conv_kernel_size, **kw,
             )
             for _ in range(num_blocks)
         )
@@ -257,14 +270,22 @@ class ConformerEncoder(torch.nn.Module):
         if normalize_before:
             self.after_norm = LayerNorm(attention_dim, LN_EPS, compute_dtype, **kw)
 
+    @property
+    def conv_subsampling_factor(self) -> int:
+        return 4 if self.input_layer == "conv2d" else 1
+
     def forward(self, xs, masks: Optional[torch.Tensor]):
-        """xs: (B, T, idim); masks: (B, T) non-pad. Returns (float32 xs, masks),
-        both subsampled by a ``conv2d`` input layer."""
+        """xs: (B, T, idim), or (B, T) integer tokens for ``embed``; masks:
+        (B, T) non-pad. Returns (float32 xs, masks), both subsampled by a
+        ``conv2d`` input layer."""
         if self.input_layer == "linear":
             xs = F.dropout(self.embed(xs), self.dropout_rate, self.training)
         elif self.input_layer == "conv2d":
             xs, masks = self.embed(xs, masks)
-        xs, pos_emb = self.pos_enc(xs)
+        elif self.input_layer == "embed":
+            xs = self.embed(xs)
+        xs = self.pos_enc(xs)
+        xs, pos_emb = xs if isinstance(xs, tuple) else (xs, None)
         if self.compute_dtype is not None:
             xs = xs.to(self.compute_dtype)
         attn_mask = None if masks is None else masks[:, None, :]

@@ -1,7 +1,7 @@
 """Positional encodings (mirror seq2seq_vc_tpu/nn/positional_encoding.py):
-the sinusoidal table and the scaled encoding with a learnable alpha (VTN,
-:22-31, :75-97), the new-style relative encoding (:34, :100) and the legacy
-one (:158-172)."""
+the sinusoidal table, the absolute encoding (:50-62) and the scaled one with
+a learnable alpha (VTN, :22-31, :75-97), the new-style relative encoding
+(:34, :100) and the legacy one (:158-172)."""
 
 from __future__ import annotations
 
@@ -70,6 +70,21 @@ class LegacyRelPositionalEncoding(torch.nn.Module):
         pos_emb = sinusoidal_pe(x.shape[1], self.d_model, x.dtype, x.device)[None]
         p, on = self.dropout_rate, self.training
         return F.dropout(x, p, on), F.dropout(pos_emb, p, on)
+
+
+class PositionalEncoding(torch.nn.Module):
+    """x * sqrt(d) + PE, then dropout in ``train()`` mode (the conformer's
+    ``abs_pos``)."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
+        super().__init__()
+        self.d_model = d_model
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pe = sinusoidal_pe(x.shape[1], self.d_model, x.dtype, x.device)
+        return F.dropout(x * math.sqrt(self.d_model) + pe[None], self.dropout_rate,
+                         self.training)
 
 
 class ScaledPositionalEncoding(torch.nn.Module):

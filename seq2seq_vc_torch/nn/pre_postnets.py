@@ -32,6 +32,9 @@ class Prenet(torch.nn.Module):
                  dropout_rate: float = 0.5, device=None, dtype=None):
         super().__init__()
         self.dropout_rate = dropout_rate
+        # (rows of the whole batch, this call's rows of it): a data-parallel
+        # decode draws the whole batch's masks and keeps its rows' (vc_decode)
+        self.draw_rows = None
         self.prenet = torch.nn.ModuleList(
             torch.nn.Sequential(Linear(idim if i == 0 else n_units, n_units, device=device,
                                        dtype=dtype), torch.nn.ReLU())
@@ -46,8 +49,12 @@ class Prenet(torch.nn.Module):
         for layer in self.prenet:
             x = layer(x)
             if self.dropout_rate > 0.0:
-                u = torch.rand(x.shape, generator=generator,
+                shape = x.shape if self.draw_rows is None else (
+                    (self.draw_rows[0],) + tuple(x.shape[1:]))
+                u = torch.rand(shape, generator=generator,
                                device=x.device if generator is None else generator.device)
+                if self.draw_rows is not None:
+                    u = u[self.draw_rows[1]]
                 x = torch.where(u.to(x.device) < keep_p, x / keep_p, 0.0)
         return x
 

@@ -23,10 +23,16 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from .attention import FLASH_MIN_LEN, MultiHeadedAttention
+from .attention import (
+    FLASH_MIN_LEN,
+    LegacyRelPositionMultiHeadedAttention,
+    MultiHeadedAttention,
+    RelPositionMultiHeadedAttention,
+)
 from .layers import Conv1d, LayerNorm, Linear
 from .positional_encoding import (
     LegacyRelPositionalEncoding,
+    PositionalEncoding,
     RelPositionalEncoding,
     ScaledPositionalEncoding,
 )
@@ -97,12 +103,40 @@ def _positionwise(kind: str, idim: int, linear_units: int, dropout_rate: float =
     raise ValueError(f"unknown positionwise_layer_type: {kind}")
 
 
-def _make_pos_enc(kind: str, d: int, dropout_rate: float = 0.1):
+def _make_pos_enc(kind: str, d: int, dropout_rate: float = 0.1, init_alpha: float = 1.0,
+                  device=None):
+    """The encoding of ``kind``: ``abs``, ``scaled``, ``rel_pos`` or
+    ``legacy_rel_pos`` (the JAX package's ``_make_pos_enc``). The relative
+    ones return ``(x, pos_emb)``, the absolute ones ``x``."""
+    if kind == "abs":
+        return PositionalEncoding(d, dropout_rate)
+    if kind == "scaled":
+        return ScaledPositionalEncoding(d, dropout_rate, init_alpha, device=device)
     if kind == "rel_pos":
         return RelPositionalEncoding(d, dropout_rate)
     if kind == "legacy_rel_pos":
         return LegacyRelPositionalEncoding(d, dropout_rate)
-    raise NotImplementedError(f"pos_enc type {kind!r} is not ported yet")
+    raise ValueError(f"unknown pos_enc type: {kind}")
+
+
+def self_attention(kind: str, n_head: int, size: int, dropout_rate: float,
+                   attention_backend: str, flash_min_len: int, compute_dtype,
+                   zero_triu: bool = False, rel_scores_bwd: str = "auto", **kw):
+    """The self-attention of ``selfattention_layer_type`` ``kind``. The
+    standard module (``selfattn``) takes the flash kernels under the
+    ``flash`` backend and runs dense under any other, as the JAX package's
+    ``MultiHeadedAttention`` does; the relative ones keep the backend and
+    take ``zero_triu`` and ``rel_scores_bwd``."""
+    common = dict(compute_dtype=compute_dtype, flash_min_len=flash_min_len, **kw)
+    if kind == "selfattn":
+        backend = "flash" if attention_backend == "flash" else "xla"
+        return MultiHeadedAttention(n_head, size, dropout_rate, backend=backend, **common)
+    relative = {"rel_selfattn": RelPositionMultiHeadedAttention,
+                "legacy_rel_selfattn": LegacyRelPositionMultiHeadedAttention}
+    if kind not in relative:
+        raise ValueError(f"unknown selfattention_layer_type: {kind}")
+    return relative[kind](n_head, size, dropout_rate, zero_triu=zero_triu,
+                          backend=attention_backend, rel_scores_bwd=rel_scores_bwd, **common)
 
 
 class Conv2dSubsampling(torch.nn.Module):
@@ -137,32 +171,31 @@ class Conv2dSubsampling(torch.nn.Module):
         return h, mask
 
 
-def _refuse(what: str, got, want) -> None:
-    if got != want:
-        raise NotImplementedError(f"{what}={got!r} is not ported yet")
-
-
 class EncoderLayer(torch.nn.Module):
     """Pre/post-LN transformer encoder block with standard self-attention
-    (the ``selfattn`` type); dropout on both residual branches in
-    ``train()`` mode."""
+    (the ``selfattn`` type) or relative-position self-attention
+    (``rel_selfattn``, ``legacy_rel_selfattn``: the layer then takes the
+    encoding's ``pos_emb``, and the relative modules their backend);
+    dropout on both residual branches in ``train()`` mode."""
 
     def __init__(self, size: int, n_head: int, linear_units: int, dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0, normalize_before: bool = True,
                  concat_after: bool = False, positionwise_layer_type: str = "linear",
                  attention_backend: str = "xla", flash_min_len: int = FLASH_MIN_LEN,
-                 compute_dtype=None, positionwise_conv_kernel_size: int = 1, device=None,
-                 dtype=None):
+                 compute_dtype=None, positionwise_conv_kernel_size: int = 1,
+                 selfattention_layer_type: str = "selfattn", device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         ln = dict(compute_dtype=compute_dtype, **kw)
         self.dropout_rate = dropout_rate
         self.normalize_before = normalize_before
         self.concat_after = concat_after
-        self.self_attn = MultiHeadedAttention(
-            n_head, size, attention_dropout_rate, backend=attention_backend,
-            compute_dtype=compute_dtype, flash_min_len=flash_min_len, **kw,
-        )
+        # the relative modules run dense here, as the JAX package builds them
+        # in this layer (no backend)
+        backend = attention_backend if selfattention_layer_type == "selfattn" else "xla"
+        self.self_attn = self_attention(selfattention_layer_type, n_head, size,
+                                        attention_dropout_rate, backend, flash_min_len,
+                                        compute_dtype, **kw)
         self.feed_forward = _positionwise(positionwise_layer_type, size, linear_units,
                                           dropout_rate, compute_dtype,
                                           kernel_size=positionwise_conv_kernel_size, **kw)
@@ -174,10 +207,13 @@ class EncoderLayer(torch.nn.Module):
     def _drop(self, x):
         return F.dropout(x, self.dropout_rate, self.training)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, pos_emb=None):
         residual = x
         h = self.norm1(x) if self.normalize_before else x
-        att = self.self_attn(h, h, h, mask)
+        if pos_emb is not None:
+            att = self.self_attn(h, h, h, pos_emb, mask)
+        else:
+            att = self.self_attn(h, h, h, mask)
         if self.concat_after:
             x = residual + self.concat_linear(torch.cat([h, att], dim=-1))
         else:
@@ -193,12 +229,18 @@ class EncoderLayer(torch.nn.Module):
 
 
 class Encoder(torch.nn.Module):
-    """Transformer encoder with the ``conv2d-scaled-pos-enc`` input layer
-    (the VTN's and FastSpeech-VC's encoder: conv2d subsampling, then x +
-    alpha * PE and dropout), ``embed`` (Transformer-TTS: a token embedding
-    ``embed.0`` of ``idim`` rows, then the scaled encoding ``embed.1``) or
-    none (``None``, FastSpeech-VC's decoder: x + alpha * PE and dropout
-    alone, as ``embed.0``).
+    """Transformer encoder with the ``conv2d-scaled-pos-enc`` or ``conv2d``
+    input layer (the VTN's and FastSpeech-VC's encoder: conv2d subsampling,
+    then the encoding as ``embed.out.1``), ``linear`` (Linear, LayerNorm
+    with eps 1e-5, dropout and ReLU as ``embed.0``-``embed.3``, then the
+    encoding ``embed.4``: the reference's layout), ``embed`` (Transformer-TTS:
+    a token embedding ``embed.0`` of ``idim`` rows, then the encoding
+    ``embed.1``) or none (``None``, FastSpeech-VC's decoder: the encoding
+    alone, as ``embed.0``). The encoding is ``pos_enc_type``'s (``scaled``,
+    x + alpha * PE and dropout, what every model passes; ``abs``, which
+    ``conv2d-scaled-pos-enc`` turns into ``scaled`` as the JAX package
+    does; or a relative one, whose table the layers take with a relative
+    ``selfattention_layer_type``).
 
     The embedding has no padding row, as the JAX package's ``nn.Embed``:
     row ``padding_idx`` is initialised and trained as any other (the
@@ -209,53 +251,65 @@ class Encoder(torch.nn.Module):
     def __init__(self, idim: int, attention_dim: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6, dropout_rate: float = 0.1,
                  positional_dropout_rate: float = 0.1, attention_dropout_rate: float = 0.0,
-                 input_layer: str = "conv2d-scaled-pos-enc", normalize_before: bool = True,
+                 input_layer: Optional[str] = "conv2d-scaled-pos-enc",
+                 normalize_before: bool = True,
                  concat_after: bool = False, positionwise_layer_type: str = "linear",
                  selfattention_layer_type: str = "selfattn", init_enc_alpha: float = 1.0,
                  attention_backend: str = "xla", flash_min_len: int = FLASH_MIN_LEN,
-                 compute_dtype=None, positionwise_conv_kernel_size: int = 1, device=None,
-                 dtype=None):
+                 compute_dtype=None, positionwise_conv_kernel_size: int = 1,
+                 pos_enc_type: str = "scaled", device=None, dtype=None):
         super().__init__()
-        if input_layer not in ("conv2d-scaled-pos-enc", "embed", None):
-            raise NotImplementedError(f"input_layer={input_layer!r} is not ported yet")
-        _refuse("selfattention_layer_type", selfattention_layer_type, "selfattn")
         kw = dict(device=device, dtype=dtype)
         self.compute_dtype = compute_dtype
         self.input_layer = input_layer
-        pos_enc = ScaledPositionalEncoding(attention_dim, positional_dropout_rate,
-                                           init_enc_alpha, device=device)
-        if input_layer == "conv2d-scaled-pos-enc":
+        if input_layer == "conv2d-scaled-pos-enc" and pos_enc_type == "abs":
+            pos_enc_type = "scaled"
+        pos_enc = _make_pos_enc(pos_enc_type, attention_dim, positional_dropout_rate,
+                                init_enc_alpha, device=device)
+        if input_layer in ("conv2d-scaled-pos-enc", "conv2d"):
             self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc, **kw)
+        elif input_layer == "linear":
+            self.embed = torch.nn.Sequential(
+                Linear(idim, attention_dim, **kw), LayerNorm(attention_dim, 1e-5, **kw),
+                torch.nn.Dropout(dropout_rate), torch.nn.ReLU(), pos_enc)
         elif input_layer == "embed":
             embedding = torch.nn.Embedding(idim, attention_dim, **kw)
             torch.nn.init.normal_(embedding.weight, std=attention_dim ** -0.5)
             self.embed = torch.nn.Sequential(embedding, pos_enc)
-        else:
+        elif input_layer is None:
             self.embed = torch.nn.Sequential(pos_enc)
+        else:
+            raise ValueError(f"unknown input_layer: {input_layer}")
         self.encoders = torch.nn.ModuleList(
             EncoderLayer(attention_dim, attention_heads, linear_units, dropout_rate,
                          attention_dropout_rate, normalize_before, concat_after,
                          positionwise_layer_type, attention_backend, flash_min_len,
-                         compute_dtype, positionwise_conv_kernel_size, **kw)
+                         compute_dtype, positionwise_conv_kernel_size,
+                         selfattention_layer_type, **kw)
             for _ in range(num_blocks)
         )
         self.normalize_before = normalize_before
         if normalize_before:
             self.after_norm = LayerNorm(attention_dim, LN_EPS, compute_dtype, **kw)
 
+    @property
+    def conv_subsampling_factor(self) -> int:
+        return 4 if self.input_layer in ("conv2d", "conv2d-scaled-pos-enc") else 1
+
     def forward(self, xs, masks: Optional[torch.Tensor]):
         """xs: (B, T, idim), or (B, T) integer tokens for ``embed``; masks:
         (B, T) non-pad. Returns the float32 (B, T', adim) states and the
         (subsampled) (B, T') mask."""
-        if self.input_layer != "conv2d-scaled-pos-enc":
-            xs = self.embed(xs)
-        else:
+        if self.conv_subsampling_factor == 4:
             xs, masks = self.embed(xs, masks)
+        else:
+            xs = self.embed(xs)
+        xs, pos_emb = xs if isinstance(xs, tuple) else (xs, None)
         if self.compute_dtype is not None:
             xs = xs.to(self.compute_dtype)
         attn_mask = None if masks is None else masks[:, None, :]
         for layer in self.encoders:
-            xs = layer(xs, attn_mask)
+            xs = layer(xs, attn_mask, pos_emb)
         if self.normalize_before:
             xs = self.after_norm(xs)
         return xs.float(), masks

@@ -69,7 +69,7 @@ NEG_INF = -1e30  # finite mask value, as in the JAX kernels
 # the JAX entry's default block: the dropout index runs over rows and keys
 # padded to a multiple of it
 DROPOUT_BLOCK = 128
-STD_MAX_D = 256  # head dims the standard kernels take (csrc/flash.cu, flash_bwd.cu)
+STD_MAX_D = 768  # head dims the standard kernels take (csrc/flash.cu, flash_bwd.cu)
 REL_MAX_D = 1024  # head dims the rel-pos flash kernels take (csrc/rel_flash*.cu)
 _M32 = 0xFFFFFFFF
 

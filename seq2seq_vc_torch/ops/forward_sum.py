@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from scipy.stats import betabinom
 
+from ..parallel.mesh import global_mean
+
 _NEG_INF = -1e30
 
 _prior_cache: Dict[Tuple[int, int, float], np.ndarray] = {}
@@ -88,9 +90,14 @@ def forward_sum_loss(
     targets = torch.arange(1, t_text + 1, device=log_p_attn.device, dtype=torch.int64)
     if isinstance(ilens, torch.Tensor):
         ilens, olens = ilens.to(torch.int64), olens.to(torch.int64)
+        n_tokens = ilens.to(lp.dtype)
     else:
         ilens, olens = tuple(int(n) for n in ilens), tuple(int(n) for n in olens)
-    return F.ctc_loss(
+        n_tokens = torch.tensor(ilens, dtype=lp.dtype, device=lp.device)
+    per_item = F.ctc_loss(
         lp, targets.expand(B, t_text).contiguous(), olens, ilens,
-        blank=0, reduction="mean", zero_infinity=True,
+        blank=0, reduction="none", zero_infinity=True,
     )
+    # the "mean" reduction's: each item over its target length, then the
+    # mean over the (global) batch
+    return global_mean(per_item / torch.clamp(n_tokens, min=1))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import global_mean
+
 _NEG_INF = -1e30
 
 
@@ -58,4 +60,4 @@ def viterbi_decode(log_p_attn, text_lengths, feats_lengths):
     ds = (onehot * frame_valid[..., None]).sum(dim=1)
     picked = torch.gather(log_p_attn, 2, paths[..., None])[..., 0]
     per_item = -(picked * frame_valid).sum(dim=1) / torch.clamp(feats_lengths, min=1)
-    return ds, per_item.mean()
+    return ds, global_mean(per_item)

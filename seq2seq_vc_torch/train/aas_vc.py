@@ -22,7 +22,6 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..models.common import conv2d_subsampled_lengths
 from ..ops.forward_sum import beta_binomial_prior, forward_sum_loss
 from .trainer import Trainer, save_intermediate
 
@@ -38,14 +37,9 @@ class AASVCTrainer(Trainer):
         and a ``conv2d`` input layer's x4 subsampling."""
         m = self.model
         dr = m.decoder_reduction_factor
-        ilens = batch["ilens"].astype(np.int64) // m.encoder_reduction_factor
-        t_text = batch["xs"].shape[1] // m.encoder_reduction_factor
-        if m.encoder_input_layer == "conv2d":
-            ilens, t_text = conv2d_subsampled_lengths(ilens), conv2d_subsampled_lengths(t_text)
-        ilens = ilens // m.post_encoder_reduction_factor
-        t_text = t_text // m.post_encoder_reduction_factor
         olens = batch["olens"].astype(np.int64) // dr
-        return ilens, olens, t_text, batch["ys"].shape[1] // dr
+        return (m.text_frames(batch["ilens"].astype(np.int64)), olens,
+                m.text_frames(batch["xs"].shape[1]), batch["ys"].shape[1] // dr)
 
     def _array_batch(self, batch):
         ilens_r, olens_r, t_text, t_feats = self._reduced_lengths(batch)

@@ -22,6 +22,17 @@ it (the FastSpeech-VC one, as in the JAX package) writes none.
 
 Metrics stay on the device until the log interval, where one sync fetches
 them all. Each log appends the interval's averages to ``history``.
+
+Data parallelism: in a process group (``parallel/distributed.py``: a run
+under ``torchrun``) each rank takes its rows of every global batch
+(``parallel.shard_batch``: a partial batch padded by wrap-around, as the
+JAX package pads it), computes its losses inside
+``parallel.data_parallel()`` (each normalised by its count over the global
+batch) and the ranks' gradients are summed before the update, so a step is
+the single-process step of the global batch. The ranks start from rank 0's
+weights; each draws from generators seeded from ``(seed, rank)`` (rank 0
+from ``seed`` itself); the logged metrics are the global batch's; rank 0
+alone logs, evaluates, writes intermediates and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import mesh
+from ..parallel.distributed import rank, world_size
 from .state import TrainState
 
 
@@ -107,7 +120,11 @@ class Trainer:
         self.config = config
         self.train_loader = train_loader
         self.dev_loader = dev_loader
-        seed = int(config.get("seed", 0))
+        self.rank, self.world = rank(), world_size()
+        self.data_parallel = torch.distributed.is_initialized()
+        if self.data_parallel:
+            mesh.broadcast_parameters(self.model)
+        seed = mesh.rank_seed(int(config.get("seed", 0)), self.rank)
         torch.manual_seed(seed)  # dropout (CPU and CUDA default generators)
         self.generator = torch.Generator().manual_seed(seed)
         self.epochs = 0
@@ -153,14 +170,24 @@ class Trainer:
     def _train_step(self, batch: Dict[str, Any]) -> bool:
         """One micro-batch; returns whether it completed an optimizer step."""
         self.model.train()
-        loss, metrics = self.loss_fn(self._array_batch(batch), self._flags(), self.generator)
+        if self.data_parallel:
+            batch = mesh.shard_batch(batch, self.rank, self.world)
+        with mesh.data_parallel(self.data_parallel):
+            loss, metrics = self.loss_fn(self._array_batch(batch), self._flags(),
+                                         self.generator)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
+        if self.data_parallel:  # the ranks' shares add up to the global batch's
+            total = torch.stack([v.float() for v in metrics.values()])
+            torch.distributed.all_reduce(total)
+            metrics = dict(zip(metrics, total))
         self._pending_metrics.append(metrics)
         self._micro_total += 1
         boundary = self._micro_total % self.grad_accum == 0
         if boundary:
+            if self.data_parallel:
+                mesh.all_reduce_gradients(self.model.parameters())
             norm = self.state.apply_gradients()
             if norm is not None:
                 metrics["grad_norm"] = norm
@@ -199,20 +226,22 @@ class Trainer:
         record["train/step_time_sec"] = avg_t
         if self.device.type == "cuda":
             record["train/peak_memory_mib"] = torch.cuda.max_memory_allocated(self.device) / 2**20
-        for k, v in record.items():
-            logging.info("(steps: %d) %s = %.4f.", self.steps, k, v)
+        if mesh.is_coordinator():
+            for k, v in record.items():
+                logging.info("(steps: %d) %s = %.4f.", self.steps, k, v)
         self.history.append(dict(steps=self.steps, **record))
         self._pending_metrics = []
         self._interval_tick = time.perf_counter()
 
     def _check_eval_interval(self):
         interval = self.config.get("eval_interval_steps", 0)
-        if interval and self.steps % interval == 0 and self.dev_loader is not None:
+        if (interval and self.steps % interval == 0 and self.dev_loader is not None
+                and mesh.is_coordinator()):
             self._eval_epoch()
 
     def _check_save_interval(self):
         interval = self.config.get("save_interval_steps", 0)
-        if interval and self.steps % interval == 0:
+        if interval and self.steps % interval == 0 and mesh.is_coordinator():
             path = os.path.join(self.outdir, f"checkpoint-{self.steps}steps.pt")
             self.save_checkpoint(path)
             logging.info("saved checkpoint @ %d steps", self.steps)
@@ -282,6 +311,9 @@ class Trainer:
             torch.cuda.set_rng_state(state["cuda"].cpu(), self.device)
 
     def save_checkpoint(self, path: str):
+        """Write a checkpoint (on rank 0 alone in a process group)."""
+        if not mesh.is_coordinator():
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         torch.save(dict(self.state.state_dict(), steps=self.steps, epochs=self.epochs,
                         rng=self._rng_state()), path)
@@ -297,3 +329,7 @@ class Trainer:
             self.epochs, batch = divmod(self._micro_total, len(self.train_loader))
             self.train_loader.seek(self.epochs, batch)
             self._set_rng_state(ckpt["rng"])
+            if self.rank > 0:  # the checkpoint holds rank 0's generators
+                seed = mesh.rank_seed(int(self.config.get("seed", 0)) + self.steps, self.rank)
+                torch.manual_seed(seed)
+                self.generator.manual_seed(seed)

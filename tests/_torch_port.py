@@ -9,6 +9,7 @@ fixture that drops JAX's compiled executables before and after the file.
 """
 
 import gc
+import os
 
 import jax
 import numpy as np
@@ -23,6 +24,15 @@ from seq2seq_vc_torch.convert import aasvc_state_dict
 from seq2seq_vc_torch.models.aas_vc import AASVC
 from seq2seq_vc_torch.models.transformer_tts import TransformerTTS
 from seq2seq_vc_torch.models.vtn import VTN
+
+# Under pytest-xdist each worker is a process of its own, and torch's CPU
+# ops would each take a thread per core: 6 workers on 8 cores ran ~48
+# threads, and the port's CPU-bound tests (the CLIs' training and decoding)
+# took many times their time alone. A worker keeps its share of the cores.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
+
 
 @pytest.fixture(autouse=True, scope="module")
 def release_jax_executables():

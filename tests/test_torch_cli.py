@@ -35,6 +35,7 @@ import contextlib
 import importlib
 import io
 import json
+import logging
 import socket
 import sys
 import threading
@@ -333,10 +334,14 @@ def test_vc_decode_teacher_forcing_durations_match_jax(tmp_path):
                                    rtol=0)
 
 
-def test_vc_decode_refuses_data_parallel(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
+@pytest.mark.parametrize("batch,match", [("3", "positive multiple"), ("1", "positive multiple"),
+                                         ("2", "available devices 1")])
+def test_vc_decode_refuses_data_parallel(tmp_path, batch, match):
+    # as the JAX driver: a batch size that is not a positive multiple of N,
+    # or more ranks than devices (one process: one rank on the CPU)
+    with pytest.raises(ValueError, match=match):
         vc_decode.main(["--dumpdir", "x", "--checkpoint", "x", "--outdir", str(tmp_path),
-                        "--data-parallel", "2", "--device", "cpu"])
+                        "--data-parallel", "2", "--batch-size", batch, "--device", "cpu"])
 
 
 # --------------------------------------------------------------- vc_train
@@ -401,10 +406,16 @@ def test_vc_train_resumed_run_equals_a_straight_one(tmp_path, family, stop, drop
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"tensor_parallel": 2}, "item 5"), ({"sequence_parallel": 2}, "item 5"),
-    ({"pipeline_parallel": 2}, "item 5"), ({"prng_impl": "rbg"}, "item 5"),
+    ({"tensor_parallel": 2}, "item 5, its last part"),
+    ({"sequence_parallel": 2}, "item 5, its last part"),
+    ({"pipeline_parallel": 2}, "item 5, its last part"), ({"prng_impl": "rbg"}, None),
 ])
-def test_vc_train_refuses_what_is_not_ported(tmp_path, over, item):
+def test_vc_train_refuses_what_is_not_ported(tmp_path, caplog, over, item):
+    if item is None:  # accepted, and logged as having no effect in torch
+        with caplog.at_level(logging.INFO):
+            vc_train.refuse_unported(over)
+        assert "prng_impl 'rbg' has no effect" in caplog.text
+        return
     path = tmp_path / "over.yaml"
     path.write_text(yaml.safe_dump(over))
     args = ["--src-train-dumpdir", "x", "--src-dev-dumpdir", "x", "--trg-train-dumpdir", "x",

@@ -252,12 +252,16 @@ def test_flash_autograd_on_the_card_goes_through_the_four_kernels(cuda_device, z
 
 
 # (Tq, Tk, D): self-attention at the VTN's head dim 96 and at 64, cross
-# shapes both ways, and the largest head dim the kernels take; then shapes
-# that cross several 64-row tiles of kernels 9-11 with partial last tiles,
-# both ways, a head dim of 128, D 20 (bf16 rows not 16-byte aligned) and a
-# single query row against several key tiles
+# shapes both ways, and the largest head dim of the DP 256 variants; then
+# shapes that cross several 64-row tiles of kernels 9-11 with partial last
+# tiles, both ways, a head dim of 128, D 20 (bf16 rows not 16-byte aligned)
+# and a single query row against several key tiles; then the AAS-VC
+# conformer's selfattn head dims, D 192 (encoder, on the DP 256 variants)
+# and D 768 (decoder, the DP 768 variants, the largest they take), with a
+# cross shape and D 520 (padded to 768)
 STD_SHAPES = [(37, 37, 64), (130, 130, 96), (45, 130, 96), (130, 45, 96), (70, 70, 256),
-              (200, 333, 96), (333, 200, 96), (130, 130, 128), (130, 130, 20), (1, 333, 96)]
+              (200, 333, 96), (333, 200, 96), (130, 130, 128), (130, 130, 20), (1, 333, 96),
+              (130, 130, 192), (70, 70, 768), (200, 133, 768), (45, 70, 520)]
 
 
 def _std_inputs(device, dtype, Tq, Tk, D, seed, B=3, H=2):
@@ -312,7 +316,8 @@ def test_flash_bwd_kernels_match_plain(cuda_device, causal, rate, dtype, Tq, Tk,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Tq,Tk,D,causal", [(333, 200, 96, False), (200, 333, 256, True)])
+@pytest.mark.parametrize("Tq,Tk,D,causal", [(333, 200, 96, False), (200, 333, 256, True),
+                                             (133, 200, 768, True)])
 def test_flash_bwd_kernels_are_deterministic(cuda_device, dtype, Tq, Tk, D, causal):
     # no atomics: every output element has one owner, so two launches on
     # the same inputs give the same bits
@@ -387,7 +392,8 @@ def test_flash_autograd_on_the_card_goes_through_the_three_kernels(cuda_device, 
 
 
 def test_flash_wrapper_refuses_head_dims_past_256(cuda_device):
-    q = torch.zeros(1, 2, 8, 264, device=cuda_device)
+    # the kernels take D up to fa.STD_MAX_D (768 since the DP 768 variants)
+    q = torch.zeros(1, 2, 8, fa.STD_MAX_D + 8, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
 

@@ -166,7 +166,9 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.losses.diffsinger_l2", "seq2seq_vc_torch.losses.mle",
             "seq2seq_vc_torch.evaluate.wav2vec2", "seq2seq_vc_torch.evaluate.asr",
             "seq2seq_vc_torch.evaluate.harvest", "seq2seq_vc_torch.utils.plot",
-            "seq2seq_vc_torch.bin.evaluate"} <= set(got["modules"])
+            "seq2seq_vc_torch.bin.evaluate", "seq2seq_vc_torch.parallel",
+            "seq2seq_vc_torch.parallel.mesh",
+            "seq2seq_vc_torch.parallel.distributed"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -206,6 +208,8 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
                                         "--trg-train-dumpdir", "x", "--trg-dev-dumpdir", "x",
                                         "--outdir", "x", "--config", "x"]),
                        (vc_decode.main, ["--dumpdir", "x", "--checkpoint", "x", "--outdir", "x"]),
+                       (vc_decode.main, ["--dumpdir", "x", "--checkpoint", "x", "--outdir", "x",
+                                         "--data-parallel", "2", "--batch-size", "2"]),
                        (vc_serve.main, ["--checkpoint", "x", "--src-stats", "x", "--trg-stats",
                                         "x", "--vocoder-checkpoint", "x"]),
                        (tts_train.main, ["--train-dumpdir", "x", "--dev-dumpdir", "x",

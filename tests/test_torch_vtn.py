@@ -233,9 +233,14 @@ def test_prenet_dropout_is_always_on_with_its_keep_rate_and_scale():
 
 
 def test_vtn_refuses_what_is_not_ported():
-    for over in (dict(encoder_type="rnn"), dict(encoder_input_layer="linear")):
-        with pytest.raises(NotImplementedError):
-            VTN(**dict(TINY_VTN, **over))
+    with pytest.raises(NotImplementedError):
+        VTN(**dict(TINY_VTN, encoder_type="rnn"))
+    # the linear input layer builds now (tests/test_torch_item8.py holds it
+    # against JAX): linear, LayerNorm, dropout, ReLU, then the encoding
+    linear = VTN(**dict(TINY_VTN, encoder_input_layer="linear"))
+    assert linear.encoder.conv_subsampling_factor == 1
+    assert [type(m).__name__ for m in linear.encoder.embed] == [
+        "Linear", "LayerNorm", "Dropout", "ReLU", "ScaledPositionalEncoding"]
     port = VTN(**TINY_VTN).train()
     with pytest.raises(ValueError, match="eval"):
         port.inference(*_t(*_batch()[:2]))
