@@ -5279,10 +5279,13 @@ def evaluate_path():
 # phase 31's flagship: standard attention with absolute positions (ROADMAP
 # queue 1 item 8)
 ITEM8 = dict(conformer_self_attn_layer_type="selfattn", conformer_pos_enc_layer_type="abs_pos")
-# phase 32: a one-rank group's losses against the plain run's (the same
-# arithmetic: each count summed over one rank, the gradients through one
-# all-reduce)
-DDP_RTOL = 1e-5
+# phase 32: a one-rank group's losses against the plain run's. The
+# arithmetic is the same (each count summed over one rank, the gradients
+# through one all-reduce), but the plain run itself is not bit-reproducible
+# on the card: two runs of the same 3 steps gave losses equal or 4.4e-06
+# apart (relative) at step 3. A fault of the data-parallel path (a count
+# or a gradient not summed, a rank's rows lost) moves a loss by far more.
+DDP_RTOL = 1e-4
 
 
 def selfattn_calls(model, batch):
