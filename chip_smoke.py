@@ -5509,9 +5509,23 @@ def sass_hmma():
 
     tool = shutil.which("cuobjdump") or str(Path(native._nvcc()).with_name("cuobjdump"))
     rows, failures = [], []
+    # one cuobjdump a library, all started together (one after another they
+    # took ~30 s of the script), each writing to a file of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {lib: open(Path(tmp) / lib, "w+") for lib in TENSOR_CORE}
+        procs = {lib: subprocess.Popen([tool, "-sass", str(native._library_path(lib))],
+                                       stdout=outs[lib], stderr=subprocess.PIPE, text=True)
+                 for lib in TENSOR_CORE}
+        dumps = {}
+        for lib, proc in procs.items():
+            err = proc.communicate(timeout=300)[1]
+            if proc.returncode:
+                raise subprocess.CalledProcessError(proc.returncode, proc.args, stderr=err)
+            outs[lib].seek(0)
+            dumps[lib] = outs[lib].read()
+            outs[lib].close()
     for lib, kernels in TENSOR_CORE.items():
-        sass = subprocess.run([tool, "-sass", str(native._library_path(lib))],
-                              capture_output=True, text=True, check=True, timeout=300).stdout
+        sass = dumps[lib]
         counts, fn = {}, None
         for line in sass.splitlines():
             if "Function : " in line:
@@ -5572,7 +5586,9 @@ def main() -> int:
             log(f"  ptxas {name}: {fn}: {regs}; {spill}")
             if name in NO_SPILL and any(int(n) for n in re.findall(r"(\d+) bytes spill", spill)):
                 spills.append(f"ptxas {name}: {fn} spills: {spill}")
+    t0 = time.perf_counter()
     sass_rows, failures = sass_hmma()
+    phase_s["sass"] = round(time.perf_counter() - t0, 1)
     failures += spills
     for lib, fn, n in sass_rows:
         log(f"  sass {lib}: {fn}: {n} HMMA")
