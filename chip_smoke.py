@@ -68,9 +68,9 @@ Phases, each printed on lines of its own:
    both head dims, rate 0 and 0.2, with key-length padding and a fully
    masked batch row, and in bfloat16 at every shape the long steps give
    them (the backward's yardstick: SDPA's forward + backward with the band
-   as a bias, beside the four kernels' forward + backward); then 2 timed
-   steps with the launch counts set to 0 just before and read just after
-   (8 of each flash kernel per step, no fused launch), ms/step, peak
+   as a bias, beside the four kernels' forward + backward); then 1 timed
+   step with the launch counts set to 0 just before and read just after
+   (8 of each flash kernel, no fused launch), ms/step, peak
    memory, a finite loss, every gradient finite and every attention
    projection's gradient non-zero before each update, and a profile of one
    step;
@@ -142,7 +142,7 @@ Phases, each printed on lines of its own:
    on the legacy form of kernels 2, 6, 7 and 8 (their checks at both head
    dims, float32 and bfloat16, rate 0 and 0.2, and at the steps' shapes,
    against SDPA with the dense legacy band as a bias), one warm-up step and
-   2 timed steps (8 launches of each a step), and a profile of one step;
+   1 timed step (8 launches of each), and a profile of one step;
 20. a legacy reference training step: phase 11 in the legacy form;
 21. the fused route's ``pallas`` backward: a flagship with ``rel_scores_bwd:
    pallas`` takes one warm-up step and 2 timed steps at B 16 on 480-960
@@ -680,7 +680,7 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, min_total_ms: float = 20.0, max_iters: int = 50) -> float:
+def cuda_ms(fn, min_total_ms: float = 10.0, max_iters: int = 50) -> float:
     """Mean device time of ``fn`` over back-to-back launches (CUDA events),
     at least 3 of them and ``min_total_ms`` (~300 kernel checks each time
     three functions this way, so the window weighs on the script's time),
@@ -1625,12 +1625,14 @@ def long_lens(seed: int):
 def train_long_path(rows, path="train_long"):
     """Phases 10-11 (``path`` "train_long"): long-utterance training through
     the flash kernels; phases 19-20 ("train_long_legacy"): the legacy
-    flagship, through the flash kernels' legacy form; 2 timed steps each.
+    flagship, through the flash kernels' legacy form; one timed step each
+    (two until the script passed its time budget; phase 31's step and the
+    profile step run the same shapes).
     Appends the kernel checks to ``rows``; returns (failures,
     launches of the timed steps, by kernel)."""
     failures = []
     legacy = path == "train_long_legacy"
-    steps = 2
+    steps = 1
     tmp = REPO / "build"
     tmp.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tmp, prefix=f"chip_smoke_{path}_") as root:
