@@ -310,14 +310,29 @@ Phases, each printed on lines of its own:
    ``torchrun`` sets them) and then without one: the per-step losses must
    agree to ``DDP_RTOL`` (kernels 1 and 3 launched in the group's run);
    ``vc_decode --data-parallel 1`` must write the files of the plain call,
-   and ``--data-parallel 2`` on the one card must raise.
+   and ``--data-parallel 2`` on the one card must raise;
+33. model parallelism (``model_parallel_path``): one ``torchrun`` group of
+   2 ranks on the one card, over ``gloo`` (NCCL takes one rank a card; the
+   collectives are staged through the host), runs ``vc_train`` of phase
+   32's conf and set at B 16 with ``tensor_parallel: 2``,
+   ``sequence_parallel: 2`` and ``pipeline_parallel: 2`` in turn
+   (``chip_smoke.py --model-parallel-rank JOBS`` is one rank). Each mode's
+   dev loss at the initial weights (dropout off) must agree with the plain
+   model's to ``MP_EVAL_RTOL``, and its ``MP_STEPS`` (2) training steps'
+   losses with phase 32's plain run's to ``MP_RTOL`` (dropout 0.2, drawn
+   otherwise); each rank must hold its slice (TP) or stage (PP) by
+   parameter count, and launch what the routing says: TP kernels 1 and 3
+   as the plain run (its heads at H 1), PP its stage's layers in every
+   tick, SP none (the ring). It prints each rank's ms a step and peak
+   memory. A failed rank fails the script.
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
 path where they are not 0, phase 23's ``fs2_*``, phase 24's ``tts_*``, phase 25's ``voc_*``,
 phase 26's ``feat_*``, phase 27's ``urhythmic`` (all 0), phase 28's
 ``opt_*``, phase 29's ``diff_*``, phase 30's ``evaluate`` (all 0), phase
-31's ``item8`` and phase 32's ``ddp`` paths included;
+31's ``item8``, phase 32's ``ddp`` and phase 33's ``model_parallel`` paths
+included;
 kernels 10-11 with SDPA's backward alone as ``library_bwd_ms``, kernels
 9-11 with their rate-0 time as ``ms_rate_0``, kernel 1 with
 ``half_work_ms``, q_u.k^T alone in cuBLAS, a reference and not its library
@@ -557,7 +572,10 @@ PATH_KERNELS = {"serve": ("fused_rel_scores", "rel_flash_attention"),
                 # attention with absolute positions, past the flash gate
                 "item8": STD,
                 # phase 32, data parallelism: vc_train under the gate
-                "ddp": ("fused_rel_scores", "rel_band_bwd")}
+                "ddp": ("fused_rel_scores", "rel_band_bwd"),
+                # phase 33, model parallelism: the TP and PP runs under the
+                # gate (the SP run takes the ring, no kernel)
+                "model_parallel": ("fused_rel_scores", "rel_band_bwd")}
 # kernel vs plain version. Scores: float32 arithmetic on both sides (bf16
 # inputs are widened), sums of D products taken in another order. Flash in
 # bf16: the float32 result is rounded once to bf16 on both sides, so a
@@ -5288,6 +5306,20 @@ ITEM8 = dict(conformer_self_attn_layer_type="selfattn", conformer_pos_enc_layer_
 # apart (relative) at step 3. A fault of the data-parallel path (a count
 # or a gradient not summed, a rank's rows lost) moves a loss by far more.
 DDP_RTOL = 1e-4
+# phase 33: the dev loss at the initial weights with dropout off, each
+# mode against the plain model (bf16 arithmetic in another order:
+# row-split sums, the ring's float32 fold), measured 3.7e-06 (TP), 1.8e-06
+# (SP) and 1.2e-07 (PP); and the training losses against phase 32's
+# plain run, whose dropout (0.2) draws other masks than a split model's,
+# measured at most 3.6e-03. A count or a gradient summed twice moves a
+# loss by far more.
+MP_EVAL_RTOL = 1e-4
+MP_RTOL = 1e-2
+MP_MODES = {"tp": {"tensor_parallel": 2}, "sp": {"sequence_parallel": 2},
+            "pp": {"pipeline_parallel": 2}}
+MP_STEPS = 2
+MP_SECONDS = 400  # the torchrun group's time limit
+PLAIN_RUN = {}  # phase 32's plain run and its group's launches, for phase 33
 
 
 def selfattn_calls(model, batch):
@@ -5416,6 +5448,7 @@ def ddp_path(rows):
         plain = train("plain")
         losses = {k: [h["train/loss"] for h in t.history if "train/loss" in h]
                   for k, t in (("ddp", ddp), ("plain", plain))}
+        PLAIN_RUN.update(history=plain.history, launches=launches)
         diff = max(abs(a - b) / abs(b) for a, b in zip(losses["ddp"], losses["plain"]))
         log(f"ddp: group (data parallel, backend, world) {group}; per-step losses {losses}; "
             f"largest relative difference {diff:.3e} (DDP_RTOL {DDP_RTOL}); ms/step "
@@ -5449,6 +5482,152 @@ def ddp_path(rows):
             failures.append(f"ddp decode: {len(same)}/{len(names)} files the same, --data-parallel "
                             f"2: {refused}")
     return failures, {"ddp": launches}
+
+
+def model_parallel_rank(jobs_path: str) -> int:
+    """One rank of phase 33's group (``chip_smoke.py --model-parallel-rank
+    JOBS``): each job's ``vc_train`` with no steps (the model laid out, the
+    group joined), its dev loss at the initial weights, then its steps,
+    the launch counts set to 0 just before and read just after; a record a
+    rank (``<out>.rank<R>.json``)."""
+    from seq2seq_vc_torch.bin import vc_train
+    from seq2seq_vc_torch.nn.attention import MultiHeadedAttention, RelPositionMultiHeadedAttention
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the script's own runs
+    torch.backends.cudnn.allow_tf32 = False
+    for job in json.loads(Path(jobs_path).read_text()):
+        trainer = vc_train.main(job["argv"])
+        dev_loss = trainer.evaluate()["loss"]
+        trainer.config["train_max_steps"], trainer.finish_train = job["steps"], False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trainer.run()
+        torch.cuda.synchronize()
+        steps = [h for h in trainer.history if "train/loss" in h]
+        model = trainer.model
+        record = dict(
+            mode=job["mode"], rank=trainer.rank, backend=torch.distributed.get_backend(),
+            world=trainer.world, dev_loss=dev_loss, losses=[h["train/loss"] for h in steps],
+            ms=[h["train/step_time_sec"] * 1e3 for h in steps],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launch_counts(),
+            params=sum(p.numel() for p in model.parameters()),
+            heads=sorted({m.n_head for m in model.modules() if isinstance(
+                m, (MultiHeadedAttention, RelPositionMultiHeadedAttention))}))
+        Path(f"{job['out']}.rank{trainer.rank}.json").write_text(json.dumps(record))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_group(cmd, env, seconds: float):
+    """Run ``cmd`` (a launcher) in a session of its own; on its time limit
+    the whole session is killed. Returns (exit code, its output's end)."""
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=seconds)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        return 124, out[-6000:]
+    return proc.returncode, out[-6000:]
+
+
+def model_parallel_path(rows):
+    """Phase 33. Returns (failures, {"model_parallel": the group's launches
+    summed over the ranks and modes})."""
+    import yaml
+
+    from seq2seq_vc_torch.bin import vc_train
+    from seq2seq_vc_torch.parallel.tp import split_dim
+
+    failures = []
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_mp_") as tmp:
+        root = Path(tmp)
+        corpus_loader(root, corpus_lens(160, 512, seed=512), seed=512)  # phase 32's set
+        src, trg = str(root / "src_feat.scp"), str(root / "trg_feat.scp")
+
+        def argv(name, **over):
+            (root / f"{name}.yaml").write_text(yaml.safe_dump(dict(
+                train_max_steps=0, log_interval_steps=1, eval_interval_steps=0,
+                save_interval_steps=0, batch_size=BATCH, **over)))
+            return ["--src-train-dumpdir", src, "--src-dev-dumpdir", src, "--trg-train-dumpdir",
+                    trg, "--trg-dev-dumpdir", trg, "--train-dp-input-dir", src,
+                    "--dev-dp-input-dir", src, "--config", str(CLI_CONF), "--additional-config",
+                    str(root / f"{name}.yaml"), "--outdir", str(root / name)]
+
+        plain = vc_train.main(argv("plain"))  # the initial weights, no group
+        dev_plain = plain.evaluate()["loss"]
+        numel = {n: p.numel() for n, p in plain.model.named_parameters()}
+        mp = plain.model.encoder.encoders[0].self_attn.n_head, len(plain.model.encoder.encoders)
+        del plain
+        n_all = sum(numel.values())
+        n_split = sum(v for n, v in numel.items() if split_dim(n) is not None)
+        n_stacks = sum(v for n, v in numel.items() if ".encoders." in n)
+        want_params = {"tp": n_all - n_split // 2, "sp": n_all, "pp": n_all - n_stacks // 2}
+        jobs = [dict(mode=m, steps=MP_STEPS, out=str(root / m), argv=argv(m, **over))
+                for m, over in MP_MODES.items()]
+        (root / "jobs.json").write_text(json.dumps(jobs))
+        log(f"model_parallel: a 2-rank torchrun group on the one card over gloo, vc_train of "
+            f"{CLI_CONF.relative_to(REPO)} (heads {mp[0]}, {mp[1]} + {mp[1]} layers) at B "
+            f"{BATCH}, {MP_STEPS} steps a mode on phase 32's T 512 set: "
+            f"{', '.join(f'{m} {o}' for m, o in MP_MODES.items())}")
+        t0 = time.perf_counter()
+        rc, tail = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc_per_node", "2", str(REPO / "chip_smoke.py"),
+                              "--model-parallel-rank", str(root / "jobs.json")],
+                             dict(os.environ, PYTHONPATH=str(REPO)), MP_SECONDS)
+        log(f"model_parallel: the group took {time.perf_counter() - t0:.1f} s, exit {rc}")
+        if rc != 0:
+            log(tail)
+            return failures + [f"model_parallel: the torchrun group exited {rc}"], {
+                "model_parallel": {n: 0 for n in KERNELS}}
+        plain_losses = [h["train/loss"] for h in PLAIN_RUN["history"] if "train/loss" in h]
+        plain_ms = [round(h["train/step_time_sec"] * 1e3, 1) for h in PLAIN_RUN["history"]
+                    if "train/loss" in h]
+        ticks = 2 + 2 - 1  # microbatches (the pipe size) + stages - 1
+        # phase 32's run took 3 steps
+        per_step = {n: v // 3 for n, v in PLAIN_RUN["launches"].items()}
+        want_launches = {"tp": {n: v * MP_STEPS for n, v in per_step.items()},
+                         "sp": {n: 0 for n in KERNELS},
+                         "pp": {n: v * MP_STEPS * ticks // 2 for n, v in per_step.items()}}
+        total = {n: 0 for n in KERNELS}
+        for mode in MP_MODES:
+            recs = [json.loads(Path(f"{root / mode}.rank{r}.json").read_text()) for r in range(2)]
+            eval_diff = max(abs(r["dev_loss"] - dev_plain) / abs(dev_plain) for r in recs)
+            diff = max(abs(a - b) / abs(b) for r in recs for a, b in zip(r["losses"], plain_losses))
+            for r in recs:
+                for n, v in r["launches"].items():
+                    total[n] += v
+                log(f"model_parallel {mode} rank {r['rank']}: {r['backend']} world {r['world']}; "
+                    f"ms a step {[round(x, 1) for x in r['ms']]} (phase 32's plain run "
+                    f"{plain_ms}); peak device memory {r['peak_gib']:.2f} GiB; parameters "
+                    f"{r['params']} (whole model {n_all}, expected {want_params[mode]}); heads "
+                    f"{r['heads']}; losses {r['losses']}; launches "
+                    f"{ {n: v for n, v in r['launches'].items() if v} }, expected "
+                    f"{ {n: v for n, v in want_launches[mode].items() if v} }")
+                if r["params"] != want_params[mode]:
+                    failures.append(f"model_parallel {mode} rank {r['rank']}: {r['params']} "
+                                    f"parameters, expected {want_params[mode]}")
+                if r["launches"] != want_launches[mode]:
+                    failures.append(f"model_parallel {mode} rank {r['rank']}: launches "
+                                    f"{r['launches']}, expected {want_launches[mode]}")
+                if mode == "tp" and r["heads"] != [mp[0] // 2]:
+                    failures.append(f"model_parallel tp rank {r['rank']}: heads {r['heads']}")
+                if (r["backend"], r["world"], len(r["losses"])) != ("gloo", 2, MP_STEPS):
+                    failures.append(f"model_parallel {mode} rank {r['rank']}: group "
+                                    f"{r['backend']}/{r['world']}, {len(r['losses'])} steps")
+            log(f"model_parallel {mode}: dev loss at the initial weights (dropout off) "
+                f"{[r['dev_loss'] for r in recs]} against the plain model's {dev_plain}: "
+                f"largest relative difference {eval_diff:.3e} (MP_EVAL_RTOL {MP_EVAL_RTOL}); "
+                f"training losses against phase 32's plain run {plain_losses}: largest "
+                f"relative difference {diff:.3e} (MP_RTOL {MP_RTOL})")
+            if not (eval_diff <= MP_EVAL_RTOL and diff <= MP_RTOL):
+                failures.append(f"model_parallel {mode}: dev loss difference {eval_diff:.3e}, "
+                                f"training loss difference {diff:.3e}")
+    return failures, {"model_parallel": total}
 
 
 def optional_packages() -> str:
@@ -5560,6 +5739,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from seq2seq_vc_torch.ops import native
 
+    if sys.argv[1:2] == ["--model-parallel-rank"]:
+        return model_parallel_rank(sys.argv[2])
     sweeps = {"--bwd-sweep": bwd_sweep, "--flash-sweep": flash_sweep}
     if sys.argv[1:2] and sys.argv[1] in sweeps:
         native.build()
@@ -5662,7 +5843,8 @@ def main() -> int:
                       ("feat", lambda: feature_path(rows)), ("urhythmic", urhythmic_path),
                       ("options", lambda: options_path(rows)),
                       ("diffusion", lambda: diffusion_path(rows)), ("evaluate", evaluate_path),
-                      ("item8", lambda: item8_path(rows)), ("ddp", lambda: ddp_path(rows))):
+                      ("item8", lambda: item8_path(rows)), ("ddp", lambda: ddp_path(rows)),
+                      ("model_parallel", lambda: model_parallel_path(rows))):
         fails, by_path = run_phase(name, run)
         failures += fails
         launches.update(by_path)

@@ -11,9 +11,12 @@ token list of ``tokenize_text`` and the target mels) with the
 ``idim`` set to the vocabulary size, and the ``ARTTSTrainer`` by default.
 ``--init-checkpoint``, ``init-mods``, ``freeze-mods``, the guided-attention
 criterion, ``--resume`` and the final ``checkpoint-<N>steps.pt`` are
-``vc_train``'s, and so are data parallelism under ``torchrun`` and the
-``prng_impl`` and parallelism options. ``--stats`` is accepted and not
-read, as in the JAX driver (training reads normalised features).
+``vc_train``'s, and so are data and tensor parallelism under ``torchrun``
+(``tensor_parallel``: the encoder's and decoder's attention, the source
+attention included, and feed-forwards split over ranks; the model has no
+conformer stack for the sequence and pipeline modes, which raise) and
+``prng_impl``. ``--stats`` is accepted and not read, as in the JAX driver
+(training reads normalised features).
 """
 
 from __future__ import annotations
@@ -31,11 +34,11 @@ from ..device import resolve_device
 from ..models import get_model_class
 from ..parallel import initialize_multihost, is_coordinator
 from ..train import get_trainer_class
+from ..parallel.plan import layout
 from ..train.data import DataLoader
-from ..train.state import TrainState
 from ..train.tts_data import ARTTSCollater, TTSDataset
 from . import setup
-from .vc_train import build_criterion, prepare_model, refuse_unported, train
+from .vc_train import build_criterion, build_state, refuse_unported, train
 
 
 def read_token_list(path: str):
@@ -69,6 +72,7 @@ def main(argv=None):
 
     config = merge_args(load_config(args.config), args, args.additional_config)
     refuse_unported(config)
+    layout(config)
     os.makedirs(args.outdir, exist_ok=True)
     if is_coordinator():
         dump_config(config, args.outdir, seq2seq_vc_torch.__version__)
@@ -91,10 +95,10 @@ def main(argv=None):
     model = get_model_class(config.get("model_type", "TransformerTTS"))(
         **dict(mp, idim=len(token_list)))
     logging.info("model parameters: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
-    optimizer = prepare_model(model, config, args.init_checkpoint)
+    state = build_state(model, config, args.init_checkpoint, device)
     trainer_class = get_trainer_class(config.get("trainer_type", "ARTTSTrainer"))
-    trainer = trainer_class(TrainState(model, optimizer), build_criterion(config), config,
-                            train_loader, dev_loader, device=device)
+    trainer = trainer_class(state, build_criterion(config), config, train_loader, dev_loader,
+                            device=device)
     return train(trainer, args.outdir, args.resume)
 
 

@@ -25,14 +25,21 @@ the VTN's TTS pretraining (``egs/ljspeech/tts1/run.sh`` stage 6: the
 Transformer-TTS conf, ``--additional-config tts_aept.v1.yaml`` and the TTS
 checkpoint).
 
-Data parallelism: launched by ``torchrun --nproc_per_node N -m
+Parallelism: launched by ``torchrun --nproc_per_node N -m
 seq2seq_vc_torch.bin.vc_train ...`` the run is N ranks of one process group
-(NCCL on the cards, ``gloo`` with ``--device cpu``), each on its rows of
-every global batch (``train/trainer.py``); rank 0 writes the config, the
-logs and the checkpoints. ``prng_impl`` (the JAX PRNG) is accepted and has
-no effect. Refused, with the ROADMAP.md item (queue 1) that lifts the
-refusal: ``tensor_parallel``, ``sequence_parallel`` and ``pipeline_parallel``
-above 1 (item 5's last part).
+(NCCL on the cards, ``gloo`` with ``--device cpu`` or with more ranks
+than cards), laid out as the JAX driver lays out its devices
+(``parallel/plan.py``): ``tensor_parallel`` ranks split each attention and
+feed-forward (Megatron), ``sequence_parallel`` ranks split the conformer
+stacks' time axis (ring attention), ``pipeline_parallel`` ranks split
+their layers into GPipe stages over ``pipeline_microbatches`` microbatches
+(default: as many as stages), and the rest of the world is data parallel,
+each replica on its rows of every global batch (``train/trainer.py``).
+Pipeline parallelism composes with data parallelism alone. Rank 0 writes
+the config, the logs and the checkpoints, which hold the whole model in
+the single-process layout (``vc_decode`` reads them as they are;
+``--resume`` splits them again). ``prng_impl`` (the JAX PRNG) is accepted
+and has no effect.
 """
 
 from __future__ import annotations
@@ -51,10 +58,11 @@ from ..core.config import dump_config, load_config, merge_args
 from ..losses import GuidedMultiHeadAttentionLoss, get_criterion
 from ..models import get_model_class
 from ..device import resolve_device
-from ..parallel import initialize_multihost, is_coordinator
+from ..parallel import get_mesh, initialize_multihost, is_coordinator
+from ..parallel.plan import check_model, layout, log_layout, parallelize
 from ..train import get_trainer_class
 from ..train.data import ARVCCollater, DataLoader, NARVCCollater, ParallelVCMelDataset
-from ..train.optim import build_optimizer
+from ..train.optim import build_optimizer, frozen_names
 from ..train.state import TrainState
 from . import setup
 
@@ -73,17 +81,11 @@ def build_collater(config: Dict[str, Any]):
 
 
 def refuse_unported(config: Dict[str, Any]) -> None:
-    """Raise for an option of the JAX driver that the port does not have;
-    log ``prng_impl``, which has no counterpart in torch."""
+    """Log ``prng_impl``, an option of the JAX driver that has no
+    counterpart in torch (the port refuses no other)."""
     if config.get("prng_impl"):
         logging.info("prng_impl %r has no effect in the port: torch's generators draw "
                      "(the JAX PRNG's draws are not reproduced)", config["prng_impl"])
-    for key in ("tensor_parallel", "sequence_parallel", "pipeline_parallel"):
-        if int(config.get(key) or 1) > 1:
-            raise NotImplementedError(
-                f"{key} is not ported yet: ROADMAP.md queue 1 item 5, its last part "
-                "(parallel/tp.py, pp.py and ring_attention.py); data parallelism runs "
-                "under torchrun")
 
 
 def build_criterion(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -97,21 +99,48 @@ def build_criterion(config: Dict[str, Any]) -> Dict[str, Any]:
     return criterion
 
 
-def prepare_model(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint: str):
-    """``--init-checkpoint`` with the config's ``init-mods``, then the
-    optimizer of the config (with its ``freeze-mods``) around ``model``."""
+def _freeze_mods(config: Dict[str, Any]):
+    return config.get("freeze-mods") or config.get("freeze_mods")
+
+
+def init_weights(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint: str) -> None:
+    """``--init-checkpoint`` with the config's ``init-mods``."""
     if init_checkpoint:
         mods = config.get("init-mods") or config.get("init_mods") or []
         done = init_from_checkpoint(model, init_checkpoint, mods)
         logging.info("initialized from %s: %s", init_checkpoint, done)
+
+
+def prepare_model(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint: str):
+    """``--init-checkpoint`` with the config's ``init-mods``, then the
+    optimizer of the config (with its ``freeze-mods``) around ``model``."""
+    init_weights(model, config, init_checkpoint)
     return build_optimizer(
         model, optimizer_type=config.get("optimizer_type", "Adam"),
         optimizer_params=config.get("optimizer_params", {}),
         scheduler=config.get("scheduler", "warmuplr"),
         scheduler_params=config.get("scheduler_params", {}), grad_norm=config.get("grad_norm"),
         gradient_accumulate_steps=config.get("gradient_accumulate_steps", 1),
-        freeze_mods=config.get("freeze-mods") or config.get("freeze_mods"),
+        freeze_mods=_freeze_mods(config),
     )
+
+
+def build_state(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint: str,
+                device) -> TrainState:
+    """``prepare_model``'s, with the model laid out over the config's mesh
+    (``parallel/plan.py``) between the initial weights and the optimizer,
+    in a process group or when a model-parallel mode is above 1 (which
+    then needs one of that size)."""
+    sizes = layout(config)
+    check_model(model, sizes)
+    init_weights(model, config, init_checkpoint)
+    plan = None
+    if torch.distributed.is_initialized() or max(sizes.values()) > 1:
+        mesh = get_mesh(model=sizes["model"], seq=sizes["seq"], pipe=sizes["pipe"])
+        log_layout(sizes)
+        frozen = frozen_names(model, _freeze_mods(config) or [])
+        plan = parallelize(model.to(device), mesh, sizes["n_micro"], frozen)
+    return TrainState(model, prepare_model(model, config, ""), plan)
 
 
 def train(trainer, outdir: str, resume: str):
@@ -153,6 +182,7 @@ def main(argv=None):
 
     config = merge_args(load_config(args.config), args, args.additional_config)
     refuse_unported(config)
+    layout(config)
     os.makedirs(args.outdir, exist_ok=True)
     if is_coordinator():
         dump_config(config, args.outdir, seq2seq_vc_torch.__version__)
@@ -174,10 +204,10 @@ def main(argv=None):
     torch.manual_seed(seed)
     model = get_model_class(config["model_type"])(**config["model_params"])
     logging.info("model parameters: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
-    optimizer = prepare_model(model, config, args.init_checkpoint)
+    state = build_state(model, config, args.init_checkpoint, device)
     trainer_class = get_trainer_class(config.get("trainer_type", "ARVCTrainer"))
-    trainer = trainer_class(TrainState(model, optimizer), build_criterion(config), config,
-                            train_loader, dev_loader, device=device)
+    trainer = trainer_class(state, build_criterion(config), config, train_loader, dev_loader,
+                            device=device)
     return train(trainer, args.outdir, args.resume)
 
 

@@ -17,6 +17,15 @@ dropout acts on the softmax weights in
 ``train()`` mode: on the flash path inside the kernels, from one seed per
 call drawn from torch's default CPU generator (which the trainer seeds), as
 the JAX package draws one from its dropout rng.
+
+Model parallelism (``parallel/``): under tensor parallelism (``tp``, the
+model group, set by ``parallel/tp.py:shard_module``) a module holds its
+rank's heads, ``n_head`` of them from head ``head0``: q/k/v/pos split by
+column, ``linear_out`` by row, returned weights gathered over the heads.
+Under sequence parallelism (``sp``, the seq group, set by
+``parallel/plan.py``) the self-attention of a conformer layer takes the
+ring route (``parallel/ring_attention.py``) in place of the kernels, as
+the JAX package's does (seq2seq_vc_tpu/nn/attention.py:250-305).
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ import torch.nn.functional as F
 from ..ops.attention import scaled_dot_attention
 from ..ops.flash_attention import flash_attention, rel_flash_attention
 from ..ops.rel_scores import fused_rel_scores
+from ..parallel import collectives, tp
+from ..parallel.mesh import group_rng
+from ..parallel.ring_attention import ring_attention, ring_rel_attention
 from .layers import Linear
 
 # Key length from which the `flash` backend takes the flash kernels, in
@@ -79,7 +91,37 @@ def _flash_seed(rate: float) -> Optional[int]:
     return int(torch.randint(0, SEED_HIGH, ())) if rate > 0.0 else None
 
 
-class MultiHeadedAttention(torch.nn.Module):
+class _Parallel:
+    """What the two modules share under model parallelism: the inputs'
+    entry into the column split, the row-split output, the rank's heads
+    of a replicated per-head parameter, the returned weights' gather over
+    the heads, and the rank's own dropout draws."""
+
+    tp = sp = None  # the model and seq groups (None: not split)
+    head0 = 0
+
+    def _enter(self, *xs):
+        """Each distinct input once through ``tp.enter`` (q/k/v of
+        self-attention share one gradient sum)."""
+        if self.tp is None:
+            return xs
+        done = {}
+        return tuple(done.setdefault(id(x), tp.enter(x, self.tp)) for x in xs)
+
+    def _out(self, x):
+        return tp.row_out(self.linear_out, _merge_heads(x), self.tp)
+
+    def _heads(self, param):
+        return param[self.head0:self.head0 + self.n_head]
+
+    def _all_heads(self, w):
+        return collectives.gather(w, self.tp, 1)
+
+    def _rank_draws(self, device):
+        return group_rng(self.tp, device, self.training and self.dropout_rate > 0.0)
+
+
+class MultiHeadedAttention(_Parallel, torch.nn.Module):
     """Standard scaled dot-product MHA with q/k/v/out projections.
 
     Scores and softmax run in float32; projections and the weights-times-V
@@ -119,34 +161,41 @@ class MultiHeadedAttention(torch.nn.Module):
         allowed. Returns the (B, Tq, n_feat) output and, with
         ``return_weights``, the float32 (B, H, Tq, Tk) weights (after
         dropout in ``train()`` mode, as the JAX module returns them)."""
+        query, key, value = self._enter(query, key, value)
         q = _split_heads(self.linear_q(query), self.n_head)
         k = _split_heads(self.linear_k(key), self.n_head)
         v = _split_heads(self.linear_v(value), self.n_head)
-        if self.route(key.shape[1], mask, return_weights) == "flash":
-            rate = float(self.dropout_rate) if self.training else 0.0
-            out = flash_attention(q, k, v, kv_lens=_kv_lens(mask), dropout_rate=rate,
-                                  dropout_seed=_flash_seed(rate))
-            return self.linear_out(_merge_heads(out))
-        out, w = scaled_dot_attention(q, k, v, mask=_expand_mask(mask), return_weights=True)
-        if self.training and self.dropout_rate > 0.0:
-            # torch's default generator draws the mask (the trainer seeds it)
-            w = F.dropout(w, self.dropout_rate, True)
-            out = torch.matmul(w.to(v.dtype), v)
-        out = self.linear_out(_merge_heads(out))
-        return (out, w) if return_weights else out
+        rate = float(self.dropout_rate) if self.training else 0.0
+        with self._rank_draws(q.device):
+            if self.sp is not None:  # the conformer's layers (parallel/plan.py): key padding
+                return self._out(ring_attention(q, k, v, _kv_lens(mask), self.sp,
+                                                dropout_rate=rate))
+            if self.route(key.shape[1], mask, return_weights) == "flash":
+                out = flash_attention(q, k, v, kv_lens=_kv_lens(mask), dropout_rate=rate,
+                                      dropout_seed=_flash_seed(rate))
+                return self._out(out)
+            out, w = scaled_dot_attention(q, k, v, mask=_expand_mask(mask), return_weights=True)
+            if rate > 0.0:
+                # torch's default generator draws the mask (the trainer seeds it)
+                w = F.dropout(w, self.dropout_rate, True)
+                out = torch.matmul(w.to(v.dtype), v)
+        out = self._out(out)
+        return (out, self._all_heads(w)) if return_weights else out
 
     def project_kv(self, key, value):
         """Head-split K/V projections, for decode caches: (B, H, T, d_k)."""
+        key, value = self._enter(key, value)
         return (_split_heads(self.linear_k(key), self.n_head),
                 _split_heads(self.linear_v(value), self.n_head))
 
     def attend_with_kv(self, query, k, v, mask=None, return_weights: bool = False):
         """Attention over cached K/V (the incremental decode path)."""
+        (query,) = self._enter(query)
         q = _split_heads(self.linear_q(query), self.n_head)
         out = scaled_dot_attention(q, k, v, mask=mask, return_weights=return_weights)
         if return_weights:
-            return self.linear_out(_merge_heads(out[0])), out[1]
-        return self.linear_out(_merge_heads(out))
+            return self._out(out[0]), self._all_heads(out[1])
+        return self._out(out)
 
 
 def rel_shift(x: torch.Tensor, legacy: bool = False) -> torch.Tensor:
@@ -160,7 +209,7 @@ def rel_shift(x: torch.Tensor, legacy: bool = False) -> torch.Tensor:
     return x if legacy else x[:, :, :, : (n + 1) // 2]
 
 
-class RelPositionMultiHeadedAttention(torch.nn.Module):
+class RelPositionMultiHeadedAttention(_Parallel, torch.nn.Module):
     """MHA with Transformer-XL relative position encoding (new style).
 
     Expects pos_emb of shape (1, 2T-1, n_feat) from RelPositionalEncoding.
@@ -209,20 +258,28 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
         return "xla"
 
     def forward(self, query, key, value, pos_emb, mask=None):
+        query, key, value, pos_emb = self._enter(query, key, value, pos_emb)
         q = _split_heads(self.linear_q(query), self.n_head)
         k = _split_heads(self.linear_k(key), self.n_head)
         v = _split_heads(self.linear_v(value), self.n_head)
         p = _split_heads(self.linear_pos(pos_emb.to(q.dtype)), self.n_head)
-        q_u = q + self.pos_bias_u[None, :, None, :].to(q.dtype)
-        q_v = q + self.pos_bias_v[None, :, None, :].to(q.dtype)
+        q_u = q + self._heads(self.pos_bias_u)[None, :, None, :].to(q.dtype)
+        q_v = q + self._heads(self.pos_bias_v)[None, :, None, :].to(q.dtype)
+        with self._rank_draws(q.device):
+            return self._out(self._attend(q_u, q_v, k, v, p, query.shape[1], key.shape[1],
+                                          pos_emb.shape[1], mask))
 
-        path = self.route(query.shape[1], key.shape[1], pos_emb.shape[1], mask)
+    def _attend(self, q_u, q_v, k, v, p, t_query, t_key, n_pos, mask):
+        """The (B, H, Tq, d_k) output of the route this call takes."""
+        rate = float(self.dropout_rate) if self.training else 0.0
+        if self.sp is not None:  # the conformer's layers (parallel/plan.py): key padding
+            return ring_rel_attention(q_u, q_v, k, v, p[0], _kv_lens(mask), self.sp,
+                                      dropout_rate=rate)
+        path = self.route(t_query, t_key, n_pos, mask)
         if path == "flash":
-            rate = float(self.dropout_rate) if self.training else 0.0
-            out = rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=_kv_lens(mask),
-                                      dropout_rate=rate, dropout_seed=_flash_seed(rate),
-                                      legacy=self.legacy)
-            return self.linear_out(_merge_heads(out))
+            return rel_flash_attention(q_u, q_v, k, v, p[0], kv_lens=_kv_lens(mask),
+                                       dropout_rate=rate, dropout_seed=_flash_seed(rate),
+                                       legacy=self.legacy)
         if path == "fused":
             scores = fused_rel_scores(q_u, q_v, k, p[0], bwd=self.rel_scores_bwd)
         else:
@@ -241,8 +298,7 @@ class RelPositionMultiHeadedAttention(torch.nn.Module):
         # torch's default generator draws the mask (the trainer seeds it):
         # PyTorch's dropout takes no generator argument
         w = F.dropout(w, self.dropout_rate, self.training)
-        out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), v.float()).to(v.dtype)
-        return self.linear_out(_merge_heads(out))
+        return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), v.float()).to(v.dtype)
 
 
 class LegacyRelPositionMultiHeadedAttention(RelPositionMultiHeadedAttention):

@@ -13,6 +13,25 @@ the pad length; or, with ``conv_norm_type="batch_norm"``, ``ConvBatchNorm``
 Submodule names follow the reference torch code
 (``encoders.N.self_attn.linear_pos``, ``conv_module.norm`` ...), which
 ``seq2seq_vc_tpu/convert/reference.py`` consumes.
+
+Model parallelism (set by ``parallel/plan.py``; mirrors
+seq2seq_vc_tpu/nn/conformer.py:259-263,355-433):
+
+- sequence parallelism (``sp``, the seq group): the encoder pads the time
+  axis to a multiple of the ranks (masked frames: every layer ignores
+  them), each rank's layers take its block of frames, and the blocks are
+  gathered after the last layer. The attention takes the ring route
+  against the whole sequence's mask and positional table; the conv
+  module's depthwise conv takes its ``(kernel - 1) / 2`` halo frames from
+  each neighbour (none at the sequence's ends, as SAME padding's zeros);
+  the norm's statistics, sums over the whole time axis, are summed over
+  the group (what GSPMD does for the JAX package without being asked);
+- pipeline parallelism (``pipe``, the pipe group): the encoder GPipes its
+  layer stack (``parallel/pp.py``) in ``n_micro`` microbatches, a stage
+  holding its block of layers (the others are ``Identity`` placeholders,
+  so a layer keeps its name). The two exclude each other.
+
+Inside either, dropout draws the rank's own masks (``mesh.group_rng``).
 """
 
 from __future__ import annotations
@@ -22,6 +41,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
+from ..parallel.mesh import group_rng
+from ..parallel.pp import pipeline_module_stack
 from .attention import FLASH_MIN_LEN
 from .layers import Conv1d, LayerNorm, Linear
 from .transformer import (
@@ -41,8 +63,11 @@ class MaskedGroupNorm(torch.nn.Module):
     """Single-group norm whose statistics ignore padded positions.
 
     x: (B, T, C); mask: (B, T) True at valid frames, or None. Statistics in
-    float32; the output keeps the input dtype.
+    float32; the output keeps the input dtype. Under sequence parallelism
+    (``sp``) x is a rank's block of frames and the sums run over the group.
     """
+
+    sp = None
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None, dtype=None):
         super().__init__()
@@ -58,9 +83,13 @@ class MaskedGroupNorm(torch.nn.Module):
             var = ((xf - mean) ** 2).mean(dim=(1, 2), keepdim=True)
         else:
             m = mask[..., None].float()
-            denom = torch.clamp(m.sum(dim=(1, 2), keepdim=True) * c, min=1.0)
-            mean = (xf * m).sum(dim=(1, 2), keepdim=True) / denom
-            var = (((xf - mean) * m) ** 2).sum(dim=(1, 2), keepdim=True) / denom
+
+            def total(t):
+                return collectives.sum_over(t.sum(dim=(1, 2), keepdim=True), self.sp)
+
+            denom = torch.clamp(total(m) * c, min=1.0)
+            mean = total(xf * m) / denom
+            var = total(((xf - mean) * m) ** 2) / denom
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
@@ -75,7 +104,10 @@ class ConvBatchNorm(torch.nn.BatchNorm1d):
     would take the unbiased one; in ``eval()`` mode it
     uses the running statistics. eps 1e-5. The output is float32, as flax
     promotes it. Holds torch's names (``weight``, ``bias``,
-    ``running_mean``, ``running_var``, ``num_batches_tracked``)."""
+    ``running_mean``, ``running_var``, ``num_batches_tracked``). Under
+    sequence parallelism (``sp``) the batch's sums run over the group."""
+
+    sp = None
 
     def __init__(self, channels: int, device=None, dtype=None):
         super().__init__(channels, eps=1e-5, momentum=0.01, device=device, dtype=dtype)
@@ -83,8 +115,10 @@ class ConvBatchNorm(torch.nn.BatchNorm1d):
     def forward(self, x, mask=None):
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 1))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
+            n = collectives.sum_over(xf.new_tensor(float(xf.shape[0] * xf.shape[1])), self.sp)
+            mean = collectives.sum_over(xf.sum(dim=(0, 1)), self.sp) / n
+            mean_sq = collectives.sum_over((xf * xf).sum(dim=(0, 1)), self.sp) / n
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
                 self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
@@ -96,7 +130,11 @@ class ConvBatchNorm(torch.nn.BatchNorm1d):
 
 
 class ConvolutionModule(torch.nn.Module):
-    """Pointwise(2C) -> GLU -> depthwise -> norm -> swish -> pointwise."""
+    """Pointwise(2C) -> GLU -> depthwise -> norm -> swish -> pointwise.
+    Under sequence parallelism (``sp``) the depthwise conv reads its halo
+    from the neighbouring ranks."""
+
+    sp = None
 
     def __init__(self, channels: int, kernel_size: int, compute_dtype=None,
                  conv_norm_type: str = "group_norm", device=None, dtype=None):
@@ -118,14 +156,33 @@ class ConvolutionModule(torch.nn.Module):
         h = F.glu(self.pointwise_conv1(x), dim=-1)
         if mask is not None:
             h = h * mask[..., None].to(h.dtype)
-        h = self.norm(self.depthwise_conv(h), mask)
+        h = self.norm(self._depthwise(h), mask)
         return self.pointwise_conv2(F.silu(h))
+
+    def _depthwise(self, h):
+        pad = (self.depthwise_conv.kernel_size[0] - 1) // 2
+        if self.sp is None or pad == 0:
+            return self.depthwise_conv(h)
+        if pad > h.shape[1]:
+            raise ValueError(f"sequence parallelism: a rank's {h.shape[1]} frames are fewer "
+                             f"than the depthwise conv's halo of {pad}")
+        n, r = collectives.size(self.sp), collectives.rank(self.sp)
+        (prev,) = collectives.shift([h[:, -pad:]], self.sp, 1)  # the tail of the rank before
+        (nxt,) = collectives.shift([h[:, :pad]], self.sp, -1)  # the head of the rank after
+        # the sequence's ends read zeros (SAME padding); the factor keeps
+        # every rank's shifts in its graph
+        h = torch.cat([prev * float(r > 0), h, nxt * float(r < n - 1)], dim=1)
+        return self.depthwise_conv(h, padding=0)
 
 
 class ConformerEncoderLayer(torch.nn.Module):
     """Macaron-FFN + MHA + conv module + FFN + final LN. The MHA is
     ``selfattention_layer_type``'s: rel-pos (new style or legacy), or the
-    standard one (``selfattn``), which takes no ``pos_emb``."""
+    standard one (``selfattn``), which takes no ``pos_emb``. Under
+    sequence parallelism (``sp``) x is a rank's block of frames and
+    ``mask`` the whole sequence's."""
+
+    sp = None
 
     def __init__(self, size: int, n_head: int, linear_units: int,
                  dropout_rate: float = 0.1, attention_dropout_rate: float = 0.0,
@@ -196,6 +253,8 @@ class ConformerEncoderLayer(torch.nn.Module):
             residual = x
             h = self.norm_conv(x) if self.normalize_before else x
             frame_mask = None if mask is None else mask[:, 0, :]
+            if self.sp is not None:
+                frame_mask = collectives.block(frame_mask, self.sp, 1)
             x = residual + self._drop(self.conv_module(h, frame_mask))
             if not self.normalize_before:
                 x = self.norm_conv(x)
@@ -217,7 +276,11 @@ class ConformerEncoder(torch.nn.Module):
     layer, and the ``pos_enc_layer_type`` encoding: relative (``rel_pos``,
     ``legacy_rel_pos``) or absolute (``abs_pos``: x * sqrt(d) + PE;
     ``scaled_abs_pos``: x + alpha * PE), the absolute ones with no table for
-    the layers."""
+    the layers. ``sp`` and ``pipe`` (with ``n_micro``) are the model
+    parallelism of the module's docstring."""
+
+    sp = pipe = None
+    n_micro = 1
 
     def __init__(self, idim: int, attention_dim: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6,
@@ -288,9 +351,44 @@ class ConformerEncoder(torch.nn.Module):
         xs, pos_emb = xs if isinstance(xs, tuple) else (xs, None)
         if self.compute_dtype is not None:
             xs = xs.to(self.compute_dtype)
-        attn_mask = None if masks is None else masks[:, None, :]
-        for layer in self.encoders:
-            xs = layer(xs, attn_mask, pos_emb)
+        if self.pipe is not None:
+            xs = self._pipelined(xs, masks, pos_emb)
+        elif self.sp is not None:
+            xs = self._sequence_parallel(xs, masks, pos_emb)
+        else:
+            attn_mask = None if masks is None else masks[:, None, :]
+            for layer in self.encoders:
+                xs = layer(xs, attn_mask, pos_emb)
         if self.normalize_before:
             xs = self.after_norm(xs)
         return xs.float(), masks
+
+    def _sequence_parallel(self, xs, masks, pos_emb):
+        """The layers on this rank's block of frames; the whole sequence
+        back."""
+        g = self.sp
+        B, T = xs.shape[:2]
+        pad = -T % collectives.size(g)
+        masks = torch.ones(B, T, dtype=torch.bool, device=xs.device) if masks is None else masks
+        if pad:
+            xs, masks = F.pad(xs, (0, 0, 0, pad)), F.pad(masks, (0, pad), value=False)
+        h = collectives.split(xs, g, 1)
+        pe = None if pos_emb is None else collectives.copy_to(pos_emb, g)
+        with group_rng(g, xs.device, self.training):
+            for layer in self.encoders:
+                h = layer(h, masks[:, None, :], pe)
+        return collectives.gather(h, g, 1)[:, :T]
+
+    def _pipelined(self, xs, masks, pos_emb):
+        """The layer stack GPipe-pipelined over the pipe group: this stage's
+        layers on each microbatch it holds."""
+        layers = [m for m in self.encoders if not isinstance(m, torch.nn.Identity)]
+        pe = None if pos_emb is None else collectives.copy_to(pos_emb, self.pipe)
+
+        def stage(h, mask):
+            for layer in layers:
+                h = layer(h, None if mask is None else mask[:, None, :], pe)
+            return h
+
+        with group_rng(self.pipe, xs.device, self.training):
+            return pipeline_module_stack(stage, xs, masks, self.pipe, self.n_micro)

@@ -30,9 +30,11 @@ class Linear(torch.nn.Linear):
         super().__init__(in_features, out_features, bias, device=device, dtype=dtype)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
+    def forward(self, x, bias: bool = True):
+        """``bias=False`` leaves the bias out (a row-split layer adds it
+        after the sum over ranks: ``parallel/tp.py``)."""
         dt = _dtype(self.compute_dtype, x, self.weight)
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias if bias else None, dt))
 
 
 class LayerNorm(torch.nn.LayerNorm):
@@ -67,11 +69,15 @@ class Conv1d(torch.nn.Conv1d):
         self.compute_dtype = compute_dtype
         self.extra_right = extra_right
 
-    def forward(self, x):
+    def forward(self, x, bias: bool = True, padding=None):
+        """``bias=False`` leaves the bias out (as ``Linear``'s); ``padding``
+        overrides the layer's own (0 for an input that carries its halo:
+        ``nn/conformer.py``'s sequence-parallel depthwise conv)."""
         dt = _dtype(self.compute_dtype, x, self.weight)
         h = x.transpose(1, 2).to(dt)
-        if self.extra_right:
+        if self.extra_right and padding is None:
             h = F.pad(h, (0, self.extra_right))
-        y = F.conv1d(h, self.weight.to(dt), _cast(self.bias, dt),
-                     self.stride, self.padding, self.dilation, self.groups)
+        y = F.conv1d(h, self.weight.to(dt), _cast(self.bias if bias else None, dt),
+                     self.stride, self.padding if padding is None else padding, self.dilation,
+                     self.groups)
         return y.transpose(1, 2)

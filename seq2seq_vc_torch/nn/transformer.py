@@ -13,7 +13,9 @@ Cross-attention K/V are projected once per utterance
 (``precompute_memory``). Submodule names follow the reference torch code
 (``encoders.N.self_attn.linear_q``, ``decoders.N.src_attn``,
 ``embed.out.1.alpha`` ...), which ``seq2seq_vc_tpu/convert/reference.py``
-consumes.
+consumes. Under tensor parallelism (``parallel/tp.py``) a feed-forward's
+``w_1`` is split by column and its ``w_2`` by row over the model group
+``tp``; the decode caches hold a rank's heads.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from .attention import (
     MultiHeadedAttention,
     RelPositionMultiHeadedAttention,
 )
+from ..parallel import tp as tensor_parallel
+from ..parallel.mesh import group_rng
 from .layers import Conv1d, LayerNorm, Linear
 from .positional_encoding import (
     LegacyRelPositionalEncoding,
@@ -40,7 +44,24 @@ from .positional_encoding import (
 LN_EPS = 1e-12  # the reference layer_norm.py uses eps=1e-12
 
 
-class PositionwiseFeedForward(torch.nn.Module):
+class _SplitFeedForward(torch.nn.Module):
+    """w_2(dropout(act(w_1(x)))), with ``w_1`` split by column and ``w_2``
+    by row over the model group ``tp`` when ``parallel/tp.py`` splits it
+    (the hidden dropout then draws the rank's own mask)."""
+
+    tp = None
+
+    def _act(self, h):
+        raise NotImplementedError
+
+    def forward(self, x):
+        x = tensor_parallel.enter(x, self.tp)
+        with group_rng(self.tp, x.device, self.training and self.dropout_rate > 0.0):
+            h = F.dropout(self._act(self.w_1(x)), self.dropout_rate, self.training)
+        return tensor_parallel.row_out(self.w_2, h, self.tp)
+
+
+class PositionwiseFeedForward(_SplitFeedForward):
     """w_2(dropout(act(w_1(x)))); the dropout acts in ``train()`` mode."""
 
     def __init__(self, idim: int, hidden_units: int, dropout_rate: float = 0.1,
@@ -52,12 +73,11 @@ class PositionwiseFeedForward(torch.nn.Module):
         self.act = F.silu if activation == "swish" else F.relu
         self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        h = F.dropout(self.act(self.w_1(x)), self.dropout_rate, self.training)
-        return self.w_2(h)
+    def _act(self, h):
+        return self.act(h)
 
 
-class MultiLayeredConv1d(torch.nn.Module):
+class MultiLayeredConv1d(_SplitFeedForward):
     """w_2(dropout(relu(w_1(x)))) with both layers ``Conv1d`` of
     ``kernel_size`` taps over time, flax's SAME padding (FastSpeech's
     positionwise layer; the ReLU whatever the caller's activation)."""
@@ -70,8 +90,8 @@ class MultiLayeredConv1d(torch.nn.Module):
         self.w_2 = Conv1d(hidden_chans, idim, kernel_size, **kw)
         self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        return self.w_2(F.dropout(F.relu(self.w_1(x)), self.dropout_rate, self.training))
+    def _act(self, h):
+        return F.relu(h)
 
 
 class Conv1dLinear(MultiLayeredConv1d):
@@ -472,9 +492,10 @@ class Decoder(torch.nn.Module):
         return (x, src_ws) if return_attns else x
 
     def init_cache(self, batch: int, maxlen: int, device=None) -> Dict[str, List[torch.Tensor]]:
-        """Per-layer (B, H, maxlen, d_k) self-attention caches."""
-        n_feat = self.decoders[0].self_attn.linear_q.in_features
-        shape = (batch, self.attention_heads, maxlen, n_feat // self.attention_heads)
+        """Per-layer (B, H, maxlen, d_k) self-attention caches (H: the heads
+        this rank holds)."""
+        att = self.decoders[0].self_attn
+        shape = (batch, att.n_head, maxlen, att.d_k)
         dt = self.compute_dtype or torch.float32
         return {key: [torch.zeros(shape, dtype=dt, device=device) for _ in self.decoders]
                 for key in ("k", "v")}

@@ -1,20 +1,29 @@
-"""Data parallelism over ``torch.distributed`` (mirrors the data-parallel
-part of seq2seq_vc_tpu/parallel/): the process group
-(``distributed.initialize_multihost``), the coordinator rule, the split of
-a global batch into this rank's rows, losses normalised by their count over
-the global batch, and the gradient sum (``mesh``). Tensor, sequence and
-pipeline parallelism are not ported (ROADMAP.md queue 1 item 5)."""
+"""Parallelism over ``torch.distributed`` (mirrors seq2seq_vc_tpu/parallel/):
+the process group (``distributed.initialize_multihost``), the
+``(data, model, seq, pipe)`` mesh of groups and data parallelism with
+losses over the global batch (``mesh``), the collectives every mode issues
+(``collectives``), Megatron tensor parallelism (``tp``), ring attention
+(``ring_attention``), GPipe pipeline parallelism (``pp``), and a training
+run's layout over the mesh (``plan``: the modes a config asks for, their
+refusals, the model laid out, the gradient sums, the global norm and
+checkpoints in the single-process layout)."""
 
 from .distributed import initialize_multihost, rank, world_size
 from .mesh import (
+    Mesh,
     all_reduce_gradients,
     broadcast_parameters,
     data_parallel,
+    get_mesh,
     global_count,
     is_coordinator,
     rank_seed,
     shard_batch,
 )
+from .pp import pipeline_apply, pipeline_module_stack, stack_layer_params
+from .ring_attention import ring_attention, ring_rel_attention
 
-__all__ = ["all_reduce_gradients", "broadcast_parameters", "data_parallel", "global_count", "initialize_multihost",
-           "is_coordinator", "rank", "rank_seed", "shard_batch", "world_size"]
+__all__ = ["Mesh", "all_reduce_gradients", "broadcast_parameters", "data_parallel", "get_mesh",
+           "global_count", "initialize_multihost", "is_coordinator", "pipeline_apply",
+           "pipeline_module_stack", "rank", "rank_seed", "ring_attention", "ring_rel_attention",
+           "shard_batch", "stack_layer_params", "world_size"]

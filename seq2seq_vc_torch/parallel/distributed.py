@@ -7,7 +7,10 @@ launcher that sets its environment): ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``. Each process drives one
 card, ``cuda:<LOCAL_RANK>``, over NCCL; with ``--device cpu`` the group uses
 ``gloo``. A process started without that environment is a run of one and
-starts no group.
+starts no group. Where a node runs more ranks than it has cards
+(``LOCAL_WORLD_SIZE`` above the card count), NCCL cannot run, so the group
+is ``gloo``, rank ``LOCAL_RANK`` on card ``LOCAL_RANK % cards`` (logged; its
+collectives are staged through the host: ``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -27,15 +30,22 @@ def launched() -> bool:
 def initialize_multihost(device) -> torch.device:
     """Join the launcher's process group if there is one and return this
     rank's device: ``device`` itself on the CPU (``gloo``), else the card
-    ``cuda:<LOCAL_RANK>`` (``nccl``). Without a launcher (or in a group
-    already started) the device is returned as it is."""
+    ``cuda:<LOCAL_RANK>`` (``nccl``; ``gloo`` with more ranks than cards on
+    the node). Without a launcher (or in a group already started) the
+    device is returned as it is."""
     device = torch.device(device)
     if not launched() or dist.is_initialized():
         return device
     if device.type == "cuda":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-        torch.cuda.set_device(device)
+        local, cards = int(os.environ.get("LOCAL_RANK", 0)), torch.cuda.device_count()
         backend = "nccl"
+        if int(os.environ.get("LOCAL_WORLD_SIZE", 1)) > cards:
+            backend = "gloo"
+            logging.info("%s ranks on a node of %d cards: NCCL takes one rank a card, so the "
+                         "group is gloo (collectives staged through the host)",
+                         os.environ["LOCAL_WORLD_SIZE"], cards)
+        device = torch.device("cuda", local % cards)
+        torch.cuda.set_device(device)
     elif device.type == "cpu":
         backend = "gloo"
     else:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.forward_sum import beta_binomial_prior, forward_sum_loss
+from ..parallel import mesh
 from .trainer import Trainer, save_intermediate
 
 
@@ -85,12 +86,13 @@ class AASVCTrainer(Trainer):
         return loss, metrics
 
     def generate_intermediate(self, batch: Dict[str, Any], outdir: str):
-        n = self._intermediate_items(batch)
-        xs = torch.from_numpy(batch["xs"][:n]).to(self.device)
-        ilens = torch.from_numpy(batch["ilens"][:n]).long().to(self.device)
+        n, rows = self._intermediate_items(batch), self._intermediate_rows(batch)
+        xs = torch.from_numpy(batch["xs"][rows]).to(self.device)
+        ilens = torch.from_numpy(batch["ilens"][rows]).long().to(self.device)
         dp = batch.get("dp_inputs")
-        dp = None if dp is None else torch.from_numpy(dp[:n]).to(self.device)
+        dp = None if dp is None else torch.from_numpy(dp[rows]).to(self.device)
         out = self.model.inference(xs, ilens, dp, max_output_frames=2 * xs.shape[1] + 8,
                                    generator=torch.Generator().manual_seed(0))
-        save_intermediate(outdir, batch, out["outs"].float().cpu().numpy(),
-                          out["out_lens"].tolist())
+        if mesh.is_coordinator():
+            save_intermediate(outdir, batch, out["outs"][:n].float().cpu().numpy(),
+                              out["out_lens"][:n].tolist())

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..models.ar_driver import ChunkedARDecoder
+from ..parallel import mesh
 from .trainer import Trainer, save_intermediate
 
 
@@ -55,5 +56,6 @@ class ARVCTrainer(Trainer):
         drv = ChunkedARDecoder.from_config(self.model, self.config.get("inference"))
         out = drv(xs, ilens, torch.Generator().manual_seed(0),
                   est_steps=drv.expected_steps(int(batch["ilens"][:n].max())))
-        save_intermediate(outdir, batch, out["outs"].float().cpu().numpy(),
-                          out["out_lens"].tolist(), out["probs"].float().cpu().numpy())
+        if mesh.is_coordinator():  # every rank of a split model decodes
+            save_intermediate(outdir, batch, out["outs"].float().cpu().numpy(),
+                              out["out_lens"].tolist(), out["probs"].float().cpu().numpy())

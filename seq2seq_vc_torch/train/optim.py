@@ -97,10 +97,12 @@ class Optimizer:
         return self.schedule(self.count)
 
     @torch.no_grad()
-    def step(self) -> Optional[torch.Tensor]:
+    def step(self, norm_fn=None) -> Optional[torch.Tensor]:
         """Apply one update from the accumulated gradients and zero them.
         Returns the global norm before clipping (a 0-dim tensor on the
-        parameters' device), or None without clipping."""
+        parameters' device), or None without clipping. ``norm_fn(grads)``
+        takes the norm in place of this rank's own (a model split over
+        ranks: ``parallel/plan.py``)."""
         grads = []
         for p in self.params:
             if p.grad is None:
@@ -112,7 +114,7 @@ class Optimizer:
         if self.grad_norm is not None:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)).float()
-            )
+            ) if norm_fn is None else norm_fn(grads)
             scale = self.grad_norm / torch.clamp(norm, min=self.grad_norm)
             torch._foreach_mul_(grads, scale)
         for group in self.opt.param_groups:

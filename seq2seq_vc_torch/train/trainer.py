@@ -33,6 +33,16 @@ the single-process step of the global batch. The ranks start from rank 0's
 weights; each draws from generators seeded from ``(seed, rank)`` (rank 0
 from ``seed`` itself); the logged metrics are the global batch's; rank 0
 alone logs, evaluates, writes intermediates and writes checkpoints.
+
+Model parallelism (``state.plan``, ``parallel/plan.py``): the ranks of one
+model replica (tensor, sequence or pipeline parallel) hold the same rows,
+so "rank" above means the rank on the mesh's data axis (rows, counts,
+metric sums, seeds), and the gradients are summed as the plan says. The
+batch pads to a multiple of the pipeline's microbatches too, for
+evaluation as well. Every rank evaluates, decodes intermediates and
+gathers a checkpoint (collectives of the split model), and rank 0 alone
+logs and writes; the checkpoint has the single-process layout, which
+``load_checkpoint`` splits again.
 """
 
 from __future__ import annotations
@@ -47,8 +57,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel import mesh
+from ..parallel import collectives, mesh
 from ..parallel.distributed import rank, world_size
+from ..parallel.plan import parallelize
 from .state import TrainState
 
 
@@ -122,9 +133,14 @@ class Trainer:
         self.dev_loader = dev_loader
         self.rank, self.world = rank(), world_size()
         self.data_parallel = torch.distributed.is_initialized()
-        if self.data_parallel:
-            mesh.broadcast_parameters(self.model)
-        seed = mesh.rank_seed(int(config.get("seed", 0)), self.rank)
+        if self.data_parallel and state.plan is None:
+            state.plan = parallelize(self.model, mesh.get_mesh())
+        self.plan = state.plan
+        self.model_parallel = self.plan is not None and self.plan.model_parallel
+        self.data_rank = self.plan.mesh.coords["data"] if self.plan else 0
+        self.data_world = self.plan.mesh.shape["data"] if self.plan else 1
+        self.batch_multiple = self.plan.n_micro if self.plan else 1
+        seed = mesh.rank_seed(int(config.get("seed", 0)), self.data_rank)
         torch.manual_seed(seed)  # dropout (CPU and CUDA default generators)
         self.generator = torch.Generator().manual_seed(seed)
         self.epochs = 0
@@ -170,24 +186,25 @@ class Trainer:
     def _train_step(self, batch: Dict[str, Any]) -> bool:
         """One micro-batch; returns whether it completed an optimizer step."""
         self.model.train()
+        data_group = self.plan.mesh.groups["data"] if self.plan else None
         if self.data_parallel:
-            batch = mesh.shard_batch(batch, self.rank, self.world)
-        with mesh.data_parallel(self.data_parallel):
+            batch = mesh.shard_batch(batch, self.data_rank, self.data_world, self.batch_multiple)
+        with mesh.data_parallel(self.data_parallel, data_group):
             loss, metrics = self.loss_fn(self._array_batch(batch), self._flags(),
                                          self.generator)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
-        if self.data_parallel:  # the ranks' shares add up to the global batch's
+        if data_group is not None:  # the ranks' shares add up to the global batch's
             total = torch.stack([v.float() for v in metrics.values()])
-            torch.distributed.all_reduce(total)
+            collectives.all_reduce(total, data_group)
             metrics = dict(zip(metrics, total))
         self._pending_metrics.append(metrics)
         self._micro_total += 1
         boundary = self._micro_total % self.grad_accum == 0
         if boundary:
-            if self.data_parallel:
-                mesh.all_reduce_gradients(self.model.parameters())
+            if self.plan is not None:
+                self.plan.reduce_gradients(self.model)
             norm = self.state.apply_gradients()
             if norm is not None:
                 metrics["grad_norm"] = norm
@@ -236,12 +253,13 @@ class Trainer:
     def _check_eval_interval(self):
         interval = self.config.get("eval_interval_steps", 0)
         if (interval and self.steps % interval == 0 and self.dev_loader is not None
-                and mesh.is_coordinator()):
+                and (mesh.is_coordinator() or self.model_parallel)):
             self._eval_epoch()
 
     def _check_save_interval(self):
         interval = self.config.get("save_interval_steps", 0)
-        if interval and self.steps % interval == 0 and mesh.is_coordinator():
+        if interval and self.steps % interval == 0 and (mesh.is_coordinator()
+                                                         or self.model_parallel):
             path = os.path.join(self.outdir, f"checkpoint-{self.steps}steps.pt")
             self.save_checkpoint(path)
             logging.info("saved checkpoint @ %d steps", self.steps)
@@ -262,6 +280,8 @@ class Trainer:
             with torch.no_grad():
                 for batch in self.dev_loader:
                     first = batch if first is None else first
+                    if self.batch_multiple > 1:  # whole microbatches, as the JAX trainer pads
+                        batch = mesh.shard_batch(batch, 0, 1, self.batch_multiple)
                     gen = torch.Generator().manual_seed(1)
                     loss, metrics = self.loss_fn(self._array_batch(batch), self._flags(), gen)
                     total["loss"] += float(loss)
@@ -274,8 +294,9 @@ class Trainer:
 
     def _eval_epoch(self):
         result, first = self._dev_pass()
-        for k, v in result.items():
-            logging.info("(steps: %d) dev/%s = %.4f.", self.steps, k, v)
+        if mesh.is_coordinator():
+            for k, v in result.items():
+                logging.info("(steps: %d) dev/%s = %.4f.", self.steps, k, v)
         self.history.append(dict(steps=self.steps, **{f"dev/{k}": v for k, v in result.items()}))
         if first is not None and self.has_intermediate():
             outdir = os.path.join(self.outdir, "predictions", f"{self.steps}steps")
@@ -297,6 +318,12 @@ class Trainer:
     def _intermediate_items(self, batch: Dict[str, Any]) -> int:
         return min(self.config.get("num_save_intermediate_results", 4), len(batch["xs"]))
 
+    def _intermediate_rows(self, batch: Dict[str, Any]) -> np.ndarray:
+        """The rows to decode: the first ``_intermediate_items``, repeated
+        round to whole pipeline microbatches (only the first are saved)."""
+        n = self._intermediate_items(batch)
+        return np.arange(-(-n // self.batch_multiple) * self.batch_multiple) % n
+
     # ----------------------------------------------------------- checkpoint
     def _rng_state(self) -> Dict[str, torch.Tensor]:
         state = {"generator": self.generator.get_state(), "cpu": torch.get_rng_state()}
@@ -311,12 +338,15 @@ class Trainer:
             torch.cuda.set_rng_state(state["cuda"].cpu(), self.device)
 
     def save_checkpoint(self, path: str):
-        """Write a checkpoint (on rank 0 alone in a process group)."""
+        """Write a checkpoint (on rank 0 alone in a process group; a model
+        split over ranks is first gathered on every rank)."""
+        if not (mesh.is_coordinator() or self.model_parallel):
+            return
+        state = self.state.state_dict()
         if not mesh.is_coordinator():
             return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        torch.save(dict(self.state.state_dict(), steps=self.steps, epochs=self.epochs,
-                        rng=self._rng_state()), path)
+        torch.save(dict(state, steps=self.steps, epochs=self.epochs, rng=self._rng_state()), path)
 
     def load_checkpoint(self, path: str, load_only_params: bool = False):
         """Restore a checkpoint. Unless ``load_only_params``, also the
@@ -329,7 +359,8 @@ class Trainer:
             self.epochs, batch = divmod(self._micro_total, len(self.train_loader))
             self.train_loader.seek(self.epochs, batch)
             self._set_rng_state(ckpt["rng"])
-            if self.rank > 0:  # the checkpoint holds rank 0's generators
-                seed = mesh.rank_seed(int(self.config.get("seed", 0)) + self.steps, self.rank)
+            if self.data_rank > 0:  # the checkpoint holds data rank 0's generators
+                seed = mesh.rank_seed(int(self.config.get("seed", 0)) + self.steps,
+                                      self.data_rank)
                 torch.manual_seed(seed)
                 self.generator.manual_seed(seed)

@@ -168,7 +168,9 @@ def test_port_imports_no_jax():
             "seq2seq_vc_torch.evaluate.harvest", "seq2seq_vc_torch.utils.plot",
             "seq2seq_vc_torch.bin.evaluate", "seq2seq_vc_torch.parallel",
             "seq2seq_vc_torch.parallel.mesh",
-            "seq2seq_vc_torch.parallel.distributed"} <= set(got["modules"])
+            "seq2seq_vc_torch.parallel.distributed", "seq2seq_vc_torch.parallel.collectives",
+            "seq2seq_vc_torch.parallel.tp", "seq2seq_vc_torch.parallel.ring_attention",
+            "seq2seq_vc_torch.parallel.pp", "seq2seq_vc_torch.parallel.plan"} <= set(got["modules"])
     assert got["bad"] == []
 
 
