@@ -316,15 +316,19 @@ Phases, each printed on lines of its own:
    collectives are staged through the host), runs ``vc_train`` of phase
    32's conf and set at B 16 with ``tensor_parallel: 2``,
    ``sequence_parallel: 2`` and ``pipeline_parallel: 2`` in turn
-   (``chip_smoke.py --model-parallel-rank JOBS`` is one rank). Each mode's
-   dev loss at the initial weights (dropout off) must agree with the plain
-   model's to ``MP_EVAL_RTOL``, and its ``MP_STEPS`` (2) training steps'
-   losses with phase 32's plain run's to ``MP_RTOL`` (dropout 0.2, drawn
-   otherwise); each rank must hold its slice (TP) or stage (PP) by
-   parameter count, and launch what the routing says: TP kernels 1 and 3
-   as the plain run (its heads at H 1), PP its stage's layers in every
-   tick, SP none (the ring). It prints each rank's ms a step and peak
-   memory. A failed rank fails the script.
+   (``chip_smoke.py --model-parallel-rank JOBS`` is one rank). With
+   dropout off, each mode's dev loss at the initial weights must agree
+   with the plain model's to ``MP_EVAL_RTOL`` and its first step's
+   whole-model gradient norm (before the clip) with the plain model's one
+   step on the same weights and batch to ``MP_NORM_RTOL``; with the conf's
+   dropout, its ``MP_STEPS`` (2) training steps' losses must agree with
+   phase 32's plain run's to ``MP_RTOL`` (dropout drawn otherwise); each
+   rank must hold its slice (TP) or stage (PP) by parameter count, and
+   launch what the routing says: TP kernels 1 and 3 at H 1, PP its stage's
+   layers on B 8 microbatches in every tick, SP none (the ring); each of
+   those TP and PP launches' shapes is held against its plain version. It
+   prints each rank's ms a step and peak memory. A failed rank fails the
+   script.
 
 Then the script's time, the ``kernels`` JSON line (every kernel, the legacy
 form of kernels 2 and 6-8 as rows of their own, each with its launches by
@@ -345,6 +349,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import inspect
 import json
 import math
 import os
@@ -3504,12 +3509,11 @@ def vtn_aept_model(cfg, checkpoint=None):
 def aept_trainer(model, cfg, device):
     """The AEPT stage's ``ARVCTrainer`` as ``vc_train`` builds it from ``cfg``
     (its criteria with guided attention, its optimizer with freeze-mods)."""
-    from seq2seq_vc_torch.bin.vc_train import build_criterion, prepare_model
+    from seq2seq_vc_torch.bin.vc_train import build_criterion, build_state
     from seq2seq_vc_torch.train.ar_vc import ARVCTrainer
-    from seq2seq_vc_torch.train.state import TrainState
 
     config = dict(cfg, train_max_steps=1)
-    return ARVCTrainer(TrainState(model, prepare_model(model, config, "")),
+    return ARVCTrainer(build_state(model, config, "", device),
                        build_criterion(config), config, [], device=device)
 
 
@@ -5306,20 +5310,28 @@ ITEM8 = dict(conformer_self_attn_layer_type="selfattn", conformer_pos_enc_layer_
 # apart (relative) at step 3. A fault of the data-parallel path (a count
 # or a gradient not summed, a rank's rows lost) moves a loss by far more.
 DDP_RTOL = 1e-4
-# phase 33: the dev loss at the initial weights with dropout off, each
-# mode against the plain model (bf16 arithmetic in another order:
-# row-split sums, the ring's float32 fold), measured 3.7e-06 (TP), 1.8e-06
-# (SP) and 1.2e-07 (PP); and the training losses against phase 32's
-# plain run, whose dropout (0.2) draws other masks than a split model's,
-# measured at most 3.6e-03. A count or a gradient summed twice moves a
-# loss by far more.
+# phase 33, each mode against the plain model. With dropout off: the dev
+# loss at the initial weights (bf16 arithmetic in another order: row-split
+# sums, the ring's float32 fold), measured 3.7e-06 (TP), 1.8e-06 (SP) and
+# 1.2e-07 (PP); and the first step's whole-model gradient norm before the
+# clip, against the plain model's one step on the same weights and batch,
+# measured 1.7e-04 (TP), 5.1e-04 (SP) and 3.5e-06 (PP). A gradient summed
+# twice or not at all over a group, or a replicated parameter counted in
+# the norm on every rank, moves that norm by far more (1.0e-02 to 0.41 at
+# adim 32 on the CPU, where the split layers hold less of the model). With
+# the conf's dropout (0.2), the training losses against phase 32's plain
+# run, whose masks are drawn otherwise, measured at most 3.6e-03: this
+# check sees the forward and the dropout, not the gradients, since Adam's
+# first updates (lr 8e-5 on a 4000-step warm-up: ~2e-8 a parameter) leave
+# the step-2 loss where step 1's was.
 MP_EVAL_RTOL = 1e-4
+MP_NORM_RTOL = 2e-3
 MP_RTOL = 1e-2
 MP_MODES = {"tp": {"tensor_parallel": 2}, "sp": {"sequence_parallel": 2},
             "pp": {"pipeline_parallel": 2}}
 MP_STEPS = 2
 MP_SECONDS = 400  # the torchrun group's time limit
-PLAIN_RUN = {}  # phase 32's plain run and its group's launches, for phase 33
+PLAIN_RUN = {}  # phase 32's plain run, for phase 33
 
 
 def selfattn_calls(model, batch):
@@ -5448,7 +5460,7 @@ def ddp_path(rows):
         plain = train("plain")
         losses = {k: [h["train/loss"] for h in t.history if "train/loss" in h]
                   for k, t in (("ddp", ddp), ("plain", plain))}
-        PLAIN_RUN.update(history=plain.history, launches=launches)
+        PLAIN_RUN.update(history=plain.history)
         diff = max(abs(a - b) / abs(b) for a, b in zip(losses["ddp"], losses["plain"]))
         log(f"ddp: group (data parallel, backend, world) {group}; per-step losses {losses}; "
             f"largest relative difference {diff:.3e} (DDP_RTOL {DDP_RTOL}); ms/step "
@@ -5487,9 +5499,10 @@ def ddp_path(rows):
 def model_parallel_rank(jobs_path: str) -> int:
     """One rank of phase 33's group (``chip_smoke.py --model-parallel-rank
     JOBS``): each job's ``vc_train`` with no steps (the model laid out, the
-    group joined), its dev loss at the initial weights, then its steps,
-    the launch counts set to 0 just before and read just after; a record a
-    rank (``<out>.rank<R>.json``)."""
+    group joined), then a probe (dropout off: its dev loss at the initial
+    weights and its first step's gradient norm) or its steps (the launch
+    counts set to 0 just before and read just after); a record a rank
+    (``<out>.rank<R>.json``)."""
     from seq2seq_vc_torch.bin import vc_train
     from seq2seq_vc_torch.nn.attention import MultiHeadedAttention, RelPositionMultiHeadedAttention
 
@@ -5497,7 +5510,14 @@ def model_parallel_rank(jobs_path: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     for job in json.loads(Path(jobs_path).read_text()):
         trainer = vc_train.main(job["argv"])
-        dev_loss = trainer.evaluate()["loss"]
+        model = trainer.model
+        record = dict(
+            mode=job["mode"], rank=trainer.rank, backend=torch.distributed.get_backend(),
+            world=trainer.world, params=sum(p.numel() for p in model.parameters()),
+            heads=sorted({m.n_head for m in model.modules() if isinstance(
+                m, (MultiHeadedAttention, RelPositionMultiHeadedAttention))}))
+        if job["probe"]:
+            record["dev_loss"] = trainer.evaluate()["loss"]
         trainer.config["train_max_steps"], trainer.finish_train = job["steps"], False
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5505,16 +5525,13 @@ def model_parallel_rank(jobs_path: str) -> int:
         trainer.run()
         torch.cuda.synchronize()
         steps = [h for h in trainer.history if "train/loss" in h]
-        model = trainer.model
-        record = dict(
-            mode=job["mode"], rank=trainer.rank, backend=torch.distributed.get_backend(),
-            world=trainer.world, dev_loss=dev_loss, losses=[h["train/loss"] for h in steps],
-            ms=[h["train/step_time_sec"] * 1e3 for h in steps],
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launch_counts(),
-            params=sum(p.numel() for p in model.parameters()),
-            heads=sorted({m.n_head for m in model.modules() if isinstance(
-                m, (MultiHeadedAttention, RelPositionMultiHeadedAttention))}))
+        record.update(losses=[h["train/loss"] for h in steps],
+                      grad_norms=[h["train/grad_norm"] for h in steps],
+                      ms=[h["train/step_time_sec"] * 1e3 for h in steps],
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      launches=launch_counts())
         Path(f"{job['out']}.rank{trainer.rank}.json").write_text(json.dumps(record))
+        del trainer, model
     torch.distributed.destroy_process_group()
     return 0
 
@@ -5533,12 +5550,26 @@ def run_group(cmd, env, seconds: float):
     return proc.returncode, out[-6000:]
 
 
+def model_parallel_calls(calls, mode: str, heads: int, n_micro: int):
+    """The kernel launches (name, B, H, T, D, key lengths) that one rank
+    makes in one forward and backward of its layers, from the plain
+    model's ``calls``: TP at the rank's ``heads``, PP on a microbatch's
+    rows (a stage's layers once a tick), SP none (the ring)."""
+    if mode == "tp":
+        return [(n, B, heads, T, D, lens) for n, B, _, T, D, lens in calls]
+    if mode == "pp":
+        return [(n, B // n_micro, H, T, D, lens[:B // n_micro]) for n, B, H, T, D, lens in calls]
+    return []
+
+
 def model_parallel_path(rows):
-    """Phase 33. Returns (failures, {"model_parallel": the group's launches
+    """Phase 33. Appends the kernel checks of the group's shapes to
+    ``rows``; returns (failures, {"model_parallel": the group's launches
     summed over the ranks and modes})."""
     import yaml
 
     from seq2seq_vc_torch.bin import vc_train
+    from seq2seq_vc_torch.models import get_model_class
     from seq2seq_vc_torch.parallel.tp import split_dim
 
     failures = []
@@ -5548,6 +5579,10 @@ def model_parallel_path(rows):
         root = Path(tmp)
         corpus_loader(root, corpus_lens(160, 512, seed=512), seed=512)  # phase 32's set
         src, trg = str(root / "src_feat.scp"), str(root / "trg_feat.scp")
+        conf = yaml.safe_load(CLI_CONF.read_text())
+        rates = [k for k in inspect.signature(get_model_class(conf["model_type"])).parameters
+                 if k.endswith("dropout_rate")]  # the conf's and the model's defaults
+        no_dropout = dict(model_params=dict(conf["model_params"], **dict.fromkeys(rates, 0.0)))
 
         def argv(name, **over):
             (root / f"{name}.yaml").write_text(yaml.safe_dump(dict(
@@ -5558,22 +5593,35 @@ def model_parallel_path(rows):
                     "--dev-dp-input-dir", src, "--config", str(CLI_CONF), "--additional-config",
                     str(root / f"{name}.yaml"), "--outdir", str(root / name)]
 
-        plain = vc_train.main(argv("plain"))  # the initial weights, no group
+        # the plain model at the initial weights, no group, dropout off: its
+        # dev loss and one step's gradient norm
+        plain = vc_train.main(argv("plain", **no_dropout))
         dev_plain = plain.evaluate()["loss"]
+        plain.config["train_max_steps"], plain.finish_train = 1, False
+        plain.run()
+        norm_plain = [h for h in plain.history if "train/loss" in h][0]["train/grad_norm"]
+        batch = next(iter(plain.train_loader))
+        calls = train_calls(plain.model, batch)
         numel = {n: p.numel() for n, p in plain.model.named_parameters()}
         mp = plain.model.encoder.encoders[0].self_attn.n_head, len(plain.model.encoder.encoders)
         del plain
+        torch.cuda.empty_cache()
         n_all = sum(numel.values())
         n_split = sum(v for n, v in numel.items() if split_dim(n) is not None)
         n_stacks = sum(v for n, v in numel.items() if ".encoders." in n)
         want_params = {"tp": n_all - n_split // 2, "sp": n_all, "pp": n_all - n_stacks // 2}
-        jobs = [dict(mode=m, steps=MP_STEPS, out=str(root / m), argv=argv(m, **over))
-                for m, over in MP_MODES.items()]
+        jobs = []
+        for m, over in MP_MODES.items():
+            jobs += [dict(mode=m, probe=True, steps=1, out=str(root / f"{m}_probe"),
+                          argv=argv(f"{m}_probe", **over, **no_dropout)),
+                     dict(mode=m, probe=False, steps=MP_STEPS, out=str(root / m),
+                          argv=argv(m, **over))]
         (root / "jobs.json").write_text(json.dumps(jobs))
         log(f"model_parallel: a 2-rank torchrun group on the one card over gloo, vc_train of "
             f"{CLI_CONF.relative_to(REPO)} (heads {mp[0]}, {mp[1]} + {mp[1]} layers) at B "
-            f"{BATCH}, {MP_STEPS} steps a mode on phase 32's T 512 set: "
-            f"{', '.join(f'{m} {o}' for m, o in MP_MODES.items())}")
+            f"{BATCH} on phase 32's T 512 set: {', '.join(f'{m} {o}' for m, o in MP_MODES.items())}"
+            f"; each a probe with dropout off (the dev loss, 1 step) and {MP_STEPS} steps with "
+            f"the conf's dropout")
         t0 = time.perf_counter()
         rc, tail = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
                               "--nproc_per_node", "2", str(REPO / "chip_smoke.py"),
@@ -5587,16 +5635,21 @@ def model_parallel_path(rows):
         plain_losses = [h["train/loss"] for h in PLAIN_RUN["history"] if "train/loss" in h]
         plain_ms = [round(h["train/step_time_sec"] * 1e3, 1) for h in PLAIN_RUN["history"]
                     if "train/loss" in h]
-        ticks = 2 + 2 - 1  # microbatches (the pipe size) + stages - 1
-        # phase 32's run took 3 steps
-        per_step = {n: v // 3 for n, v in PLAIN_RUN["launches"].items()}
-        want_launches = {"tp": {n: v * MP_STEPS for n, v in per_step.items()},
-                         "sp": {n: 0 for n in KERNELS},
-                         "pp": {n: v * MP_STEPS * ticks // 2 for n, v in per_step.items()}}
+        n_micro = 2  # the pipe size
+        ticks = n_micro + 2 - 1  # microbatches + stages - 1
         total = {n: 0 for n in KERNELS}
+        shapes = set()
         for mode in MP_MODES:
-            recs = [json.loads(Path(f"{root / mode}.rank{r}.json").read_text()) for r in range(2)]
-            eval_diff = max(abs(r["dev_loss"] - dev_plain) / abs(dev_plain) for r in recs)
+            probes, recs = ([json.loads(Path(f"{root / name}.rank{r}.json").read_text())
+                             for r in range(2)] for name in (f"{mode}_probe", mode))
+            mine = model_parallel_calls(calls, mode, recs[0]["heads"][0], n_micro)
+            shapes.update(mine)
+            per_step = {n: sum(c[0] == n for c in mine) for n in KERNELS}
+            if mode == "pp":  # a stage's half of the layers, every tick
+                per_step = {n: v * ticks // 2 for n, v in per_step.items()}
+            want = {n: v * MP_STEPS for n, v in per_step.items()}
+            eval_diff = max(abs(r["dev_loss"] - dev_plain) / abs(dev_plain) for r in probes)
+            norm_diff = max(abs(r["grad_norms"][0] - norm_plain) / norm_plain for r in probes)
             diff = max(abs(a - b) / abs(b) for r in recs for a, b in zip(r["losses"], plain_losses))
             for r in recs:
                 for n, v in r["launches"].items():
@@ -5607,26 +5660,35 @@ def model_parallel_path(rows):
                     f"{r['params']} (whole model {n_all}, expected {want_params[mode]}); heads "
                     f"{r['heads']}; losses {r['losses']}; launches "
                     f"{ {n: v for n, v in r['launches'].items() if v} }, expected "
-                    f"{ {n: v for n, v in want_launches[mode].items() if v} }")
+                    f"{ {n: v for n, v in want.items() if v} }")
                 if r["params"] != want_params[mode]:
                     failures.append(f"model_parallel {mode} rank {r['rank']}: {r['params']} "
                                     f"parameters, expected {want_params[mode]}")
-                if r["launches"] != want_launches[mode]:
+                if r["launches"] != want or (mode != "sp" and not any(want.values())):
                     failures.append(f"model_parallel {mode} rank {r['rank']}: launches "
-                                    f"{r['launches']}, expected {want_launches[mode]}")
+                                    f"{r['launches']}, expected {want}")
                 if mode == "tp" and r["heads"] != [mp[0] // 2]:
                     failures.append(f"model_parallel tp rank {r['rank']}: heads {r['heads']}")
-                if (r["backend"], r["world"], len(r["losses"])) != ("gloo", 2, MP_STEPS):
+            for r, n_steps in [(r, 1) for r in probes] + [(r, MP_STEPS) for r in recs]:
+                if (r["backend"], r["world"], len(r["losses"])) != ("gloo", 2, n_steps):
                     failures.append(f"model_parallel {mode} rank {r['rank']}: group "
                                     f"{r['backend']}/{r['world']}, {len(r['losses'])} steps")
-            log(f"model_parallel {mode}: dev loss at the initial weights (dropout off) "
-                f"{[r['dev_loss'] for r in recs]} against the plain model's {dev_plain}: "
+            log(f"model_parallel {mode}, dropout off: dev loss at the initial weights "
+                f"{[r['dev_loss'] for r in probes]} against the plain model's {dev_plain}: "
                 f"largest relative difference {eval_diff:.3e} (MP_EVAL_RTOL {MP_EVAL_RTOL}); "
-                f"training losses against phase 32's plain run {plain_losses}: largest "
-                f"relative difference {diff:.3e} (MP_RTOL {MP_RTOL})")
-            if not (eval_diff <= MP_EVAL_RTOL and diff <= MP_RTOL):
+                f"step 1's gradient norm {[r['grad_norms'][0] for r in probes]} against the "
+                f"plain step's {norm_plain}: largest relative difference {norm_diff:.3e} "
+                f"(MP_NORM_RTOL {MP_NORM_RTOL}); with dropout, training losses against phase "
+                f"32's plain run {plain_losses}: largest relative difference {diff:.3e} "
+                f"(MP_RTOL {MP_RTOL})")
+            if not (eval_diff <= MP_EVAL_RTOL and norm_diff <= MP_NORM_RTOL and diff <= MP_RTOL):
                 failures.append(f"model_parallel {mode}: dev loss difference {eval_diff:.3e}, "
-                                f"training loss difference {diff:.3e}")
+                                f"gradient norm difference {norm_diff:.3e}, training loss "
+                                f"difference {diff:.3e}")
+        for name, B, H, T, D, lens in sorted(shapes):
+            rows.append(check_kernel(name, B, H, T, D, torch.bfloat16, seed=T + D,
+                                     label="model-parallel", lens=list(lens),
+                                     rate=_train_rate(name)))
     return failures, {"model_parallel": total}
 
 

@@ -34,7 +34,6 @@ from ..device import resolve_device
 from ..models import get_model_class
 from ..parallel import initialize_multihost, is_coordinator
 from ..train import get_trainer_class
-from ..parallel.plan import layout
 from ..train.data import DataLoader
 from ..train.tts_data import ARTTSCollater, TTSDataset
 from . import setup
@@ -72,7 +71,6 @@ def main(argv=None):
 
     config = merge_args(load_config(args.config), args, args.additional_config)
     refuse_unported(config)
-    layout(config)
     os.makedirs(args.outdir, exist_ok=True)
     if is_coordinator():
         dump_config(config, args.outdir, seq2seq_vc_torch.__version__)

@@ -111,26 +111,15 @@ def init_weights(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint
         logging.info("initialized from %s: %s", init_checkpoint, done)
 
 
-def prepare_model(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint: str):
-    """``--init-checkpoint`` with the config's ``init-mods``, then the
-    optimizer of the config (with its ``freeze-mods``) around ``model``."""
-    init_weights(model, config, init_checkpoint)
-    return build_optimizer(
-        model, optimizer_type=config.get("optimizer_type", "Adam"),
-        optimizer_params=config.get("optimizer_params", {}),
-        scheduler=config.get("scheduler", "warmuplr"),
-        scheduler_params=config.get("scheduler_params", {}), grad_norm=config.get("grad_norm"),
-        gradient_accumulate_steps=config.get("gradient_accumulate_steps", 1),
-        freeze_mods=_freeze_mods(config),
-    )
-
-
 def build_state(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint: str,
                 device) -> TrainState:
-    """``prepare_model``'s, with the model laid out over the config's mesh
-    (``parallel/plan.py``) between the initial weights and the optimizer,
+    """The one place a training run's model is laid out: the initial
+    weights (``--init-checkpoint`` with the config's ``init-mods``), then,
     in a process group or when a model-parallel mode is above 1 (which
-    then needs one of that size)."""
+    then needs a group of that size), the model laid out over the config's
+    mesh (``parallel/plan.py``), then the config's optimizer (with its
+    ``freeze-mods``) around what this rank holds. Raises for what the
+    config's modes refuse before any group is needed."""
     sizes = layout(config)
     check_model(model, sizes)
     init_weights(model, config, init_checkpoint)
@@ -140,7 +129,15 @@ def build_state(model: torch.nn.Module, config: Dict[str, Any], init_checkpoint:
         log_layout(sizes)
         frozen = frozen_names(model, _freeze_mods(config) or [])
         plan = parallelize(model.to(device), mesh, sizes["n_micro"], frozen)
-    return TrainState(model, prepare_model(model, config, ""), plan)
+    optimizer = build_optimizer(
+        model, optimizer_type=config.get("optimizer_type", "Adam"),
+        optimizer_params=config.get("optimizer_params", {}),
+        scheduler=config.get("scheduler", "warmuplr"),
+        scheduler_params=config.get("scheduler_params", {}), grad_norm=config.get("grad_norm"),
+        gradient_accumulate_steps=config.get("gradient_accumulate_steps", 1),
+        freeze_mods=_freeze_mods(config),
+    )
+    return TrainState(model, optimizer, plan)
 
 
 def train(trainer, outdir: str, resume: str):
@@ -182,7 +179,6 @@ def main(argv=None):
 
     config = merge_args(load_config(args.config), args, args.additional_config)
     refuse_unported(config)
-    layout(config)
     os.makedirs(args.outdir, exist_ok=True)
     if is_coordinator():
         dump_config(config, args.outdir, seq2seq_vc_torch.__version__)

@@ -104,10 +104,7 @@ class ConvBatchNorm(torch.nn.BatchNorm1d):
     would take the unbiased one; in ``eval()`` mode it
     uses the running statistics. eps 1e-5. The output is float32, as flax
     promotes it. Holds torch's names (``weight``, ``bias``,
-    ``running_mean``, ``running_var``, ``num_batches_tracked``). Under
-    sequence parallelism (``sp``) the batch's sums run over the group."""
-
-    sp = None
+    ``running_mean``, ``running_var``, ``num_batches_tracked``)."""
 
     def __init__(self, channels: int, device=None, dtype=None):
         super().__init__(channels, eps=1e-5, momentum=0.01, device=device, dtype=dtype)
@@ -115,10 +112,8 @@ class ConvBatchNorm(torch.nn.BatchNorm1d):
     def forward(self, x, mask=None):
         xf = x.float()
         if self.training:
-            n = collectives.sum_over(xf.new_tensor(float(xf.shape[0] * xf.shape[1])), self.sp)
-            mean = collectives.sum_over(xf.sum(dim=(0, 1)), self.sp) / n
-            mean_sq = collectives.sum_over((xf * xf).sum(dim=(0, 1)), self.sp) / n
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+            mean = xf.mean(dim=(0, 1))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
                 self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)

@@ -196,8 +196,8 @@ def parallelize(model: torch.nn.Module, mesh: Mesh, n_micro: int = 1,
     weights to every rank, then this rank's slices of the tensor-parallel
     parameters, the sequence-parallel groups on the conformer stacks, and
     this pipeline stage's layers (the others dropped). ``frozen``: the
-    parameters the optimizer will leave out (``freeze_mods``)."""
-    check_model(model, mesh.shape)
+    parameters the optimizer will leave out (``freeze_mods``). The model
+    has passed ``check_model`` (``bin/vc_train.build_state`` calls both)."""
     if world_size() > 1:
         broadcast_parameters(model)
     frozen = set(frozen)

@@ -30,7 +30,8 @@ JAX package pads it), computes its losses inside
 ``parallel.data_parallel()`` (each normalised by its count over the global
 batch) and the ranks' gradients are summed before the update, so a step is
 the single-process step of the global batch. The ranks start from rank 0's
-weights; each draws from generators seeded from ``(seed, rank)`` (rank 0
+weights (``bin/vc_train.build_state`` lays the model out and gives the
+state its ``plan``; in a group a state without one is refused); each draws from generators seeded from ``(seed, rank)`` (rank 0
 from ``seed`` itself); the logged metrics are the global batch's; rank 0
 alone logs, evaluates, writes intermediates and writes checkpoints.
 
@@ -59,7 +60,6 @@ import torch
 from ..device import resolve_device
 from ..parallel import collectives, mesh
 from ..parallel.distributed import rank, world_size
-from ..parallel.plan import parallelize
 from .state import TrainState
 
 
@@ -134,7 +134,8 @@ class Trainer:
         self.rank, self.world = rank(), world_size()
         self.data_parallel = torch.distributed.is_initialized()
         if self.data_parallel and state.plan is None:
-            state.plan = parallelize(self.model, mesh.get_mesh())
+            raise ValueError("in a process group the model must be laid out over the mesh: "
+                             "build the state with bin/vc_train.build_state")
         self.plan = state.plan
         self.model_parallel = self.plan is not None and self.plan.model_parallel
         self.data_rank = self.plan.mesh.coords["data"] if self.plan else 0

@@ -405,13 +405,12 @@ def test_vc_train_resumed_run_equals_a_straight_one(tmp_path, family, stop, drop
         assert len(list((tmp_path / "straight" / "predictions" / f"{n}steps").glob("*.npy"))) == 2
 
 
-@pytest.mark.parametrize("over", [{"prng_impl": "rbg"}])
-def test_vc_train_refuses_what_is_not_ported(caplog, over):
+def test_vc_train_logs_prng_impl(caplog):
     # the port refuses no option of the JAX driver: prng_impl is accepted,
     # and logged as having no effect in torch (tensor, sequence and pipeline
     # parallelism: tests/test_torch_model_parallel.py)
     with caplog.at_level(logging.INFO):
-        vc_train.refuse_unported(over)
+        vc_train.refuse_unported({"prng_impl": "rbg"})
     assert "prng_impl 'rbg' has no effect" in caplog.text
 
 

@@ -258,18 +258,24 @@ def _loader_batch(config, src, trg, batch_size, durations=None):
                                 shuffle=True, seed=0)))
 
 
+def _one_process(config):
+    """``config`` without its model-parallel modes: the single-process run."""
+    return {k: v for k, v in config.items() if k not in (
+        "tensor_parallel", "sequence_parallel", "pipeline_parallel", "pipeline_microbatches")}
+
+
 def _single(config, batches):
     """The port's single-process steps on ``batches``: the first step's
     history and the updated state_dict, from the initial weights
     ``vc_train`` builds."""
+    config = _one_process(config)
     torch.manual_seed(config.get("seed", 0))
     model = get_model_class(config["model_type"])(**config["model_params"])
     state0 = {k: v.clone() for k, v in model.state_dict().items()}
     from seq2seq_vc_torch.train import get_trainer_class
-    from seq2seq_vc_torch.train.state import TrainState
 
     trainer = get_trainer_class(config.get("trainer_type"))(
-        TrainState(model, vc_train.prepare_model(model, config, "")),
+        vc_train.build_state(model, config, "", "cpu"),
         vc_train.build_criterion(config), config, batches, device="cpu")
     trainer.run()
     return trainer.history[0], model.state_dict(), state0, model
@@ -536,7 +542,6 @@ def test_composed_step_matches_single_process(four_ranks, name):
 
 def _single_tts(root: Path, config):
     from seq2seq_vc_torch.train import get_trainer_class
-    from seq2seq_vc_torch.train.state import TrainState
 
     tokens = [t for t in (root / "tts/tokens.txt").read_text().split("\n") if t.strip()]
     ds = TTSDataset(str(root / "tts/feats.scp"), str(root / "tts/text"),
@@ -548,8 +553,9 @@ def _single_tts(root: Path, config):
     padded = _data_ranks_rows(batch, 2)
     torch.manual_seed(0)
     model = get_model_class("TransformerTTS")(**dict(mp, idim=len(tokens)))
+    config = _one_process(config)
     trainer = get_trainer_class("ARTTSTrainer")(
-        TrainState(model, vc_train.prepare_model(model, config, "")),
+        vc_train.build_state(model, config, "", "cpu"),
         vc_train.build_criterion(config), config, [padded], device="cpu")
     trainer.run()
     return trainer.history[0], model.state_dict()
@@ -582,6 +588,36 @@ def _refusal_main(tmp_path, over, model=None):
 def test_model_parallel_refusals(tmp_path, over, model, error, match):
     with pytest.raises(error, match=match):
         _refusal_main(tmp_path, over, model)
+
+
+def test_a_trainer_in_a_group_takes_its_state_from_build_state():
+    # build_state is the one place a model is laid out over the mesh: in a
+    # process group a trainer refuses a state that has no plan
+    import socket
+
+    import torch.distributed as dist
+
+    from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
+    from seq2seq_vc_torch.train.optim import build_optimizer
+    from seq2seq_vc_torch.train.state import TrainState
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    config = _config()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        torch.manual_seed(0)
+        model = get_model_class("AASVC")(**MODEL)
+        with pytest.raises(ValueError, match="build_state"):
+            AASVCTrainer(TrainState(model, build_optimizer(model.parameters())), {}, config, [],
+                         device="cpu")
+        trainer = AASVCTrainer(vc_train.build_state(model, config, "", "cpu"), {}, config, [],
+                               device="cpu")
+        assert trainer.plan.mesh.shape == dict(data=1, model=1, seq=1, pipe=1)
+        assert not trainer.model_parallel
+    finally:
+        dist.destroy_process_group()
 
 
 def test_pipeline_refuses_an_indivisible_batch():

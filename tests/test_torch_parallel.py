@@ -49,7 +49,6 @@ from seq2seq_vc_torch.models.aas_vc import AASVC
 from seq2seq_vc_torch.parallel import shard_batch
 from seq2seq_vc_torch.train.aas_vc import AASVCTrainer
 from seq2seq_vc_torch.train.data import DataLoader, ParallelVCMelDataset
-from seq2seq_vc_torch.train.state import TrainState
 from test_torch_cli import SYNTH, _conf, _write_feats
 
 REPO = Path(__file__).resolve().parents[1]
@@ -128,7 +127,7 @@ def test_ddp_step_equals_single_process_and_jax_steps(tmp_path):
     torch.manual_seed(0)
     model = AASVC(**MODEL)
     state0 = {k: v.clone() for k, v in model.state_dict().items()}
-    trainer = AASVCTrainer(TrainState(model, vc_train.prepare_model(model, config, "")),
+    trainer = AASVCTrainer(vc_train.build_state(model, config, "", "cpu"),
                            vc_train.build_criterion(config), config, [padded], device="cpu")
     trainer.run()
     one = trainer.history[0]
